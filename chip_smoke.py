@@ -1,0 +1,522 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (``ps_slm_tpu_torch``) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, each of which fails the run:
+
+1. card: name and power limit from nvidia-smi; TF32 off for comparisons;
+2. build: nvcc builds every kernel from ``ps_slm_tpu_torch/csrc`` into
+   ``build/ps_slm_tpu_torch/`` (one nvcc per source, in parallel);
+3. kernels: each kernel against its plain PyTorch version at the serving
+   path's shapes, in fp32 and bf16, with its time, the plain version's,
+   one PyTorch library call's, and the least time the card could take;
+4. whole path, fp32, full width at reduced depth: merged embeddings,
+   prefill logits and 8 greedy tokens for the main path's batch on the
+   card against the same model on the CPU (plain versions);
+5. main path, bf16, full width (SenseVoiceSmall + linear-silu +
+   Qwen2.5-1.5B, random weights from a seed): ``generate`` on 4
+   utterances, with every kernel's launch count and the decode steps
+   counted around the call; then ``generate`` again under
+   ``torch.profiler`` (device activity only) for the device-busy share;
+6. one JSON line listing every kernel, then the contract line
+   ``{"ok": true, "device": {...}}`` last.
+
+Exits non-zero without a result when CUDA is absent or when the
+``ps_slm_tpu_torch`` package is not beside this file.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import copy
+import json
+import os
+import subprocess
+import sys
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+LFR_FRAME_SEC = 0.06    # one LFR frame: 6 x 10 ms shift
+# the serving batch: 4 utterances of LFR frames, a prompt with the speech
+# token at position 3, greedy decoding of MAX_NEW tokens
+FRAMES = (512, 400, 300, 256)
+TEXT_LEN = 32
+MAX_NEW = 32
+SPEECH_TOKEN = 151934   # vocab - 2, as bench.py
+EOS = 151645            # <|im_end|>
+# kernel launches per LLM forward (28 layers x 2 + the final norm) and per
+# generate call (70 encoder + 28 prefill flash calls; 142 encoder + 1
+# projector LayerNorms)
+RMS_PER_FORWARD = 57
+FLASH_PER_GENERATE = 98
+LN_PER_GENERATE = 143
+
+# H100 SXM published peaks (NVIDIA H100 datasheet): memory and the
+# rate for the inputs' type (bf16 tensor cores; fp32 outside them)
+MEM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
+
+# kernel vs plain version on the card: |a - b| <= atol + rtol * |b|
+KERNEL_TOL = {"f32": (2e-5, 2e-5), "bf16": (1e-2, 1e-2)}
+# fp32 whole path, card vs CPU (matmul and reduction order differ)
+PATH_TOL = 1e-3
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi reports them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout
+    return out.strip().splitlines()[0]
+
+
+def serving_batch(torch, input_size: int, seed: int = 2) -> dict:
+    """Random LFR features (padded to the longest of FRAMES) and a prompt of
+    TEXT_LEN ids with the speech token at position 3, from numpy with
+    ``seed``; on the CPU."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    b, a = len(FRAMES), max(FRAMES)
+    ids = rng.integers(1, 1000, size=(b, TEXT_LEN))
+    ids[:, 3] = SPEECH_TOKEN
+    feats = rng.normal(size=(b, a, input_size)).astype(np.float32)
+    return {
+        "input_ids": torch.from_numpy(ids),
+        "attention_mask": torch.ones(b, TEXT_LEN, dtype=torch.bool),
+        "input_features": torch.from_numpy(feats),
+        "input_feature_length": torch.tensor(list(FRAMES)),
+    }
+
+
+@contextlib.contextmanager
+def counting_steps():
+    """Record the host time at which each decode step of ``greedy_generate``
+    starts, by wrapping its ``_step``: the decode steps are counted without
+    the kernels' launch counters."""
+    from ps_slm_tpu_torch.inference import generate as gen
+
+    real = gen._step
+    starts: list = []
+
+    def step(*args, **kwargs):
+        starts.append(time.perf_counter())
+        return real(*args, **kwargs)
+
+    gen._step = step
+    try:
+        yield starts
+    finally:
+        gen._step = real
+
+
+def loop_steps(tokens, max_new: int) -> int:
+    """Decode steps the greedy loop must take for these output tokens: one
+    per column after the first, until every row has emitted EOS."""
+    ends = [int((row == EOS).nonzero()[0]) if bool((row == EOS).any()) else max_new
+            for row in tokens]
+    return min(max_new - 1, max(ends))
+
+
+def real_tokens(tokens, steps: int) -> int:
+    """Tokens the rows really generated: up to and including each row's
+    first EOS, leaving out the EOS filler of rows that had finished."""
+    return sum(int((row == EOS).nonzero()[0]) + 1 if bool((row == EOS).any()) else steps + 1
+               for row in tokens)
+
+
+def profiled(torch, fn):
+    """Run ``fn`` once under ``torch.profiler`` with device activity only
+    (no host operators are recorded, which keeps the host slow-down small).
+    Returns the run's own wall ms, its device-busy ms (the kernels', copies'
+    and memsets' durations, summed; one stream, so they do not overlap;
+    None when the profiler saw no device activity), the number of device
+    operations and the largest items by device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            agg = by_name.setdefault(e.name, [0.0, 0])
+            agg[0] += e.time_range.elapsed_us() / 1e3
+            agg[1] += 1
+    busy_ms = sum(v[0] for v in by_name.values()) if by_name else None
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:4]
+    return wall_ms, busy_ms, sum(v[1] for v in by_name.values()), \
+        [[name[:60], ms, n] for name, (ms, n) in top]
+
+
+def time_ms(torch, fn, iters: int = 20) -> float:
+    """Device time of one call: ``iters`` calls captured in a CUDA graph,
+    replayed between two events, so the host's launch cost (which bounds
+    back-to-back eager calls of a small kernel) is left out.  Inputs stay
+    in L2 between the calls when they fit in it (50 MB)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                                   # warm-up off the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / iters
+    del graph
+    return ms
+
+
+def eager_ms(torch, fn, iters: int = 20) -> float:
+    """Time of one call issued back to back from Python: for a small
+    kernel this is the host's cost of the call, not the device's."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound(bytes_moved: float, flops: float, dt: str):
+    t_bytes = bytes_moved / MEM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dt] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def compare(torch, got, want, dt: str, what: str) -> float:
+    atol, rtol = KERNEL_TOL[dt]
+    got, want = got.float(), want.float()
+    err = float((got - want).abs().max())
+    if torch.isnan(got).any() or not bool(((got - want).abs() <= atol + rtol * want.abs()).all()):
+        fail(f"{what}: kernel disagrees with its plain version (max abs err {err})")
+    return err
+
+
+def phase_kernels(torch, dev, results):
+    import torch.nn.functional as F
+
+    from ps_slm_tpu_torch.ops import flash_attention as fa
+    from ps_slm_tpu_torch.ops import norms
+
+    dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def entry(name):
+        return results.setdefault(name, {"max_abs_err": 0.0, "shapes": []})
+
+    # flash: encoder (non-causal, right-padded) and LLM prefill (causal GQA,
+    # left-padded) shapes of the main path
+    flash_cases = [
+        ("encoder", 4, 516, 4, 4, False, [0, 0, 0, 0], [516, 404, 304, 260]),
+        ("llm_prefill", 4, 543, 12, 2, True, [0, 112, 212, 256], [543] * 4),
+    ]
+    for label, b, s, hq, hkv, causal, starts, ends in flash_cases:
+        d = fa.HEAD_DIM
+        start = torch.tensor(starts, dtype=torch.int32, device=dev)
+        end = torch.tensor(ends, dtype=torch.int32, device=dev)
+        pos = torch.arange(s, device=dev)
+        valid = (pos[None] >= start[:, None]) & (pos[None] < end[:, None])   # [B,T]
+        mask = valid[:, None, None, :].expand(b, 1, s, s)
+        if causal:
+            mask = mask & (pos[None, :] <= pos[:, None])[None, None]
+        pairs = float(mask.sum()) * hq                          # valid (q, k) pairs
+        for dt, dtype in dtypes.items():
+            q = torch.randn(b, s, hq, d, device=dev, generator=g).to(dtype)
+            k = torch.randn(b, s, hkv, d, device=dev, generator=g).to(dtype)
+            v = torch.randn(b, s, hkv, d, device=dev, generator=g).to(dtype)
+            scale = d ** -0.5
+            out, lse = fa.flash_attention_fwd(q, k, v, start, end, causal=causal, scale=scale)
+            torch.cuda.synchronize()
+            r_out, r_lse = fa.flash_attention_ref(q, k, v, start, end, causal=causal, scale=scale)
+            err = max(compare(torch, out, r_out, dt, f"flash {label} {dt} out"),
+                      compare(torch, lse, r_lse, "f32", f"flash {label} {dt} lse"))
+            ms = time_ms(torch, lambda: fa.flash_attention_fwd(
+                q, k, v, start, end, causal=causal, scale=scale))
+            plain = time_ms(torch, lambda: fa.flash_attention_ref(
+                q, k, v, start, end, causal=causal, scale=scale), iters=4)
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, scale=scale, enable_gqa=True))
+            esize = q.element_size()
+            nbytes = (q.numel() * 2 + k.numel() * 2) * esize + lse.numel() * 4
+            bms, by = bound(nbytes, 4.0 * d * pairs, dt)
+            e = entry("flash_attention_fwd")
+            e["max_abs_err"] = max(e["max_abs_err"], err)
+            e["shapes"].append(dict(shape=label, dtype=dt, ms=ms, plain_ms=plain,
+                                    library_ms=lib, bound_ms=bms, bound_by=by, err=err))
+            print(f"kernel flash_attention_fwd {label} B{b} S{s} Hq{hq} Hkv{hkv} "
+                  f"causal={causal} {dt}: err {err:.3e} ms {ms:.4f} plain {plain:.4f} "
+                  f"sdpa {lib:.4f} bound {bms:.4f} ({by})", flush=True)
+
+    norm_cases = [
+        ("layer_norm_fwd", 2064, 560), ("layer_norm_fwd", 2064, 512),
+        ("layer_norm_fwd", 2064, 25055), ("rms_norm_fwd", 2172, 1536),
+        ("rms_norm_fwd", 4, 1536),
+    ]
+    for name, n, d in norm_cases:
+        for dt, dtype in dtypes.items():
+            x = (torch.randn(n, d, device=dev, generator=g) * 3 + 1).to(dtype)
+            w = (1 + 0.1 * torch.randn(d, device=dev, generator=g)).to(dtype)
+            bb = (0.1 * torch.randn(d, device=dev, generator=g)).to(dtype)
+            esize = x.element_size()
+            if name == "layer_norm_fwd":
+                run = lambda: norms.layer_norm_fwd(x, w, bb)          # noqa: E731
+                ref = lambda: norms.layer_norm_ref(x, w, bb)          # noqa: E731
+                lib = lambda: F.layer_norm(x, (d,), w, bb, 1e-5)     # noqa: E731
+                nbytes, flops = 2 * n * d * esize + 2 * d * esize + 8 * n, 8.0 * n * d
+            else:
+                run = lambda: norms.rms_norm_fwd(x, w)                # noqa: E731
+                ref = lambda: norms.rms_norm_ref(x, w)                # noqa: E731
+                lib = lambda: F.rms_norm(x, (d,), w, 1e-6)           # noqa: E731
+                nbytes, flops = 2 * n * d * esize + d * esize + 4 * n, 4.0 * n * d
+            got = run()
+            torch.cuda.synchronize()
+            err = max(compare(torch, a, r, dt if i == 0 else "f32", f"{name} [{n},{d}] {dt}")
+                      for i, (a, r) in enumerate(zip(got, ref())))
+            ms, plain, lib_ms = time_ms(torch, run), time_ms(torch, ref), time_ms(torch, lib)
+            host_ms, host_lib = eager_ms(torch, run), eager_ms(torch, lib)
+            bms, by = bound(nbytes, flops, dt)
+            e = entry(name)
+            e["max_abs_err"] = max(e["max_abs_err"], err)
+            e["shapes"].append(dict(shape=f"{n}x{d}", dtype=dt, ms=ms, plain_ms=plain,
+                                    library_ms=lib_ms, bound_ms=bms, bound_by=by, err=err))
+            print(f"kernel {name} [{n},{d}] {dt}: err {err:.3e} ms {ms:.4f} plain {plain:.4f} "
+                  f"library {lib_ms:.4f} bound {bms:.4f} ({by}); eager call {host_ms:.4f}, "
+                  f"library eager {host_lib:.4f}", flush=True)
+
+
+def phase_path_fp32(torch, dev):
+    from ps_slm_tpu_torch.config import SENSEVOICE_SMALL, half_audio_configs
+    from ps_slm_tpu_torch.inference.generate import _prefill, generate
+    from ps_slm_tpu_torch.models.tasu import model_factory, prepare_merged
+
+    tc, mc = half_audio_configs(
+        dict(num_blocks=2, tp_blocks=1), dict(num_hidden_layers=2), seed=0
+    )
+    t0 = time.time()
+    cpu_model = model_factory(tc, mc, device="cpu")
+    cpu_model.speech_token_id = SPEECH_TOKEN
+    gpu_model = copy.deepcopy(cpu_model).to(dev)
+    # the main path's lengths: multi-tile flash calls, skipped and fully
+    # masked tiles, left-padded rows
+    batch = serving_batch(torch, SENSEVOICE_SMALL["input_size"], seed=1)
+
+    outs = {}
+    for name, model, d in (("cpu", cpu_model, torch.device("cpu")), ("cuda", gpu_model, dev)):
+        bd = {k: v.to(d) for k, v in batch.items()}
+        with torch.inference_mode():
+            merged = prepare_merged(model, bd, left_padding=True)
+            logits, _, _ = _prefill(
+                model.llm, merged.embeds, merged.attention_mask, merged.position_ids,
+                merged.embeds.shape[1] + 8,
+            )
+        tokens = generate(model, bd, eos_token_id=EOS, num_beams=1, max_new_tokens=8, device=d)
+        outs[name] = (merged, logits.cpu(), tokens.cpu())
+    (m_c, l_c, t_c), (m_g, l_g, t_g) = outs["cpu"], outs["cuda"]
+    if not (torch.equal(m_c.attention_mask, m_g.attention_mask.cpu())
+            and torch.equal(m_c.position_ids, m_g.position_ids.cpu())):
+        fail("fp32 path: merged mask or positions differ between card and CPU")
+    emb_err = float((m_c.embeds - m_g.embeds.cpu()).abs().max())
+    logit_err = float((l_c - l_g).abs().max())
+    print(f"path fp32 (2+1 encoder blocks, 2 LLM layers, full width): embeds err "
+          f"{emb_err:.3e} prefill logits err {logit_err:.3e} (tol {PATH_TOL}); "
+          f"tokens card {t_g.tolist()} cpu {t_c.tolist()} ({time.time() - t0:.1f} s)",
+          flush=True)
+    if not (emb_err <= PATH_TOL and logit_err <= PATH_TOL):
+        fail("fp32 path: card and CPU disagree beyond the tolerance")
+    if not torch.isfinite(l_g).all() or not torch.equal(t_c, t_g):
+        fail("fp32 path: greedy tokens differ between card and CPU")
+
+
+def phase_main(torch, dev, launches):
+    from ps_slm_tpu_torch.config import QWEN25_1_5B, SENSEVOICE_SMALL, half_audio_configs
+    from ps_slm_tpu_torch.inference.generate import _prefill, generate
+    from ps_slm_tpu_torch.models.tasu import model_factory, prepare_merged
+    from ps_slm_tpu_torch.ops import flash_attention as fa
+    from ps_slm_tpu_torch.ops import norms
+
+    counters = {
+        "flash_attention_fwd": fa.flash_attention_fwd,
+        "layer_norm_fwd": norms.layer_norm_fwd,
+        "rms_norm_fwd": norms.rms_norm_fwd,
+    }
+    tc, mc = half_audio_configs()
+    t0 = time.time()
+    model = model_factory(tc, mc, dtype=torch.bfloat16)   # default device: cuda
+    model.speech_token_id = SPEECH_TOKEN
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"main path: {n_params / 1e9:.3f} B parameters, bf16, init {time.time() - t0:.1f} s",
+          flush=True)
+    batch = serving_batch(torch, SENSEVOICE_SMALL["input_size"])
+    batch["input_features"] = batch["input_features"].to(torch.bfloat16)
+
+    def run(max_new):
+        return generate(model, batch, eos_token_id=EOS, num_beams=1, max_new_tokens=max_new)
+
+    run(2)   # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    with counting_steps() as step_starts:
+        t0 = time.perf_counter()
+        tokens = run(MAX_NEW)
+        torch.cuda.synchronize()
+        t_end = time.perf_counter()
+    for name, fn in counters.items():
+        launches[name] = fn.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    steps = len(step_starts)
+    if tokens.shape != (len(FRAMES), MAX_NEW) or not bool(
+            ((tokens >= 0) & (tokens < QWEN25_1_5B["vocab_size"])).all()):
+        fail(f"main path: bad tokens {tuple(tokens.shape)}")
+    tokens = tokens.cpu()
+    if steps != loop_steps(tokens, MAX_NEW):
+        fail(f"main path: {steps} decode steps, the tokens need {loop_steps(tokens, MAX_NEW)}")
+    need = {"flash_attention_fwd": FLASH_PER_GENERATE, "layer_norm_fwd": LN_PER_GENERATE,
+            "rms_norm_fwd": RMS_PER_FORWARD * (1 + steps)}
+    for name, n in need.items():
+        if launches[name] != n:
+            fail(f"main path: {name} launched {launches[name]} times, expected {n}")
+
+    total_ms = (t_end - t0) * 1e3
+    first_ms = (step_starts[0] - t0) * 1e3 if steps else total_ms
+    step_ms = (t_end - step_starts[0]) * 1e3 / steps if steps else 0.0
+    audio_s = sum(FRAMES) * LFR_FRAME_SEC
+    n_tok = real_tokens(tokens, steps)
+    print(f"main path: generate {total_ms:.1f} ms = first token {first_ms:.1f} ms "
+          f"(front half + LLM prefill) + {steps} decode steps x {step_ms:.2f} ms; "
+          f"{audio_s / total_ms * 1e3:.1f} audio-sec/s, {n_tok} tokens generated, "
+          f"{n_tok / total_ms * 1e3:.1f} tokens/s; peak memory {peak_gb:.2f} GB; "
+          f"launches {launches}", flush=True)
+
+    # the first token's split, from a second, separately timed run
+    bd = {k: v.to(dev) for k, v in batch.items()}
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        merged = prepare_merged(model, bd, left_padding=True)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        logits, _, _ = _prefill(model.llm, merged.embeds, merged.attention_mask,
+                                merged.position_ids, merged.embeds.shape[1] + MAX_NEW)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+    if not bool(torch.isfinite(logits).all()) or not bool(torch.isfinite(merged.embeds.float()).all()):
+        fail("main path: non-finite merged embeddings or prefill logits")
+    print(f"main path, split run: merged length {merged.embeds.shape[1]}, valid merged "
+          f"lengths {merged.attention_mask.sum(1).tolist()}; front half "
+          f"{(t2 - t1) * 1e3:.1f} ms, LLM prefill {(t3 - t2) * 1e3:.1f} ms", flush=True)
+
+    # device-busy share: generate with no decode step, then the whole
+    # call, each under the profiler with its own wall time
+    with counting_steps() as prof_steps:
+        first = profiled(torch, lambda: run(1))
+        whole = profiled(torch, lambda: run(MAX_NEW))
+    for label, (wall, busy, ops, top) in (("first token", first), ("whole generate", whole)):
+        share = "not measured" if busy is None else f"{busy / wall:.3f}"
+        busy_s = "not measured" if busy is None else f"{busy:.2f} ms"
+        print(f"profiled {label}: wall {wall:.1f} ms, device-busy {busy_s}, busy share "
+              f"{share}, {ops} device ops; largest {json.dumps(top)}", flush=True)
+    n = len(prof_steps)
+    if n and first[1] is not None and whole[1] is not None:
+        d_wall, d_busy = whole[0] - first[0], whole[1] - first[1]
+        print(f"profiled decode ({n} steps, whole - first token): {d_wall / n:.2f} ms wall, "
+              f"{d_busy / n:.3f} ms device-busy, {(whole[2] - first[2]) / n:.0f} device ops "
+              f"per step; busy share {d_busy / d_wall:.3f}", flush=True)
+
+
+def main() -> None:
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this script needs an NVIDIA GPU")
+    if not os.path.isdir(os.path.join(HERE, "ps_slm_tpu_torch", "csrc")):
+        fail("the ps_slm_tpu_torch package is not beside chip_smoke.py")
+    sys.path.insert(0, HERE)
+    from ps_slm_tpu_torch import _build
+
+    t_start = time.time()
+    dev = torch.device("cuda", 0)
+    try:
+        card = card_line()
+    except (OSError, subprocess.SubprocessError, IndexError) as e:
+        fail(f"nvidia-smi: {e}")
+    print(f"card: {card}", flush=True)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"device {torch.cuda.get_device_name(0)}", flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    t0 = time.time()
+    try:
+        _build.build_all()
+    except RuntimeError as e:
+        fail(f"build: {e}")
+    print(f"build: {time.time() - t0:.1f} s ({', '.join(_build.SOURCES)})", flush=True)
+
+    print("kernel vs plain tolerance, |a - b| <= atol + rtol * |b|: "
+          + ", ".join(f"{dt} atol {a} rtol {r}" for dt, (a, r) in KERNEL_TOL.items()),
+          flush=True)
+    results: dict = {}
+    phase_kernels(torch, dev, results)
+    phase_path_fp32(torch, dev)
+    launches: dict = {}
+    phase_main(torch, dev, launches)
+
+    sources = {
+        "flash_attention_fwd": ("ps_slm_tpu_torch/csrc/flash_fwd.cu",
+                                "ps_slm_tpu/ops/flash_attention.py:59", "encoder"),
+        "layer_norm_fwd": ("ps_slm_tpu_torch/csrc/norms.cu", "ps_slm_tpu/ops/norms.py:49",
+                           "2064x512"),
+        "rms_norm_fwd": ("ps_slm_tpu_torch/csrc/norms.cu", "ps_slm_tpu/ops/norms.py:61",
+                         "2172x1536"),
+    }
+    kernels = []
+    for name, (source, replaces, shape) in sources.items():
+        row = next(r for r in results[name]["shapes"] if r["shape"] == shape and r["dtype"] == "bf16")
+        kernels.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches[name], "max_abs_err": results[name]["max_abs_err"],
+            "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "shape": f"{shape} bf16",
+        })
+    print(f"total {time.time() - t_start:.1f} s", flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

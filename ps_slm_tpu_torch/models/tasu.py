@@ -1,0 +1,187 @@
+"""TASU composite model: SenseVoice encoder + projector + Qwen2 LLM.
+
+Counterpart of ``ps_slm_tpu/models/tasu.py`` for the serving path of the
+published audio-TASU recipe (``half_audio``: ``ctc_posterior=True``,
+``do_psd=True``, the ``linear-silu`` projector):
+
+  1. query prepend + encoder + fp32 CTC softmax + drop the 4 query frames
+  2. PSD over the posterior (when ``do_psd``)
+  3. projector
+  4. merge into the LLM's token embeddings
+
+The other branches of the JAX model (text-only TASU, voca_trans, the
+cross-attention projector, the raw-feature baseline, the waveform front end)
+raise ``NotImplementedError`` naming their ROADMAP.md item.  Weights are a
+random init from a seeded ``torch.Generator``; checkpoint loading comes
+later (``convert.from_jax_params`` maps a JAX parameter tree).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, Optional, Tuple
+
+import torch
+from torch import nn
+
+from ps_slm_tpu_torch._build import resolve_device
+from ps_slm_tpu_torch.models import projector as proj
+from ps_slm_tpu_torch.models.qwen2 import Qwen2Config, Qwen2Model
+from ps_slm_tpu_torch.models.sensevoice import SenseVoiceConfig, SenseVoiceEncoder
+from ps_slm_tpu_torch.ops.merge import Merged, merge_audio_text
+from ps_slm_tpu_torch.ops.psd import psd
+
+IGNORE_ID = -100
+QUERY_IDS = (0, 1, 2, 2)   # language, event, emotion, textnorm
+
+
+@dataclass(frozen=True)
+class TasuFlags:
+    """Static algorithm switches (the JAX ``TasuFlags`` fields the serving
+    path reads)."""
+
+    ctc_posterior: bool = False
+    voca_trans: bool = False
+    gt_emb: bool = False
+    do_psd: bool = False
+    cross_attn: bool = False
+    blank_threshold: float = 0.9
+
+    @staticmethod
+    def from_train_config(tc, model_config=None) -> "TasuFlags":
+        cross = bool(tc.cross_attn) or (
+            model_config is not None
+            and model_config.encoder_projector == "cross-attention"
+        )
+        return TasuFlags(
+            ctc_posterior=tc.ctc_posterior, voca_trans=tc.voca_trans,
+            gt_emb=tc.gt_emb, do_psd=tc.do_psd, cross_attn=cross,
+        )
+
+    def check_ported(self) -> None:
+        if not self.ctc_posterior:
+            raise NotImplementedError(
+                "the raw-feature baseline (ctc_posterior=False) is not ported "
+                "yet (ROADMAP.md queue 1, 'Long tail')"
+            )
+        if self.gt_emb:
+            raise NotImplementedError(
+                "text-only TASU (gt_emb) is not ported yet (ROADMAP.md "
+                "queue 1, 'Text-only TASU branch')"
+            )
+        if self.voca_trans or self.cross_attn:
+            raise NotImplementedError(
+                "voca_trans and the cross-attention projector are not ported "
+                "yet (ROADMAP.md queue 1, 'Long tail')"
+            )
+
+
+class TasuModel(nn.Module):
+    def __init__(
+        self, enc_cfg: SenseVoiceConfig, llm_cfg: Qwen2Config, model_cfg,
+        flags: TasuFlags, speech_token_id: int = 0, pad_token_id: int = 0,
+    ):
+        super().__init__()
+        flags.check_ported()
+        self.enc_cfg, self.llm_cfg, self.model_cfg = enc_cfg, llm_cfg, model_cfg
+        self.flags = flags
+        self.speech_token_id = speech_token_id
+        self.pad_token_id = pad_token_id
+        self.encoder = SenseVoiceEncoder(enc_cfg)
+        self.projector = proj.build_projector(model_cfg)
+        self.llm = Qwen2Model(llm_cfg)
+
+    @torch.no_grad()
+    def init_weights(self, generator: torch.Generator) -> None:
+        self.llm.init_weights(generator)
+        self.encoder.init_weights(generator)
+        self.projector.init_weights(generator)
+
+
+def encode_speech(
+    encoder: SenseVoiceEncoder,
+    input_features: torch.Tensor,        # [B, A, input_size]
+    input_feature_length: torch.Tensor,  # [B]
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Query prepend -> encoder -> fp32 CTC softmax -> drop the 4 query
+    frames.  Returns (encoder_out [B,A,D], ctc posterior [B,A,V] in the
+    compute dtype, lens [B])."""
+    b = input_features.shape[0]
+    queries = encoder.query_embedding(QUERY_IDS)
+    queries = queries[None].expand(b, -1, -1).to(input_features.dtype)
+    speech = torch.cat([queries, input_features], dim=1)
+    hidden, out_lens = encoder(speech, input_feature_length + len(QUERY_IDS))
+    logits = encoder.ctc_logits(hidden)
+    posterior = torch.softmax(logits.float(), dim=-1).to(hidden.dtype)
+    n = len(QUERY_IDS)
+    return hidden[:, n:], posterior[:, n:], (out_lens - n).clamp(min=0)
+
+
+def compute_audio_embeds(
+    model: TasuModel, batch: Dict[str, torch.Tensor]
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Audio-posterior TASU: (audio embeds [B,A,H], lens [B])."""
+    if "input_features" not in batch:
+        raise NotImplementedError(
+            "the on-device waveform front end is not ported yet (ROADMAP.md "
+            "queue 1, 'On-device front end'); pass input_features"
+        )
+    _, posterior, lens = encode_speech(
+        model.encoder, batch["input_features"], batch["input_feature_length"]
+    )
+    feats = posterior
+    if model.flags.do_psd:
+        feats, lens = psd(
+            posterior, lens, posterior, blank_id=model.enc_cfg.blank_id,
+            blank_threshold=model.flags.blank_threshold,
+        )
+    return model.projector(feats), lens // proj.downsample_rate(model.model_cfg)
+
+
+def prepare_merged(
+    model: TasuModel, batch: Dict[str, torch.Tensor], *, left_padding: bool = False
+) -> Merged:
+    """Audio embeds merged into the text embeddings at the speech token."""
+    audio_embeds, audio_lens = compute_audio_embeds(model, batch)
+    inputs_embeds = model.llm.embed(batch["input_ids"])
+    return merge_audio_text(
+        audio_embeds.to(inputs_embeds.dtype), audio_lens, inputs_embeds,
+        batch["input_ids"], batch["attention_mask"], batch.get("labels"),
+        speech_token_id=model.speech_token_id, ignore_id=IGNORE_ID,
+        pad_token_id=model.pad_token_id, left_padding=left_padding,
+    )
+
+
+def model_factory(
+    train_config, model_config, *, device="cuda", dtype: torch.dtype = torch.float32,
+    generator: Optional[torch.Generator] = None,
+) -> TasuModel:
+    """Build a randomly initialised TasuModel on ``device``.
+
+    Config overrides size the encoder and the LLM (the tiny test configs
+    when absent, as in the JAX factory).  ``generator`` (default: seeded
+    with ``train_config.seed`` on ``device``) draws every weight; the same
+    seed on another device type gives other weights, so to compare devices
+    build once and move the model.
+    """
+    dev = resolve_device(device)
+    if model_config.llm_path or model_config.encoder_path or model_config.ctc_linear:
+        raise NotImplementedError(
+            "checkpoint import is not ported yet (ROADMAP.md queue 1, "
+            "'Checkpoints and the training CLI'); leave the paths empty"
+        )
+    if train_config.use_peft or train_config.quantization:
+        raise NotImplementedError(
+            "PEFT and weight quantization are not ported yet (ROADMAP.md "
+            "queue 1, 'PEFT and quantization')"
+        )
+    llm_cfg = Qwen2Config.tiny(**(model_config.llm_config_overrides or {}))
+    enc_cfg = SenseVoiceConfig.tiny(**(model_config.encoder_config_overrides or {}))
+    flags = TasuFlags.from_train_config(train_config, model_config)
+    with torch.device("meta"):
+        model = TasuModel(enc_cfg, llm_cfg, model_config, flags)
+    model = model.to(dtype=dtype).to_empty(device=dev)
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(train_config.seed)
+    model.init_weights(generator)
+    return model

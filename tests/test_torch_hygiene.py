@@ -1,0 +1,159 @@
+"""PyTorch port: import hygiene, device policy and the C interface.
+
+The port imports neither JAX nor the JAX package; its entry points run on
+CUDA unless the caller asks for the CPU; its kernel wrappers take the plain
+versions only for CPU tensors.  The ctypes signatures are held against the
+``extern "C"`` entry points of ``csrc/`` here, since nvcc only runs on the
+card's machine.
+"""
+
+import ast
+import os
+import re
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from ps_slm_tpu_torch import _build
+from ps_slm_tpu_torch.config import ModelConfig, TrainConfig
+from ps_slm_tpu_torch.inference.generate import generate
+from ps_slm_tpu_torch.models import qwen2, tasu
+from ps_slm_tpu_torch.ops import flash_attention, norms
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PACKAGE = os.path.join(ROOT, "ps_slm_tpu_torch")
+
+
+def _forbidden(name: str) -> bool:
+    top = name.split(".")[0]
+    return top in ("jax", "jaxlib", "ps_slm_tpu")
+
+
+def _port_files():
+    for dirpath, _, files in os.walk(PACKAGE):
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.join(dirpath, f)
+    yield os.path.join(ROOT, "chip_smoke.py")
+
+
+def test_importing_every_module_loads_no_jax():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import ps_slm_tpu_torch as p\n"
+        "for m in pkgutil.walk_packages(p.__path__, 'ps_slm_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'ps_slm_tpu'))\n"
+        "print(len([m for m in sys.modules if m.startswith('ps_slm_tpu_torch')]), bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert int(r.stdout.split()[0]) >= 15  # every module was imported
+
+
+def test_no_jax_import_in_port_sources():
+    offenders = []
+    for path in _port_files():
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""] if node.level == 0 else []
+            else:
+                continue
+            offenders += [f"{path}: {n}" for n in names if _forbidden(n)]
+    assert not offenders, offenders
+
+
+def test_default_device_raises_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the default device is valid")
+    tc, mc = TrainConfig(ctc_posterior=True, do_psd=True), ModelConfig(encoder_dim=11, llm_dim=64)
+    with pytest.raises(RuntimeError, match="cuda"):
+        tasu.model_factory(tc, mc)
+    with pytest.raises(RuntimeError, match="cuda"):
+        qwen2.init_cache(qwen2.Qwen2Config.tiny(), 1, 4, torch.float32)
+    model = tasu.model_factory(tc, mc, device="cpu")
+    batch = {"input_ids": torch.zeros(1, 4, dtype=torch.long)}
+    with pytest.raises(RuntimeError, match="cuda"):
+        generate(model, batch, eos_token_id=0, num_beams=1)
+
+
+def test_generate_rejects_what_is_not_ported():
+    model = tasu.model_factory(
+        TrainConfig(ctc_posterior=True, do_psd=True),
+        ModelConfig(encoder_dim=11, llm_dim=64), device="cpu",
+    )
+    batch = {"input_ids": torch.zeros(1, 4, dtype=torch.long)}
+    with pytest.raises(NotImplementedError, match="beam"):
+        generate(model, batch, eos_token_id=0, device="cpu")  # default num_beams=4
+    with pytest.raises(NotImplementedError, match="do_sample"):
+        generate(model, batch, eos_token_id=0, num_beams=1, device="cpu", do_sample=True)
+    with pytest.raises(NotImplementedError, match="gt_emb"):
+        tasu.model_factory(TrainConfig(ctc_posterior=True, gt_emb=True), ModelConfig(), device="cpu")
+
+
+def test_wrappers_raise_off_cpu_and_cuda():
+    x = torch.zeros(2, 128, device="meta")
+    w = torch.ones(128, device="meta")
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        norms.layer_norm_fwd(x, w, w)
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        norms.rms_norm_fwd(x, w)
+    q = torch.zeros(1, 2, 1, 128, device="meta")
+    win = torch.zeros(1, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        flash_attention.flash_attention_fwd(q, q, q, win, win, causal=True, scale=1.0)
+
+
+def test_ctypes_signatures_match_c_entry_points():
+    c_entries = {}
+    for fname in os.listdir(_build.CSRC):
+        with open(os.path.join(_build.CSRC, fname)) as f:
+            src = f.read()
+        for name, args in re.findall(r'extern "C" int (\w+)\(([^)]*)\)', src):
+            c_entries[name] = len(args.split(","))
+    declared = {**norms._SIGNATURES, **flash_attention._SIGNATURES}
+    assert {k: len(v) for k, v in declared.items()} == c_entries
+    assert set(_build.SOURCES) == {
+        f[:-3] for f in os.listdir(_build.CSRC) if f.endswith(".cu")
+    }
+    assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+
+
+def test_convert_splits_stacks_and_transposes():
+    from ps_slm_tpu_torch import convert
+
+    rng = np.random.default_rng(0)
+    lin = lambda i, o, n: {  # noqa: E731
+        "kernel": rng.normal(size=(n, i, o)), "bias": rng.normal(size=(n, o))
+    }
+    layers = {
+        "input_layernorm": rng.normal(size=(2, 8)),
+        "post_attention_layernorm": rng.normal(size=(2, 8)),
+        **{k: lin(8, 8, 2) for k in ("q_proj", "k_proj", "v_proj")},
+        **{k: {"kernel": rng.normal(size=(2, 8, 8))}
+           for k in ("o_proj", "gate_proj", "up_proj", "down_proj")},
+    }
+    tree = {"embed_tokens": rng.normal(size=(5, 8)), "layers": layers,
+            "norm": np.ones(8)}
+    sd = convert.qwen2_state_dict(tree)
+    assert "lm_head.weight" not in sd
+    np.testing.assert_allclose(
+        sd["layers.1.q_proj.weight"].numpy(),
+        layers["q_proj"]["kernel"][1].T.astype(np.float32),
+    )
+    layers["q_proj"]["lora_a"] = np.zeros((2, 8, 1))
+    with pytest.raises(NotImplementedError, match="PEFT"):
+        convert.qwen2_state_dict(tree)
