@@ -8,17 +8,30 @@ Phases, each of which fails the run:
 1. card: name and power limit from nvidia-smi; TF32 off for comparisons;
 2. build: nvcc builds every kernel from ``ps_slm_tpu_torch/csrc`` into
    ``build/ps_slm_tpu_torch/`` (one nvcc per source, in parallel);
-3. kernels: each kernel against its plain PyTorch version at the serving
-   path's shapes, in fp32 and bf16, with its time, the plain version's,
-   one PyTorch library call's, and the least time the card could take;
-4. whole path, fp32, full width at reduced depth: merged embeddings,
-   prefill logits and 8 greedy tokens for the main path's batch on the
-   card against the same model on the CPU (plain versions);
-5. main path, bf16, full width (SenseVoiceSmall + linear-silu +
+3. kernels: each kernel against its plain PyTorch version at the main
+   paths' shapes, in fp32 and bf16, with its time, the plain version's,
+   one PyTorch library call's, and the least time the card could take:
+   the forward kernels at the serving shapes, the backward kernels (flash
+   dq/dkv, LayerNorm and RMSNorm backward) at the training shapes, plus
+   a ragged flash case with a left-padded row and a row with no valid key;
+4. serving path, fp32, full width at reduced depth: merged embeddings,
+   prefill logits and 8 greedy tokens for the serving batch on the card
+   against the same model on the CPU (plain versions);
+4b. training path, fp32, full width at reduced depth: two training steps
+   of the half_audio recipe on a ragged 5-utterance batch on the card and
+   on the CPU: loss, accuracy and token count per step, the projector
+   after the second step, the projector moved and the frozen weights
+   bit-identical;
+5. serving main path, bf16, full width (SenseVoiceSmall + linear-silu +
    Qwen2.5-1.5B, random weights from a seed): ``generate`` on 4
    utterances, with every kernel's launch count and the decode steps
    counted around the call; then ``generate`` again under
    ``torch.profiler`` (device activity only) for the device-busy share;
+5b. training main path, bf16, the same model, at bench.py's batch (5 x
+   512 frames, 32 text tokens): 3 warm-up and 10 timed steps of
+   ``make_train_step`` with every kernel's launches per step checked
+   exactly, step ms, audio-sec/s and MFU, peak memory; one step under
+   ``torch.profiler``;
 6. one JSON line listing every kernel, then the contract line
    ``{"ok": true, "device": {...}}`` last.
 
@@ -31,6 +44,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import json
+import math
 import os
 import subprocess
 import sys
@@ -52,6 +66,18 @@ EOS = 151645            # <|im_end|>
 RMS_PER_FORWARD = 57
 FLASH_PER_GENERATE = 98
 LN_PER_GENERATE = 143
+# the training batch is bench.py's (config.BENCH_*): 5 utterances of 512
+# LFR frames, 32 text tokens with the speech token at 3 and the first 8
+# labels ignored; 3 warm-up and 10 timed steps
+TRAIN_RAGGED_FRAMES = (512, 400, 300, 256, 200)   # the fp32 card-vs-CPU phase
+TRAIN_WARMUP, TRAIN_STEPS = 3, 10
+# kernel launches per training step: the frozen encoder runs forward only,
+# the gathered CE back-propagates through the final norm, the 28 LLM
+# layers and the projector's LayerNorm
+LAUNCHES_PER_TRAIN_STEP = {
+    "flash_attention_fwd": 98, "flash_attention_dq": 28, "flash_attention_dkv": 28,
+    "layer_norm_fwd": 143, "layer_norm_bwd": 1, "rms_norm_fwd": 57, "rms_norm_bwd": 57,
+}
 
 # H100 SXM published peaks (NVIDIA H100 datasheet): memory and the
 # rate for the inputs' type (bf16 tensor cores; fp32 outside them)
@@ -78,23 +104,34 @@ def card_line() -> str:
     return out.strip().splitlines()[0]
 
 
-def serving_batch(torch, input_size: int, seed: int = 2) -> dict:
-    """Random LFR features (padded to the longest of FRAMES) and a prompt of
-    TEXT_LEN ids with the speech token at position 3, from numpy with
-    ``seed``; on the CPU."""
+def train_batch(torch, input_size: int, frames, seed: int = 0) -> dict:
+    """bench.py's training batch for ``frames``: from numpy with ``seed``,
+    ids in [1, 1000) with the speech token at 3, labels = ids with the
+    first 8 ignored, normal LFR features padded to the longest row; on the
+    CPU.  With 5 x 512 frames and seed 0 it is bench.py's batch."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
-    b, a = len(FRAMES), max(FRAMES)
+    b, a = len(frames), max(frames)
     ids = rng.integers(1, 1000, size=(b, TEXT_LEN))
     ids[:, 3] = SPEECH_TOKEN
+    labels = ids.copy()
+    labels[:, :8] = -100
     feats = rng.normal(size=(b, a, input_size)).astype(np.float32)
     return {
         "input_ids": torch.from_numpy(ids),
         "attention_mask": torch.ones(b, TEXT_LEN, dtype=torch.bool),
+        "labels": torch.from_numpy(labels),
         "input_features": torch.from_numpy(feats),
-        "input_feature_length": torch.tensor(list(FRAMES)),
+        "input_feature_length": torch.tensor(list(frames)),
     }
+
+
+def serving_batch(torch, input_size: int, seed: int = 2) -> dict:
+    """:func:`train_batch` for the serving batch's FRAMES, without labels."""
+    batch = train_batch(torch, input_size, FRAMES, seed)
+    del batch["labels"]
+    return batch
 
 
 @contextlib.contextmanager
@@ -156,7 +193,7 @@ def profiled(torch, fn):
             agg[0] += e.time_range.elapsed_us() / 1e3
             agg[1] += 1
     busy_ms = sum(v[0] for v in by_name.values()) if by_name else None
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:4]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
     return wall_ms, busy_ms, sum(v[1] for v in by_name.values()), \
         [[name[:60], ms, n] for name, (ms, n) in top]
 
@@ -203,14 +240,37 @@ def eager_ms(torch, fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
+def backward_ms(torch, fwd, inputs, grad_out):
+    """Device ms of the autograd backward of one PyTorch call: forward and
+    backward captured together in a CUDA graph, less the forward alone.
+    Returns (ms, method); where autograd cannot be captured, the backward
+    alone is timed with events around eager calls (host cost included)."""
+    def both():
+        torch.autograd.grad(fwd(), inputs, grad_out)
+
+    try:
+        with torch.no_grad():
+            fwd_ms = time_ms(torch, fwd)
+        return time_ms(torch, both) - fwd_ms, "graph (forward+backward) - graph (forward)"
+    except RuntimeError as e:
+        print(f"backward_ms: capture failed ({str(e)[:80]}); timing eager calls", flush=True)
+        out = fwd()
+        return eager_ms(torch, lambda: torch.autograd.grad(
+            out, inputs, grad_out, retain_graph=True)), "events around eager backward calls"
+
+
 def bound(bytes_moved: float, flops: float, dt: str):
     t_bytes = bytes_moved / MEM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dt] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def compare(torch, got, want, dt: str, what: str) -> float:
+def compare(torch, got, want, dt: str, what: str, scale: float = 1.0) -> float:
+    """Max abs error of a kernel's output against its plain version; fails
+    beyond ``KERNEL_TOL[dt]``, its atol times ``scale`` (weight gradients,
+    summed over n rows, take sqrt(n)), or on any NaN."""
     atol, rtol = KERNEL_TOL[dt]
+    atol *= scale
     got, want = got.float(), want.float()
     err = float((got - want).abs().max())
     if torch.isnan(got).any() or not bool(((got - want).abs() <= atol + rtol * want.abs()).all()):
@@ -311,6 +371,113 @@ def phase_kernels(torch, dev, results):
                   f"library eager {host_lib:.4f}", flush=True)
 
 
+def phase_kernels_bwd(torch, dev, results):
+    """The backward kernels against their plain versions at the training
+    shapes.  flash dq and dkv share one plain version (dq, dk, dv at once)
+    and one library call (the autograd backward of SDPA), whose times are
+    given to both."""
+    import torch.nn.functional as F
+
+    from ps_slm_tpu_torch.ops import flash_attention as fa
+    from ps_slm_tpu_torch.ops import norms
+
+    dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
+    g = torch.Generator(device=dev).manual_seed(1)
+
+    def entry(name):
+        return results.setdefault(name, {"max_abs_err": 0.0, "shapes": []})
+
+    def record(name, label, dt, ms, plain, lib, method, nbytes, flops, err):
+        bms, by = bound(nbytes, flops, dt)
+        e = entry(name)
+        e["max_abs_err"] = max(e["max_abs_err"], err)
+        e["shapes"].append(dict(shape=label, dtype=dt, ms=ms, plain_ms=plain, library_ms=lib,
+                                bound_ms=bms, bound_by=by, err=err))
+        lib_s = "not measured" if lib is None else f"{lib:.4f} ({method})"
+        print(f"kernel {name} {label} {dt}: err {err:.3e} ms {ms:.4f} plain {plain:.4f} "
+              f"library {lib_s} bound {bms:.4f} ({by})", flush=True)
+
+    # flash dq/dkv: the LLM's causal GQA attention at the training shape
+    # (every row full, as SDPA's is_causal takes it), and a ragged case
+    # with a left-padded row, a right-padded row and a row with no valid key
+    flash_cases = [
+        ("training", 5, 543, 12, 2, True, [0] * 5, [543] * 5),
+        ("ragged", 4, 543, 12, 2, True, [0, 112, 0, 0], [543, 543, 300, 0]),
+    ]
+    for label, b, s, hq, hkv, causal, starts, ends in flash_cases:
+        d = fa.HEAD_DIM
+        scale = d ** -0.5
+        start = torch.tensor(starts, dtype=torch.int32, device=dev)
+        end = torch.tensor(ends, dtype=torch.int32, device=dev)
+        pairs = float(fa._pair_mask(start, end, s, s, causal).sum()) * hq
+        for dt, dtype in dtypes.items():
+            q, do = (torch.randn(b, s, hq, d, device=dev, generator=g).to(dtype) for _ in range(2))
+            k, v = (torch.randn(b, s, hkv, d, device=dev, generator=g).to(dtype) for _ in range(2))
+            out, lse = fa.flash_attention_fwd(q, k, v, start, end, causal=causal, scale=scale)
+            delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+            args = (q, k, v, start, end, out, lse, do, delta)
+            kw = dict(causal=causal, scale=scale)
+            dq = fa.flash_attention_dq(*args, **kw)
+            dk, dv = fa.flash_attention_dkv(*args, **kw)
+            torch.cuda.synchronize()
+            want = fa.flash_attention_bwd_ref(q, k, v, start, end, out, lse, do, **kw)
+            errs = [compare(torch, a, r, dt, f"flash {n} {label} {dt}")
+                    for n, a, r in zip(("dq", "dk", "dv"), (dq, dk, dv), want)]
+            empty = (lse == fa.NEG_INF).transpose(1, 2)
+            if label == "ragged" and (not bool(empty.any()) or bool(dq[empty].any())):
+                fail(f"flash dq {label} {dt}: a query row with no valid key has a gradient")
+            ms_dq = time_ms(torch, lambda: fa.flash_attention_dq(*args, **kw))
+            ms_dkv = time_ms(torch, lambda: fa.flash_attention_dkv(*args, **kw))
+            plain = time_ms(torch, lambda: fa.flash_attention_bwd_ref(
+                q, k, v, start, end, out, lse, do, **kw), iters=4)
+            lib, method = None, None
+            if label == "training":
+                qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
+                lib, method = backward_ms(torch, lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, scale=scale, enable_gqa=True),
+                    (qt, kt, vt), do.transpose(1, 2))
+            esize = q.element_size()
+            stats = 2 * lse.numel() * 4
+            record("flash_attention_dq", label, dt, ms_dq, plain, lib, method,
+                   (3 * q.numel() + 2 * k.numel()) * esize + stats, 6.0 * d * pairs, errs[0])
+            record("flash_attention_dkv", label, dt, ms_dkv, plain, lib, method,
+                   (2 * q.numel() + 4 * k.numel()) * esize + stats, 8.0 * d * pairs,
+                   max(errs[1:]))
+
+    # LayerNorm backward at the projector's norm, RMSNorm backward at the
+    # LLM's (5 x 543 merged rows)
+    for name, n, d in (("layer_norm_bwd", 2560, 25055), ("rms_norm_bwd", 2715, 1536)):
+        for dt, dtype in dtypes.items():
+            x = (torch.randn(n, d, device=dev, generator=g) * 3 + 1).to(dtype)
+            w = (1 + 0.1 * torch.randn(d, device=dev, generator=g)).to(dtype)
+            bb = (0.1 * torch.randn(d, device=dev, generator=g)).to(dtype)
+            gy = torch.randn(n, d, device=dev, generator=g).to(dtype)
+            esize = x.element_size()
+            xr, wr, br = (t.detach().requires_grad_(True) for t in (x, w, bb))
+            if name == "layer_norm_bwd":
+                _, mu, rstd = norms.layer_norm_fwd(x, w, bb)
+                run = lambda: norms.layer_norm_bwd(x, w, mu, rstd, gy)     # noqa: E731
+                ref = lambda: norms.layer_norm_bwd_ref(x, w, mu, rstd, gy)  # noqa: E731
+                lib, method = backward_ms(
+                    torch, lambda: F.layer_norm(xr, (d,), wr, br, 1e-5), (xr, wr, br), gy)
+                nbytes = 3 * n * d * esize + 3 * d * esize + 8 * n
+                flops = 13.0 * n * d
+            else:
+                _, rstd = norms.rms_norm_fwd(x, w)
+                run = lambda: norms.rms_norm_bwd(x, w, rstd, gy)           # noqa: E731
+                ref = lambda: norms.rms_norm_bwd_ref(x, w, rstd, gy)        # noqa: E731
+                lib, method = backward_ms(
+                    torch, lambda: F.rms_norm(xr, (d,), wr, 1e-6), (xr, wr), gy)
+                nbytes = 3 * n * d * esize + 2 * d * esize + 4 * n
+                flops = 9.0 * n * d
+            got = run()
+            torch.cuda.synchronize()
+            err = max(compare(torch, a, r, dt, f"{name} [{n},{d}] {dt}", 1.0 if i == 0 else n ** 0.5)
+                      for i, (a, r) in enumerate(zip(got, ref())))
+            ms, plain = time_ms(torch, run), time_ms(torch, ref)
+            record(name, f"{n}x{d}", dt, ms, plain, lib, method, nbytes, flops, err)
+
+
 def phase_path_fp32(torch, dev):
     from ps_slm_tpu_torch.config import SENSEVOICE_SMALL, half_audio_configs
     from ps_slm_tpu_torch.inference.generate import _prefill, generate
@@ -354,18 +521,153 @@ def phase_path_fp32(torch, dev):
         fail("fp32 path: greedy tokens differ between card and CPU")
 
 
+def phase_train_fp32(torch, dev):
+    """Two training steps of the half_audio recipe at full width and
+    reduced depth, fp32, on the card and on the CPU from the same weights."""
+    from ps_slm_tpu_torch.config import SENSEVOICE_SMALL, half_audio_configs
+    from ps_slm_tpu_torch.models.tasu import model_factory
+    from ps_slm_tpu_torch.training.step import make_train_step
+
+    tc, mc = half_audio_configs(
+        dict(num_blocks=2, tp_blocks=1), dict(num_hidden_layers=2), seed=0
+    )
+    tc.lr, tc.warmup_steps = 1e-3, 1
+    t0 = time.time()
+    cpu_model = model_factory(tc, mc, device="cpu")
+    cpu_model.speech_token_id = SPEECH_TOKEN
+    gpu_model = copy.deepcopy(cpu_model).to(dev)
+    batch = train_batch(torch, SENSEVOICE_SMALL["input_size"], TRAIN_RAGGED_FRAMES, seed=3)
+
+    runs = {}
+    for name, model, d in (("cpu", cpu_model, "cpu"), ("cuda", gpu_model, dev)):
+        start = {n: p.detach().clone() for n, p in model.named_parameters()}
+        step = make_train_step(model, tc, device=d)
+        metrics = []
+        for _ in range(2):
+            m = step(batch)
+            metrics.append({k: float(v) for k, v in m.items()})
+        params = dict(model.named_parameters())
+        frozen_same = all(torch.equal(params[n], p) for n, p in start.items()
+                          if n not in step.trainable)
+        moved = any(not torch.equal(params[n], start[n]) for n in step.trainable)
+        if not (frozen_same and moved and len(step.optimizer.state) == 6):
+            fail(f"fp32 training on {name}: frozen weights changed ({not frozen_same}), "
+                 f"projector did not move ({not moved}), or optimizer state for "
+                 f"{len(step.optimizer.state)} tensors, not the projector's 6")
+        runs[name] = (metrics, {n: params[n].detach().cpu() for n in step.trainable})
+    (m_c, p_c), (m_g, p_g) = runs["cpu"], runs["cuda"]
+    errs = {k: max(abs(a[k] - b[k]) for a, b in zip(m_c, m_g)) for k in ("loss", "acc", "ntokens")}
+    w_err = max(float((p_c[n] - p_g[n]).abs().max()) for n in p_c)
+    print(f"train fp32 (2+1 encoder blocks, 2 LLM layers, full width, frames "
+          f"{list(TRAIN_RAGGED_FRAMES)}): losses card {[m['loss'] for m in m_g]} cpu "
+          f"{[m['loss'] for m in m_c]}; acc card {[m['acc'] for m in m_g]}; ntokens "
+          f"{[m['ntokens'] for m in m_g]}; max err loss {errs['loss']:.3e} acc "
+          f"{errs['acc']:.3e} ntokens {errs['ntokens']:.0f}, projector after step 2 "
+          f"{w_err:.3e} (tol {PATH_TOL}); frozen weights bit-identical, projector moved "
+          f"({time.time() - t0:.1f} s)", flush=True)
+    if errs["ntokens"] != 0 or max(errs["loss"], errs["acc"], w_err) > PATH_TOL:
+        fail("fp32 training: card and CPU disagree beyond the tolerance")
+    if m_g[0]["loss"] != m_g[1]["loss"]:
+        fail("fp32 training: the first update (lr 0) changed the loss")
+
+
+def phase_train_main(torch, dev, model, launches):
+    """bench.py's training step at full width, bf16, on ``model`` (the
+    serving phase's): TRAIN_WARMUP steps, then TRAIN_STEPS timed ones with
+    every kernel's launches counted around them, then one profiled step."""
+    import statistics
+
+    from ps_slm_tpu_torch.config import (
+        BENCH_BATCH, BENCH_FRAMES, BENCH_TEXT_LEN, SENSEVOICE_SMALL, half_audio_configs,
+    )
+    from ps_slm_tpu_torch.training.step import make_train_step
+    from ps_slm_tpu_torch.utils.flops import H100_BF16_PEAK_FLOPS, tasu_step_flops
+
+    counters = kernel_counters()
+    tc, mc = half_audio_configs()          # bench.py: lr 5e-5, warmup 200, 15000 steps
+    frames = (BENCH_FRAMES,) * BENCH_BATCH
+    batch = train_batch(torch, SENSEVOICE_SMALL["input_size"], frames, seed=0)
+    batch["input_features"] = batch["input_features"].to(torch.bfloat16)
+    if TEXT_LEN != BENCH_TEXT_LEN:
+        fail("training path: the batch is not bench.py's")
+    step = make_train_step(model, tc)
+    frozen = {n: p.detach().clone() for n, p in model.named_parameters()
+              if n not in step.trainable}
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_WARMUP):
+        m = step(batch)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    times, losses = [], []
+    for _ in range(TRAIN_STEPS):
+        t1 = time.perf_counter()
+        m = step(batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t1) * 1e3)
+        losses.append(float(m["loss"]))
+    for name, fn in counters.items():
+        launches[name] = fn.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    for name, per_step in LAUNCHES_PER_TRAIN_STEP.items():
+        if launches[name] != per_step * TRAIN_STEPS:
+            fail(f"training path: {name} launched {launches[name]} times in {TRAIN_STEPS} "
+                 f"steps, expected {per_step} per step")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"training path: non-finite loss {losses}")
+    params = dict(model.named_parameters())
+    if not all(torch.equal(params[n], p) for n, p in frozen.items()):
+        fail("training path: a frozen weight changed")
+    del frozen
+
+    fl = tasu_step_flops(model.llm_cfg, model.enc_cfg, mc, batch=BENCH_BATCH,
+                         frames=BENCH_FRAMES, text_len=BENCH_TEXT_LEN,
+                         freeze_llm=tc.freeze_llm, freeze_encoder=tc.freeze_encoder)
+    med = statistics.median(times)
+    audio_s = sum(frames) * LFR_FRAME_SEC
+    print(f"train main path (bf16, full width, {BENCH_BATCH} x {BENCH_FRAMES} frames, "
+          f"{TEXT_LEN} text tokens, merged length {TEXT_LEN + BENCH_FRAMES - 1}): "
+          f"{TRAIN_WARMUP} warm-up steps {warm_s:.1f} s; {TRAIN_STEPS} steps median "
+          f"{med:.2f} ms (min {min(times):.2f}, max {max(times):.2f}; all "
+          f"{[round(t, 2) for t in times]}); {audio_s / med * 1e3:.1f} audio-sec/s; "
+          f"{fl['total'] / 1e12:.3f} TFLOP/step, MFU {fl['total'] / (med / 1e3) / H100_BF16_PEAK_FLOPS:.4f} "
+          f"(bf16 dense peak {H100_BF16_PEAK_FLOPS / 1e12:.0f} TFLOP/s); losses {losses}; "
+          f"peak memory {peak_gb:.2f} GB; launches per step "
+          f"{ {k: v // TRAIN_STEPS for k, v in launches.items()} }", flush=True)
+
+    wall, busy, ops, top = profiled(torch, lambda: step(batch))
+    share = "not measured" if busy is None else f"{busy / wall:.3f}"
+    busy_s = "not measured" if busy is None else f"{busy:.2f} ms"
+    print(f"profiled train step: wall {wall:.1f} ms, device-busy {busy_s}, busy share "
+          f"{share}, {ops} device ops; largest {json.dumps(top)}", flush=True)
+
+
+def kernel_counters() -> dict:
+    """Every kernel wrapper of the port, by name: each carries ``.launches``."""
+    from ps_slm_tpu_torch.ops import flash_attention as fa
+    from ps_slm_tpu_torch.ops import norms
+
+    return {
+        "flash_attention_fwd": fa.flash_attention_fwd,
+        "flash_attention_dq": fa.flash_attention_dq,
+        "flash_attention_dkv": fa.flash_attention_dkv,
+        "layer_norm_fwd": norms.layer_norm_fwd,
+        "layer_norm_bwd": norms.layer_norm_bwd,
+        "rms_norm_fwd": norms.rms_norm_fwd,
+        "rms_norm_bwd": norms.rms_norm_bwd,
+    }
+
+
 def phase_main(torch, dev, launches):
     from ps_slm_tpu_torch.config import QWEN25_1_5B, SENSEVOICE_SMALL, half_audio_configs
     from ps_slm_tpu_torch.inference.generate import _prefill, generate
     from ps_slm_tpu_torch.models.tasu import model_factory, prepare_merged
-    from ps_slm_tpu_torch.ops import flash_attention as fa
-    from ps_slm_tpu_torch.ops import norms
 
-    counters = {
-        "flash_attention_fwd": fa.flash_attention_fwd,
-        "layer_norm_fwd": norms.layer_norm_fwd,
-        "rms_norm_fwd": norms.rms_norm_fwd,
-    }
+    counters = kernel_counters()
     tc, mc = half_audio_configs()
     t0 = time.time()
     model = model_factory(tc, mc, dtype=torch.bfloat16)   # default device: cuda
@@ -401,8 +703,9 @@ def phase_main(torch, dev, launches):
     tokens = tokens.cpu()
     if steps != loop_steps(tokens, MAX_NEW):
         fail(f"main path: {steps} decode steps, the tokens need {loop_steps(tokens, MAX_NEW)}")
-    need = {"flash_attention_fwd": FLASH_PER_GENERATE, "layer_norm_fwd": LN_PER_GENERATE,
-            "rms_norm_fwd": RMS_PER_FORWARD * (1 + steps)}
+    need = {name: 0 for name in counters}
+    need.update({"flash_attention_fwd": FLASH_PER_GENERATE, "layer_norm_fwd": LN_PER_GENERATE,
+                 "rms_norm_fwd": RMS_PER_FORWARD * (1 + steps)})
     for name, n in need.items():
         if launches[name] != n:
             fail(f"main path: {name} launched {launches[name]} times, expected {n}")
@@ -452,6 +755,7 @@ def phase_main(torch, dev, launches):
         print(f"profiled decode ({n} steps, whole - first token): {d_wall / n:.2f} ms wall, "
               f"{d_busy / n:.3f} ms device-busy, {(whole[2] - first[2]) / n:.0f} device ops "
               f"per step; busy share {d_busy / d_wall:.3f}", flush=True)
+    return model
 
 
 def main() -> None:
@@ -488,24 +792,40 @@ def main() -> None:
           flush=True)
     results: dict = {}
     phase_kernels(torch, dev, results)
+    phase_kernels_bwd(torch, dev, results)
     phase_path_fp32(torch, dev)
-    launches: dict = {}
-    phase_main(torch, dev, launches)
+    phase_train_fp32(torch, dev)
+    gen_launches: dict = {}
+    model = phase_main(torch, dev, gen_launches)
+    train_launches: dict = {}
+    phase_train_main(torch, dev, model, train_launches)
 
+    # name: (source, TPU kernel it replaces, the row of phase 3 reported)
     sources = {
         "flash_attention_fwd": ("ps_slm_tpu_torch/csrc/flash_fwd.cu",
                                 "ps_slm_tpu/ops/flash_attention.py:59", "encoder"),
+        "flash_attention_dq": ("ps_slm_tpu_torch/csrc/flash_bwd.cu",
+                               "ps_slm_tpu/ops/flash_attention.py:125", "training"),
+        "flash_attention_dkv": ("ps_slm_tpu_torch/csrc/flash_bwd.cu",
+                                "ps_slm_tpu/ops/flash_attention.py:181", "training"),
         "layer_norm_fwd": ("ps_slm_tpu_torch/csrc/norms.cu", "ps_slm_tpu/ops/norms.py:49",
                            "2064x512"),
+        "layer_norm_bwd": ("ps_slm_tpu_torch/csrc/norms.cu", "ps_slm_tpu/ops/norms.py:73",
+                           "2560x25055"),
         "rms_norm_fwd": ("ps_slm_tpu_torch/csrc/norms.cu", "ps_slm_tpu/ops/norms.py:61",
                          "2172x1536"),
+        "rms_norm_bwd": ("ps_slm_tpu_torch/csrc/norms.cu", "ps_slm_tpu/ops/norms.py:94",
+                         "2715x1536"),
     }
     kernels = []
     for name, (source, replaces, shape) in sources.items():
         row = next(r for r in results[name]["shapes"] if r["shape"] == shape and r["dtype"] == "bf16")
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[name], "max_abs_err": results[name]["max_abs_err"],
+            "launches": gen_launches[name] + train_launches[name],
+            "launches_per_generate": gen_launches[name],
+            "launches_per_train_step": train_launches[name] // TRAIN_STEPS,
+            "max_abs_err": results[name]["max_abs_err"],
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "shape": f"{shape} bf16",

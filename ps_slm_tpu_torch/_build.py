@@ -32,7 +32,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
 )
-SOURCES = ("flash_fwd", "norms")
+SOURCES = ("flash_fwd", "flash_bwd", "norms")
 # dtype codes understood by every C entry point (csrc/common.cuh)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 

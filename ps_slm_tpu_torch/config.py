@@ -1,4 +1,4 @@
-"""The configuration fields the port's serving path reads.
+"""The configuration fields the port's serving and training paths read.
 
 A small copy of ``ps_slm_tpu/config.py``'s ``ModelConfig`` and
 ``TrainConfig``: same names, same defaults, only the fields this package
@@ -29,6 +29,16 @@ class ModelConfig:
 @dataclass
 class TrainConfig:
     seed: int = 42
+    # optimizer and schedule (AdamW + warmup-cosine, conf/ds_config.json)
+    lr: float = 5e-5
+    warmup_steps: int = 200
+    total_steps: int = 15000
+    adam_beta1: float = 0.9
+    adam_beta2: float = 0.999
+    adam_eps: float = 1e-6
+    weight_decay: float = 0.0
+    gradient_accumulation_steps: int = 1
+    remat: bool = False
     # TASU algorithm switches
     do_psd: bool = False
     ctc_posterior: bool = False
@@ -42,6 +52,12 @@ class TrainConfig:
     freeze_encoder: bool = False
     freeze_projector: bool = False
 
+
+# the shapes of the benchmarked training step (bench.py): utterances per
+# batch, LFR frames per utterance, text tokens per row
+BENCH_BATCH = 5
+BENCH_FRAMES = 512
+BENCH_TEXT_LEN = 32
 
 # published widths, as config overrides for random-init models
 SENSEVOICE_SMALL = dict(

@@ -13,15 +13,16 @@ import math
 import torch
 from torch import nn
 
-from ps_slm_tpu_torch.ops.norms import layer_norm_fwd
+from ps_slm_tpu_torch.ops.norms import LayerNormFn
 
 
 def layer_norm(
     x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, eps: float = 1e-5
 ) -> torch.Tensor:
     """LayerNorm with fp32 statistics, output in x.dtype (the reference's
-    fp32-LayerNorm policy); the CUDA kernel on CUDA tensors."""
-    return layer_norm_fwd(x, weight, bias, eps)[0]
+    fp32-LayerNorm policy); the CUDA kernels, forward and backward, on CUDA
+    tensors."""
+    return LayerNormFn.apply(x, weight, bias, eps)
 
 
 class LayerNorm(nn.Module):

@@ -1,7 +1,7 @@
 """Qwen2/Qwen2.5 decoder LLM.
 
 Counterpart of ``ps_slm_tpu/models/qwen2.py``: RMSNorm (fp32 statistics,
-the CUDA kernel on CUDA tensors), rotate-half rotary embeddings in fp32,
+the CUDA kernels on CUDA tensors), rotate-half rotary embeddings in fp32,
 GQA attention with q/k/v biases, SwiGLU MLP, tied or untied LM head.  One
 module per layer.  The KV cache is a list of per-layer (k, v) tensors
 [B, capacity, Hkv, D] that :meth:`Qwen2Model.forward` updates in place
@@ -24,7 +24,7 @@ from torch import nn
 from ps_slm_tpu_torch._build import resolve_device
 from ps_slm_tpu_torch.models.layers import normal_
 from ps_slm_tpu_torch.ops.attention import attention, decode_attention
-from ps_slm_tpu_torch.ops.norms import rms_norm_fwd
+from ps_slm_tpu_torch.ops.norms import RMSNormFn
 
 KVCache = List[Tuple[torch.Tensor, torch.Tensor]]
 
@@ -56,7 +56,9 @@ class Qwen2Config:
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
-    return rms_norm_fwd(x, weight, eps)[0]
+    """RMSNorm with fp32 statistics, output in x.dtype; the CUDA kernels,
+    forward and backward, on CUDA tensors."""
+    return RMSNormFn.apply(x, weight, eps)
 
 
 class RMSNorm(nn.Module):

@@ -1,13 +1,15 @@
 """TASU composite model: SenseVoice encoder + projector + Qwen2 LLM.
 
-Counterpart of ``ps_slm_tpu/models/tasu.py`` for the serving path of the
-published audio-TASU recipe (``half_audio``: ``ctc_posterior=True``,
-``do_psd=True``, the ``linear-silu`` projector):
+Counterpart of ``ps_slm_tpu/models/tasu.py`` for the serving and training
+paths of the published audio-TASU recipe (``half_audio``:
+``ctc_posterior=True``, ``do_psd=True``, the ``linear-silu`` projector):
 
   1. query prepend + encoder + fp32 CTC softmax + drop the 4 query frames
   2. PSD over the posterior (when ``do_psd``)
   3. projector
   4. merge into the LLM's token embeddings
+  5. (training, :func:`forward`) the LLM and the causal CE on the merged
+     labels; :func:`trainable_mask` applies the freeze flags
 
 The other branches of the JAX model (text-only TASU, voca_trans, the
 cross-attention projector, the raw-feature baseline, the waveform front end)
@@ -19,7 +21,7 @@ later (``convert.from_jax_params`` maps a JAX parameter tree).
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -28,11 +30,14 @@ from ps_slm_tpu_torch._build import resolve_device
 from ps_slm_tpu_torch.models import projector as proj
 from ps_slm_tpu_torch.models.qwen2 import Qwen2Config, Qwen2Model
 from ps_slm_tpu_torch.models.sensevoice import SenseVoiceConfig, SenseVoiceEncoder
+from ps_slm_tpu_torch.ops.ce_loss import chunked_ce_loss, full_ce_loss, gathered_ce_loss
 from ps_slm_tpu_torch.ops.merge import Merged, merge_audio_text
 from ps_slm_tpu_torch.ops.psd import psd
 
 IGNORE_ID = -100
 QUERY_IDS = (0, 1, 2, 2)   # language, event, emotion, textnorm
+# above this many bytes of fp32 logits the full-logit CE goes chunked
+CHUNKED_CE_BYTES = 3 * 2 ** 29   # 1.5 GB
 
 
 @dataclass(frozen=True)
@@ -150,6 +155,79 @@ def prepare_merged(
         speech_token_id=model.speech_token_id, ignore_id=IGNORE_ID,
         pad_token_id=model.pad_token_id, left_padding=left_padding,
     )
+
+
+def forward(
+    model: TasuModel, batch: Dict[str, torch.Tensor], *, train: bool = True,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Training forward: ``(loss, {"acc", "ntokens"})``.
+
+    Causal CE on the merged (right-padded) labels, HF shift semantics;
+    accuracy is the argmax match over the labelled positions.  Rows with
+    ``batch["batch_valid"]`` False contribute nothing.  The CE takes one of
+    three forms, as in the JAX forward:
+
+    1. gathered (only the labelled rows are unembedded) when the text is
+       at most half the merged length; per row at most
+       ``min(ceil(text_len / 8) * 8, T - 1)`` labels count;
+    2. chunked, above 1.5 GB of fp32 logits;
+    3. full fp32 logits otherwise.
+
+    ``train`` is the JAX flag for dither and SpecAugment, which act only on
+    the waveform front end, not ported yet: with ``input_features`` it
+    changes nothing.
+    """
+    if "labels" not in batch:
+        raise ValueError("the training forward needs batch['labels']")
+    merged = prepare_merged(model, batch, left_padding=False)
+    hidden, _ = model.llm(
+        merged.embeds, merged.attention_mask, merged.position_ids
+    )
+    labels = merged.labels
+    if "batch_valid" in batch:
+        labels = torch.where(batch["batch_valid"][:, None], labels, IGNORE_ID)
+
+    llm = model.llm
+    w = llm.embed_tokens.weight if llm.lm_head is None else llm.lm_head.weight
+    b, t = labels.shape
+    text_len = batch["input_ids"].shape[1]
+    if text_len <= (t - 1) // 2:
+        max_valid = min(-(-text_len // 8) * 8, t - 1)
+        loss, acc, ntok = gathered_ce_loss(
+            hidden, w, labels, max_valid=max_valid, ignore_id=IGNORE_ID
+        )
+    elif b * t * w.shape[0] * 4 > CHUNKED_CE_BYTES:
+        loss, acc, ntok = chunked_ce_loss(hidden, w, labels, ignore_id=IGNORE_ID)
+    else:
+        loss, acc, ntok = full_ce_loss(hidden, w, labels, ignore_id=IGNORE_ID)
+    return loss, {"acc": acc, "ntokens": ntok}
+
+
+def trainable_mask(model: TasuModel, train_config) -> List[str]:
+    """Apply the freeze flags: set ``requires_grad`` on every parameter and
+    return the names of the trainable ones.
+
+    freeze_encoder, freeze_projector and freeze_llm freeze their module
+    whole, as the JAX ``trainable_mask`` does without PEFT; frozen
+    parameters get no gradient and no optimizer state.
+    """
+    if train_config.use_peft:
+        raise NotImplementedError(
+            "PEFT (LoRA, prefix tuning, llama-adapter) is not ported yet "
+            "(ROADMAP.md queue 1, 'PEFT and quantization')"
+        )
+    frozen = {
+        "encoder": train_config.freeze_encoder,
+        "projector": train_config.freeze_projector,
+        "llm": train_config.freeze_llm,
+    }
+    names = []
+    for name, p in model.named_parameters():
+        train = not frozen[name.split(".")[0]]
+        p.requires_grad_(train)
+        if train:
+            names.append(name)
+    return names
 
 
 def model_factory(

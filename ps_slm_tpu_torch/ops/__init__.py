@@ -1,1 +1,1 @@
-"""Serving ops of the PyTorch/CUDA port: attention, norms, PSD, merge."""
+"""Ops of the PyTorch/CUDA port: attention, norms, PSD, merge, CE loss."""

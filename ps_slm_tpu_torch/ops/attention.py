@@ -4,9 +4,10 @@ Counterpart of ``ps_slm_tpu/ops/attention.py``.  GQA layout
 q [B,S,Hq,D], k/v [B,T,Hkv,D] with Hq % Hkv == 0; padding via ``kv_mask``
 [B,T] (True = valid).
 
-* :func:`attention` is the full-sequence entry point of the encoder and the
-  LLM prefill.  It always goes to :func:`flash_attention` (the CUDA kernel on
-  CUDA tensors, its plain version on CPU tensors); the TPU's size gate is
+* :func:`attention` is the full-sequence entry point of the encoder, the
+  LLM prefill and the training forward.  It always goes to
+  :func:`flash_attention` (the CUDA kernels, forward and backward, on CUDA
+  tensors, their plain versions on CPU tensors); the TPU's size gate is
   not carried over.
 * :func:`mha_reference` is plain PyTorch with ``q_offset`` for cached
   decoding; :func:`decode_attention` uses it for each step against the KV

@@ -1,15 +1,19 @@
-"""Flash-attention forward: the CUDA kernel and its plain version.
+"""Flash attention, forward and backward: the CUDA kernels, their plain
+versions and the autograd Function over them.
 
-Counterpart of ``ps_slm_tpu/ops/flash_attention.py`` (forward only; the dq
-and dkv kernels come with the training slice).  Layout q [B,S,Hq,D],
+Counterpart of ``ps_slm_tpu/ops/flash_attention.py``.  Layout q [B,S,Hq,D],
 k/v [B,T,Hkv,D] with Hq % Hkv == 0.  Padding is a per-batch-row valid key
 window ``[kv_start, kv_end)``; causality is a flag (query row s sees keys
 t <= s).  Softmax statistics are fp32; a query row with no valid key gives
-out = 0 and lse = ``NEG_INF``.
+out = 0 and lse = ``NEG_INF``, and zero gradients.
 
-:func:`flash_attention_fwd` launches ``csrc/flash_fwd.cu`` for CUDA tensors
-(head dim 128 only) and takes :func:`flash_attention_ref` only for CPU
-tensors.
+:func:`flash_attention_fwd` launches ``csrc/flash_fwd.cu``,
+:func:`flash_attention_dq` and :func:`flash_attention_dkv` launch
+``csrc/flash_bwd.cu`` for CUDA tensors (head dim 128 only); each takes its
+plain version (:func:`flash_attention_ref`, :func:`flash_attention_bwd_ref`)
+only for CPU tensors.  :class:`FlashAttentionFn` saves ``q, k, v, kv_start,
+kv_end, out, lse`` as the JAX custom VJP does, and its backward computes
+delta = rowsum(dout * out) outside the kernels, as ``_flash_bwd`` does.
 """
 
 from __future__ import annotations
@@ -30,6 +34,16 @@ _SIGNATURES = {
     # B, S, T, Hq, Hkv, head_dim, scale, causal, stream
     "ps_flash_fwd": (_I, _I, _P, _P, _P, _P, _P, _P, _P,
                      _I, _I, _I, _I, _I, _I, _F, _I, _P),
+}
+_BWD_SIGNATURES = {
+    # device, dtype, q, k, v, dout, lse, delta, dq, kv_start, kv_end,
+    # B, S, T, Hq, Hkv, head_dim, scale, causal, stream
+    "ps_flash_bwd_dq": (_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                        _I, _I, _I, _I, _I, _I, _F, _I, _P),
+    # device, dtype, q, k, v, dout, lse, delta, dk, dv, kv_start, kv_end,
+    # B, S, T, Hq, Hkv, head_dim, scale, causal, stream
+    "ps_flash_bwd_dkv": (_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                         _I, _I, _I, _I, _I, _I, _F, _I, _P),
 }
 
 
@@ -58,6 +72,17 @@ def window_from_mask(
     return start, end
 
 
+def _pair_mask(kv_start, kv_end, s: int, t: int, causal: bool) -> torch.Tensor:
+    """[B,1,S,T] (or [B,1,1,T]) bool: the valid (query, key) pairs."""
+    kv_pos = torch.arange(t, device=kv_start.device)
+    valid = (kv_pos >= kv_start[:, None]) & (kv_pos < kv_end[:, None])  # [B,T]
+    mask = valid[:, None, None, :]
+    if causal:
+        q_pos = torch.arange(s, device=kv_start.device)
+        mask = mask & (kv_pos[None, :] <= q_pos[:, None])[None, None]
+    return mask
+
+
 def flash_attention_ref(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kv_start: torch.Tensor, kv_end: torch.Tensor,
@@ -72,13 +97,7 @@ def flash_attention_ref(
     kf = k.float().transpose(1, 2).repeat_interleave(rep, dim=1)     # [B,Hq,T,D]
     vf = v.float().transpose(1, 2).repeat_interleave(rep, dim=1)
     scores = (qf @ kf.transpose(-1, -2)) * scale                     # [B,Hq,S,T]
-
-    kv_pos = torch.arange(t, device=q.device)
-    valid = (kv_pos >= kv_start[:, None]) & (kv_pos < kv_end[:, None])  # [B,T]
-    mask = valid[:, None, None, :]
-    if causal:
-        q_pos = torch.arange(s, device=q.device)
-        mask = mask & (kv_pos[None, :] <= q_pos[:, None])[None, None]
+    mask = _pair_mask(kv_start, kv_end, s, t, causal)
     scores = torch.where(mask, scores, NEG_INF)
     m = scores.amax(dim=-1, keepdim=True)
     p = torch.where(mask, torch.exp(scores - m), 0.0)
@@ -89,8 +108,41 @@ def flash_attention_ref(
     return out.transpose(1, 2).to(q.dtype).contiguous(), lse[..., 0]
 
 
-def _check_cuda(q, k, v, kv_start, kv_end) -> None:
-    name = "flash_attention_fwd"
+def flash_attention_bwd_ref(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+    kv_start: torch.Tensor, kv_end: torch.Tensor,
+    out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
+    *, causal: bool, scale: float,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of the backward kernels (``_dq_kernel`` and
+    ``_dkv_kernel`` math) from the forward's ``out`` and fp32 ``lse``:
+    ``(dq, dk, dv)`` in the inputs' dtype, with the whole [B,Hq,S,T] score
+    matrix in fp32.  p is a select on the valid pairs, so a query row with
+    no valid key (lse = NEG_INF) gives zeros, never NaN."""
+    b, s, hq, _ = q.shape
+    t, hkv = k.shape[1], k.shape[2]
+    rep = hq // hkv
+    qf = q.float().transpose(1, 2)                                  # [B,Hq,S,D]
+    kf = k.float().transpose(1, 2).repeat_interleave(rep, dim=1)     # [B,Hq,T,D]
+    vf = v.float().transpose(1, 2).repeat_interleave(rep, dim=1)
+    dof = dout.float().transpose(1, 2)
+    delta = (dof * out.float().transpose(1, 2)).sum(-1, keepdim=True)  # [B,Hq,S,1]
+    scores = (qf @ kf.transpose(-1, -2)) * scale
+    mask = _pair_mask(kv_start, kv_end, s, t, causal)
+    p = torch.where(mask, torch.exp(scores - lse[..., None]), 0.0)  # [B,Hq,S,T]
+    dp = dof @ vf.transpose(-1, -2)
+    ds = torch.where(mask, p * (dp - delta), 0.0)
+    dq = (ds @ kf) * scale
+    dk = ((ds.transpose(-1, -2) @ qf) * scale).reshape(b, hkv, rep, t, -1).sum(2)
+    dv = (p.transpose(-1, -2) @ dof).reshape(b, hkv, rep, t, -1).sum(2)
+    return (
+        dq.transpose(1, 2).to(q.dtype).contiguous(),
+        dk.transpose(1, 2).to(k.dtype).contiguous(),
+        dv.transpose(1, 2).to(v.dtype).contiguous(),
+    )
+
+
+def _check_cuda(q, k, v, kv_start, kv_end, name: str = "flash_attention_fwd") -> None:
     if q.device.type != "cuda":
         raise ValueError(f"{name}: tensors must be on CPU or CUDA, got {q.device}")
     if q.dtype not in _build.DTYPE_CODES:
@@ -147,17 +199,140 @@ def flash_attention_fwd(
 flash_attention_fwd.launches = 0
 
 
+def _check_bwd(q, out, lse, dout, delta, name: str) -> None:
+    for x in (out, dout):
+        if x.shape != q.shape or x.dtype != q.dtype or x.device != q.device:
+            raise TypeError(f"{name}: out and dout must match q in shape, dtype and device")
+    b, s, hq, _ = q.shape
+    for x in (lse, delta):
+        if x.shape != (b, hq, s) or x.dtype != torch.float32 or x.device != q.device:
+            raise TypeError(f"{name}: lse and delta must be fp32 [B,Hq,S] on q's device")
+    if not all(x.is_contiguous() for x in (out, dout, lse, delta)):
+        raise ValueError(f"{name}: inputs must be contiguous")
+
+
+def _bwd_args(q, k, v, dout, lse, delta, kv_start, kv_end):
+    b, s, hq, d = q.shape
+    return (
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(),
+    ), (kv_start.data_ptr(), kv_end.data_ptr(), b, s, k.shape[1], hq, k.shape[2], d)
+
+
+def flash_attention_dq(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+    kv_start: torch.Tensor, kv_end: torch.Tensor,
+    out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor, delta: torch.Tensor,
+    *, causal: bool, scale: float,
+) -> torch.Tensor:
+    """dq as :func:`flash_attention_bwd_ref`; ``delta`` [B,Hq,S] fp32 is
+    rowsum(dout * out), which the kernel reads (the plain version
+    recomputes it from ``out``)."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_ref(
+            q, k, v, kv_start, kv_end, out, lse, dout, causal=causal, scale=scale
+        )[0]
+    _check_cuda(q, k, v, kv_start, kv_end, "flash_attention_dq")
+    _check_bwd(q, out, lse, dout, delta, "flash_attention_dq")
+    dq = torch.empty_like(q)
+    if q.shape[0] * q.shape[1] == 0:
+        return dq
+    ins, rest = _bwd_args(q, k, v, dout, lse, delta, kv_start, kv_end)
+    lib = _build.load("flash_bwd", _BWD_SIGNATURES)
+    err = lib.ps_flash_bwd_dq(
+        q.device.index, _build.DTYPE_CODES[q.dtype], *ins, dq.data_ptr(), *rest,
+        float(scale), int(causal), _build.stream_ptr(q),
+    )
+    _build.check(lib, err, "flash_attention_dq")
+    flash_attention_dq.launches += 1
+    return dq
+
+
+flash_attention_dq.launches = 0
+
+
+def flash_attention_dkv(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+    kv_start: torch.Tensor, kv_end: torch.Tensor,
+    out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor, delta: torch.Tensor,
+    *, causal: bool, scale: float,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dk, dv) as :func:`flash_attention_bwd_ref`, summed over the query
+    heads of each key/value head; ``delta`` as :func:`flash_attention_dq`."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_ref(
+            q, k, v, kv_start, kv_end, out, lse, dout, causal=causal, scale=scale
+        )[1:]
+    _check_cuda(q, k, v, kv_start, kv_end, "flash_attention_dkv")
+    _check_bwd(q, out, lse, dout, delta, "flash_attention_dkv")
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    if k.shape[0] * k.shape[1] == 0:
+        return dk, dv
+    ins, rest = _bwd_args(q, k, v, dout, lse, delta, kv_start, kv_end)
+    lib = _build.load("flash_bwd", _BWD_SIGNATURES)
+    err = lib.ps_flash_bwd_dkv(
+        q.device.index, _build.DTYPE_CODES[q.dtype], *ins, dk.data_ptr(),
+        dv.data_ptr(), *rest, float(scale), int(causal), _build.stream_ptr(q),
+    )
+    _build.check(lib, err, "flash_attention_dkv")
+    flash_attention_dkv.launches += 1
+    return dk, dv
+
+
+flash_attention_dkv.launches = 0
+
+
+def flash_attention_bwd(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+    kv_start: torch.Tensor, kv_end: torch.Tensor,
+    out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
+    *, causal: bool, scale: float,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv): the two kernels on CUDA tensors (delta computed here,
+    outside them), the plain version on CPU tensors."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_ref(
+            q, k, v, kv_start, kv_end, out, lse, dout, causal=causal, scale=scale
+        )
+    delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    kw = dict(causal=causal, scale=scale)
+    dq = flash_attention_dq(q, k, v, kv_start, kv_end, out, lse, dout, delta, **kw)
+    dk, dv = flash_attention_dkv(q, k, v, kv_start, kv_end, out, lse, dout, delta, **kw)
+    return dq, dk, dv
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """out = flash attention through :func:`flash_attention_fwd`, with
+    :func:`flash_attention_bwd` as its backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_start, kv_end, causal: bool, scale: float):
+        out, lse = flash_attention_fwd(
+            q, k, v, kv_start, kv_end, causal=causal, scale=scale
+        )
+        ctx.save_for_backward(q, k, v, kv_start, kv_end, out, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, kv_start, kv_end, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(
+            q, k, v, kv_start, kv_end, out, lse, dout.contiguous(),
+            causal=ctx.causal, scale=ctx.scale,
+        )
+        return dq, dk, dv, None, None, None, None
+
+
 def flash_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     *, kv_mask: Optional[torch.Tensor] = None, causal: bool = False,
 ) -> torch.Tensor:
-    """Flash attention over the public [B,S,H,D] layout, scale D ** -0.5:
-    turns ``kv_mask`` [B,T] into windows (see :func:`window_from_mask`) and
-    returns ``out``."""
+    """Flash attention over the public [B,S,H,D] layout, scale D ** -0.5,
+    differentiable through :class:`FlashAttentionFn`: turns ``kv_mask``
+    [B,T] into windows (see :func:`window_from_mask`) and returns ``out``."""
     b, _, _, d = q.shape
     start, end = window_from_mask(kv_mask, b, k.shape[1], q.device)
-    out, _ = flash_attention_fwd(
-        q.contiguous(), k.contiguous(), v.contiguous(), start, end,
-        causal=causal, scale=d ** -0.5,
+    return FlashAttentionFn.apply(
+        q.contiguous(), k.contiguous(), v.contiguous(), start, end, causal, d ** -0.5
     )
-    return out

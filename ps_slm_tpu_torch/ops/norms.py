@@ -1,19 +1,23 @@
-"""LayerNorm and RMSNorm forward: CUDA kernels and their plain versions.
+"""LayerNorm and RMSNorm, forward and backward: CUDA kernels, their plain
+versions and the autograd Functions over them.
 
-Counterpart of ``ps_slm_tpu/ops/norms.py`` (forward only; the backward
-kernels come with the training slice).  Statistics are fp32; x, the
-weights and y are bf16 or fp32.
+Counterpart of ``ps_slm_tpu/ops/norms.py``.  Statistics and gradient sums
+are fp32; x, the weights, y and dx are bf16 or fp32.
 
-``layer_norm_fwd`` and ``rms_norm_fwd`` launch the kernels of
-``csrc/norms.cu`` for CUDA tensors and take the plain versions
-``layer_norm_ref`` / ``rms_norm_ref`` only for CPU tensors.  There is no
+``layer_norm_fwd``, ``rms_norm_fwd``, ``layer_norm_bwd`` and
+``rms_norm_bwd`` launch the kernels of ``csrc/norms.cu`` for CUDA tensors
+and take the plain versions (``*_ref``) only for CPU tensors.  There is no
 width gate: every CUDA call goes through the kernel, at any d.
+:class:`LayerNormFn` and :class:`RMSNormFn` put a forward and its backward
+together for autograd, saving what the JAX custom VJPs save: ``x, w, mu,
+rstd`` for LayerNorm; ``x`` in its own dtype, ``w`` and the fp32 ``rstd``
+for RMSNorm (the residual-thin stash of ``rms_norm_ref`` there).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -25,6 +29,11 @@ _SIGNATURES = {
     "ps_layer_norm_fwd": (_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P),
     # device, dtype, x, w, y, rstd, n, d, eps, stream
     "ps_rms_norm_fwd": (_I, _I, _P, _P, _P, _P, _I, _I, _F, _P),
+    # device, dtype, x, w, mu, rstd, g, dx, dw_part, db_part, n, d,
+    # n_blocks, stream
+    "ps_layer_norm_bwd": (_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # device, dtype, x, w, rstd, g, dx, dw_part, n, d, n_blocks, stream
+    "ps_rms_norm_bwd": (_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
 }
 
 
@@ -50,6 +59,39 @@ def rms_norm_ref(
     x32 = x.float()
     rstd = torch.rsqrt((x32 * x32).mean(-1, keepdim=True) + eps)
     return (x32 * rstd * weight.float()).to(x.dtype), rstd
+
+
+def layer_norm_bwd_ref(
+    x: torch.Tensor, weight: torch.Tensor, mu: torch.Tensor, rstd: torch.Tensor,
+    g: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain LayerNorm backward (``_ln_bwd_kernel`` math) from the forward's
+    fp32 ``mu``/``rstd``: ``(dx in x.dtype, dw, db in weight.dtype)``."""
+    d = x.shape[-1]
+    g32 = g.float()
+    xhat = (x.float() - mu) * rstd
+    gw = g32 * weight.float()
+    m1 = gw.mean(-1, keepdim=True)
+    m2 = (gw * xhat).mean(-1, keepdim=True)
+    dx = (gw - m1 - xhat * m2) * rstd
+    dw = (g32 * xhat).reshape(-1, d).sum(0)
+    db = g32.reshape(-1, d).sum(0)
+    return dx.to(x.dtype), dw.to(weight.dtype), db.to(weight.dtype)
+
+
+def rms_norm_bwd_ref(
+    x: torch.Tensor, weight: torch.Tensor, rstd: torch.Tensor, g: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain RMSNorm backward (``_rms_bwd_kernel`` math) from the forward's
+    fp32 ``rstd``: ``(dx in x.dtype, dw in weight.dtype)``."""
+    d = x.shape[-1]
+    g32 = g.float()
+    xhat = x.float() * rstd
+    gw = g32 * weight.float()
+    m = (gw * xhat).mean(-1, keepdim=True)
+    dx = (gw - xhat * m) * rstd
+    dw = (g32 * xhat).reshape(-1, d).sum(0)
+    return dx.to(x.dtype), dw.to(weight.dtype)
 
 
 def _check_cuda(x: torch.Tensor, params, name: str) -> None:
@@ -119,3 +161,134 @@ def rms_norm_fwd(
 
 
 rms_norm_fwd.launches = 0
+
+
+def _check_bwd(x, g, stats, name: str) -> None:
+    if g.shape != x.shape or g.dtype != x.dtype or g.device != x.device:
+        raise TypeError(f"{name}: g must match x in shape, dtype and device")
+    if not g.is_contiguous():
+        raise ValueError(f"{name}: g must be contiguous")
+    for t in stats:
+        if t.device != x.device or t.dtype != torch.float32:
+            raise TypeError(f"{name}: statistics must be fp32 on x's device")
+        if t.shape != x.shape[:-1] + (1,) or not t.is_contiguous():
+            raise ValueError(f"{name}: statistics must be contiguous {tuple(x.shape[:-1]) + (1,)}")
+
+
+def _bwd_blocks(x: torch.Tensor, n: int) -> int:
+    """Blocks of a backward launch, i.e. rows of its partial-sum buffers:
+    two per SM, each taking a run of consecutive rows."""
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    per = -(-n // (2 * sms))
+    return -(-n // per)
+
+
+def layer_norm_bwd(
+    x: torch.Tensor, weight: torch.Tensor, mu: torch.Tensor, rstd: torch.Tensor,
+    g: torch.Tensor, *, weight_grad: bool = True,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """LayerNorm backward: ``(dx, dw, db)`` as :func:`layer_norm_bwd_ref`.
+
+    dx is always computed.  The kernel writes dw/db as per-block partial
+    sums; ``weight_grad=False`` skips summing them and returns None for
+    both (frozen weights)."""
+    if x.device.type == "cpu":
+        dx, dw, db = layer_norm_bwd_ref(x, weight, mu, rstd, g)
+        return (dx, dw, db) if weight_grad else (dx, None, None)
+    _check_cuda(x, (weight,), "layer_norm_bwd")
+    _check_bwd(x, g, (mu, rstd), "layer_norm_bwd")
+    d = x.shape[-1]
+    n = x.numel() // d
+    dx = torch.empty_like(x)
+    if n == 0:
+        zeros = torch.zeros_like(weight)
+        return (dx, zeros, zeros.clone()) if weight_grad else (dx, None, None)
+    nb = _bwd_blocks(x, n)
+    dw_part = torch.empty((nb, d), device=x.device, dtype=torch.float32)
+    db_part = torch.empty_like(dw_part)
+    lib = _build.load("norms", _SIGNATURES)
+    err = lib.ps_layer_norm_bwd(
+        x.device.index, _build.DTYPE_CODES[x.dtype], x.data_ptr(),
+        weight.data_ptr(), mu.data_ptr(), rstd.data_ptr(), g.data_ptr(),
+        dx.data_ptr(), dw_part.data_ptr(), db_part.data_ptr(), n, d, nb,
+        _build.stream_ptr(x),
+    )
+    _build.check(lib, err, "layer_norm_bwd")
+    layer_norm_bwd.launches += 1
+    if not weight_grad:
+        return dx, None, None
+    return dx, dw_part.sum(0).to(weight.dtype), db_part.sum(0).to(weight.dtype)
+
+
+layer_norm_bwd.launches = 0
+
+
+def rms_norm_bwd(
+    x: torch.Tensor, weight: torch.Tensor, rstd: torch.Tensor, g: torch.Tensor,
+    *, weight_grad: bool = True,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """RMSNorm backward: ``(dx, dw)`` as :func:`rms_norm_bwd_ref`; dw is
+    None with ``weight_grad=False`` (see :func:`layer_norm_bwd`)."""
+    if x.device.type == "cpu":
+        dx, dw = rms_norm_bwd_ref(x, weight, rstd, g)
+        return (dx, dw) if weight_grad else (dx, None)
+    _check_cuda(x, (weight,), "rms_norm_bwd")
+    _check_bwd(x, g, (rstd,), "rms_norm_bwd")
+    d = x.shape[-1]
+    n = x.numel() // d
+    dx = torch.empty_like(x)
+    if n == 0:
+        return dx, torch.zeros_like(weight) if weight_grad else None
+    nb = _bwd_blocks(x, n)
+    dw_part = torch.empty((nb, d), device=x.device, dtype=torch.float32)
+    lib = _build.load("norms", _SIGNATURES)
+    err = lib.ps_rms_norm_bwd(
+        x.device.index, _build.DTYPE_CODES[x.dtype], x.data_ptr(),
+        weight.data_ptr(), rstd.data_ptr(), g.data_ptr(), dx.data_ptr(),
+        dw_part.data_ptr(), n, d, nb, _build.stream_ptr(x),
+    )
+    _build.check(lib, err, "rms_norm_bwd")
+    rms_norm_bwd.launches += 1
+    return dx, dw_part.sum(0).to(weight.dtype) if weight_grad else None
+
+
+rms_norm_bwd.launches = 0
+
+
+class LayerNormFn(torch.autograd.Function):
+    """y = LayerNorm(x) * w + b through :func:`layer_norm_fwd`, with
+    :func:`layer_norm_bwd` as its backward."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps: float):
+        y, mu, rstd = layer_norm_fwd(x, weight, bias, eps)
+        ctx.save_for_backward(x, weight, mu, rstd)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, weight, mu, rstd = ctx.saved_tensors
+        dx, dw, db = layer_norm_bwd(
+            x, weight, mu, rstd, g.contiguous(),
+            weight_grad=ctx.needs_input_grad[1] or ctx.needs_input_grad[2],
+        )
+        return dx, dw, db, None
+
+
+class RMSNormFn(torch.autograd.Function):
+    """y = RMSNorm(x) * w through :func:`rms_norm_fwd`, with
+    :func:`rms_norm_bwd` as its backward."""
+
+    @staticmethod
+    def forward(ctx, x, weight, eps: float):
+        y, rstd = rms_norm_fwd(x, weight, eps)
+        ctx.save_for_backward(x, weight, rstd)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, weight, rstd = ctx.saved_tensors
+        dx, dw = rms_norm_bwd(
+            x, weight, rstd, g.contiguous(), weight_grad=ctx.needs_input_grad[1]
+        )
+        return dx, dw, None

@@ -1,0 +1,91 @@
+"""The training and eval steps of the audio-TASU model on one device.
+
+Counterpart of ``ps_slm_tpu/training/step.py``: forward (the model's
+dtype) -> backward into the trainable parameters -> AdamW with the
+warmup-cosine learning rate.  The JAX step is one jitted program with mesh
+shardings; here it runs eagerly on one device, and the mesh shardings wait
+for ROADMAP.md queue 1 ('Parallelism').
+
+On CUDA tensors every norm and attention of the path runs through the
+port's kernels, forward and backward (``ops/norms.py``,
+``ops/flash_attention.py``); the frozen encoder builds no autograd graph,
+so its kernels run forward only.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from ps_slm_tpu_torch._build import resolve_device
+from ps_slm_tpu_torch.models import tasu
+from ps_slm_tpu_torch.training.train_state import build_optimizer, warmup_cosine
+
+Metrics = Dict[str, torch.Tensor]
+
+
+def _on_device(model: tasu.TasuModel, device) -> torch.device:
+    dev = resolve_device(device)
+    model_dev = next(model.parameters()).device
+    if model_dev != dev:
+        raise ValueError(f"the model is on {model_dev}, the step was asked for {dev}")
+    return dev
+
+
+class TrainStep:
+    """``batch -> {"loss", "acc", "ntokens"}``, one AdamW update per call.
+
+    Holds the optimizer (state for the trainable parameters only), the
+    schedule and the step count; the metrics are the forward's, before the
+    update, as device tensors (no host sync).
+    """
+
+    def __init__(self, model: tasu.TasuModel, train_config, device):
+        self.model = model
+        self.device = device
+        self.trainable = tasu.trainable_mask(model, train_config)
+        params = dict(model.named_parameters())
+        self.optimizer = build_optimizer(
+            (params[n] for n in self.trainable), train_config
+        )
+        self.schedule = warmup_cosine(
+            train_config.lr, train_config.warmup_steps, train_config.total_steps
+        )
+        self.step = 0
+
+    def __call__(self, batch: Dict[str, torch.Tensor]) -> Metrics:
+        batch = {k: v.to(self.device) for k, v in batch.items()}
+        for group in self.optimizer.param_groups:
+            group["lr"] = self.schedule(self.step)
+        self.optimizer.zero_grad(set_to_none=True)
+        loss, aux = tasu.forward(self.model, batch, train=True)
+        loss.backward()
+        self.optimizer.step()
+        self.step += 1
+        return {"loss": loss.detach(), "acc": aux["acc"], "ntokens": aux["ntokens"]}
+
+
+def make_train_step(model: tasu.TasuModel, train_config, *, device="cuda") -> TrainStep:
+    """The training step of ``model`` (which must already be on ``device``)
+    under ``train_config``'s freeze flags, optimizer and schedule."""
+    if train_config.remat:
+        raise NotImplementedError(
+            "remat (activation checkpointing of the transformer blocks) is not "
+            "ported yet (ROADMAP.md queue 1, 'Training options')"
+        )
+    return TrainStep(model, train_config, _on_device(model, device))
+
+
+def make_eval_step(model: tasu.TasuModel, *, device="cuda"):
+    """``batch -> {"loss", "acc", "ntokens"}`` with no gradient
+    (``train=False``)."""
+    dev = _on_device(model, device)
+
+    @torch.no_grad()
+    def eval_step(batch: Dict[str, torch.Tensor]) -> Metrics:
+        batch = {k: v.to(dev) for k, v in batch.items()}
+        loss, aux = tasu.forward(model, batch, train=False)
+        return {"loss": loss, "acc": aux["acc"], "ntokens": aux["ntokens"]}
+
+    return eval_step

@@ -7,14 +7,20 @@ a machine with an NVIDIA H100:
     python -m pytest tests/test_torch_cuda.py -q
 
 Tolerances: fp32 2e-5 (sums in another order); bf16 1e-2 relative and
-absolute, one bf16 rounding step of the same fp32 value.
+absolute, one bf16 rounding step of the same fp32 value.  Weight gradients
+sum over every row, so their absolute tolerance is scaled by the row
+count's square root.  The repair test (gradients through the CUDA wrappers
+equal the CPU's) holds fp32 at 1e-4: a whole attention and two norms.
 """
 
 import pytest
 import torch
 
+from ps_slm_tpu_torch.models.layers import layer_norm
+from ps_slm_tpu_torch.models.qwen2 import rms_norm
 from ps_slm_tpu_torch.ops import flash_attention as fa
 from ps_slm_tpu_torch.ops import norms
+from ps_slm_tpu_torch.ops.attention import attention
 
 pytestmark = pytest.mark.cuda
 
@@ -87,3 +93,104 @@ def test_flash_kernel_rejects_other_head_dims(dev):
     win = torch.zeros(1, dtype=torch.int32, device=dev)
     with pytest.raises(ValueError, match="head dim"):
         fa.flash_attention_fwd(q, q, q, win, win + 4, causal=False, scale=1.0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,d", [(37, 24), (700, 560), (2715, 1536), (300, 25055)])
+def test_norm_backward_kernels_match_plain(dev, dtype, n, d):
+    g_ = torch.Generator(device=dev).manual_seed(n + d)
+    x = (torch.randn(n, d, device=dev, generator=g_) * 3 + 1).to(dtype)
+    w = (1 + 0.1 * torch.randn(d, device=dev, generator=g_)).to(dtype)
+    b = (0.1 * torch.randn(d, device=dev, generator=g_)).to(dtype)
+    g = torch.randn(n, d, device=dev, generator=g_).to(dtype)
+    tol = TOL[dtype]
+    wtol = dict(tol, atol=tol["atol"] * n ** 0.5)
+    _, mu, rstd = norms.layer_norm_ref(x, w, b)
+    n0 = norms.layer_norm_bwd.launches
+    got = norms.layer_norm_bwd(x, w, mu, rstd, g)
+    torch.cuda.synchronize()
+    assert norms.layer_norm_bwd.launches == n0 + 1
+    for i, (a, e) in enumerate(zip(got, norms.layer_norm_bwd_ref(x, w, mu, rstd, g))):
+        assert not torch.isnan(a).any()
+        torch.testing.assert_close(a.float(), e.float(), **(tol if i == 0 else wtol))
+    _, rstd = norms.rms_norm_ref(x, w)
+    n0 = norms.rms_norm_bwd.launches
+    got = norms.rms_norm_bwd(x, w, rstd, g)
+    torch.cuda.synchronize()
+    assert norms.rms_norm_bwd.launches == n0 + 1
+    for i, (a, e) in enumerate(zip(got, norms.rms_norm_bwd_ref(x, w, rstd, g))):
+        torch.testing.assert_close(a.float(), e.float(), **(tol if i == 0 else wtol))
+
+
+BWD_CASES = {
+    "training": (5, 543, 12, 2, True, [0] * 5, [543] * 5),
+    # a left-padded row, a right-padded row and a row with no valid key
+    "ragged": (3, 70, 4, 2, True, [13, 0, 0], [70, 33, 0]),
+    "encoder": (2, 130, 4, 4, False, [0, 0], [130, 77]),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(BWD_CASES))
+def test_flash_backward_kernels_match_plain(dev, dtype, case):
+    b, s, hq, hkv, causal, starts, ends = BWD_CASES[case]
+    g_ = torch.Generator(device=dev).manual_seed(s + hq)
+    q, do = (torch.randn(b, s, hq, fa.HEAD_DIM, device=dev, generator=g_).to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn(b, s, hkv, fa.HEAD_DIM, device=dev, generator=g_).to(dtype)
+            for _ in range(2))
+    start = torch.tensor(starts, dtype=torch.int32, device=dev)
+    end = torch.tensor(ends, dtype=torch.int32, device=dev)
+    kw = dict(causal=causal, scale=fa.HEAD_DIM ** -0.5)
+    out, lse = fa.flash_attention_ref(q, k, v, start, end, **kw)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    n0 = (fa.flash_attention_dq.launches, fa.flash_attention_dkv.launches)
+    dq = fa.flash_attention_dq(q, k, v, start, end, out, lse, do, delta, **kw)
+    dk, dv = fa.flash_attention_dkv(q, k, v, start, end, out, lse, do, delta, **kw)
+    torch.cuda.synchronize()
+    assert (fa.flash_attention_dq.launches, fa.flash_attention_dkv.launches) == (n0[0] + 1, n0[1] + 1)
+    want = fa.flash_attention_bwd_ref(q, k, v, start, end, out, lse, do, **kw)
+    for a, e in zip((dq, dk, dv), want):
+        assert not torch.isnan(a).any()
+        torch.testing.assert_close(a.float(), e.float(), **TOL[dtype])
+    empty = (lse == fa.NEG_INF).transpose(1, 2)
+    if case == "ragged":
+        assert empty.any()
+        assert not dq[empty].any()
+
+
+def test_cuda_wrappers_give_gradients_equal_to_cpu(dev):
+    """The repair: a loss through rms_norm, layer_norm and attention on CUDA
+    tensors reaches every input, as on the CPU."""
+    g_ = torch.Generator().manual_seed(0)
+    b, s, hq, hkv, d = 2, 40, 4, 2, fa.HEAD_DIM
+    leaves = {
+        "x": torch.randn(b, s, hq * d, generator=g_),
+        "w_rms": 1 + 0.1 * torch.randn(hq * d, generator=g_),
+        "w_ln": 1 + 0.1 * torch.randn(hq * d, generator=g_),
+        "b_ln": 0.1 * torch.randn(hq * d, generator=g_),
+        "k": torch.randn(b, s, hkv, d, generator=g_),
+        "v": torch.randn(b, s, hkv, d, generator=g_),
+    }
+    mask = torch.arange(s)[None] < torch.tensor([s, 29])[:, None]
+
+    def grads(device):
+        t = {n: x.to(device).requires_grad_(True) for n, x in leaves.items()}
+        h = rms_norm(t["x"], t["w_rms"], 1e-6)
+        h = layer_norm(h, t["w_ln"], t["b_ln"])
+        out = attention(h.view(b, s, hq, d), t["k"], t["v"], mask.to(device), causal=True)
+        loss = (out.float() ** 2).sum()
+        loss.backward()
+        return {n: x.grad for n, x in t.items()}
+
+    n0 = (norms.rms_norm_bwd.launches, norms.layer_norm_bwd.launches,
+          fa.flash_attention_dq.launches, fa.flash_attention_dkv.launches)
+    got = grads(dev)
+    torch.cuda.synchronize()
+    assert (norms.rms_norm_bwd.launches, norms.layer_norm_bwd.launches,
+            fa.flash_attention_dq.launches, fa.flash_attention_dkv.launches) == tuple(
+                n + 1 for n in n0)
+    want = grads("cpu")
+    for name, w in want.items():
+        assert got[name] is not None, name
+        torch.testing.assert_close(got[name].cpu(), w, atol=1e-4, rtol=1e-4)

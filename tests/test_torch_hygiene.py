@@ -22,6 +22,8 @@ from ps_slm_tpu_torch.config import ModelConfig, TrainConfig
 from ps_slm_tpu_torch.inference.generate import generate
 from ps_slm_tpu_torch.models import qwen2, tasu
 from ps_slm_tpu_torch.ops import flash_attention, norms
+from ps_slm_tpu_torch.training import step as train_step
+from ps_slm_tpu_torch.training import train_state
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PACKAGE = os.path.join(ROOT, "ps_slm_tpu_torch")
@@ -90,6 +92,41 @@ def test_default_device_raises_without_cuda():
         generate(model, batch, eos_token_id=0, num_beams=1)
 
 
+def test_train_entry_points_default_to_cuda_and_raise_without_it():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the default device is valid")
+    tc = TrainConfig(ctc_posterior=True, do_psd=True, freeze_llm=True, freeze_encoder=True)
+    mc = ModelConfig(encoder_dim=11, llm_dim=64)
+    with pytest.raises(RuntimeError, match="cuda"):
+        tasu.model_factory(tc, mc)
+    model = tasu.model_factory(tc, mc, device="cpu")
+    with pytest.raises(RuntimeError, match="cuda"):
+        train_step.make_train_step(model, tc)
+    with pytest.raises(RuntimeError, match="cuda"):
+        train_step.make_eval_step(model)
+    assert callable(train_step.make_train_step(model, tc, device="cpu"))
+
+
+def test_training_options_not_ported_name_their_roadmap_item():
+    mc = ModelConfig(encoder_dim=11, llm_dim=64)
+    tc = TrainConfig(ctc_posterior=True, do_psd=True, freeze_llm=True, freeze_encoder=True)
+    model = tasu.model_factory(tc, mc, device="cpu")
+    for field, value, item in (
+        ("remat", True, "Training options"),
+        ("gradient_accumulation_steps", 2, "Training options"),
+    ):
+        bad = TrainConfig(**{**tc.__dict__, field: value})
+        with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1, '{item}'"):
+            train_step.make_train_step(model, bad, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, 'PEFT and quantization'"):
+        tasu.trainable_mask(model, TrainConfig(**{**tc.__dict__, "use_peft": True}))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, 'PEFT and quantization'"):
+        tasu.model_factory(TrainConfig(ctc_posterior=True, use_peft=True), mc, device="cpu")
+    all_frozen = TrainConfig(**{**tc.__dict__, "freeze_projector": True})
+    with pytest.raises(ValueError, match="no trainable"):
+        train_state.build_optimizer([], all_frozen)
+
+
 def test_generate_rejects_what_is_not_ported():
     model = tasu.model_factory(
         TrainConfig(ctc_posterior=True, do_psd=True),
@@ -117,6 +154,24 @@ def test_wrappers_raise_off_cpu_and_cuda():
         flash_attention.flash_attention_fwd(q, q, q, win, win, causal=True, scale=1.0)
 
 
+def test_backward_wrappers_raise_off_cpu_and_cuda():
+    x = torch.zeros(2, 128, device="meta")
+    w = torch.ones(128, device="meta")
+    stat = torch.zeros(2, 1, device="meta")
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        norms.layer_norm_bwd(x, w, stat, stat, x)
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        norms.rms_norm_bwd(x, w, stat, x)
+    q = torch.zeros(1, 2, 1, 128, device="meta")
+    lse = torch.zeros(1, 1, 2, device="meta")
+    win = torch.zeros(1, dtype=torch.int32, device="meta")
+    args = (q, q, q, win, win, q, lse, q, lse)
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        flash_attention.flash_attention_dq(*args, causal=True, scale=1.0)
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        flash_attention.flash_attention_dkv(*args, causal=True, scale=1.0)
+
+
 def test_ctypes_signatures_match_c_entry_points():
     c_entries = {}
     for fname in os.listdir(_build.CSRC):
@@ -124,8 +179,13 @@ def test_ctypes_signatures_match_c_entry_points():
             src = f.read()
         for name, args in re.findall(r'extern "C" int (\w+)\(([^)]*)\)', src):
             c_entries[name] = len(args.split(","))
-    declared = {**norms._SIGNATURES, **flash_attention._SIGNATURES}
+    declared = {
+        **norms._SIGNATURES, **flash_attention._SIGNATURES,
+        **flash_attention._BWD_SIGNATURES,
+    }
     assert {k: len(v) for k, v in declared.items()} == c_entries
+    assert {"ps_flash_bwd_dq", "ps_flash_bwd_dkv", "ps_layer_norm_bwd",
+            "ps_rms_norm_bwd"} <= set(c_entries)
     assert set(_build.SOURCES) == {
         f[:-3] for f in os.listdir(_build.CSRC) if f.endswith(".cu")
     }
