@@ -7,13 +7,18 @@ Phases, each of which fails the run:
 
 1. card: name and power limit from nvidia-smi; TF32 off for comparisons;
 2. build: nvcc builds every kernel from ``ps_slm_tpu_torch/csrc`` into
-   ``build/ps_slm_tpu_torch/`` (one nvcc per source, in parallel);
+   ``build/ps_slm_tpu_torch/`` (one nvcc per source, in parallel); then,
+   for each flash wrapper and dtype, the kernel it launches, its route
+   (tensor cores or fp32 FMA), ptxas's registers and spills and the
+   tensor-core instructions (HMMA) in its SASS (``cuobjdump``); a
+   tensor-core kernel that spills or has no HMMA fails the run;
 3. kernels: each kernel against its plain PyTorch version at the main
    paths' shapes, in fp32 and bf16, with its time, the plain version's,
    one PyTorch library call's, and the least time the card could take:
    the forward kernels at the serving shapes, the backward kernels (flash
    dq/dkv, LayerNorm and RMSNorm backward) at the training shapes, plus
-   a ragged flash case with a left-padded row and a row with no valid key;
+   a ragged flash case with a left-padded row and a row with no valid key
+   (its library time from SDPA with a boolean mask of the same windows);
 4. serving path, fp32, full width at reduced depth: merged embeddings,
    prefill logits and 8 greedy tokens for the serving batch on the card
    against the same model on the CPU (plain versions);
@@ -83,6 +88,20 @@ LAUNCHES_PER_TRAIN_STEP = {
 # rate for the inputs' type (bf16 tensor cores; fp32 outside them)
 MEM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
+
+# the kernel each flash wrapper launches for each dtype (the dtype alone
+# decides), by the part of its mangled name that tells it apart, and its
+# route; the dk/dv tensor-core kernel's partial sums are added by
+# dkv_reduce_kernel
+FLASH_PATHS = {
+    "flash_attention_fwd": (("bf16", "flash_fwd_bf16_kernel", "tensor cores"),
+                            ("f32", "flash_fwd_f32_kernel", "fp32 FMA")),
+    "flash_attention_dq": (("bf16", "flash_dq_kernelI13__nv_bfloat16", "fp32 FMA"),
+                           ("f32", "flash_dq_kernelIf", "fp32 FMA")),
+    "flash_attention_dkv": (("bf16", "flash_dkv_bf16_kernel", "tensor cores"),
+                            ("bf16", "dkv_reduce_kernel", "sum of the partials"),
+                            ("f32", "flash_dkv_f32_kernel", "fp32 FMA")),
+}
 
 # kernel vs plain version on the card: |a - b| <= atol + rtol * |b|
 KERNEL_TOL = {"f32": (2e-5, 2e-5), "bf16": (1e-2, 1e-2)}
@@ -193,7 +212,7 @@ def profiled(torch, fn):
             agg[0] += e.time_range.elapsed_us() / 1e3
             agg[1] += 1
     busy_ms = sum(v[0] for v in by_name.values()) if by_name else None
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
     return wall_ms, busy_ms, sum(v[1] for v in by_name.values()), \
         [[name[:60], ms, n] for name, (ms, n) in top]
 
@@ -276,6 +295,70 @@ def compare(torch, got, want, dt: str, what: str, scale: float = 1.0) -> float:
     if torch.isnan(got).any() or not bool(((got - want).abs() <= atol + rtol * want.abs()).all()):
         fail(f"{what}: kernel disagrees with its plain version (max abs err {err})")
     return err
+
+
+def ptxas_report(logs: dict) -> dict:
+    """{mangled kernel name: [registers, spill bytes stored + loaded]} from
+    the nvcc logs of ``_build.build_all`` (``-Xptxas -v``)."""
+    report, fn = {}, None
+    for line in "\n".join(logs.values()).splitlines():
+        words = line.split()
+        if "Compiling entry function" in line:
+            fn = line.split("'")[1]
+            report[fn] = [None, None]
+        elif fn and "spill stores" in line:       # stack, stores, loads
+            nums = [int(w) for w in words if w.isdigit()]
+            report[fn][1] = nums[1] + nums[2]
+        elif fn and "Used" in words and "registers," in words:
+            report[fn][0] = int(words[words.index("Used") + 1])
+    return report
+
+
+def sass_hmma(lib_paths) -> dict:
+    """{mangled kernel name: tensor-core (HMMA) instructions in its SASS}
+    over the libraries, from ``cuobjdump -sass``; None without cuobjdump."""
+    import shutil
+
+    exe = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(exe):
+        return None
+    counts, fn = {}, None
+    for path in lib_paths:
+        out = subprocess.run([exe, "-sass", path], capture_output=True, text=True,
+                             timeout=120, check=True).stdout
+        for line in out.splitlines():
+            if "Function :" in line:
+                fn = line.split("Function :")[1].strip()
+                counts[fn] = 0
+            elif fn and "HMMA" in line:
+                counts[fn] += 1
+    return counts
+
+
+def phase_paths(logs: dict) -> None:
+    """For each flash wrapper and dtype: the kernel, its route, ptxas's
+    registers and spills (when this run built it) and its HMMA count.
+    Fails if a tensor-core kernel spills or has no HMMA, or an FMA
+    kernel has any."""
+    from ps_slm_tpu_torch import _build
+
+    report = ptxas_report(logs)
+    hmma = sass_hmma([_build._lib_path(src) for src in ("flash_fwd", "flash_bwd")])
+    for wrapper, paths in FLASH_PATHS.items():
+        for dt, key, route in paths:
+            regs, spill = next((v for n, v in report.items() if key in n), (None, None))
+            n_hmma = None if hmma is None else next(
+                (c for n, c in hmma.items() if key in n), None)
+            ptxas = ("ptxas: not measured (library built before this run)" if regs is None
+                     else f"ptxas: {regs} registers, {spill} bytes spilled")
+            sass = "not measured" if n_hmma is None else str(n_hmma)
+            print(f"path {wrapper} {dt}: {key} ({route}); {ptxas}; HMMA in SASS {sass}",
+                  flush=True)
+            if route == "tensor cores" and (spill or n_hmma == 0):
+                fail(f"{wrapper} {dt}: the tensor-core kernel spills or has no HMMA")
+            if route == "fp32 FMA" and n_hmma:
+                fail(f"{wrapper} {dt}: the FMA kernel has HMMA")
 
 
 def phase_kernels(torch, dev, results):
@@ -393,9 +476,8 @@ def phase_kernels_bwd(torch, dev, results):
         e["max_abs_err"] = max(e["max_abs_err"], err)
         e["shapes"].append(dict(shape=label, dtype=dt, ms=ms, plain_ms=plain, library_ms=lib,
                                 bound_ms=bms, bound_by=by, err=err))
-        lib_s = "not measured" if lib is None else f"{lib:.4f} ({method})"
         print(f"kernel {name} {label} {dt}: err {err:.3e} ms {ms:.4f} plain {plain:.4f} "
-              f"library {lib_s} bound {bms:.4f} ({by})", flush=True)
+              f"library {lib:.4f} ({method}) bound {bms:.4f} ({by})", flush=True)
 
     # flash dq/dkv: the LLM's causal GQA attention at the training shape
     # (every row full, as SDPA's is_causal takes it), and a ragged case
@@ -430,12 +512,13 @@ def phase_kernels_bwd(torch, dev, results):
             ms_dkv = time_ms(torch, lambda: fa.flash_attention_dkv(*args, **kw))
             plain = time_ms(torch, lambda: fa.flash_attention_bwd_ref(
                 q, k, v, start, end, out, lse, do, **kw), iters=4)
-            lib, method = None, None
-            if label == "training":
-                qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
-                lib, method = backward_ms(torch, lambda: F.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=True, scale=scale, enable_gqa=True),
-                    (qt, kt, vt), do.transpose(1, 2))
+            # SDPA takes the ragged windows as a boolean mask (its values on
+            # the empty row are NaN: only its time is used)
+            mask = None if label == "training" else fa._pair_mask(start, end, s, s, causal)
+            qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
+            lib, method = backward_ms(torch, lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, is_causal=mask is None, scale=scale,
+                enable_gqa=True), (qt, kt, vt), do.transpose(1, 2))
             esize = q.element_size()
             stats = 2 * lse.numel() * 4
             record("flash_attention_dq", label, dt, ms_dq, plain, lib, method,
@@ -782,10 +865,11 @@ def main() -> None:
 
     t0 = time.time()
     try:
-        _build.build_all()
+        logs = _build.build_all()
     except RuntimeError as e:
         fail(f"build: {e}")
     print(f"build: {time.time() - t0:.1f} s ({', '.join(_build.SOURCES)})", flush=True)
+    phase_paths(logs)
 
     print("kernel vs plain tolerance, |a - b| <= atol + rtol * |b|: "
           + ", ".join(f"{dt} atol {a} rtol {r}" for dt, (a, r) in KERNEL_TOL.items()),

@@ -7,7 +7,9 @@ returns ``cudaGetLastError()``.  Libraries are built at first use into
 ``build/ps_slm_tpu_torch/`` beside the package (``.gitignore`` lists
 ``build/``), named by a hash of their sources and flags, so a changed source
 is rebuilt and an unchanged one is loaded as it is.  :func:`build_all` starts
-one nvcc per source, all at once, and waits for them together.
+one nvcc per source, all at once, waits for them together, and returns each
+build's log, which holds ptxas's report (``-Xptxas -v``: registers, spills
+and shared memory of every kernel).
 
 Nothing here is imported by a kernel wrapper until it launches on a CUDA
 tensor, so the CPU tests never look for nvcc.
@@ -30,7 +32,7 @@ CSRC = os.path.join(PACKAGE_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(PACKAGE_DIR), "build", "ps_slm_tpu_torch")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 SOURCES = ("flash_fwd", "flash_bwd", "norms")
 # dtype codes understood by every C entry point (csrc/common.cuh)
@@ -91,26 +93,29 @@ def _start(name: str):
     return proc, tmp, out
 
 
-def _finish(name: str, job) -> None:
+def _finish(name: str, job) -> str:
     proc, tmp, out = job
     log, _ = proc.communicate()
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on csrc/{name}.cu:\n{log}")
     os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+    return log
 
 
-def build_all() -> None:
-    """Build every library that is missing, one nvcc per source in parallel."""
+def build_all() -> Dict[str, str]:
+    """Build every library that is missing, one nvcc per source in parallel;
+    returns the nvcc log of each source built (none for one already built)."""
     jobs = {n: _start(n) for n in SOURCES}
-    errors = []
+    errors, logs = [], {}
     for n, job in jobs.items():
         if job is not None:
             try:
-                _finish(n, job)
+                logs[n] = _finish(n, job)
             except RuntimeError as e:
                 errors.append(str(e))
     if errors:
         raise RuntimeError("\n".join(errors))
+    return logs
 
 
 def load(name: str, signatures: Dict[str, Sequence]) -> ctypes.CDLL:

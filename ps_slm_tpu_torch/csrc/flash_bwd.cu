@@ -18,34 +18,65 @@
 // lse and delta [B, Hq, S] fp32.  Query head h belongs to key/value head
 // h / (Hq / Hkv).
 //
-// Bound: at the training shapes (S = T = 543, D = 128, bf16) each kernel
-// does ~6-8 flops x 128 per valid pair against a few MB of traffic, so its
-// least time is set by operations on the bf16 tensor cores.  This first
-// version computes every product with fp32 FMAs from shared memory (no
-// tensor cores), as flash_fwd.cu does, so the fp32 FMA rate limits it;
-// mma.sync/wgmma tiles are a later tuning step.
+// Bound: at the training shape (5 x 543, 12/2 heads, causal, D = 128, bf16)
+// dq must move 22.5 MB and dk/dv 22.5 MB (6.7 us at 3.35 TB/s) and do 6 and
+// 8 x 128 flops per valid pair, 6.8 and 9.1 GFLOP (6.9 and 9.2 us on the
+// bf16 tensor cores): both sit near the ridge, dk/dv set by operations.
 //
-// Design.  The TPU grids walk the reduced dimension sequentially and carry
-// the sum in scratch; here a block loops over it and keeps the sum in
-// registers until a single store, so no atomics and no second pass are
-// needed.
+// dq (both dtypes) and fp32 dk/dv compute every product with fp32 FMAs from
+// shared memory.  The bf16 dk/dv is on the tensor cores; fp32 keeps the FMA
+// kernel because the bf16 tensor cores cannot take fp32 operands and TF32
+// (10-bit mantissa) would break the fp32 tolerances (2e-5 against the plain
+// version, 1e-3 for the fp32 training path against the CPU).  The dtype
+// alone picks the kernel.
 //  * dq: one block of 256 threads per (64-row query tile, query head, batch
 //    row).  It stages its q and dout tiles once, then walks 64-row key/value
-//    tiles inside [kv_start, kv_end) and at or below the diagonal.  Thread
-//    (tr, tc) = (tid / 16, tid % 16) owns score rows tr + 16 i and columns
-//    tc + 16 j (i, j < 4), then dq rows tr + 16 i by head-dim columns
-//    tc + 16 j (j < 8).
-//  * dkv: one block per (64-row key tile, key/value head, batch row).  It
-//    stages its k and v tiles once, then loops over the Hq / Hkv query heads
-//    of its group and over the query tiles from the diagonal on, computing
-//    the transposed scores (key rows x query columns) so that dk and dv
-//    accumulate in registers: thread (tr, tc) owns key rows tr + 16 i and
-//    head-dim columns tc + 16 j.  A key tile wholly outside the window
-//    writes zeros.
-// Shared rows of 128 are padded to 129 floats and rows of 64 to 65, so the
-// column reads are free of bank conflicts.  Ragged S and T are handled by
-// guards and masks, with no padding of the inputs.
+//    tiles inside [kv_start, kv_end) and at or below the diagonal, keeping
+//    dq in registers until one store.  Thread (tr, tc) = (tid / 16,
+//    tid % 16) owns score rows tr + 16 i and columns tc + 16 j (i, j < 4),
+//    then dq rows tr + 16 i by head-dim columns tc + 16 j (j < 8).
+//  * dk/dv, fp32: one block per (64-row key tile, key/value head, batch
+//    row).  It stages its k and v tiles once, then loops over the Hq / Hkv
+//    query heads of its group and the query tiles from the diagonal on,
+//    computing the transposed scores (key rows x query columns) so that dk
+//    and dv accumulate in registers, with no atomics and no second pass.
+//    Shared rows are padded to 129 (65) floats against bank conflicts.
+//  * dk/dv, bf16 (flash_dkv_bf16_kernel): that grid has 90 blocks at the
+//    training shape for 132 SMs, and the first key tile's block walks 6
+//    heads x 9 query tiles, 54 steps, so the longest block set the time.
+//    Here the query-head loop is split over the grid: one block of two
+//    warpgroups (8 warps, 256 threads) per (64-row key tile, QUERY head,
+//    batch row), 540 blocks, the longest walking 9 query tiles, launched
+//    in key-tile order so that under a causal mask the longest start
+//    first.  Each block writes its head's fp32 partial dk and dv to a
+//    [2, B, T, Hq, 128] scratch (the wrapper allocates it), and
+//    dkv_reduce_kernel sums the Hq / Hkv partials of each key/value head
+//    in a fixed order and rounds to bf16: no atomics, the same bits on
+//    every call, at the cost of 33 MB written and read at the training
+//    shape (~20 us at the memory rate, less from L2).
+//    Warps w and w + 4 share key rows 16 (w % 4) .. + 15.  Each computes
+//    S^T = K Q^T and dP^T = V dO^T for 32 of the 64 query columns with
+//    mma.sync.m16n8k16 (bf16 operands, fp32 accumulation; mma.cuh), takes
+//    p and ds as selects on the valid pairs in registers, and writes them
+//    to shared memory split into bf16 hi + lo (lo = bf16(x - hi), ~16
+//    significant bits).  After a barrier of the two warps, each takes one
+//    head-dim half: dV += P^T dO and dK += dS^T Q over all 64 queries,
+//    each product twice (hi and lo), with dO and Q through
+//    ldmatrix.trans.  So dk and dv are 64 fp32 registers a thread (the
+//    whole head dim in one warp, 128, spilled at 255), and no score is
+//    computed twice.  One rounding of P and dS to bf16 (the forward's
+//    choice, and FlashAttention-2/3's) breaks the bf16 tolerance of dv at
+//    the training shape; tests/test_torch_flash_numerics.py emulates both.
+//    K and V are staged once; q, dout, lse and delta are double-buffered
+//    with cp.async, the next query tile copied while this one is
+//    computed; tiles are swizzled as in flash_fwd.cu, and P^T / dS^T the
+//    same way in 64-wide rows.  129 KB of shared memory: one block, 8
+//    warps, an SM.
+// Ragged S and T are handled by guards and zero-filled copies, with no
+// padding of the inputs.  A key tile wholly outside the window writes
+// zeros.
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
@@ -60,6 +91,14 @@ constexpr int DQ_SMEM_BYTES =
 constexpr int DKV_SMEM_BYTES =
     (2 * BK * ROW + 2 * BQ * ROW + 2 * BK * P_ROW + 2 * BQ) *
     static_cast<int>(sizeof(float));
+
+using bf16 = __nv_bfloat16;
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr int DKV_TC_THREADS = 256;  // two warpgroups
+// k, v, 2 x q, 2 x dout (bf16 tiles), P^T and dS^T hi and lo (bf16, 64 x
+// 64), 2 x lse, 2 x delta (fp32 rows)
+constexpr int TC_DKV_SMEM_BYTES = (6 * ps::kTile + 4 * BK * BQ) * static_cast<int>(sizeof(bf16)) +
+                                  4 * BQ * static_cast<int>(sizeof(float));
 
 // rows [row0, row0 + 64) of a [rows, heads, 128] tensor's head into a
 // padded shared tile; rows past `rows` read as 0
@@ -193,13 +232,12 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-template <typename T>
 __global__ void __launch_bounds__(THREADS)
-    flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ delta, T* __restrict__ dk,
-                     T* __restrict__ dv, const int* __restrict__ kv_start,
+    flash_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                         const float* __restrict__ v, const float* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta, float* __restrict__ dk,
+                         float* __restrict__ dv, const int* __restrict__ kv_start,
                      const int* __restrict__ kv_end, int S, int Tk, int Hq,
                      int Hkv, float scale, int causal) {
   extern __shared__ float smem[];
@@ -322,18 +360,227 @@ __global__ void __launch_bounds__(THREADS)
     }
   }
 
-  T* dk_b = dk + kv_off;
-  T* dv_b = dv + kv_off;
+  float* dk_b = dk + kv_off;
+  float* dv_b = dv + kv_off;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int t = k0 + tr + 16 * i;
     if (t >= Tk) continue;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      dk_b[t * kv_row + tc + 16 * j] = ps::from_f32<T>(dk_acc[i][j] * scale);
-      dv_b[t * kv_row + tc + 16 * j] = ps::from_f32<T>(dv_acc[i][j]);
+      dk_b[t * kv_row + tc + 16 * j] = dk_acc[i][j] * scale;
+      dv_b[t * kv_row + tc + 16 * j] = dv_acc[i][j];
     }
   }
+}
+
+__global__ void __launch_bounds__(DKV_TC_THREADS, 1)
+    flash_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                          const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta, float* __restrict__ part,
+                          const int* __restrict__ kv_start,
+                          const int* __restrict__ kv_end, int B, int S, int Tk,
+                          int Hq, int Hkv, float scale, int causal) {
+  extern __shared__ __align__(128) unsigned char tc_smem[];
+  bf16* k_s = reinterpret_cast<bf16*>(tc_smem);   // [kTile], swizzled
+  bf16* v_s = k_s + ps::kTile;                     // [kTile]
+  bf16* q_s = v_s + ps::kTile;                     // [2][kTile]
+  bf16* do_s = q_s + 2 * ps::kTile;                // [2][kTile]
+  // P^T and dS^T of one query tile, bf16 hi and lo: [4][BK][BQ], swizzled
+  bf16* pt_s = do_s + 2 * ps::kTile;
+  float* lse_s = reinterpret_cast<float*>(pt_s + 4 * BK * BQ);  // [2][BQ]
+  float* delta_s = lse_s + 2 * BQ;                               // [2][BQ]
+  bf16* p_hi = pt_s;
+  bf16* p_lo = pt_s + BK * BQ;
+  bf16* ds_hi = pt_s + 2 * BK * BQ;
+  bf16* ds_lo = pt_s + 3 * BK * BQ;
+
+  // blocks in order of key tile, then query head and batch row: with
+  // causal masks the first key tiles walk the most query tiles, so the
+  // longest blocks start first and the short ones fill the tail
+  const int k0 = (blockIdx.x / (Hq * B)) * BK;
+  const int h = (blockIdx.x % (Hq * B)) % Hq;
+  const int b = (blockIdx.x % (Hq * B)) / Hq;
+  const int hk = h / (Hq / Hkv);
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int r_w = (warp & 3) * 16;   // this warp's first key row of the tile
+  const int c0 = (warp >> 2) * 32;   // its query columns for the scores ...
+  const int d0 = (warp >> 2) * 64;   // ... and its head-dim columns of dk, dv
+  const int g = lane >> 2, t4 = lane & 3;
+  const int start = kv_start[b];
+  const int end = kv_end[b];
+
+  const long long q_row = static_cast<long long>(Hq) * D;
+  const long long kv_row = static_cast<long long>(Hkv) * D;
+  const long long q_off = (static_cast<long long>(b) * S * Hq + h) * D;
+  const long long kv_off = (static_cast<long long>(b) * Tk * Hkv + hk) * D;
+  const float* lse_b = lse + (static_cast<long long>(b) * Hq + h) * S;
+  const float* delta_b = delta + (static_cast<long long>(b) * Hq + h) * S;
+
+  // query rows [q0, q0 + 64) of this head into buffer `buf`
+  auto stage_q = [&](int q0, int buf) {
+    ps::stage_tile<DKV_TC_THREADS>(q_s + buf * ps::kTile, q + q_off, q0, S, q_row);
+    ps::stage_tile<DKV_TC_THREADS>(do_s + buf * ps::kTile, dout + q_off, q0, S, q_row);
+    const int r = tid & (BQ - 1);
+    const bool ok = q0 + r < S;
+    if (tid < BQ)
+      ps::cp_async4(lse_s + buf * BQ + r, lse_b + (ok ? q0 + r : 0), ok);
+    else if (tid < 2 * BQ)
+      ps::cp_async4(delta_s + buf * BQ + r, delta_b + (ok ? q0 + r : 0), ok);
+    ps::cp_async_commit();
+  };
+
+  // key rows r_w + g (i = 0) and r_w + g + 8 (i = 1) by the 8 8-wide
+  // head-dim tiles from d0: this head's share of dk (unscaled) and dv
+  float dk[8][4], dv[8][4];
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
+
+  // causal: query rows before the tile's first key see none of its keys
+  const int q_begin = causal ? (k0 / BQ) * BQ : 0;
+  const bool in_window = k0 < end && k0 + BK > start;
+  const int n_q = in_window && q_begin < S ? (S - q_begin + BQ - 1) / BQ : 0;
+  if (n_q > 0) {
+    ps::stage_tile<DKV_TC_THREADS>(k_s, k + kv_off, k0, Tk, kv_row);
+    ps::stage_tile<DKV_TC_THREADS>(v_s, v + kv_off, k0, Tk, kv_row);
+    stage_q(q_begin, 0);
+  }
+  const float scale2 = scale * LOG2E;
+
+  for (int j = 0; j < n_q; ++j) {
+    ps::cp_async_wait_all();
+    __syncthreads();  // tile j has landed; every reader of tile j - 1 is done
+    const int q0 = q_begin + j * BQ;
+    const int buf = j & 1;
+    if (j + 1 < n_q) stage_q(q0 + BQ, buf ^ 1);
+    const bf16* qs = q_s + buf * ps::kTile;
+    const bf16* dos = do_s + buf * ps::kTile;
+    const float* ls = lse_s + buf * BQ;
+    const float* ds_ = delta_s + buf * BQ;
+
+    // S^T = K Q^T and dP^T = V dO^T: 16 key rows x 32 queries a warp
+    float st[4][4], dpt[4][4];
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) st[n][e] = dpt[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      uint32_t ka[4], va[4];
+      ps::ldsm_x4(ka, ps::a_frag_addr(k_s, r_w, kk * 16, lane));
+      ps::ldsm_x4(va, ps::a_frag_addr(v_s, r_w, kk * 16, lane));
+#pragma unroll
+      for (int np = 0; np < 2; ++np) {
+        uint32_t bq[4], bo[4];
+        ps::ldsm_x4(bq, ps::bt_frag_addr(qs, c0 + np * 16, kk * 16, lane));
+        ps::ldsm_x4(bo, ps::bt_frag_addr(dos, c0 + np * 16, kk * 16, lane));
+        ps::mma_bf16(st[2 * np], ka, bq[0], bq[1]);
+        ps::mma_bf16(st[2 * np + 1], ka, bq[2], bq[3]);
+        ps::mma_bf16(dpt[2 * np], va, bo[0], bo[1]);
+        ps::mma_bf16(dpt[2 * np + 1], va, bo[2], bo[3]);
+      }
+    }
+
+    // p and ds, each a select on the valid pairs (a query row with no
+    // valid key has lse = NEG_INF, where exp overflows), into shared
+    // memory as bf16 hi + lo for the warp that shares these key rows
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int row = r_w + g + 8 * i;
+        const int kpos = k0 + row;
+        float p[2], ds[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = c0 + n * 8 + 2 * t4 + e;
+          const int qpos = q0 + col;
+          const bool ok = qpos < S && kpos >= start && kpos < end &&
+                          (!causal || kpos <= qpos);
+          p[e] = ok ? exp2f(fmaf(st[n][2 * i + e], scale2, -ls[col] * LOG2E)) : 0.f;
+          ds[e] = ok ? p[e] * (dpt[n][2 * i + e] - ds_[col]) : 0.f;
+        }
+        const int at = ps::swz<BQ>(row, c0 + n * 8 + 2 * t4);
+        ps::store_split(p_hi + at, p_lo + at, p[0], p[1]);
+        ps::store_split(ds_hi + at, ds_lo + at, ds[0], ds[1]);
+      }
+    ps::bar_sync(1 + (warp & 3), 64);  // the two warps of these key rows
+
+    // dv += P^T dO and dk += dS^T Q over this warp's head-dim half and all
+    // 64 queries, each product twice (hi and lo), dO and Q through
+    // ldmatrix.trans
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      uint32_t pa[4], pl[4], sa[4], sl[4];
+      ps::ldsm_x4(pa, ps::a_frag_addr<BQ>(p_hi, r_w, kk * 16, lane));
+      ps::ldsm_x4(pl, ps::a_frag_addr<BQ>(p_lo, r_w, kk * 16, lane));
+      ps::ldsm_x4(sa, ps::a_frag_addr<BQ>(ds_hi, r_w, kk * 16, lane));
+      ps::ldsm_x4(sl, ps::a_frag_addr<BQ>(ds_lo, r_w, kk * 16, lane));
+#pragma unroll
+      for (int dp = 0; dp < 4; ++dp) {
+        uint32_t bo[4], bq[4];
+        ps::ldsm_x4_trans(bo, ps::b_frag_addr(dos, kk * 16, d0 + dp * 16, lane));
+        ps::ldsm_x4_trans(bq, ps::b_frag_addr(qs, kk * 16, d0 + dp * 16, lane));
+        ps::mma_bf16(dv[2 * dp], pa, bo[0], bo[1]);
+        ps::mma_bf16(dv[2 * dp], pl, bo[0], bo[1]);
+        ps::mma_bf16(dv[2 * dp + 1], pa, bo[2], bo[3]);
+        ps::mma_bf16(dv[2 * dp + 1], pl, bo[2], bo[3]);
+        ps::mma_bf16(dk[2 * dp], sa, bq[0], bq[1]);
+        ps::mma_bf16(dk[2 * dp], sl, bq[0], bq[1]);
+        ps::mma_bf16(dk[2 * dp + 1], sa, bq[2], bq[3]);
+        ps::mma_bf16(dk[2 * dp + 1], sl, bq[2], bq[3]);
+      }
+    }
+  }
+
+  // this head's partials, fp32 [B, T, Hq, 128] each: dk's, then dv's; a key
+  // tile outside the window writes zeros
+  const long long part_half = static_cast<long long>(B) * Tk * q_row;
+  float* dk_p = part + (static_cast<long long>(b) * Tk * Hq + h) * D + d0 + 2 * t4;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int t = k0 + r_w + g + 8 * i;
+    if (t >= Tk) continue;
+    float* row = dk_p + t * q_row;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      *reinterpret_cast<float2*>(row + n * 8) =
+          make_float2(dk[n][2 * i] * scale, dk[n][2 * i + 1] * scale);
+      *reinterpret_cast<float2*>(row + part_half + n * 8) =
+          make_float2(dv[n][2 * i], dv[n][2 * i + 1]);
+    }
+  }
+}
+
+// dk, dv [B, T, Hkv, 128] bf16 = the sums of the rep = Hq / Hkv partials of
+// each key/value head, in a fixed order (so repeated calls give the same
+// bits); four head-dim columns a thread
+__global__ void dkv_reduce_kernel(const float* __restrict__ part, bf16* __restrict__ dk,
+                                  bf16* __restrict__ dv, long long n4, int Hkv, int rep) {
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= n4) return;
+  const long long e = i * 4;          // element of [B, T, Hkv, D]
+  const long long bt_hk = e / D;      // (b * T + t) * Hkv + hk
+  const long long src = bt_hk * rep * D + e % D;  // head hk * rep of [B, T, Hq, D]
+  const long long half = n4 * 4 * rep;
+  float4 sk = make_float4(0.f, 0.f, 0.f, 0.f), sv = sk;
+  for (int r = 0; r < rep; ++r) {
+    const float4 a = *reinterpret_cast<const float4*>(part + src + r * D);
+    const float4 c = *reinterpret_cast<const float4*>(part + half + src + r * D);
+    sk.x += a.x; sk.y += a.y; sk.z += a.z; sk.w += a.w;
+    sv.x += c.x; sv.y += c.y; sv.z += c.z; sv.w += c.w;
+  }
+  __nv_bfloat162* k2 = reinterpret_cast<__nv_bfloat162*>(dk + e);
+  __nv_bfloat162* v2 = reinterpret_cast<__nv_bfloat162*>(dv + e);
+  k2[0] = __floats2bfloat162_rn(sk.x, sk.y);
+  k2[1] = __floats2bfloat162_rn(sk.z, sk.w);
+  v2[0] = __floats2bfloat162_rn(sv.x, sv.y);
+  v2[1] = __floats2bfloat162_rn(sv.z, sv.w);
 }
 
 template <typename T>
@@ -357,23 +604,58 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
-               const void* lse, const void* delta, void* dk, void* dv,
-               const void* kv_start, const void* kv_end, int B, int S, int Tk,
-               int Hq, int Hkv, float scale, int causal, cudaStream_t st) {
+int launch_dkv_f32(const void* q, const void* k, const void* v, const void* dout,
+                   const void* lse, const void* delta, void* dk, void* dv,
+                   const void* kv_start, const void* kv_end, int B, int S, int Tk,
+                   int Hq, int Hkv, float scale, int causal, cudaStream_t st) {
   static const cudaError_t configured = cudaFuncSetAttribute(
-      flash_dkv_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_dkv_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       DKV_SMEM_BYTES);
   if (configured != cudaSuccess) return static_cast<int>(configured);
   const dim3 grid((Tk + BK - 1) / BK, Hkv, B);
-  flash_dkv_kernel<T><<<grid, THREADS, DKV_SMEM_BYTES, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
+  flash_dkv_f32_kernel<<<grid, THREADS, DKV_SMEM_BYTES, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dk), static_cast<T*>(dv),
+      static_cast<float*>(dk), static_cast<float*>(dv),
       static_cast<const int*>(kv_start), static_cast<const int*>(kv_end), S,
       Tk, Hq, Hkv, scale, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_dkv_bf16(const void* q, const void* k, const void* v, const void* dout,
+                    const void* lse, const void* delta, void* dk, void* dv,
+                    void* part, const void* kv_start, const void* kv_end, int B,
+                    int S, int Tk, int Hq, int Hkv, float scale, int causal,
+                    cudaStream_t st) {
+  // once, so that a launch inside CUDA-graph capture makes no attribute
+  // call; the kernel needs the largest shared-memory carveout
+  static const cudaError_t configured = [] {
+    cudaError_t e = cudaFuncSetAttribute(
+        flash_dkv_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        TC_DKV_SMEM_BYTES);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(flash_dkv_bf16_kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+    return e;
+  }();
+  if (configured != cudaSuccess) return static_cast<int>(configured);
+  const int grid = ((Tk + BK - 1) / BK) * Hq * B;
+  flash_dkv_bf16_kernel<<<grid, DKV_TC_THREADS, TC_DKV_SMEM_BYTES, st>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<float*>(part), static_cast<const int*>(kv_start),
+      static_cast<const int*>(kv_end), B, S, Tk, Hq, Hkv, scale, causal);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const long long n4 = static_cast<long long>(B) * Tk * Hkv * (D / 4);
+  constexpr int RED_THREADS = 256;
+  dkv_reduce_kernel<<<static_cast<unsigned>((n4 + RED_THREADS - 1) / RED_THREADS),
+                      RED_THREADS, 0, st>>>(static_cast<const float*>(part),
+                                            static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+                                            n4, Hkv, Hq / Hkv);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -403,20 +685,19 @@ extern "C" int ps_flash_bwd_dkv(int device, int dtype, const void* q,
                                 const void* k, const void* v,
                                 const void* dout, const void* lse,
                                 const void* delta, void* dk, void* dv,
-                                const void* kv_start, const void* kv_end,
-                                int B, int S, int Tk, int Hq, int Hkv,
-                                int head_dim, float scale, int causal,
-                                void* stream) {
+                                void* part, const void* kv_start,
+                                const void* kv_end, int B, int S, int Tk,
+                                int Hq, int Hkv, int head_dim, float scale,
+                                int causal, void* stream) {
   if (head_dim != D || Hkv <= 0 || Hq % Hkv != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaSetDevice(device);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == ps::kBFloat16)
-    return launch_dkv<__nv_bfloat16>(q, k, v, dout, lse, delta, dk, dv,
-                                     kv_start, kv_end, B, S, Tk, Hq, Hkv,
-                                     scale, causal, st);
+  if (dtype == ps::kBFloat16 && part != nullptr)
+    return launch_dkv_bf16(q, k, v, dout, lse, delta, dk, dv, part, kv_start,
+                           kv_end, B, S, Tk, Hq, Hkv, scale, causal, st);
   if (dtype == ps::kFloat32)
-    return launch_dkv<float>(q, k, v, dout, lse, delta, dk, dv, kv_start,
-                             kv_end, B, S, Tk, Hq, Hkv, scale, causal, st);
+    return launch_dkv_f32(q, k, v, dout, lse, delta, dk, dv, kv_start, kv_end,
+                          B, S, Tk, Hq, Hkv, scale, causal, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

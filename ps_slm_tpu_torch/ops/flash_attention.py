@@ -9,7 +9,9 @@ out = 0 and lse = ``NEG_INF``, and zero gradients.
 
 :func:`flash_attention_fwd` launches ``csrc/flash_fwd.cu``,
 :func:`flash_attention_dq` and :func:`flash_attention_dkv` launch
-``csrc/flash_bwd.cu`` for CUDA tensors (head dim 128 only); each takes its
+``csrc/flash_bwd.cu`` for CUDA tensors (head dim 128 only): bf16 runs the
+forward and dk/dv on the tensor cores, fp32 (and dq in both dtypes) on fp32
+FMAs, the dtype alone deciding.  Each takes its
 plain version (:func:`flash_attention_ref`, :func:`flash_attention_bwd_ref`)
 only for CPU tensors.  :class:`FlashAttentionFn` saves ``q, k, v, kv_start,
 kv_end, out, lse`` as the JAX custom VJP does, and its backward computes
@@ -40,9 +42,10 @@ _BWD_SIGNATURES = {
     # B, S, T, Hq, Hkv, head_dim, scale, causal, stream
     "ps_flash_bwd_dq": (_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                         _I, _I, _I, _I, _I, _I, _F, _I, _P),
-    # device, dtype, q, k, v, dout, lse, delta, dk, dv, kv_start, kv_end,
+    # device, dtype, q, k, v, dout, lse, delta, dk, dv, part (bf16's fp32
+    # per-query-head scratch, NULL for fp32), kv_start, kv_end,
     # B, S, T, Hq, Hkv, head_dim, scale, causal, stream
-    "ps_flash_bwd_dkv": (_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+    "ps_flash_bwd_dkv": (_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                          _I, _I, _I, _I, _I, _I, _F, _I, _P),
 }
 
@@ -258,7 +261,9 @@ def flash_attention_dkv(
     *, causal: bool, scale: float,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dk, dv) as :func:`flash_attention_bwd_ref`, summed over the query
-    heads of each key/value head; ``delta`` as :func:`flash_attention_dq`."""
+    heads of each key/value head; ``delta`` as :func:`flash_attention_dq`.
+    For bf16 the kernel writes each query head's fp32 partials to a scratch
+    [2, B, T, Hq, D] allocated here, and sums them in a fixed order."""
     if q.device.type == "cpu":
         return flash_attention_bwd_ref(
             q, k, v, kv_start, kv_end, out, lse, dout, causal=causal, scale=scale
@@ -269,10 +274,15 @@ def flash_attention_dkv(
     if k.shape[0] * k.shape[1] == 0:
         return dk, dv
     ins, rest = _bwd_args(q, k, v, dout, lse, delta, kv_start, kv_end)
+    part = None
+    if q.dtype == torch.bfloat16:
+        part = torch.empty((2, *k.shape[:2], q.shape[2], q.shape[3]),
+                           device=q.device, dtype=torch.float32)
     lib = _build.load("flash_bwd", _BWD_SIGNATURES)
     err = lib.ps_flash_bwd_dkv(
         q.device.index, _build.DTYPE_CODES[q.dtype], *ins, dk.data_ptr(),
-        dv.data_ptr(), *rest, float(scale), int(causal), _build.stream_ptr(q),
+        dv.data_ptr(), None if part is None else part.data_ptr(), *rest,
+        float(scale), int(causal), _build.stream_ptr(q),
     )
     _build.check(lib, err, "flash_attention_dkv")
     flash_attention_dkv.launches += 1

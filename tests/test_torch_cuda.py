@@ -57,26 +57,33 @@ def test_norm_kernels_match_plain(dev, dtype, d):
         torch.testing.assert_close(g_.float(), r_.float(), **TOL[dtype])
 
 
+# (B, S, Hq, Hkv, causal, window starts, window ends): the main paths'
+# shapes, and the edges of the bf16 kernels' 64-row tiles and 16-row warp
+# fragments (S of 1, 17, 64, 65 and 130; a window that starts or ends
+# mid-tile; a row with no valid key; causal with left padding; GQA 6/1)
 CASES = {
-    "encoder": (4, 516, 4, 4, False, [516, 404, 304, 260], None),
-    "prefill_left_padded": (4, 543, 12, 2, True, None, [0, 112, 212, 543]),
-    "ragged": (2, 70, 2, 1, True, [70, 33], None),
+    "encoder": (4, 516, 4, 4, False, [0] * 4, [516, 404, 304, 260]),
+    "prefill_left_padded": (4, 543, 12, 2, True, [0, 112, 212, 543], [543] * 4),
+    "ragged": (2, 70, 2, 1, True, [0, 0], [70, 33]),
+    "s1": (3, 1, 4, 4, False, [0, 0, 1], [1, 0, 1]),
+    "s17_gqa6_left_padded": (2, 17, 6, 1, True, [3, 0], [17, 17]),
+    "s64": (2, 64, 12, 2, True, [0, 5], [64, 64]),
+    "s65_mid_window": (3, 65, 12, 2, False, [37, 0, 0], [65, 0, 64]),
+    "s130_gqa6_mid_window": (3, 130, 6, 1, True, [70, 13, 0], [130, 100, 0]),
 }
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_flash_kernel_matches_plain(dev, dtype, case):
-    b, s, hq, hkv, causal, lens, starts = CASES[case]
+    b, s, hq, hkv, causal, starts, ends = CASES[case]
     g = torch.Generator(device=dev).manual_seed(s)
     q = torch.randn(b, s, hq, fa.HEAD_DIM, device=dev, generator=g).to(dtype)
     k = torch.randn(b, s, hkv, fa.HEAD_DIM, device=dev, generator=g).to(dtype)
     v = torch.randn(b, s, hkv, fa.HEAD_DIM, device=dev, generator=g).to(dtype)
     pos = torch.arange(s, device=dev)
-    if lens is not None:
-        mask = pos[None] < torch.tensor(lens, device=dev)[:, None]
-    else:
-        mask = pos[None] >= torch.tensor(starts, device=dev)[:, None]
+    mask = ((pos[None] >= torch.tensor(starts, device=dev)[:, None])
+            & (pos[None] < torch.tensor(ends, device=dev)[:, None]))
     start, end = fa.window_from_mask(mask, b, s, dev)
     n0 = fa.flash_attention_fwd.launches
     out, lse = fa.flash_attention_fwd(q, k, v, start, end, causal=causal, scale=0.088)
@@ -127,13 +134,15 @@ BWD_CASES = {
     # a left-padded row, a right-padded row and a row with no valid key
     "ragged": (3, 70, 4, 2, True, [13, 0, 0], [70, 33, 0]),
     "encoder": (2, 130, 4, 4, False, [0, 0], [130, 77]),
+    "s1": (2, 1, 4, 4, False, [0, 0], [1, 0]),
+    "s17_gqa6_left_padded": (2, 17, 6, 1, True, [3, 0], [17, 17]),
+    "s64": (2, 64, 12, 2, True, [0, 5], [64, 64]),
+    "s65_mid_window": (3, 65, 12, 2, False, [37, 0, 0], [65, 0, 64]),
+    "s130_gqa6_mid_window": (3, 130, 6, 1, True, [70, 13, 0], [130, 100, 0]),
 }
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("case", sorted(BWD_CASES))
-def test_flash_backward_kernels_match_plain(dev, dtype, case):
-    b, s, hq, hkv, causal, starts, ends = BWD_CASES[case]
+def _bwd_inputs(dev, dtype, b, s, hq, hkv, causal, starts, ends):
     g_ = torch.Generator(device=dev).manual_seed(s + hq)
     q, do = (torch.randn(b, s, hq, fa.HEAD_DIM, device=dev, generator=g_).to(dtype)
              for _ in range(2))
@@ -144,9 +153,17 @@ def test_flash_backward_kernels_match_plain(dev, dtype, case):
     kw = dict(causal=causal, scale=fa.HEAD_DIM ** -0.5)
     out, lse = fa.flash_attention_ref(q, k, v, start, end, **kw)
     delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    return (q, k, v, start, end, out, lse, do, delta), kw
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(BWD_CASES))
+def test_flash_backward_kernels_match_plain(dev, dtype, case):
+    args, kw = _bwd_inputs(dev, dtype, *BWD_CASES[case])
+    q, k, v, start, end, out, lse, do, delta = args
     n0 = (fa.flash_attention_dq.launches, fa.flash_attention_dkv.launches)
-    dq = fa.flash_attention_dq(q, k, v, start, end, out, lse, do, delta, **kw)
-    dk, dv = fa.flash_attention_dkv(q, k, v, start, end, out, lse, do, delta, **kw)
+    dq = fa.flash_attention_dq(*args, **kw)
+    dk, dv = fa.flash_attention_dkv(*args, **kw)
     torch.cuda.synchronize()
     assert (fa.flash_attention_dq.launches, fa.flash_attention_dkv.launches) == (n0[0] + 1, n0[1] + 1)
     want = fa.flash_attention_bwd_ref(q, k, v, start, end, out, lse, do, **kw)
@@ -157,6 +174,35 @@ def test_flash_backward_kernels_match_plain(dev, dtype, case):
     if case == "ragged":
         assert empty.any()
         assert not dq[empty].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_dkv_is_deterministic(dev, dtype):
+    """Two calls give the same bits: the bf16 kernel sums its per-query-head
+    partials in a fixed order, with no atomics."""
+    args, kw = _bwd_inputs(dev, dtype, *BWD_CASES["training"])
+    first = fa.flash_attention_dkv(*args, **kw)
+    second = fa.flash_attention_dkv(*args, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_dkv_is_exactly_zero_outside_the_window(dev, dtype):
+    """Keys outside a row's window, whole key tiles (0-63 and 192-199 of row
+    0, every tile of the empty row 1) and the rest of partly covered tiles,
+    get exact zeros."""
+    starts, ends = [70, 0, 0], [130, 0, 200]
+    args, kw = _bwd_inputs(dev, dtype, 3, 200, 12, 2, False, starts, ends)
+    dk, dv = fa.flash_attention_dkv(*args, **kw)
+    torch.cuda.synchronize()
+    pos = torch.arange(200, device=dev)
+    outside = ((pos[None] < torch.tensor(starts, device=dev)[:, None])
+               | (pos[None] >= torch.tensor(ends, device=dev)[:, None]))
+    assert outside[0, :64].all() and outside[0, 192:].all() and outside[1].all()
+    assert not dk[outside].any() and not dv[outside].any()
+    assert dk[~outside].abs().sum() > 0 and dv[~outside].abs().sum() > 0
 
 
 def test_cuda_wrappers_give_gradients_equal_to_cpu(dev):
