@@ -11,14 +11,16 @@ Phases, each of which fails the run:
    for each flash wrapper and dtype, the kernel it launches, its route
    (tensor cores or fp32 FMA), ptxas's registers and spills and the
    tensor-core instructions (HMMA) in its SASS (``cuobjdump``); a
-   tensor-core kernel that spills or has no HMMA fails the run;
+   tensor-core kernel that spills or has no HMMA fails the run; and the
+   LayerNorm backward kernel's registers and spills;
 3. kernels: each kernel against its plain PyTorch version at the main
    paths' shapes, in fp32 and bf16, with its time, the plain version's,
    one PyTorch library call's, and the least time the card could take:
    the forward kernels at the serving shapes, the backward kernels (flash
    dq/dkv, LayerNorm and RMSNorm backward) at the training shapes, plus
    a ragged flash case with a left-padded row and a row with no valid key
-   (its library time from SDPA with a boolean mask of the same windows);
+   (its library time from SDPA with a boolean mask of the same windows),
+   and dq + dk/dv together against SDPA's whole backward;
 4. serving path, fp32, full width at reduced depth: merged embeddings,
    prefill logits and 8 greedy tokens for the serving batch on the card
    against the same model on the CPU (plain versions);
@@ -96,7 +98,7 @@ PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
 FLASH_PATHS = {
     "flash_attention_fwd": (("bf16", "flash_fwd_bf16_kernel", "tensor cores"),
                             ("f32", "flash_fwd_f32_kernel", "fp32 FMA")),
-    "flash_attention_dq": (("bf16", "flash_dq_kernelI13__nv_bfloat16", "fp32 FMA"),
+    "flash_attention_dq": (("bf16", "flash_dq_bf16_kernel", "tensor cores"),
                            ("f32", "flash_dq_kernelIf", "fp32 FMA")),
     "flash_attention_dkv": (("bf16", "flash_dkv_bf16_kernel", "tensor cores"),
                             ("bf16", "dkv_reduce_kernel", "sum of the partials"),
@@ -359,6 +361,13 @@ def phase_paths(logs: dict) -> None:
                 fail(f"{wrapper} {dt}: the tensor-core kernel spills or has no HMMA")
             if route == "fp32 FMA" and n_hmma:
                 fail(f"{wrapper} {dt}: the FMA kernel has HMMA")
+    for key in ("layer_norm_bwd_kernelI13__nv_bfloat16", "layer_norm_bwd_kernelIf"):
+        name = next((n for n in report if key in n), None)
+        regs, spill = report[name] if name else (None, None)
+        ptxas = ("ptxas: not measured (library built before this run)" if regs is None
+                 else f"ptxas: {regs} registers, {spill} bytes spilled")
+        print(f"path layer_norm_bwd: {key}; {ptxas}; dynamic shared memory 2 x 4 x d bytes "
+              f"(200440 at d = 25055)", flush=True)
 
 
 def phase_kernels(torch, dev, results):
@@ -526,6 +535,8 @@ def phase_kernels_bwd(torch, dev, results):
             record("flash_attention_dkv", label, dt, ms_dkv, plain, lib, method,
                    (2 * q.numel() + 4 * k.numel()) * esize + stats, 8.0 * d * pairs,
                    max(errs[1:]))
+            print(f"flash backward {label} {dt}: dq + dk/dv {ms_dq + ms_dkv:.4f} ms against "
+                  f"SDPA's whole backward {lib:.4f} ms ({(ms_dq + ms_dkv) / lib:.2f}x)", flush=True)
 
     # LayerNorm backward at the projector's norm, RMSNorm backward at the
     # LLM's (5 x 543 merged rows)
@@ -539,26 +550,27 @@ def phase_kernels_bwd(torch, dev, results):
             xr, wr, br = (t.detach().requires_grad_(True) for t in (x, w, bb))
             if name == "layer_norm_bwd":
                 _, mu, rstd = norms.layer_norm_fwd(x, w, bb)
-                run = lambda: norms.layer_norm_bwd(x, w, mu, rstd, gy)     # noqa: E731
-                ref = lambda: norms.layer_norm_bwd_ref(x, w, mu, rstd, gy)  # noqa: E731
+                bwd, bwd_ref, args = norms.layer_norm_bwd, norms.layer_norm_bwd_ref, (x, w, mu, rstd, gy)
                 lib, method = backward_ms(
                     torch, lambda: F.layer_norm(xr, (d,), wr, br, 1e-5), (xr, wr, br), gy)
                 nbytes = 3 * n * d * esize + 3 * d * esize + 8 * n
                 flops = 13.0 * n * d
             else:
                 _, rstd = norms.rms_norm_fwd(x, w)
-                run = lambda: norms.rms_norm_bwd(x, w, rstd, gy)           # noqa: E731
-                ref = lambda: norms.rms_norm_bwd_ref(x, w, rstd, gy)        # noqa: E731
+                bwd, bwd_ref, args = norms.rms_norm_bwd, norms.rms_norm_bwd_ref, (x, w, rstd, gy)
                 lib, method = backward_ms(
                     torch, lambda: F.rms_norm(xr, (d,), wr, 1e-6), (xr, wr), gy)
                 nbytes = 3 * n * d * esize + 2 * d * esize + 4 * n
                 flops = 9.0 * n * d
-            got = run()
+            got = bwd(*args)
             torch.cuda.synchronize()
             err = max(compare(torch, a, r, dt, f"{name} [{n},{d}] {dt}", 1.0 if i == 0 else n ** 0.5)
-                      for i, (a, r) in enumerate(zip(got, ref())))
-            ms, plain = time_ms(torch, run), time_ms(torch, ref)
+                      for i, (a, r) in enumerate(zip(got, bwd_ref(*args))))
+            ms, plain = time_ms(torch, lambda: bwd(*args)), time_ms(torch, lambda: bwd_ref(*args))
             record(name, f"{n}x{d}", dt, ms, plain, lib, method, nbytes, flops, err)
+            kernel_ms = time_ms(torch, lambda: bwd(*args, weight_grad=False))
+            print(f"kernel {name} {n}x{d} {dt}: {kernel_ms:.4f} ms without the partials' sum",
+                  flush=True)
 
 
 def phase_path_fp32(torch, dev):

@@ -47,6 +47,31 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
   return total;
 }
 
+// Two sums over the block in one reduction (one set of barriers); every
+// thread gets both totals.  `red` holds >= 32 float2 of shared memory.
+__device__ __forceinline__ float2 block_sum2(float2 v, float2* red) {
+  for (int o = 16; o > 0; o >>= 1) {
+    v.x += __shfl_xor_sync(0xffffffffu, v.x, o);
+    v.y += __shfl_xor_sync(0xffffffffu, v.y, o);
+  }
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  if (warp == 0) {
+    v = lane < (int)(blockDim.x >> 5) ? red[lane] : make_float2(0.f, 0.f);
+    for (int o = 16; o > 0; o >>= 1) {
+      v.x += __shfl_xor_sync(0xffffffffu, v.x, o);
+      v.y += __shfl_xor_sync(0xffffffffu, v.y, o);
+    }
+    if (lane == 0) red[0] = v;
+  }
+  __syncthreads();
+  const float2 total = red[0];
+  __syncthreads();
+  return total;
+}
+
 }  // namespace ps
 
 extern "C" const char* ps_error_string(int err) {

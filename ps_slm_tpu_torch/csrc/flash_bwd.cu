@@ -23,18 +23,37 @@
 // 8 x 128 flops per valid pair, 6.8 and 9.1 GFLOP (6.9 and 9.2 us on the
 // bf16 tensor cores): both sit near the ridge, dk/dv set by operations.
 //
-// dq (both dtypes) and fp32 dk/dv compute every product with fp32 FMAs from
-// shared memory.  The bf16 dk/dv is on the tensor cores; fp32 keeps the FMA
-// kernel because the bf16 tensor cores cannot take fp32 operands and TF32
-// (10-bit mantissa) would break the fp32 tolerances (2e-5 against the plain
-// version, 1e-3 for the fp32 training path against the CPU).  The dtype
-// alone picks the kernel.
-//  * dq: one block of 256 threads per (64-row query tile, query head, batch
-//    row).  It stages its q and dout tiles once, then walks 64-row key/value
-//    tiles inside [kv_start, kv_end) and at or below the diagonal, keeping
-//    dq in registers until one store.  Thread (tr, tc) = (tid / 16,
-//    tid % 16) owns score rows tr + 16 i and columns tc + 16 j (i, j < 4),
-//    then dq rows tr + 16 i by head-dim columns tc + 16 j (j < 8).
+// In bf16 both dq and dk/dv are on the tensor cores.  fp32 keeps kernels
+// that compute every product with fp32 FMAs from shared memory, because the
+// bf16 tensor cores cannot take fp32 operands and TF32 (10-bit mantissa)
+// would break the fp32 tolerances (2e-5 against the plain version, 1e-3 for
+// the fp32 training path against the CPU).  The dtype alone picks the
+// kernel.
+//  * dq, fp32 (flash_dq_kernel<float>): one block of 256 threads per
+//    (64-row query tile, query head, batch row).  It stages its q and dout
+//    tiles once, then walks 64-row key/value tiles inside [kv_start,
+//    kv_end) and at or below the diagonal, keeping dq in registers until
+//    one store.  Thread (tr, tc) = (tid / 16, tid % 16) owns score rows
+//    tr + 16 i and columns tc + 16 j (i, j < 4), then dq rows tr + 16 i by
+//    head-dim columns tc + 16 j (j < 8).
+//  * dq, bf16 (flash_dq_bf16_kernel): the same grid, launched in
+//    descending query-tile order so that under a causal mask the longest
+//    blocks (the last query tiles, 9 key tiles at the training shape)
+//    start first; one warpgroup (4 warps) a block, warp w on query rows
+//    16w..16w+15 as in flash_fwd.cu.  Per half key tile (32 keys; the
+//    whole 64-key tile's S and dP beside dq spilled at 255 registers) each
+//    warp computes S = Q K^T and dP = dO V^T with mma.sync.m16n8k16 (Q and
+//    dO through ldmatrix at each 16-deep step, K and V as the transposed B
+//    operand), takes ds = p (dp - delta) as a select on the valid pairs in
+//    S's registers, and adds dS K into 64 fp32 registers, dS packed to
+//    bf16 A fragments straight from registers (rounded once; the emulation
+//    in tests/test_torch_flash_numerics.py shows that fits dq's bf16
+//    tolerance, unlike dv's) and K through ldmatrix.trans: 192 mma.sync a
+//    warp and key tile.  A half with no valid pair for the warp's rows
+//    (above the diagonal, outside the window) is skipped.  Q and dO are
+//    staged once; K and V are double-buffered with cp.async, the next key
+//    tile copied while this one is computed.  96 KB of shared memory, two
+//    blocks an SM.  dq has no cross-block sum: the same bits on every call.
 //  * dk/dv, fp32: one block per (64-row key tile, key/value head, batch
 //    row).  It stages its k and v tiles once, then loops over the Hq / Hkv
 //    query heads of its group and the query tiles from the diagonal on,
@@ -99,6 +118,8 @@ constexpr int DKV_TC_THREADS = 256;  // two warpgroups
 // 64), 2 x lse, 2 x delta (fp32 rows)
 constexpr int TC_DKV_SMEM_BYTES = (6 * ps::kTile + 4 * BK * BQ) * static_cast<int>(sizeof(bf16)) +
                                   4 * BQ * static_cast<int>(sizeof(float));
+// q, dout, 2 x k, 2 x v (bf16 tiles): 96 KB, two blocks an SM
+constexpr int TC_DQ_SMEM_BYTES = 6 * ps::kTile * static_cast<int>(sizeof(bf16));
 
 // rows [row0, row0 + 64) of a [rows, heads, 128] tensor's head into a
 // padded shared tile; rows past `rows` read as 0
@@ -229,6 +250,159 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
     for (int j = 0; j < 8; ++j)
       dq_b[s * q_row + tc + 16 * j] = ps::from_f32<T>(acc[i][j] * scale);
+  }
+}
+
+__global__ void __launch_bounds__(ps::kTcThreads, 2)
+    flash_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                         const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                         const float* __restrict__ lse, const float* __restrict__ delta,
+                         bf16* __restrict__ dq, const int* __restrict__ kv_start,
+                         const int* __restrict__ kv_end, int B, int S, int Tk, int Hq,
+                         int Hkv, float scale, int causal) {
+  extern __shared__ __align__(128) unsigned char tc_smem[];
+  bf16* q_s = reinterpret_cast<bf16*>(tc_smem);   // [kTile], swizzled
+  bf16* do_s = q_s + ps::kTile;                    // [kTile]
+  bf16* k_s = do_s + ps::kTile;                    // [2][kTile]
+  bf16* v_s = k_s + 2 * ps::kTile;                 // [2][kTile]
+
+  // blocks in descending order of query tile, then query head and batch
+  // row: under a causal mask the last query tiles walk the most key tiles,
+  // so the longest blocks start first and the short ones fill the tail
+  const int n_qt = (S + BQ - 1) / BQ;
+  const int q0 = (n_qt - 1 - static_cast<int>(blockIdx.x) / (Hq * B)) * BQ;
+  const int h = (blockIdx.x % (Hq * B)) % Hq;
+  const int b = (blockIdx.x % (Hq * B)) / Hq;
+  const int hk = h / (Hq / Hkv);
+  const int lane = threadIdx.x & 31;
+  const int r_w = (threadIdx.x >> 5) * 16;  // this warp's first row of the tile
+  const int g = lane >> 2, t4 = lane & 3;
+  const int start = kv_start[b];
+  const int end = kv_end[b];
+
+  const long long q_row = static_cast<long long>(Hq) * D;
+  const long long kv_row = static_cast<long long>(Hkv) * D;
+  const long long q_off = (static_cast<long long>(b) * S * Hq + h) * D;
+  const bf16* kb = k + (static_cast<long long>(b) * Tk * Hkv + hk) * D;
+  const bf16* vb = v + (static_cast<long long>(b) * Tk * Hkv + hk) * D;
+  const float* lse_b = lse + (static_cast<long long>(b) * Hq + h) * S;
+  const float* delta_b = delta + (static_cast<long long>(b) * Hq + h) * S;
+
+  const int hi = causal ? min(end, q0 + BQ) : end;
+  const int k_begin = (start / BK) * BK;
+  const int n_tiles = hi > k_begin ? (hi - k_begin + BK - 1) / BK : 0;
+  if (n_tiles > 0) {
+    ps::stage_tile(q_s, q + q_off, q0, S, q_row);
+    ps::stage_tile(do_s, dout + q_off, q0, S, q_row);
+    ps::stage_tile(k_s, kb, k_begin, Tk, kv_row);
+    ps::stage_tile(v_s, vb, k_begin, Tk, kv_row);
+    ps::cp_async_commit();
+  }
+
+  // rows r_w + g (i = 0) and r_w + g + 8 (i = 1) of the tile: -lse in
+  // log2 units and delta, then dq (unscaled) by 16 8-wide head-dim tiles
+  float nl[2], dl[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int s = q0 + r_w + g + 8 * i;
+    nl[i] = s < S ? -lse_b[s] * LOG2E : 0.f;
+    dl[i] = s < S ? delta_b[s] : 0.f;
+  }
+  float acc[16][4];
+#pragma unroll
+  for (int n = 0; n < 16; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  const float scale2 = scale * LOG2E;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    ps::cp_async_wait_all();
+    __syncthreads();  // tile j has landed; every reader of tile j - 1 is done
+    const int k0 = k_begin + j * BK;
+    const bf16* ks = k_s + (j & 1) * ps::kTile;
+    const bf16* vs = v_s + (j & 1) * ps::kTile;
+    if (j + 1 < n_tiles) {
+      ps::stage_tile(k_s + ((j + 1) & 1) * ps::kTile, kb, k0 + BK, Tk, kv_row);
+      ps::stage_tile(v_s + ((j + 1) & 1) * ps::kTile, vb, k0 + BK, Tk, kv_row);
+      ps::cp_async_commit();
+    }
+
+    // the tile's 64 keys in two halves of 32, so that S and dP of a half
+    // (16 + 16 registers) sit beside dq's 64 without spilling
+#pragma unroll 1
+    for (int c0 = 0; c0 < BK; c0 += 32) {
+      // a half with no valid pair for this warp's rows adds nothing
+      const int kh = k0 + c0;
+      if (kh >= end || kh + 32 <= start || (causal && kh > q0 + r_w + 15)) continue;
+      // S = Q K^T and dP = dO V^T: 16 rows x 32 keys a warp, Q and dO read
+      // through ldmatrix at each 16-deep step
+      float sc[4][4], dp[4][4];
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[n][e] = dp[n][e] = 0.f;
+      // unrolled by 2 only: fully unrolled, the loads hoisted ahead of
+      // their products spill
+#pragma unroll 2
+      for (int kk = 0; kk < 8; ++kk) {
+        uint32_t qa[4], oa[4];
+        ps::ldsm_x4(qa, ps::a_frag_addr(q_s, r_w, kk * 16, lane));
+        ps::ldsm_x4(oa, ps::a_frag_addr(do_s, r_w, kk * 16, lane));
+#pragma unroll
+        for (int np = 0; np < 2; ++np) {
+          uint32_t bk[4], bv[4];
+          ps::ldsm_x4(bk, ps::bt_frag_addr(ks, c0 + np * 16, kk * 16, lane));
+          ps::ldsm_x4(bv, ps::bt_frag_addr(vs, c0 + np * 16, kk * 16, lane));
+          ps::mma_bf16(sc[2 * np], qa, bk[0], bk[1]);
+          ps::mma_bf16(sc[2 * np + 1], qa, bk[2], bk[3]);
+          ps::mma_bf16(dp[2 * np], oa, bv[0], bv[1]);
+          ps::mma_bf16(dp[2 * np + 1], oa, bv[2], bv[3]);
+        }
+      }
+
+      // p and ds as selects on the valid pairs (a query row with no valid
+      // key has lse = NEG_INF, where exp overflows); ds in place of s
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = e >> 1;
+          const int qpos = q0 + r_w + g + 8 * i;
+          const int kpos = k0 + c0 + n * 8 + 2 * t4 + (e & 1);
+          const bool ok = qpos < S && kpos >= start && kpos < end && (!causal || kpos <= qpos);
+          const float p = exp2f(fmaf(sc[n][e], scale2, nl[i]));
+          sc[n][e] = ok ? p * (dp[n][e] - dl[i]) : 0.f;
+        }
+
+      // dq += dS K: dS from the score registers, rounded to bf16 once; K
+      // through ldmatrix.trans, its rows being this product's k index
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+        uint32_t sa[4];
+        ps::c_to_a(sa, sc[2 * kk], sc[2 * kk + 1]);
+#pragma unroll
+        for (int dp2 = 0; dp2 < 8; ++dp2) {
+          uint32_t bk[4];
+          ps::ldsm_x4_trans(bk, ps::b_frag_addr(ks, c0 + kk * 16, dp2 * 16, lane));
+          ps::mma_bf16(acc[2 * dp2], sa, bk[0], bk[1]);
+          ps::mma_bf16(acc[2 * dp2 + 1], sa, bk[2], bk[3]);
+        }
+      }
+    }
+  }
+
+  // rows past S are not written; a tile with no key in its window writes
+  // zeros
+  bf16* dqb = dq + q_off;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int s = q0 + r_w + g + 8 * i;
+    if (s >= S) continue;
+    bf16* row = dqb + s * q_row + 2 * t4;
+#pragma unroll
+    for (int n = 0; n < 16; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(row + n * 8) =
+          __floats2bfloat162_rn(acc[n][2 * i] * scale, acc[n][2 * i + 1] * scale);
   }
 }
 
@@ -604,6 +778,32 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
   return static_cast<int>(cudaGetLastError());
 }
 
+int launch_dq_bf16(const void* q, const void* k, const void* v, const void* dout,
+                   const void* lse, const void* delta, void* dq, const void* kv_start,
+                   const void* kv_end, int B, int S, int Tk, int Hq, int Hkv, float scale,
+                   int causal, cudaStream_t st) {
+  // once, so that a launch inside CUDA-graph capture makes no attribute
+  // call; the largest carveout, so that two blocks fit on an SM
+  static const cudaError_t configured = [] {
+    cudaError_t e = cudaFuncSetAttribute(
+        flash_dq_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, TC_DQ_SMEM_BYTES);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(flash_dq_bf16_kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+    return e;
+  }();
+  if (configured != cudaSuccess) return static_cast<int>(configured);
+  const int grid = ((S + BQ - 1) / BQ) * Hq * B;
+  flash_dq_bf16_kernel<<<grid, ps::kTcThreads, TC_DQ_SMEM_BYTES, st>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<bf16*>(dq),
+      static_cast<const int*>(kv_start), static_cast<const int*>(kv_end), B, S, Tk, Hq, Hkv,
+      scale, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
 int launch_dkv_f32(const void* q, const void* k, const void* v, const void* dout,
                    const void* lse, const void* delta, void* dk, void* dv,
                    const void* kv_start, const void* kv_end, int B, int S, int Tk,
@@ -672,9 +872,8 @@ extern "C" int ps_flash_bwd_dq(int device, int dtype, const void* q,
   cudaSetDevice(device);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == ps::kBFloat16)
-    return launch_dq<__nv_bfloat16>(q, k, v, dout, lse, delta, dq, kv_start,
-                                    kv_end, B, S, Tk, Hq, Hkv, scale, causal,
-                                    st);
+    return launch_dq_bf16(q, k, v, dout, lse, delta, dq, kv_start, kv_end, B, S, Tk, Hq,
+                          Hkv, scale, causal, st);
   if (dtype == ps::kFloat32)
     return launch_dq<float>(q, k, v, dout, lse, delta, dq, kv_start, kv_end,
                             B, S, Tk, Hq, Hkv, scale, causal, st);

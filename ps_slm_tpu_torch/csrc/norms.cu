@@ -24,13 +24,36 @@
 // 25 055 are not multiples of 128, which the TPU kernels required).  The
 // forward statistics take two passes over the row (mean, then the centred
 // variance, as the TPU kernel computes them) and the output a third; the
-// backward takes one pass for the two means and one for dx.  The repeated
-// reads of a row hit L1/L2, so device memory sees each row about once.  A
-// thread owns the same columns in every row of its block, so it adds its
-// columns' dw/db terms into the block's partial row with no race (the
-// partial rows stay in L2 at the shapes of the main path).  Loads are
-// scalar and coalesced; vector loads, several rows per block for narrow d
-// and register-held partial sums are left for a later tuning pass.
+// repeated reads of a row hit L1/L2, so device memory sees each row about
+// once.  The RMSNorm backward takes one pass for its mean and one for dx,
+// and adds each row's dw terms into its block's partial row in device
+// memory (L2).
+//
+// LayerNorm backward (its main-path shape is the projector's norm over the
+// CTC posterior, 2560 x 25 055 bf16, one launch a training step): one
+// block an SM, 896 threads for bf16 (512 for fp32), each block a run of
+// consecutive rows.
+//  * Each row's x and g cross device memory once: a thread loads its 28
+//    columns (t + 896 j; 49 for fp32) into registers, one x, g pair a
+//    register in bf16, for the two means and then for dx.  Columns past
+//    25 088 are read again, from L2.
+//  * Both means come from one block reduction (block_sum2).
+//  * The block's dw and db partial rows stay in shared memory for its whole
+//    run of rows (200 KB at 25 055 wide, so one block an SM) and are
+//    written once at the end; a thread owns the same columns in every row,
+//    so the read-modify-writes need no barrier.  Rows wider than 28 800
+//    keep the partial rows in device memory instead.
+//  * Loads are 2-byte and coalesced (a warp reads 64 contiguous bytes): d
+//    is odd, so a row's start shifts its alignment from row to row, and
+//    wide loads would move a thread's columns from row to row.  Measured
+//    and dropped: 16-byte loads with the shift undone by shuffles (with dx
+//    staged through shared memory for contiguous stores), w held in
+//    registers, and 512, 768 or 1024 bf16 threads; all slower.  At 896
+//    the bf16 kernel spills 216 bytes to L1, as every bf16 block shape
+//    tried did (the loads in flight need the registers).
+//  * An SM works on one row at a time, so its loads do not overlap its
+//    reduction and dx pass: the likely reason, not measured, that the
+//    kernel stays near 3x its bound.
 #include "common.cuh"
 
 namespace {
@@ -91,43 +114,124 @@ __global__ void rms_norm_fwd_kernel(const T* __restrict__ x,
   if (threadIdx.x == 0) rstd[row] = r;
 }
 
+// The LayerNorm backward's block: one block an SM (its partial rows take
+// most of the SM's shared memory at the projector's width).  Thread t owns
+// columns t + kThreads j and keeps the x and g of the first kCols of them,
+// as one pair a register (two for fp32), from the first pass over the row
+// to the second: 896 x 28 and 512 x 49 = 25 088 columns, the projector's
+// 25 055 included.  Wider rows read their further columns again (from L2).
 template <typename T>
-__global__ void layer_norm_bwd_kernel(
+struct LnBwd;
+template <>
+struct LnBwd<__nv_bfloat16> {
+  static constexpr int kThreads = 896, kCols = 28;
+};
+template <>
+struct LnBwd<float> {
+  static constexpr int kThreads = 512, kCols = 49;
+};
+// dynamic shared memory for the fp32 dw and db partial rows (2 x 4 x d
+// bytes, d <= 28 800); wider rows keep them in the global partial buffers
+constexpr int LN_BWD_SMEM_MAX = 225 * 1024;
+
+template <typename T>
+struct XG;  // x and g of one column in one register (two for fp32)
+template <>
+struct XG<float> {
+  float2 v;
+  __device__ __forceinline__ void load(const float* x, const float* g, long long i) {
+    v = make_float2(x[i], g[i]);
+  }
+  __device__ __forceinline__ float2 f32() const { return v; }
+};
+template <>
+struct XG<__nv_bfloat16> {
+  __nv_bfloat162 v;
+  __device__ __forceinline__ void load(const __nv_bfloat16* x, const __nv_bfloat16* g,
+                                       long long i) {
+    v = __halves2bfloat162(x[i], g[i]);
+  }
+  __device__ __forceinline__ float2 f32() const { return __bfloat1622float2(v); }
+};
+
+template <typename T>
+__global__ void __launch_bounds__(LnBwd<T>::kThreads, 1) layer_norm_bwd_kernel(
     const T* __restrict__ x, const T* __restrict__ w,
     const float* __restrict__ mu, const float* __restrict__ rstd,
     const T* __restrict__ g, T* __restrict__ dx, float* __restrict__ dw_part,
-    float* __restrict__ db_part, int n, int d, int rows_per_block) {
-  __shared__ float red[32];
+    float* __restrict__ db_part, int n, int d, int rows_per_block, int smem_part) {
+  extern __shared__ float part_s[];  // [2][d]: dw, db partials when smem_part
+  __shared__ float2 red[32];
+  constexpr int THREADS = LnBwd<T>::kThreads, COLS = LnBwd<T>::kCols;
+  const int tid = threadIdx.x;
   const int r0 = blockIdx.x * rows_per_block;
   const int r1 = min(n, r0 + rows_per_block);
-  float* dwb = dw_part + static_cast<long long>(blockIdx.x) * d;
-  float* dbb = db_part + static_cast<long long>(blockIdx.x) * d;
-  for (int i = threadIdx.x; i < d; i += blockDim.x) {
-    dwb[i] = 0.f;
-    dbb[i] = 0.f;
-  }
+  const long long blk = static_cast<long long>(blockIdx.x) * d;
+  // a thread touches only the columns it owns, so the partials need no
+  // barrier between rows
+  float* dwb = smem_part ? part_s : dw_part + blk;
+  float* dbb = smem_part ? part_s + d : db_part + blk;
+  for (int c = tid; c < d; c += THREADS) dwb[c] = dbb[c] = 0.f;
+
   for (int row = r0; row < r1; ++row) {
-    const long long off = static_cast<long long>(row) * d;
+    const T* xr = x + static_cast<long long>(row) * d;
+    const T* gr = g + static_cast<long long>(row) * d;
+    T* dxr = dx + static_cast<long long>(row) * d;
     const float m = mu[row];
     const float r = rstd[row];
-    float s1 = 0.f, s2 = 0.f;
-    for (int i = threadIdx.x; i < d; i += blockDim.x) {
-      const float xh = (ps::to_f32(x[off + i]) - m) * r;
-      const float gw = ps::to_f32(g[off + i]) * ps::to_f32(w[i]);
-      s1 += gw;
-      s2 += gw * xh;
+
+    // first pass: the row's x and g cross device memory once, into
+    // registers; both means in one block reduction
+    float2 s = make_float2(0.f, 0.f);
+    auto add = [&](int c, float2 xg) {
+      const float xh = (xg.x - m) * r;
+      const float gw = xg.y * ps::to_f32(w[c]);
+      s.x += gw;
+      s.y += gw * xh;
+    };
+    XG<T> held[COLS];
+#pragma unroll
+    for (int j = 0; j < COLS; ++j) {
+      const int c = tid + j * THREADS;
+      if (c < d) {
+        held[j].load(xr, gr, c);
+        add(c, held[j].f32());
+      }
     }
-    const float m1 = ps::block_sum(s1, red) / d;
-    const float m2 = ps::block_sum(s2, red) / d;
-    for (int i = threadIdx.x; i < d; i += blockDim.x) {
-      const float xh = (ps::to_f32(x[off + i]) - m) * r;
-      const float gv = ps::to_f32(g[off + i]);
-      const float gw = gv * ps::to_f32(w[i]);
-      dx[off + i] = ps::from_f32<T>((gw - m1 - xh * m2) * r);
-      dwb[i] += gv * xh;
-      dbb[i] += gv;
+    for (int c = tid + COLS * THREADS; c < d; c += THREADS) {
+      XG<T> p;
+      p.load(xr, gr, c);
+      add(c, p.f32());
+    }
+    s = ps::block_sum2(s, red);
+    const float m1 = s.x / d;
+    const float m2 = s.y / d;
+
+    // second pass, from registers: dx, and this row's dw and db terms
+    // into the block's partial rows
+    auto finish = [&](int c, float2 xg) {
+      const float xh = (xg.x - m) * r;
+      const float gw = xg.y * ps::to_f32(w[c]);
+      dxr[c] = ps::from_f32<T>((gw - m1 - xh * m2) * r);
+      dwb[c] += xg.y * xh;
+      dbb[c] += xg.y;
+    };
+#pragma unroll
+    for (int j = 0; j < COLS; ++j) {
+      const int c = tid + j * THREADS;
+      if (c < d) finish(c, held[j].f32());
+    }
+    for (int c = tid + COLS * THREADS; c < d; c += THREADS) {
+      XG<T> p;
+      p.load(xr, gr, c);
+      finish(c, p.f32());
     }
   }
+  if (smem_part)
+    for (int c = tid; c < d; c += THREADS) {
+      dw_part[blk + c] = dwb[c];
+      db_part[blk + c] = dbb[c];
+    }
 }
 
 template <typename T>
@@ -224,22 +328,35 @@ extern "C" int ps_layer_norm_bwd(int device, int dtype, const void* x,
                                  int n_blocks, void* stream) {
   if (n_blocks <= 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaSetDevice(device);
+  // once, so that a launch inside CUDA-graph capture makes no attribute call
+  static const cudaError_t configured = [] {
+    cudaError_t e = cudaFuncSetAttribute(layer_norm_bwd_kernel<__nv_bfloat16>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         LN_BWD_SMEM_MAX);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(layer_norm_bwd_kernel<float>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, LN_BWD_SMEM_MAX);
+    return e;
+  }();
+  if (configured != cudaSuccess) return static_cast<int>(configured);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int threads = threads_for(d);
   const int rpb = (n + n_blocks - 1) / n_blocks;
+  const long long part_bytes = 2LL * d * static_cast<long long>(sizeof(float));
+  const int smem_part = part_bytes <= LN_BWD_SMEM_MAX;
+  const int smem = smem_part ? static_cast<int>(part_bytes) : 0;
   if (dtype == ps::kBFloat16) {
     using T = __nv_bfloat16;
-    layer_norm_bwd_kernel<T><<<n_blocks, threads, 0, st>>>(
+    layer_norm_bwd_kernel<T><<<n_blocks, LnBwd<T>::kThreads, smem, st>>>(
         static_cast<const T*>(x), static_cast<const T*>(w),
         static_cast<const float*>(mu), static_cast<const float*>(rstd),
         static_cast<const T*>(g), static_cast<T*>(dx),
-        static_cast<float*>(dw_part), static_cast<float*>(db_part), n, d, rpb);
+        static_cast<float*>(dw_part), static_cast<float*>(db_part), n, d, rpb, smem_part);
   } else if (dtype == ps::kFloat32) {
-    layer_norm_bwd_kernel<float><<<n_blocks, threads, 0, st>>>(
+    layer_norm_bwd_kernel<float><<<n_blocks, LnBwd<float>::kThreads, smem, st>>>(
         static_cast<const float*>(x), static_cast<const float*>(w),
         static_cast<const float*>(mu), static_cast<const float*>(rstd),
         static_cast<const float*>(g), static_cast<float*>(dx),
-        static_cast<float*>(dw_part), static_cast<float*>(db_part), n, d, rpb);
+        static_cast<float*>(dw_part), static_cast<float*>(db_part), n, d, rpb, smem_part);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -10,8 +10,8 @@ out = 0 and lse = ``NEG_INF``, and zero gradients.
 :func:`flash_attention_fwd` launches ``csrc/flash_fwd.cu``,
 :func:`flash_attention_dq` and :func:`flash_attention_dkv` launch
 ``csrc/flash_bwd.cu`` for CUDA tensors (head dim 128 only): bf16 runs the
-forward and dk/dv on the tensor cores, fp32 (and dq in both dtypes) on fp32
-FMAs, the dtype alone deciding.  Each takes its
+forward, dq and dk/dv on the tensor cores, fp32 on fp32 FMAs, the dtype
+alone deciding.  Each takes its
 plain version (:func:`flash_attention_ref`, :func:`flash_attention_bwd_ref`)
 only for CPU tensors.  :class:`FlashAttentionFn` saves ``q, k, v, kv_start,
 kv_end, out, lse`` as the JAX custom VJP does, and its backward computes

@@ -175,11 +175,11 @@ def _check_bwd(x, g, stats, name: str) -> None:
             raise ValueError(f"{name}: statistics must be contiguous {tuple(x.shape[:-1]) + (1,)}")
 
 
-def _bwd_blocks(x: torch.Tensor, n: int) -> int:
+def _bwd_blocks(x: torch.Tensor, n: int, per_sm: int) -> int:
     """Blocks of a backward launch, i.e. rows of its partial-sum buffers:
-    two per SM, each taking a run of consecutive rows."""
+    ``per_sm`` an SM, each taking a run of consecutive rows."""
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    per = -(-n // (2 * sms))
+    per = -(-n // (per_sm * sms))
     return -(-n // per)
 
 
@@ -203,7 +203,7 @@ def layer_norm_bwd(
     if n == 0:
         zeros = torch.zeros_like(weight)
         return (dx, zeros, zeros.clone()) if weight_grad else (dx, None, None)
-    nb = _bwd_blocks(x, n)
+    nb = _bwd_blocks(x, n, per_sm=1)   # each block's partial rows fill its SM's shared memory
     dw_part = torch.empty((nb, d), device=x.device, dtype=torch.float32)
     db_part = torch.empty_like(dw_part)
     lib = _build.load("norms", _SIGNATURES)
@@ -239,7 +239,7 @@ def rms_norm_bwd(
     dx = torch.empty_like(x)
     if n == 0:
         return dx, torch.zeros_like(weight) if weight_grad else None
-    nb = _bwd_blocks(x, n)
+    nb = _bwd_blocks(x, n, per_sm=2)
     dw_part = torch.empty((nb, d), device=x.device, dtype=torch.float32)
     lib = _build.load("norms", _SIGNATURES)
     err = lib.ps_rms_norm_bwd(

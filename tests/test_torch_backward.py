@@ -4,7 +4,8 @@ On CPU tensors the port's backward wrappers take their plain versions, so
 these tests pin the arithmetic that the CUDA kernels repeat.  The JAX side
 runs its Pallas kernels in interpret mode (``_flash_bwd`` with 16-blocks,
 ``fused_layer_norm`` / ``fused_rms_norm`` at d = 40, not a multiple of
-128), as tests/test_flash_attention.py and tests/test_norms.py do.
+128, and LayerNorm at the odd d = 263), as tests/test_flash_attention.py
+and tests/test_norms.py do.
 Inputs come from numpy with a fixed seed.  Tolerance: 1e-5 absolute and
 relative (fp32; the two sides sum in different orders).
 """
@@ -85,7 +86,7 @@ def test_flash_plain_backward_matches_jax_kernels(case):
     assert torch.equal(got[0][empty], torch.zeros_like(got[0][empty]))
 
 
-@pytest.mark.parametrize("shape", [(3, 5, 40), (7, 40)])
+@pytest.mark.parametrize("shape", [(3, 5, 40), (7, 40), (9, 263)])
 def test_layer_norm_plain_backward_matches_jax(shape):
     rng = np.random.default_rng(11)
     x = rng.normal(size=shape).astype(np.float32) * 3 + 1

@@ -15,7 +15,10 @@ fp32 intermediate that the tensor cores take in bf16:
   (lo = bf16(x - hi)), two products, ~16 significant bits.  One rounding
   to bf16, as in the forward, is not enough there: it breaks the bf16
   tolerance of dv at bench.py's training shape (5 x 543), which the last
-  test shows.
+  test shows;
+- dq: dS in dS K is rounded to bf16 once and fed to the tensor cores
+  from registers, as the forward's P is.  That fits dq's bf16 tolerance
+  at every shape here, bench.py's training shape included.
 
 These tests emulate that arithmetic in fp32 on bf16 inputs made with numpy
 from a seed, and hold the emulated outputs, cast to bf16, to the kernels'
@@ -96,6 +99,17 @@ def _dkv_emulated(q, k, v, start, end, causal, out, lse, dout, operand=_split):
     return dk.transpose(1, 2).to(torch.bfloat16), dv.transpose(1, 2).to(torch.bfloat16)
 
 
+def _dq_emulated(q, k, v, start, end, causal, out, lse, dout):
+    s, t = q.shape[1], k.shape[1]
+    qf, kf, vf = _heads(q, k, v)
+    dof = dout.float().transpose(1, 2)
+    delta = (dof * out.float().transpose(1, 2)).sum(-1, keepdim=True)
+    mask = fa._pair_mask(start, end, s, t, causal)
+    p = torch.where(mask, torch.exp((qf @ kf.transpose(-1, -2)) * SCALE - lse[..., None]), 0.0)
+    ds = torch.where(mask, p * (dof @ vf.transpose(-1, -2) - delta), 0.0)
+    return ((_bf16(ds) @ kf) * SCALE).transpose(1, 2).to(torch.bfloat16)
+
+
 def _excess(got: torch.Tensor, want: torch.Tensor) -> float:
     """Largest |got - want| beyond atol + rtol * |want| (<= 0 passes)."""
     got, want = got.float(), want.float()
@@ -119,6 +133,16 @@ def test_dkv_split_of_p_and_ds_fits_the_bf16_tolerance(shape):
     dk, dv = _dkv_emulated(q, k, v, start, end, causal, out, lse, dout)
     assert _excess(dk, dk_ref) <= 0
     assert _excess(dv, dv_ref) <= 0
+
+
+@pytest.mark.parametrize("shape", sorted(SHAPES) + ["bench_training"])
+def test_dq_one_rounding_of_ds_fits_the_bf16_tolerance(shape):
+    q, k, v, dout, start, end, causal = _inputs(SHAPES.get(shape, BENCH_TRAINING))
+    kw = dict(causal=causal, scale=SCALE)
+    out, lse = fa.flash_attention_ref(q, k, v, start, end, **kw)
+    dq_ref, _, _ = fa.flash_attention_bwd_ref(q, k, v, start, end, out, lse, dout, **kw)
+    dq = _dq_emulated(q, k, v, start, end, causal, out, lse, dout)
+    assert _excess(dq, dq_ref) <= 0
 
 
 def test_one_bf16_rounding_of_p_breaks_the_dv_tolerance():
