@@ -11,8 +11,10 @@ Phases, each of which fails the run:
    for each flash wrapper and dtype, the kernel it launches, its route
    (tensor cores or fp32 FMA), ptxas's registers and spills and the
    tensor-core instructions (HMMA) in its SASS (``cuobjdump``); a
-   tensor-core kernel that spills or has no HMMA fails the run; and the
-   LayerNorm backward kernel's registers and spills;
+   tensor-core kernel that spills or has no HMMA fails the run; the
+   LayerNorm backward kernel's registers and spills; and those of every
+   RMSNorm kernel (both routes, each dtype and chunks a lane, with and
+   without dw), where a spill in a bf16 vectorised kernel fails the run;
 3. kernels: each kernel against its plain PyTorch version at the main
    paths' shapes, in fp32 and bf16, with its time, the plain version's,
    one PyTorch library call's, and the least time the card could take:
@@ -20,7 +22,11 @@ Phases, each of which fails the run:
    dq/dkv, LayerNorm and RMSNorm backward) at the training shapes, plus
    a ragged flash case with a left-padded row and a row with no valid key
    (its library time from SDPA with a boolean mask of the same windows),
-   and dq + dk/dv together against SDPA's whole backward;
+   and dq + dk/dv together against SDPA's whole backward; the RMSNorm
+   backward with dw and with frozen weights (the training main path's
+   call), each against ``F.rms_norm``'s autograd backward with the weight
+   trained or frozen; the route each RMSNorm call took, where a main-path
+   shape off the vectorised route fails the run;
 4. serving path, fp32, full width at reduced depth: merged embeddings,
    prefill logits and 8 greedy tokens for the serving batch on the card
    against the same model on the CPU (plain versions);
@@ -32,12 +38,13 @@ Phases, each of which fails the run:
 5. serving main path, bf16, full width (SenseVoiceSmall + linear-silu +
    Qwen2.5-1.5B, random weights from a seed): ``generate`` on 4
    utterances, with every kernel's launch count and the decode steps
-   counted around the call; then ``generate`` again under
+   counted around the call (every RMSNorm launch on the vectorised
+   route); then ``generate`` again under
    ``torch.profiler`` (device activity only) for the device-busy share;
 5b. training main path, bf16, the same model, at bench.py's batch (5 x
    512 frames, 32 text tokens): 3 warm-up and 10 timed steps of
    ``make_train_step`` with every kernel's launches per step checked
-   exactly, step ms, audio-sec/s and MFU, peak memory; one step under
+   exactly (every RMSNorm launch on the vectorised route), step ms, audio-sec/s and MFU, peak memory; one step under
    ``torch.profiler``;
 6. one JSON line listing every kernel, then the contract line
    ``{"ok": true, "device": {...}}`` last.
@@ -53,6 +60,7 @@ import copy
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -104,6 +112,15 @@ FLASH_PATHS = {
                             ("bf16", "dkv_reduce_kernel", "sum of the partials"),
                             ("f32", "flash_dkv_f32_kernel", "fp32 FMA")),
 }
+
+# the RMSNorm kernels in ptxas's report, by mangled name: the kernel, its
+# element type, 16-byte chunks a lane (vectorised route) and whether it
+# computes dw
+RMS_KERNEL = re.compile(r"(rms_norm_(?:fwd|bwd)(?:_vec)?_kernel|rms_dw_sum_kernel)"
+                        r"I(13__nv_bfloat16|f)(?:Li(\d+)E)?(?:Lb([01])E)?")
+# RMSNorm shapes of the main paths ([rows, d], bf16): they must take the
+# vectorised route
+RMS_MAIN_SHAPES = {"rms_norm_fwd": ((2172, 1536), (4, 1536)), "rms_norm_bwd": ((2715, 1536),)}
 
 # kernel vs plain version on the card: |a - b| <= atol + rtol * |b|
 KERNEL_TOL = {"f32": (2e-5, 2e-5), "bf16": (1e-2, 1e-2)}
@@ -368,6 +385,30 @@ def phase_paths(logs: dict) -> None:
                  else f"ptxas: {regs} registers, {spill} bytes spilled")
         print(f"path layer_norm_bwd: {key}; {ptxas}; dynamic shared memory 2 x 4 x d bytes "
               f"(200440 at d = 25055)", flush=True)
+    rms = sorted(((m.groups(), v) for n, v in report.items() if (m := RMS_KERNEL.search(n))),
+                 key=lambda kv: tuple(g or "" for g in kv[0]))
+    if not rms:
+        print("path rms_norm: ptxas: not measured (library built before this run)", flush=True)
+    for (kernel, ty, chunks, wg), (regs, spill) in rms:
+        dt = "bf16" if ty.endswith("bfloat16") else "f32"
+        what = ", ".join([dt] + ([f"{chunks} chunks a lane"] if chunks else [])
+                         + ([{"1": "dw", "0": "no dw"}[wg]] if wg else []))
+        print(f"path rms_norm: {kernel} ({what}); ptxas: {regs} registers, {spill} bytes "
+              f"spilled", flush=True)
+        if "_vec_" in kernel and dt == "bf16" and spill:
+            fail(f"{kernel} ({what}): a bf16 vectorised RMSNorm kernel spills")
+
+
+def rms_route_taken(name, routes, before, n, d, dt) -> str:
+    """", route ..." for the log line of an RMSNorm call that moved its
+    route counters from ``before`` (empty for other kernels); fails where a
+    main-path shape in bf16 did not take the vectorised route."""
+    if routes is None:
+        return ""
+    moved = [r for r in routes if routes[r] != before[r]]
+    if dt == "bf16" and (n, d) in RMS_MAIN_SHAPES[name] and moved != ["vec"]:
+        fail(f"{name} [{n},{d}] bf16: a main-path shape took the route {moved}, not 'vec'")
+    return f", route {'/'.join(moved)}"
 
 
 def phase_kernels(torch, dev, results):
@@ -447,8 +488,11 @@ def phase_kernels(torch, dev, results):
                 ref = lambda: norms.rms_norm_ref(x, w)                # noqa: E731
                 lib = lambda: F.rms_norm(x, (d,), w, 1e-6)           # noqa: E731
                 nbytes, flops = 2 * n * d * esize + d * esize + 4 * n, 4.0 * n * d
+            routes = getattr(getattr(norms, name), "routes", None)
+            before = dict(routes or {})
             got = run()
             torch.cuda.synchronize()
+            route = rms_route_taken(name, routes, before, n, d, dt)
             err = max(compare(torch, a, r, dt if i == 0 else "f32", f"{name} [{n},{d}] {dt}")
                       for i, (a, r) in enumerate(zip(got, ref())))
             ms, plain, lib_ms = time_ms(torch, run), time_ms(torch, ref), time_ms(torch, lib)
@@ -460,7 +504,7 @@ def phase_kernels(torch, dev, results):
                                     library_ms=lib_ms, bound_ms=bms, bound_by=by, err=err))
             print(f"kernel {name} [{n},{d}] {dt}: err {err:.3e} ms {ms:.4f} plain {plain:.4f} "
                   f"library {lib_ms:.4f} bound {bms:.4f} ({by}); eager call {host_ms:.4f}, "
-                  f"library eager {host_lib:.4f}", flush=True)
+                  f"library eager {host_lib:.4f}{route}", flush=True)
 
 
 def phase_kernels_bwd(torch, dev, results):
@@ -562,15 +606,31 @@ def phase_kernels_bwd(torch, dev, results):
                     torch, lambda: F.rms_norm(xr, (d,), wr, 1e-6), (xr, wr), gy)
                 nbytes = 3 * n * d * esize + 2 * d * esize + 4 * n
                 flops = 9.0 * n * d
+            routes = getattr(bwd, "routes", None)
+            before = dict(routes or {})
             got = bwd(*args)
             torch.cuda.synchronize()
+            route = rms_route_taken(name, routes, before, n, d, dt)
+            want = bwd_ref(*args)
             err = max(compare(torch, a, r, dt, f"{name} [{n},{d}] {dt}", 1.0 if i == 0 else n ** 0.5)
-                      for i, (a, r) in enumerate(zip(got, bwd_ref(*args))))
+                      for i, (a, r) in enumerate(zip(got, want)))
             ms, plain = time_ms(torch, lambda: bwd(*args)), time_ms(torch, lambda: bwd_ref(*args))
             record(name, f"{n}x{d}", dt, ms, plain, lib, method, nbytes, flops, err)
             kernel_ms = time_ms(torch, lambda: bwd(*args, weight_grad=False))
-            print(f"kernel {name} {n}x{d} {dt}: {kernel_ms:.4f} ms without the partials' sum",
-                  flush=True)
+            if name == "layer_norm_bwd":
+                print(f"kernel {name} {n}x{d} {dt}: {kernel_ms:.4f} ms without the partials' sum",
+                      flush=True)
+                continue
+            # frozen weights, the training main path's call: dx alone,
+            # against F.rms_norm's backward with the weight not requiring
+            # grad
+            dx = bwd(*args, weight_grad=False)[0]
+            torch.cuda.synchronize()
+            err = compare(torch, dx, want[0], dt, f"{name} [{n},{d}] {dt} frozen w")
+            lib, method = backward_ms(torch, lambda: F.rms_norm(xr, (d,), w, 1e-6), (xr,), gy)
+            record(name, f"{n}x{d} frozen w", dt, kernel_ms, plain, lib, method,
+                   nbytes - d * esize, flops - 2.0 * n * d, err)
+            print(f"kernel {name} {n}x{d} {dt}{route}", flush=True)
 
 
 def phase_path_fp32(torch, dev):
@@ -695,8 +755,7 @@ def phase_train_main(torch, dev, model, launches):
     warm_s = time.perf_counter() - t0
 
     torch.cuda.reset_peak_memory_stats()
-    for fn in counters.values():
-        fn.launches = 0
+    reset_counters(counters)
     times, losses = [], []
     for _ in range(TRAIN_STEPS):
         t1 = time.perf_counter()
@@ -712,6 +771,7 @@ def phase_train_main(torch, dev, model, launches):
         if launches[name] != per_step * TRAIN_STEPS:
             fail(f"training path: {name} launched {launches[name]} times in {TRAIN_STEPS} "
                  f"steps, expected {per_step} per step")
+    check_routes(counters, launches, "training path")
     if not all(math.isfinite(x) for x in losses):
         fail(f"training path: non-finite loss {losses}")
     params = dict(model.named_parameters())
@@ -739,6 +799,26 @@ def phase_train_main(torch, dev, model, launches):
     busy_s = "not measured" if busy is None else f"{busy:.2f} ms"
     print(f"profiled train step: wall {wall:.1f} ms, device-busy {busy_s}, busy share "
           f"{share}, {ops} device ops; largest {json.dumps(top)}", flush=True)
+
+
+def reset_counters(counters) -> None:
+    """Every wrapper's launch count, and the RMSNorm wrappers' per-route
+    counts, to 0."""
+    for fn in counters.values():
+        fn.launches = 0
+        for route in getattr(fn, "routes", {}):
+            fn.routes[route] = 0
+
+
+def check_routes(counters, launches, what: str) -> None:
+    """Fails unless every RMSNorm launch counted since the reset took the
+    vectorised route (the main paths are bf16, 1536 wide)."""
+    routes = {name: dict(counters[name].routes) for name in RMS_MAIN_SHAPES}
+    print(f"{what}: RMSNorm routes {routes}", flush=True)
+    for name, r in routes.items():
+        if r["vec"] != launches[name] or r["general"]:
+            fail(f"{what}: {name} launched {launches[name]} times, {r['vec']} on the "
+                 f"vectorised route")
 
 
 def kernel_counters() -> dict:
@@ -780,8 +860,7 @@ def phase_main(torch, dev, launches):
     run(2)   # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for fn in counters.values():
-        fn.launches = 0
+    reset_counters(counters)
     with counting_steps() as step_starts:
         t0 = time.perf_counter()
         tokens = run(MAX_NEW)
@@ -804,6 +883,7 @@ def phase_main(torch, dev, launches):
     for name, n in need.items():
         if launches[name] != n:
             fail(f"main path: {name} launched {launches[name]} times, expected {n}")
+    check_routes(counters, launches, "main path")
 
     total_ms = (t_end - t0) * 1e3
     first_ms = (step_starts[0] - t0) * 1e3 if steps else total_ms
@@ -911,7 +991,7 @@ def main() -> None:
         "rms_norm_fwd": ("ps_slm_tpu_torch/csrc/norms.cu", "ps_slm_tpu/ops/norms.py:61",
                          "2172x1536"),
         "rms_norm_bwd": ("ps_slm_tpu_torch/csrc/norms.cu", "ps_slm_tpu/ops/norms.py:94",
-                         "2715x1536"),
+                         "2715x1536 frozen w"),
     }
     kernels = []
     for name, (source, replaces, shape) in sources.items():

@@ -7,7 +7,10 @@ are fp32; x, the weights, y and dx are bf16 or fp32.
 ``layer_norm_fwd``, ``rms_norm_fwd``, ``layer_norm_bwd`` and
 ``rms_norm_bwd`` launch the kernels of ``csrc/norms.cu`` for CUDA tensors
 and take the plain versions (``*_ref``) only for CPU tensors.  There is no
-width gate: every CUDA call goes through the kernel, at any d.
+width gate: every CUDA call goes through a kernel, at any d.  The RMSNorm
+wrappers pick one of two kernel routes with :func:`rms_route` (a warp per
+row from 16-byte loads, or a block per row for any width and alignment)
+and count their launches per route in ``.routes``.
 :class:`LayerNormFn` and :class:`RMSNormFn` put a forward and its backward
 together for autograd, saving what the JAX custom VJPs save: ``x, w, mu,
 rstd`` for LayerNorm; ``x`` in its own dtype, ``w`` and the fp32 ``rstd``
@@ -32,9 +35,28 @@ _SIGNATURES = {
     # device, dtype, x, w, mu, rstd, g, dx, dw_part, db_part, n, d,
     # n_blocks, stream
     "ps_layer_norm_bwd": (_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
-    # device, dtype, x, w, rstd, g, dx, dw_part, n, d, n_blocks, stream
+    # device, dtype, x, w, rstd, g, dx, dw_part (null: no dw), n, d,
+    # n_blocks, stream
     "ps_rms_norm_bwd": (_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # the vectorised route: device, dtype, x, w, y, rstd, n, d, eps,
+    # n_blocks, stream
+    "ps_rms_norm_fwd_vec": (_I, _I, _P, _P, _P, _P, _I, _I, _F, _I, _P),
+    # device, dtype, x, w, rstd, g, dx, dw_part (null: no dw), n, d,
+    # n_blocks, stream
+    "ps_rms_norm_bwd_vec": (_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # device, dtype, dw_part, dw, n_blocks, d, stream
+    "ps_rms_norm_dw_sum": (_I, _I, _P, _P, _I, _I, _P),
 }
+
+# The RMSNorm kernels' vectorised route takes rows of at most this many
+# bytes (csrc/norms.cu: RMS_MAX_CHUNKS = 7 16-byte chunks a lane, 32 lanes)
+VEC_ROW_BYTES = 7 * 32 * 16
+# blocks of 4 warps an SM for the vectorised kernels, each block a run of
+# consecutive rows: as many as the kernels' registers let an SM hold at
+# 1536 wide in bf16 (151 a thread forward, 218-232 backward), the fastest
+# of 1, 2, 3, 4, 6 and 8 on the H100
+_VEC_FWD_BLOCKS_PER_SM = 3
+_VEC_BWD_BLOCKS_PER_SM = 2
 
 
 def layer_norm_ref(
@@ -108,6 +130,20 @@ def _check_cuda(x: torch.Tensor, params, name: str) -> None:
             raise ValueError(f"{name}: weights must be contiguous [{x.shape[-1]}]")
 
 
+def rms_route(d: int, dtype: torch.dtype, ptrs) -> str:
+    """The RMSNorm kernel route for rows of ``d`` elements of ``dtype`` at
+    the data pointers ``ptrs`` (x, w and y for the forward; x, w, g and dx
+    for the backward): ``"vec"``, a warp per row from 16-byte loads, where
+    a row is a whole number of 16-byte chunks, at most ``VEC_ROW_BYTES``,
+    and every pointer is 16-byte aligned; else ``"general"``.  A contiguous
+    tensor at an odd storage offset is not aligned, so it takes the
+    general route."""
+    row = d * dtype.itemsize
+    if row % 16 or row > VEC_ROW_BYTES or any(p % 16 for p in ptrs):
+        return "general"
+    return "vec"
+
+
 def layer_norm_fwd(
     x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, eps: float = 1e-5
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -150,17 +186,22 @@ def rms_norm_fwd(
     if n == 0:
         return y, rstd
     lib = _build.load("norms", _SIGNATURES)
-    err = lib.ps_rms_norm_fwd(
-        x.device.index, _build.DTYPE_CODES[x.dtype], x.data_ptr(),
-        weight.data_ptr(), y.data_ptr(), rstd.data_ptr(), n, d, eps,
-        _build.stream_ptr(x),
-    )
+    ptrs = (x.data_ptr(), weight.data_ptr(), y.data_ptr())
+    route = rms_route(d, x.dtype, ptrs)
+    args = (x.device.index, _build.DTYPE_CODES[x.dtype], *ptrs, rstd.data_ptr(), n, d, eps)
+    if route == "vec":
+        err = lib.ps_rms_norm_fwd_vec(
+            *args, _blocks(x, n, _VEC_FWD_BLOCKS_PER_SM), _build.stream_ptr(x))
+    else:
+        err = lib.ps_rms_norm_fwd(*args, _build.stream_ptr(x))
     _build.check(lib, err, "rms_norm_fwd")
     rms_norm_fwd.launches += 1
+    rms_norm_fwd.routes[route] += 1
     return y, rstd
 
 
 rms_norm_fwd.launches = 0
+rms_norm_fwd.routes = {"vec": 0, "general": 0}
 
 
 def _check_bwd(x, g, stats, name: str) -> None:
@@ -175,9 +216,10 @@ def _check_bwd(x, g, stats, name: str) -> None:
             raise ValueError(f"{name}: statistics must be contiguous {tuple(x.shape[:-1]) + (1,)}")
 
 
-def _bwd_blocks(x: torch.Tensor, n: int, per_sm: int) -> int:
-    """Blocks of a backward launch, i.e. rows of its partial-sum buffers:
-    ``per_sm`` an SM, each taking a run of consecutive rows."""
+def _blocks(x: torch.Tensor, n: int, per_sm: int) -> int:
+    """Blocks of a launch that gives each block a run of consecutive rows
+    (for a backward, the rows of its partial-sum buffers): ``per_sm`` an
+    SM, fewer where there are fewer rows."""
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     per = -(-n // (per_sm * sms))
     return -(-n // per)
@@ -203,7 +245,7 @@ def layer_norm_bwd(
     if n == 0:
         zeros = torch.zeros_like(weight)
         return (dx, zeros, zeros.clone()) if weight_grad else (dx, None, None)
-    nb = _bwd_blocks(x, n, per_sm=1)   # each block's partial rows fill its SM's shared memory
+    nb = _blocks(x, n, per_sm=1)   # each block's partial rows fill its SM's shared memory
     dw_part = torch.empty((nb, d), device=x.device, dtype=torch.float32)
     db_part = torch.empty_like(dw_part)
     lib = _build.load("norms", _SIGNATURES)
@@ -227,8 +269,12 @@ def rms_norm_bwd(
     x: torch.Tensor, weight: torch.Tensor, rstd: torch.Tensor, g: torch.Tensor,
     *, weight_grad: bool = True,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """RMSNorm backward: ``(dx, dw)`` as :func:`rms_norm_bwd_ref`; dw is
-    None with ``weight_grad=False`` (see :func:`layer_norm_bwd`)."""
+    """RMSNorm backward: ``(dx, dw)`` as :func:`rms_norm_bwd_ref`.
+
+    dx is always computed.  With ``weight_grad=False`` (frozen weights) the
+    kernel computes no dw, no partial rows are allocated, and dw is None;
+    else the kernel's per-block partial rows are summed by a second kernel
+    in a fixed order, so dw is the same bits from call to call."""
     if x.device.type == "cpu":
         dx, dw = rms_norm_bwd_ref(x, weight, rstd, g)
         return (dx, dw) if weight_grad else (dx, None)
@@ -239,20 +285,31 @@ def rms_norm_bwd(
     dx = torch.empty_like(x)
     if n == 0:
         return dx, torch.zeros_like(weight) if weight_grad else None
-    nb = _bwd_blocks(x, n, per_sm=2)
-    dw_part = torch.empty((nb, d), device=x.device, dtype=torch.float32)
+    route = rms_route(d, x.dtype, (x.data_ptr(), weight.data_ptr(), g.data_ptr(), dx.data_ptr()))
+    nb = _blocks(x, n, _VEC_BWD_BLOCKS_PER_SM if route == "vec" else 2)
+    dw_part = torch.empty((nb, d), device=x.device, dtype=torch.float32) if weight_grad else None
     lib = _build.load("norms", _SIGNATURES)
-    err = lib.ps_rms_norm_bwd(
-        x.device.index, _build.DTYPE_CODES[x.dtype], x.data_ptr(),
-        weight.data_ptr(), rstd.data_ptr(), g.data_ptr(), dx.data_ptr(),
-        dw_part.data_ptr(), n, d, nb, _build.stream_ptr(x),
+    launch = lib.ps_rms_norm_bwd_vec if route == "vec" else lib.ps_rms_norm_bwd
+    dtype = _build.DTYPE_CODES[x.dtype]
+    err = launch(
+        x.device.index, dtype, x.data_ptr(), weight.data_ptr(), rstd.data_ptr(),
+        g.data_ptr(), dx.data_ptr(), None if dw_part is None else dw_part.data_ptr(),
+        n, d, nb, _build.stream_ptr(x),
     )
     _build.check(lib, err, "rms_norm_bwd")
     rms_norm_bwd.launches += 1
-    return dx, dw_part.sum(0).to(weight.dtype) if weight_grad else None
+    rms_norm_bwd.routes[route] += 1
+    if dw_part is None:
+        return dx, None
+    dw = torch.empty_like(weight)
+    err = lib.ps_rms_norm_dw_sum(
+        x.device.index, dtype, dw_part.data_ptr(), dw.data_ptr(), nb, d, _build.stream_ptr(x))
+    _build.check(lib, err, "rms_norm_bwd (dw sum)")
+    return dx, dw
 
 
 rms_norm_bwd.launches = 0
+rms_norm_bwd.routes = {"vec": 0, "general": 0}
 
 
 class LayerNormFn(torch.autograd.Function):

@@ -211,6 +211,94 @@ def test_layer_norm_bwd_is_deterministic(dev, dtype):
         assert torch.equal(a, b)
 
 
+# RMSNorm on both kernel routes (ops/norms.py::rms_route): (n, d, storage
+# offset of x and g in elements, route for bf16, route for fp32).  1536 is
+# the LLM's width (n 4: a decode step, 2715: the training step's merged
+# rows); 1544 leaves lanes past the row's end idle; 1538 is not a whole
+# number of 16-byte chunks; 1792 and 896 are the cap (3 584-byte rows); an
+# odd storage offset misaligns a contiguous tensor.
+RMS_ROUTE_CASES = {
+    "n1_d1536": (1, 1536, 0, "vec", "general"),
+    "n4_d1536": (4, 1536, 0, "vec", "general"),
+    "n2715_d1536": (2715, 1536, 0, "vec", "general"),
+    "d1544": (37, 1544, 0, "vec", "general"),
+    "d1538": (37, 1538, 0, "general", "general"),
+    "d1792_cap": (37, 1792, 0, "vec", "general"),
+    "d896_cap": (37, 896, 0, "vec", "vec"),
+    "d1536_odd_offset": (37, 1536, 1, "general", "general"),
+    "d560_odd_offset": (300, 560, 1, "general", "general"),
+}
+
+
+def _rms_inputs(dev, dtype, n, d, offset, seed):
+    """x, w, g for the RMSNorm tests; x and g contiguous, ``offset``
+    elements into their storage."""
+    g_ = torch.Generator(device=dev).manual_seed(seed)
+
+    def rows(scale, shift):
+        base = torch.empty(n * d + offset, device=dev, dtype=dtype)
+        out = base[offset:].view(n, d)
+        out.copy_(torch.randn(n, d, device=dev, generator=g_) * scale + shift)
+        return out
+
+    x = rows(3, 1)
+    w = (1 + 0.1 * torch.randn(d, device=dev, generator=g_)).to(dtype)
+    return x, w, rows(1, 0)
+
+
+def _route_moved(routes, before):
+    return [r for r in routes if routes[r] != before[r]]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(RMS_ROUTE_CASES))
+def test_rms_norm_routes_match_plain(dev, dtype, case):
+    """Forward, backward with dw and backward with frozen weights (dw None)
+    on the route the case names, each against its plain version."""
+    n, d, offset, bf16_route, f32_route = RMS_ROUTE_CASES[case]
+    route = bf16_route if dtype == torch.bfloat16 else f32_route
+    x, w, g = _rms_inputs(dev, dtype, n, d, offset, n + d)
+    assert x.is_contiguous() and (x.data_ptr() % 16 != 0) == bool(offset)
+    tol = TOL[dtype]
+    wtol = dict(tol, atol=tol["atol"] * n ** 0.5)
+    before = dict(norms.rms_norm_fwd.routes)
+    got = norms.rms_norm_fwd(x, w)
+    torch.cuda.synchronize()
+    assert _route_moved(norms.rms_norm_fwd.routes, before) == [route]
+    for a, e in zip(got, norms.rms_norm_ref(x, w)):
+        torch.testing.assert_close(a.float(), e.float(), **tol)
+    _, rstd = norms.rms_norm_ref(x, w)
+    want_dx, want_dw = norms.rms_norm_bwd_ref(x, w, rstd, g)
+    for weight_grad in (True, False):
+        before = dict(norms.rms_norm_bwd.routes)
+        dx, dw = norms.rms_norm_bwd(x, w, rstd, g, weight_grad=weight_grad)
+        torch.cuda.synchronize()
+        assert _route_moved(norms.rms_norm_bwd.routes, before) == [route]
+        assert not torch.isnan(dx).any()
+        torch.testing.assert_close(dx.float(), want_dx.float(), **tol)
+        if weight_grad:
+            torch.testing.assert_close(dw.float(), want_dw.float(), **wtol)
+        else:
+            assert dw is None
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [1536, 1538])
+def test_rms_norm_bwd_is_deterministic(dev, dtype, d):
+    """Two calls give the same bits, on either route: each block's dw
+    partial row is summed in a fixed order, and the partial rows over
+    blocks too, with no atomics."""
+    x, w, g = _rms_inputs(dev, dtype, 2715, d, 0, 11)
+    _, rstd = norms.rms_norm_ref(x, w)
+    first = norms.rms_norm_bwd(x, w, rstd, g)
+    second = norms.rms_norm_bwd(x, w, rstd, g)
+    frozen = norms.rms_norm_bwd(x, w, rstd, g, weight_grad=False)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+    assert frozen[1] is None and torch.equal(frozen[0], first[0])
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_dkv_is_exactly_zero_outside_the_window(dev, dtype):
     """Keys outside a row's window, whole key tiles (0-63 and 192-199 of row
