@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``ps_slm_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py              # every phase below
+    python3 chip_smoke.py --variants   # phases 1-2, then the LayerNorm
+                                       # forward's designs side by side
 
 Phases, each of which fails the run:
 
@@ -13,8 +15,9 @@ Phases, each of which fails the run:
    tensor-core instructions (HMMA) in its SASS (``cuobjdump``); a
    tensor-core kernel that spills or has no HMMA fails the run; the
    LayerNorm backward kernel's registers and spills; and those of every
-   RMSNorm kernel (both routes, each dtype and chunks a lane, with and
-   without dw), where a spill in a bf16 vectorised kernel fails the run;
+   other norm kernel (the LayerNorm forward's and RMSNorm's on every
+   route, each dtype and chunks a lane, with and without dw), where a
+   spill in a bf16 vectorised kernel fails the run;
 3. kernels: each kernel against its plain PyTorch version at the main
    paths' shapes, in fp32 and bf16, with its time, the plain version's,
    one PyTorch library call's, and the least time the card could take:
@@ -25,8 +28,8 @@ Phases, each of which fails the run:
    and dq + dk/dv together against SDPA's whole backward; the RMSNorm
    backward with dw and with frozen weights (the training main path's
    call), each against ``F.rms_norm``'s autograd backward with the weight
-   trained or frozen; the route each RMSNorm call took, where a main-path
-   shape off the vectorised route fails the run;
+   trained or frozen; the route each norm call took, where a main-path
+   shape off its route (MAIN_ROUTES) fails the run;
 4. serving path, fp32, full width at reduced depth: merged embeddings,
    prefill logits and 8 greedy tokens for the serving batch on the card
    against the same model on the CPU (plain versions);
@@ -39,13 +42,15 @@ Phases, each of which fails the run:
    Qwen2.5-1.5B, random weights from a seed): ``generate`` on 4
    utterances, with every kernel's launch count and the decode steps
    counted around the call (every RMSNorm launch on the vectorised
-   route); then ``generate`` again under
-   ``torch.profiler`` (device activity only) for the device-busy share;
+   route; the LayerNorm forward's 142 vectorised and 1 staged); two
+   ``prepare_merged`` calls, which must give bit-identical embeddings;
+   the PSD's device time; then ``generate`` again under ``torch.profiler``
+   (device activity only) for the device-busy share;
 5b. training main path, bf16, the same model, at bench.py's batch (5 x
    512 frames, 32 text tokens): 3 warm-up and 10 timed steps of
    ``make_train_step`` with every kernel's launches per step checked
-   exactly (every RMSNorm launch on the vectorised route), step ms, audio-sec/s and MFU, peak memory; one step under
-   ``torch.profiler``;
+   exactly, and by route as in phase 5; step ms, audio-sec/s and MFU,
+   peak memory; the PSD's device time; one step under ``torch.profiler``;
 6. one JSON line listing every kernel, then the contract line
    ``{"ok": true, "device": {...}}`` last.
 
@@ -113,19 +118,31 @@ FLASH_PATHS = {
                             ("f32", "flash_dkv_f32_kernel", "fp32 FMA")),
 }
 
-# the RMSNorm kernels in ptxas's report, by mangled name: the kernel, its
-# element type, 16-byte chunks a lane (vectorised route) and whether it
-# computes dw
-RMS_KERNEL = re.compile(r"(rms_norm_(?:fwd|bwd)(?:_vec)?_kernel|rms_dw_sum_kernel)"
-                        r"I(13__nv_bfloat16|f)(?:Li(\d+)E)?(?:Lb([01])E)?")
-# RMSNorm shapes of the main paths ([rows, d], bf16): they must take the
-# vectorised route
-RMS_MAIN_SHAPES = {"rms_norm_fwd": ((2172, 1536), (4, 1536)), "rms_norm_bwd": ((2715, 1536),)}
+# the norm kernels in ptxas's report (the LayerNorm backward's apart), by
+# mangled name: the kernel, its element type, its integer template argument
+# (16-byte chunks a lane on the vectorised route) and its flag (LayerNorm
+# for the vectorised forward, dw for the RMSNorm backward)
+NORM_KERNEL = re.compile(r"\d((?:layer_norm_fwd|rms_norm_(?:fwd|bwd))(?:_vec|_held|_staged)?_kernel"
+                         r"|norm_fwd_vec_kernel|rms_dw_sum_kernel)"
+                         r"I(13__nv_bfloat16|f)(?:Li(\d+)E)?(?:Lb([01])E)?")
+# the vectorised kernels, where a bf16 spill fails the run
+VEC_KERNELS = ("norm_fwd_vec_kernel", "rms_norm_bwd_vec_kernel")
+# the route each main-path shape ([rows, d], bf16) must take; the RMSNorm
+# wrappers' every main-path launch is vectorised, the LayerNorm forward's
+# are the encoder's on the vectorised route and the projector's on the
+# staged one, per generate and per training step
+MAIN_ROUTES = {
+    "rms_norm_fwd": {(2172, 1536): "vec", (4, 1536): "vec"},
+    "rms_norm_bwd": {(2715, 1536): "vec"},
+    "layer_norm_fwd": {(2064, 512): "vec", (2064, 560): "vec", (2064, 25055): "staged"},
+}
+LN_ROUTES_PER_PASS = {"vec": LN_PER_GENERATE - 1, "staged": 1, "held": 0, "general": 0}
 
 # kernel vs plain version on the card: |a - b| <= atol + rtol * |b|
 KERNEL_TOL = {"f32": (2e-5, 2e-5), "bf16": (1e-2, 1e-2)}
 # fp32 whole path, card vs CPU (matmul and reduction order differ)
 PATH_TOL = 1e-3
+PSD_CALLS = 3   # PSD calls a profiled run
 
 
 def fail(msg: str) -> None:
@@ -263,9 +280,10 @@ def time_ms(torch, fn, iters: int = 20) -> float:
     return ms
 
 
-def eager_ms(torch, fn, iters: int = 20) -> float:
+def eager_ms(torch, fn, iters: int = 200) -> float:
     """Time of one call issued back to back from Python: for a small
-    kernel this is the host's cost of the call, not the device's."""
+    kernel this is the host's cost of the call, not the device's (200
+    calls, since the host's speed varies from call to call)."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -385,29 +403,35 @@ def phase_paths(logs: dict) -> None:
                  else f"ptxas: {regs} registers, {spill} bytes spilled")
         print(f"path layer_norm_bwd: {key}; {ptxas}; dynamic shared memory 2 x 4 x d bytes "
               f"(200440 at d = 25055)", flush=True)
-    rms = sorted(((m.groups(), v) for n, v in report.items() if (m := RMS_KERNEL.search(n))),
-                 key=lambda kv: tuple(g or "" for g in kv[0]))
-    if not rms:
-        print("path rms_norm: ptxas: not measured (library built before this run)", flush=True)
-    for (kernel, ty, chunks, wg), (regs, spill) in rms:
+    found = sorted(((m.groups(), v) for n, v in report.items() if (m := NORM_KERNEL.search(n))),
+                   key=lambda kv: tuple(g or "" for g in kv[0]))
+    if not found:
+        print("path norms: ptxas: not measured (library built before this run)", flush=True)
+    for (kernel, ty, num, flag), (regs, spill) in found:
         dt = "bf16" if ty.endswith("bfloat16") else "f32"
-        what = ", ".join([dt] + ([f"{chunks} chunks a lane"] if chunks else [])
-                         + ([{"1": "dw", "0": "no dw"}[wg]] if wg else []))
-        print(f"path rms_norm: {kernel} ({what}); ptxas: {regs} registers, {spill} bytes "
+        what = [dt]
+        if num:
+            what.append(f"{num} chunks a lane")
+        if flag:
+            what.append((("RMSNorm", "LayerNorm") if kernel == "norm_fwd_vec_kernel"
+                         else ("no dw", "dw"))[int(flag)])
+        what = ", ".join(what)
+        print(f"path norms: {kernel} ({what}); ptxas: {regs} registers, {spill} bytes "
               f"spilled", flush=True)
-        if "_vec_" in kernel and dt == "bf16" and spill:
-            fail(f"{kernel} ({what}): a bf16 vectorised RMSNorm kernel spills")
+        if kernel in VEC_KERNELS and dt == "bf16" and spill:
+            fail(f"{kernel} ({what}): a bf16 vectorised norm kernel spills")
 
 
-def rms_route_taken(name, routes, before, n, d, dt) -> str:
-    """", route ..." for the log line of an RMSNorm call that moved its
-    route counters from ``before`` (empty for other kernels); fails where a
-    main-path shape in bf16 did not take the vectorised route."""
+def route_taken(name, routes, before, n, d, dt) -> str:
+    """", route ..." for the log line of a norm call that moved its route
+    counters from ``before`` (empty for kernels without routes); fails
+    where a main-path shape in bf16 did not take its route."""
     if routes is None:
         return ""
     moved = [r for r in routes if routes[r] != before[r]]
-    if dt == "bf16" and (n, d) in RMS_MAIN_SHAPES[name] and moved != ["vec"]:
-        fail(f"{name} [{n},{d}] bf16: a main-path shape took the route {moved}, not 'vec'")
+    want = MAIN_ROUTES[name].get((n, d))
+    if dt == "bf16" and want and moved != [want]:
+        fail(f"{name} [{n},{d}] bf16: a main-path shape took the route {moved}, not {want!r}")
     return f", route {'/'.join(moved)}"
 
 
@@ -492,7 +516,7 @@ def phase_kernels(torch, dev, results):
             before = dict(routes or {})
             got = run()
             torch.cuda.synchronize()
-            route = rms_route_taken(name, routes, before, n, d, dt)
+            route = route_taken(name, routes, before, n, d, dt)
             err = max(compare(torch, a, r, dt if i == 0 else "f32", f"{name} [{n},{d}] {dt}")
                       for i, (a, r) in enumerate(zip(got, ref())))
             ms, plain, lib_ms = time_ms(torch, run), time_ms(torch, ref), time_ms(torch, lib)
@@ -505,6 +529,54 @@ def phase_kernels(torch, dev, results):
             print(f"kernel {name} [{n},{d}] {dt}: err {err:.3e} ms {ms:.4f} plain {plain:.4f} "
                   f"library {lib_ms:.4f} bound {bms:.4f} ({by}); eager call {host_ms:.4f}, "
                   f"library eager {host_lib:.4f}{route}", flush=True)
+
+
+def phase_ln_variants(torch, dev) -> None:
+    """``--variants``: the LayerNorm forward's designs at the main paths'
+    shapes in both dtypes, each against its plain version and timed by
+    CUDA-graph replay: the vectorised route at 1 to 8 blocks an SM, the
+    route ``ln_route`` gives the wider rows (staged, or held where a row's
+    buffers do not fit in shared memory; csrc/norms.cu,
+    LAYER_NORM_WIDE_DESIGN), and the general kernel (the design before the
+    routes) at every shape."""
+    from ps_slm_tpu_torch import _build
+    from ps_slm_tpu_torch.ops import norms
+
+    lib = _build.load("norms", norms._SIGNATURES)
+    g = torch.Generator(device=dev).manual_seed(2)
+    for dt, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        for n, d in ((2064, 512), (2064, 560), (2064, 25055)):
+            x = (torch.randn(n, d, device=dev, generator=g) * 3 + 1).to(dtype)
+            w = (1 + 0.1 * torch.randn(d, device=dev, generator=g)).to(dtype)
+            bb = (0.1 * torch.randn(d, device=dev, generator=g)).to(dtype)
+            y = torch.empty_like(x)
+            mu, rstd = (torch.empty(n, 1, device=dev) for _ in range(2))
+            args = (dev.index, _build.DTYPE_CODES[dtype], x.data_ptr(), w.data_ptr(), bb.data_ptr(),
+                    y.data_ptr(), mu.data_ptr(), rstd.data_ptr(), n, d, 1e-5)
+            variants = {"general": lambda: lib.ps_layer_norm_fwd(*args, _build.stream_ptr(x))}
+            if d * x.element_size() <= norms.VEC_ROW_BYTES:
+                for per in (1, 2, 3, 4, 6, 8):
+                    variants[f"vec {per} blocks/SM"] = lambda per=per: lib.ps_norm_fwd_vec(
+                        *args, norms._blocks(x, n, per), _build.stream_ptr(x))
+            else:
+                route = norms.ln_route(d, dtype, ())
+                variants[route] = lambda route=route: getattr(lib, f"ps_layer_norm_fwd_{route}")(
+                    *args, norms._blocks(x, n, 1), _build.stream_ptr(x))
+            want = norms.layer_norm_ref(x, w, bb)
+            bms, by = bound(2 * n * d * x.element_size() + 2 * d * x.element_size() + 8 * n,
+                            8.0 * n * d, dt)
+            for label, fn in variants.items():
+                y.zero_()
+                err = fn()
+                if err:
+                    print(f"variant layer_norm_fwd [{n},{d}] {dt} {label}: refused ({err})",
+                          flush=True)
+                    continue
+                torch.cuda.synchronize()
+                e = max(compare(torch, a, r, dt if i == 0 else "f32", f"variant {label}")
+                        for i, (a, r) in enumerate(zip((y, mu, rstd), want)))
+                print(f"variant layer_norm_fwd [{n},{d}] {dt} {label}: err {e:.3e} ms "
+                      f"{time_ms(torch, fn):.4f} bound {bms:.4f} ({by})", flush=True)
 
 
 def phase_kernels_bwd(torch, dev, results):
@@ -610,7 +682,7 @@ def phase_kernels_bwd(torch, dev, results):
             before = dict(routes or {})
             got = bwd(*args)
             torch.cuda.synchronize()
-            route = rms_route_taken(name, routes, before, n, d, dt)
+            route = route_taken(name, routes, before, n, d, dt)
             want = bwd_ref(*args)
             err = max(compare(torch, a, r, dt, f"{name} [{n},{d}] {dt}", 1.0 if i == 0 else n ** 0.5)
                       for i, (a, r) in enumerate(zip(got, want)))
@@ -771,7 +843,7 @@ def phase_train_main(torch, dev, model, launches):
         if launches[name] != per_step * TRAIN_STEPS:
             fail(f"training path: {name} launched {launches[name]} times in {TRAIN_STEPS} "
                  f"steps, expected {per_step} per step")
-    check_routes(counters, launches, "training path")
+    check_routes(counters, launches, "training path", TRAIN_STEPS)
     if not all(math.isfinite(x) for x in losses):
         fail(f"training path: non-finite loss {losses}")
     params = dict(model.named_parameters())
@@ -794,6 +866,7 @@ def phase_train_main(torch, dev, model, launches):
           f"peak memory {peak_gb:.2f} GB; launches per step "
           f"{ {k: v // TRAIN_STEPS for k, v in launches.items()} }", flush=True)
 
+    psd_time(torch, model, batch, "training batch")
     wall, busy, ops, top = profiled(torch, lambda: step(batch))
     share = "not measured" if busy is None else f"{busy / wall:.3f}"
     busy_s = "not measured" if busy is None else f"{busy:.2f} ms"
@@ -801,8 +874,32 @@ def phase_train_main(torch, dev, model, launches):
           f"{share}, {ops} device ops; largest {json.dumps(top)}", flush=True)
 
 
+def psd_time(torch, model, batch, label: str) -> None:
+    """Device time of one PSD call on the model's CTC posterior for
+    ``batch``, from the profiler over PSD_CALLS calls (the call has host
+    syncs, so no graph)."""
+    from ps_slm_tpu_torch.models.tasu import encode_speech
+    from ps_slm_tpu_torch.ops.psd import psd
+
+    dev = next(model.parameters()).device
+    with torch.inference_mode():
+        _, post, lens = encode_speech(model.encoder, batch["input_features"].to(dev),
+                                      batch["input_feature_length"].to(dev))
+        def run():
+            for _ in range(PSD_CALLS):
+                psd(post, lens, post, blank_id=model.enc_cfg.blank_id,
+                    blank_threshold=model.flags.blank_threshold)
+
+        run()
+        wall, busy, ops, top = profiled(torch, run)
+    busy_s = "not measured" if busy is None else f"{busy / PSD_CALLS:.4f} ms"
+    print(f"psd ({label}, posterior {list(post.shape)} {post.dtype}): device-busy {busy_s} "
+          f"a call in {ops / PSD_CALLS:.0f} device ops, wall {wall / PSD_CALLS:.2f} ms "
+          f"({PSD_CALLS} calls); largest {json.dumps(top[:4])}", flush=True)
+
+
 def reset_counters(counters) -> None:
-    """Every wrapper's launch count, and the RMSNorm wrappers' per-route
+    """Every wrapper's launch count, and the norm wrappers' per-route
     counts, to 0."""
     for fn in counters.values():
         fn.launches = 0
@@ -810,15 +907,20 @@ def reset_counters(counters) -> None:
             fn.routes[route] = 0
 
 
-def check_routes(counters, launches, what: str) -> None:
+def check_routes(counters, launches, what: str, passes: int) -> None:
     """Fails unless every RMSNorm launch counted since the reset took the
-    vectorised route (the main paths are bf16, 1536 wide)."""
-    routes = {name: dict(counters[name].routes) for name in RMS_MAIN_SHAPES}
-    print(f"{what}: RMSNorm routes {routes}", flush=True)
+    vectorised route (the main paths are bf16, 1536 wide), and the
+    LayerNorm forward's took the vectorised route 142 times and the staged
+    one once in each of ``passes`` generate calls or training steps; adds
+    each route's count to ``launches`` as ``name.route``."""
+    routes = {name: dict(counters[name].routes) for name in MAIN_ROUTES}
+    print(f"{what}: norm routes {routes}", flush=True)
     for name, r in routes.items():
-        if r["vec"] != launches[name] or r["general"]:
-            fail(f"{what}: {name} launched {launches[name]} times, {r['vec']} on the "
-                 f"vectorised route")
+        want = ({k: v * passes for k, v in LN_ROUTES_PER_PASS.items()}
+                if name == "layer_norm_fwd" else {"vec": launches[name], "general": 0})
+        if r != want:
+            fail(f"{what}: {name} launched {launches[name]} times, by route {r}, not {want}")
+        launches.update({f"{name}.{k}": v for k, v in r.items()})
 
 
 def kernel_counters() -> dict:
@@ -883,7 +985,7 @@ def phase_main(torch, dev, launches):
     for name, n in need.items():
         if launches[name] != n:
             fail(f"main path: {name} launched {launches[name]} times, expected {n}")
-    check_routes(counters, launches, "main path")
+    check_routes(counters, launches, "main path", 1)
 
     total_ms = (t_end - t0) * 1e3
     first_ms = (step_starts[0] - t0) * 1e3 if steps else total_ms
@@ -913,6 +1015,18 @@ def phase_main(torch, dev, launches):
     print(f"main path, split run: merged length {merged.embeds.shape[1]}, valid merged "
           f"lengths {merged.attention_mask.sum(1).tolist()}; front half "
           f"{(t2 - t1) * 1e3:.1f} ms, LLM prefill {(t3 - t2) * 1e3:.1f} ms", flush=True)
+    # the front half (encoder, PSD's segment sums, projector, merge) gives
+    # the same bits on every call
+    with torch.inference_mode():
+        again = prepare_merged(model, bd, left_padding=True)
+    same = all(torch.equal(a, b) for a, b in zip(
+        (merged.embeds, merged.attention_mask, merged.position_ids),
+        (again.embeds, again.attention_mask, again.position_ids)))
+    print(f"main path: two prepare_merged calls give "
+          f"{'bit-identical' if same else 'different'} embeddings", flush=True)
+    if not same:
+        fail("main path: two prepare_merged calls on the same batch differ")
+    psd_time(torch, model, bd, "serving batch")
 
     # device-busy share: generate with no decode step, then the whole
     # call, each under the profiler with its own wall time
@@ -962,6 +1076,10 @@ def main() -> None:
         fail(f"build: {e}")
     print(f"build: {time.time() - t0:.1f} s ({', '.join(_build.SOURCES)})", flush=True)
     phase_paths(logs)
+    if "--variants" in sys.argv[1:]:
+        phase_ln_variants(torch, dev)
+        print(f"variants done, {time.time() - t_start:.1f} s", flush=True)
+        return
 
     print("kernel vs plain tolerance, |a - b| <= atol + rtol * |b|: "
           + ", ".join(f"{dt} atol {a} rtol {r}" for dt, (a, r) in KERNEL_TOL.items()),
@@ -976,35 +1094,44 @@ def main() -> None:
     train_launches: dict = {}
     phase_train_main(torch, dev, model, train_launches)
 
-    # name: (source, TPU kernel it replaces, the row of phase 3 reported)
-    sources = {
-        "flash_attention_fwd": ("ps_slm_tpu_torch/csrc/flash_fwd.cu",
-                                "ps_slm_tpu/ops/flash_attention.py:59", "encoder"),
-        "flash_attention_dq": ("ps_slm_tpu_torch/csrc/flash_bwd.cu",
-                               "ps_slm_tpu/ops/flash_attention.py:125", "training"),
-        "flash_attention_dkv": ("ps_slm_tpu_torch/csrc/flash_bwd.cu",
-                                "ps_slm_tpu/ops/flash_attention.py:181", "training"),
-        "layer_norm_fwd": ("ps_slm_tpu_torch/csrc/norms.cu", "ps_slm_tpu/ops/norms.py:49",
-                           "2064x512"),
-        "layer_norm_bwd": ("ps_slm_tpu_torch/csrc/norms.cu", "ps_slm_tpu/ops/norms.py:73",
-                           "2560x25055"),
-        "rms_norm_fwd": ("ps_slm_tpu_torch/csrc/norms.cu", "ps_slm_tpu/ops/norms.py:61",
-                         "2172x1536"),
-        "rms_norm_bwd": ("ps_slm_tpu_torch/csrc/norms.cu", "ps_slm_tpu/ops/norms.py:94",
-                         "2715x1536 frozen w"),
-    }
+    # (name, its launch count, the CUDA kernel it launches at the main
+    # paths' bf16 shapes, source, TPU kernel it replaces, the rows of phase
+    # 3 it covers; the first is reported)
+    norms_cu = "ps_slm_tpu_torch/csrc/norms.cu"
+    table = (
+        ("flash_attention_fwd", "flash_attention_fwd", "flash_fwd_bf16_kernel",
+         "ps_slm_tpu_torch/csrc/flash_fwd.cu", "ps_slm_tpu/ops/flash_attention.py:59",
+         ("encoder", "llm_prefill")),
+        ("flash_attention_dq", "flash_attention_dq", "flash_dq_bf16_kernel",
+         "ps_slm_tpu_torch/csrc/flash_bwd.cu", "ps_slm_tpu/ops/flash_attention.py:125",
+         ("training", "ragged")),
+        ("flash_attention_dkv", "flash_attention_dkv", "flash_dkv_bf16_kernel + dkv_reduce_kernel",
+         "ps_slm_tpu_torch/csrc/flash_bwd.cu", "ps_slm_tpu/ops/flash_attention.py:181",
+         ("training", "ragged")),
+        ("layer_norm_fwd (vec)", "layer_norm_fwd.vec", "norm_fwd_vec_kernel<T, chunks, LayerNorm>",
+         norms_cu, "ps_slm_tpu/ops/norms.py:49", ("2064x512", "2064x560")),
+        ("layer_norm_fwd (staged)", "layer_norm_fwd.staged", "layer_norm_fwd_staged_kernel<T>",
+         norms_cu, "ps_slm_tpu/ops/norms.py:49", ("2064x25055",)),
+        ("layer_norm_bwd", "layer_norm_bwd", "layer_norm_bwd_kernel", norms_cu,
+         "ps_slm_tpu/ops/norms.py:73", ("2560x25055",)),
+        ("rms_norm_fwd", "rms_norm_fwd", "norm_fwd_vec_kernel<T, chunks, RMSNorm>", norms_cu,
+         "ps_slm_tpu/ops/norms.py:61", ("2172x1536", "4x1536")),
+        ("rms_norm_bwd", "rms_norm_bwd", "rms_norm_bwd_vec_kernel<T, chunks, no dw>", norms_cu,
+         "ps_slm_tpu/ops/norms.py:94", ("2715x1536 frozen w", "2715x1536")),
+    )
     kernels = []
-    for name, (source, replaces, shape) in sources.items():
-        row = next(r for r in results[name]["shapes"] if r["shape"] == shape and r["dtype"] == "bf16")
+    for name, count, kernel, source, replaces, shapes in table:
+        rows = [r for r in results[name.split()[0]]["shapes"] if r["shape"] in shapes]
+        row = next(r for r in rows if r["shape"] == shapes[0] and r["dtype"] == "bf16")
         kernels.append({
-            "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": gen_launches[name] + train_launches[name],
-            "launches_per_generate": gen_launches[name],
-            "launches_per_train_step": train_launches[name] // TRAIN_STEPS,
-            "max_abs_err": results[name]["max_abs_err"],
+            "name": name, "kernel": kernel, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": gen_launches[count] + train_launches[count],
+            "launches_per_generate": gen_launches[count],
+            "launches_per_train_step": train_launches[count] // TRAIN_STEPS,
+            "max_abs_err": max(r["err"] for r in rows),
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-            "shape": f"{shape} bf16",
+            "shape": f"{shapes[0]} bf16",
         })
     print(f"total {time.time() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -29,6 +29,10 @@ _GREEDY_DEFAULTS = {
     "repetition_penalty": 1.0, "kv_bits": 16, "draft_ids": None,
     "draft_lens": None,
 }
+# options the JAX generate takes and plain greedy never reads, whatever
+# their value: length_penalty reaches beam search only, key (alias rng) is
+# drawn from only when sampling, spec_window is read only with draft_ids
+_UNREAD_BY_GREEDY = frozenset({"length_penalty", "key", "rng", "spec_window"})
 
 
 def _prefill(llm: Qwen2Model, embeds, attn_mask, position_ids, capacity: int):
@@ -98,9 +102,14 @@ def generate(
 
     ``num_beams`` defaults to 4 as in the JAX package; only 1 is ported.
     ``batch`` is moved to ``device``, where the model must already be.
+    The JAX generate's other keywords are taken as it takes them: those
+    plain greedy never reads are ignored, the others must keep the value
+    plain greedy uses.
     """
     dev = resolve_device(device)
     for key, value in kwargs.items():
+        if key in _UNREAD_BY_GREEDY:
+            continue
         if key not in _GREEDY_DEFAULTS:
             raise TypeError(f"generate() got an unexpected argument {key!r}")
         default = _GREEDY_DEFAULTS[key]

@@ -9,8 +9,11 @@ are fp32; x, the weights, y and dx are bf16 or fp32.
 and take the plain versions (``*_ref``) only for CPU tensors.  There is no
 width gate: every CUDA call goes through a kernel, at any d.  The RMSNorm
 wrappers pick one of two kernel routes with :func:`rms_route` (a warp per
-row from 16-byte loads, or a block per row for any width and alignment)
-and count their launches per route in ``.routes``.
+row from 16-byte loads, or a block per row for any width and alignment),
+the LayerNorm forward one of four with :func:`ln_route` (the same two,
+and for rows too wide for a warp a block that reads each row once and
+keeps it on chip: in shared memory where four rows fit there, else in
+registers), and each counts its launches per route in ``.routes``.
 :class:`LayerNormFn` and :class:`RMSNormFn` put a forward and its backward
 together for autograd, saving what the JAX custom VJPs save: ``x, w, mu,
 rstd`` for LayerNorm; ``x`` in its own dtype, ``w`` and the fp32 ``rstd``
@@ -38,9 +41,13 @@ _SIGNATURES = {
     # device, dtype, x, w, rstd, g, dx, dw_part (null: no dw), n, d,
     # n_blocks, stream
     "ps_rms_norm_bwd": (_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
-    # the vectorised route: device, dtype, x, w, y, rstd, n, d, eps,
-    # n_blocks, stream
-    "ps_rms_norm_fwd_vec": (_I, _I, _P, _P, _P, _P, _I, _I, _F, _I, _P),
+    # the vectorised route's forward: device, dtype, x, w, b (null:
+    # RMSNorm), y, mu (null: RMSNorm), rstd, n, d, eps, n_blocks, stream
+    "ps_norm_fwd_vec": (_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _P),
+    # the LayerNorm's staged and held routes: device, dtype, x, w, b, y, mu,
+    # rstd, n, d, eps, n_blocks, stream
+    "ps_layer_norm_fwd_staged": (_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _P),
+    "ps_layer_norm_fwd_held": (_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _P),
     # device, dtype, x, w, rstd, g, dx, dw_part (null: no dw), n, d,
     # n_blocks, stream
     "ps_rms_norm_bwd_vec": (_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
@@ -48,15 +55,23 @@ _SIGNATURES = {
     "ps_rms_norm_dw_sum": (_I, _I, _P, _P, _I, _I, _P),
 }
 
-# The RMSNorm kernels' vectorised route takes rows of at most this many
-# bytes (csrc/norms.cu: RMS_MAX_CHUNKS = 7 16-byte chunks a lane, 32 lanes)
+# The kernels' vectorised route takes rows of at most this many bytes
+# (csrc/norms.cu: VEC_MAX_CHUNKS = 7 16-byte chunks a lane, 32 lanes)
 VEC_ROW_BYTES = 7 * 32 * 16
+# The LayerNorm forward's staged route takes wider rows whose four buffers
+# of 16-byte granules (w, b and a ring of two rows) fit in this much
+# shared memory (csrc/norms.cu: DYN_SMEM_MAX, ln_stage_bytes)
+LN_STAGED_SMEM_BYTES = 225 * 1024
 # blocks of 4 warps an SM for the vectorised kernels, each block a run of
 # consecutive rows: as many as the kernels' registers let an SM hold at
 # 1536 wide in bf16 (151 a thread forward, 218-232 backward), the fastest
 # of 1, 2, 3, 4, 6 and 8 on the H100
 _VEC_FWD_BLOCKS_PER_SM = 3
 _VEC_BWD_BLOCKS_PER_SM = 2
+# the LayerNorm forward's vectorised route at the encoder's 512 and 560
+# wide rows: the fastest of 1, 2, 3, 4, 6 and 8 on the H100 over both
+# widths and dtypes (chip_smoke.py --variants)
+_VEC_LN_BLOCKS_PER_SM = 4
 
 
 def layer_norm_ref(
@@ -144,6 +159,21 @@ def rms_route(d: int, dtype: torch.dtype, ptrs) -> str:
     return "vec"
 
 
+def ln_route(d: int, dtype: torch.dtype, ptrs) -> str:
+    """The LayerNorm forward's kernel route for rows of ``d`` elements of
+    ``dtype`` at the data pointers ``ptrs`` (x, w, b and y).  Rows wider
+    than ``VEC_ROW_BYTES``, at any alignment, are read once and kept on
+    chip by a block: ``"staged"`` in shared memory where four buffers of a
+    row's 16-byte granules fit in ``LN_STAGED_SMEM_BYTES``, else ``"held"``
+    in registers.  Narrower rows follow :func:`rms_route`'s rule, ``"vec"``
+    or ``"general"``."""
+    row = d * dtype.itemsize
+    if row <= VEC_ROW_BYTES:
+        return rms_route(d, dtype, ptrs)
+    stage = (row + 15 + 15) // 16 * 16    # a row's granules at any shift
+    return "staged" if 4 * stage <= LN_STAGED_SMEM_BYTES else "held"
+
+
 def layer_norm_fwd(
     x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, eps: float = 1e-5
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -159,17 +189,27 @@ def layer_norm_fwd(
     if n == 0:
         return y, mu, rstd
     lib = _build.load("norms", _SIGNATURES)
-    err = lib.ps_layer_norm_fwd(
-        x.device.index, _build.DTYPE_CODES[x.dtype], x.data_ptr(),
-        weight.data_ptr(), bias.data_ptr(), y.data_ptr(), mu.data_ptr(),
-        rstd.data_ptr(), n, d, eps, _build.stream_ptr(x),
-    )
+    ptrs = (x.data_ptr(), weight.data_ptr(), bias.data_ptr(), y.data_ptr())
+    route = ln_route(d, x.dtype, ptrs)
+    args = (x.device.index, _build.DTYPE_CODES[x.dtype], *ptrs, mu.data_ptr(),
+            rstd.data_ptr(), n, d, eps)
+    if route == "vec":
+        err = lib.ps_norm_fwd_vec(
+            *args, _blocks(x, n, _VEC_LN_BLOCKS_PER_SM), _build.stream_ptr(x))
+    elif route == "staged":   # one block an SM: its shared memory
+        err = lib.ps_layer_norm_fwd_staged(*args, _blocks(x, n, 1), _build.stream_ptr(x))
+    elif route == "held":     # one block an SM: its registers
+        err = lib.ps_layer_norm_fwd_held(*args, _blocks(x, n, 1), _build.stream_ptr(x))
+    else:
+        err = lib.ps_layer_norm_fwd(*args, _build.stream_ptr(x))
     _build.check(lib, err, "layer_norm_fwd")
     layer_norm_fwd.launches += 1
+    layer_norm_fwd.routes[route] += 1
     return y, mu, rstd
 
 
 layer_norm_fwd.launches = 0
+layer_norm_fwd.routes = {"vec": 0, "staged": 0, "held": 0, "general": 0}
 
 
 def rms_norm_fwd(
@@ -188,12 +228,14 @@ def rms_norm_fwd(
     lib = _build.load("norms", _SIGNATURES)
     ptrs = (x.data_ptr(), weight.data_ptr(), y.data_ptr())
     route = rms_route(d, x.dtype, ptrs)
-    args = (x.device.index, _build.DTYPE_CODES[x.dtype], *ptrs, rstd.data_ptr(), n, d, eps)
+    dev, dtype = x.device.index, _build.DTYPE_CODES[x.dtype]
     if route == "vec":
-        err = lib.ps_rms_norm_fwd_vec(
-            *args, _blocks(x, n, _VEC_FWD_BLOCKS_PER_SM), _build.stream_ptr(x))
+        err = lib.ps_norm_fwd_vec(
+            dev, dtype, ptrs[0], ptrs[1], None, ptrs[2], None, rstd.data_ptr(), n, d, eps,
+            _blocks(x, n, _VEC_FWD_BLOCKS_PER_SM), _build.stream_ptr(x))
     else:
-        err = lib.ps_rms_norm_fwd(*args, _build.stream_ptr(x))
+        err = lib.ps_rms_norm_fwd(dev, dtype, *ptrs, rstd.data_ptr(), n, d, eps,
+                                  _build.stream_ptr(x))
     _build.check(lib, err, "rms_norm_fwd")
     rms_norm_fwd.launches += 1
     rms_norm_fwd.routes[route] += 1

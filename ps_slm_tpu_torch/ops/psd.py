@@ -9,8 +9,11 @@ Counterpart of ``ps_slm_tpu/ops/psd.py``.  Per row:
   3. the survivors are left-compacted and zero-padded to the input's T.
 
 The JAX package phrases the segment reductions as one-hot [T,T] matmuls for
-the TPU's matrix unit; here they are ``index_add_`` scatters over the batch
-at once, which give the same sums in another order.
+the TPU's matrix unit.  Here a segment is a run of consecutive frames, so
+its sum is a sorted segment reduction (``torch.segment_reduce`` over the
+batch's frames at once): each segment is summed in frame order, the same
+bits on every call on either device, where a scatter (``index_add_``) adds
+with atomics in no fixed order on CUDA tensors.
 """
 
 from __future__ import annotations
@@ -42,18 +45,19 @@ def psd(
     seg = torch.cumsum(boundary.to(torch.int64), dim=1) - 1
     seg = torch.where(valid, seg, t)                      # slot t collects padding
 
-    # segment sums over flattened (row, segment) slots, t + 1 per row
-    slot = (seg + torch.arange(b, device=dev)[:, None] * (t + 1)).reshape(-1)
-    seg_feat = torch.zeros(b * (t + 1), d, device=dev, dtype=torch.float32)
-    seg_feat.index_add_(0, slot, feats.reshape(b * t, d).float())
-    seg_count = torch.zeros(b * (t + 1), device=dev, dtype=torch.float32)
-    seg_count.index_add_(0, slot, valid.reshape(-1).float())
-    seg_blank = torch.zeros(b * (t + 1), device=dev, dtype=torch.float32)
-    seg_blank.index_add_(0, slot, (blank_prob * valid).reshape(-1))
+    # frames per (row, segment) slot, t + 1 a row: the slots of the
+    # flattened frames are non-decreasing, so each slot's frames are one
+    # run of them (integer counts: the scatter's order does not matter)
+    frames = torch.zeros(b, t + 1, device=dev, dtype=torch.int64)
+    frames.scatter_add_(1, seg, torch.ones_like(seg))
+    lengths = frames.reshape(-1)
 
-    seg_feat = seg_feat.view(b, t + 1, d)[:, :t]
-    seg_count = seg_count.view(b, t + 1)[:, :t]
-    seg_blank = seg_blank.view(b, t + 1)[:, :t]
+    def seg_sum(v):
+        return torch.segment_reduce(v, "sum", lengths=lengths, unsafe=True)
+
+    seg_feat = seg_sum(feats.reshape(b * t, d).float()).view(b, t + 1, d)[:, :t]
+    seg_blank = seg_sum(blank_prob.reshape(-1)).view(b, t + 1)[:, :t]
+    seg_count = frames[:, :t].float()                     # slots < t hold valid frames only
     denom = seg_count.clamp(min=1.0)
     keep = (seg_count > 0) & (seg_blank / denom < blank_threshold)
 

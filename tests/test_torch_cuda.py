@@ -230,8 +230,8 @@ RMS_ROUTE_CASES = {
 }
 
 
-def _rms_inputs(dev, dtype, n, d, offset, seed):
-    """x, w, g for the RMSNorm tests; x and g contiguous, ``offset``
+def _norm_inputs(dev, dtype, n, d, offset, seed):
+    """x, w, g for the norm route tests; x and g contiguous, ``offset``
     elements into their storage."""
     g_ = torch.Generator(device=dev).manual_seed(seed)
 
@@ -257,7 +257,7 @@ def test_rms_norm_routes_match_plain(dev, dtype, case):
     on the route the case names, each against its plain version."""
     n, d, offset, bf16_route, f32_route = RMS_ROUTE_CASES[case]
     route = bf16_route if dtype == torch.bfloat16 else f32_route
-    x, w, g = _rms_inputs(dev, dtype, n, d, offset, n + d)
+    x, w, g = _norm_inputs(dev, dtype, n, d, offset, n + d)
     assert x.is_contiguous() and (x.data_ptr() % 16 != 0) == bool(offset)
     tol = TOL[dtype]
     wtol = dict(tol, atol=tol["atol"] * n ** 0.5)
@@ -288,7 +288,7 @@ def test_rms_norm_bwd_is_deterministic(dev, dtype, d):
     """Two calls give the same bits, on either route: each block's dw
     partial row is summed in a fixed order, and the partial rows over
     blocks too, with no atomics."""
-    x, w, g = _rms_inputs(dev, dtype, 2715, d, 0, 11)
+    x, w, g = _norm_inputs(dev, dtype, 2715, d, 0, 11)
     _, rstd = norms.rms_norm_ref(x, w)
     first = norms.rms_norm_bwd(x, w, rstd, g)
     second = norms.rms_norm_bwd(x, w, rstd, g)
@@ -297,6 +297,127 @@ def test_rms_norm_bwd_is_deterministic(dev, dtype, d):
     for a, b in zip(first, second):
         assert torch.equal(a, b)
     assert frozen[1] is None and torch.equal(frozen[0], first[0])
+
+
+# The LayerNorm forward's routes (ops/norms.py::ln_route) by width: bf16,
+# fp32.  24 to 1792 bf16 are whole 16-byte chunks up to the cap (3 584
+# bytes; 512 and 560 are the encoder's widths); 1800 is one chunk past it;
+# 25 055 is the projector's norm over the CTC posterior, whose rows shift
+# their 16-byte alignment from row to row (staged in bf16; held in fp32,
+# whose four row buffers do not fit in shared memory); 30 011 is held in
+# bf16 too.  At an odd storage offset the rows the cap takes leave the
+# vectorised route.
+LN_ROUTES = {24: ("vec", "vec"), 512: ("vec", "vec"), 560: ("vec", "vec"),
+             1792: ("vec", "staged"), 1800: ("staged", "staged"),
+             25055: ("staged", "held"), 30011: ("held", "held")}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [1, 37, 2580])
+@pytest.mark.parametrize("d", sorted(LN_ROUTES))
+def test_layer_norm_routes_match_plain(dev, dtype, n, d):
+    """The forward on the route the width names, at x's storage offset 0
+    and 1, against its plain version (y at the dtype's tolerance, mu and
+    rstd at fp32's); then the backward fed the forward's statistics."""
+    route = LN_ROUTES[d][dtype == torch.float32]
+    tol = TOL[dtype]
+    wtol = dict(tol, atol=tol["atol"] * n ** 0.5)
+    for offset in (0, 1):
+        x, w, g = _norm_inputs(dev, dtype, n, d, offset, n + d + offset)
+        b = (0.1 * torch.randn(d, device=dev, generator=torch.Generator(device=dev).manual_seed(d))).to(dtype)
+        want = "general" if offset and route == "vec" else route
+        before = dict(norms.layer_norm_fwd.routes)
+        y, mu, rstd = norms.layer_norm_fwd(x, w, b)
+        torch.cuda.synchronize()
+        assert _route_moved(norms.layer_norm_fwd.routes, before) == [want]
+        r_y, r_mu, r_rstd = norms.layer_norm_ref(x, w, b)
+        assert not torch.isnan(y).any()
+        torch.testing.assert_close(y.float(), r_y.float(), **tol)
+        torch.testing.assert_close(mu, r_mu, **TOL[torch.float32])
+        torch.testing.assert_close(rstd, r_rstd, **TOL[torch.float32])
+        got = norms.layer_norm_bwd(x, w, mu, rstd, g)
+        for i, (a, e) in enumerate(zip(got, norms.layer_norm_bwd_ref(x, w, r_mu, r_rstd, g))):
+            torch.testing.assert_close(a.float(), e.float(), **(tol if i == 0 else wtol))
+
+
+@pytest.mark.parametrize("route,dtype,d", [("staged", torch.bfloat16, 25055),
+                                           ("held", torch.bfloat16, 30011),
+                                           ("held", torch.float32, 25055)])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_layer_norm_wide_designs_match_plain(dev, route, dtype, d, offset):
+    """Each entry point of the two routes for rows wider than the
+    vectorised cap (csrc/norms.cu, LAYER_NORM_WIDE_DESIGN) against the
+    plain version at a width ln_route gives it, at x's storage offset 0
+    and 1; the other route's entry point refuses those rows."""
+    from ps_slm_tpu_torch import _build
+
+    n = 300
+    assert norms.ln_route(d, dtype, ()) == route
+    x, w, _ = _norm_inputs(dev, dtype, n, d, offset, 9)
+    b = torch.zeros_like(w) - 0.5
+    y = torch.empty(n, d, device=dev, dtype=dtype)
+    mu, rstd = (torch.empty(n, 1, device=dev) for _ in range(2))
+    lib = _build.load("norms", norms._SIGNATURES)
+    args = (dev.index, _build.DTYPE_CODES[x.dtype], x.data_ptr(), w.data_ptr(), b.data_ptr(),
+            y.data_ptr(), mu.data_ptr(), rstd.data_ptr(), n, d, 1e-5, norms._blocks(x, n, 1),
+            _build.stream_ptr(x))
+    other = "held" if route == "staged" else "staged"
+    assert getattr(lib, f"ps_layer_norm_fwd_{other}")(*args) != 0
+    assert getattr(lib, f"ps_layer_norm_fwd_{route}")(*args) == 0
+    torch.cuda.synchronize()
+    r_y, r_mu, r_rstd = norms.layer_norm_ref(x, w, b)
+    torch.testing.assert_close(y.float(), r_y.float(), **TOL[dtype])
+    torch.testing.assert_close(mu, r_mu, **TOL[torch.float32])
+    torch.testing.assert_close(rstd, r_rstd, **TOL[torch.float32])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,offset", [(512, 0), (512, 1), (263, 0), (25055, 0), (25055, 1),
+                                      (30011, 0)])
+def test_layer_norm_fwd_is_deterministic(dev, dtype, d, offset):
+    """Two calls give the same bits on every route (vec, general, staged,
+    held): no atomics, every sum in a fixed order."""
+    x, w, _ = _norm_inputs(dev, dtype, 2064, d, offset, 5)
+    b = torch.zeros_like(w) + 0.25
+    first = norms.layer_norm_fwd(x, w, b)
+    second = norms.layer_norm_fwd(x, w, b)
+    torch.cuda.synchronize()
+    for a, c in zip(first, second):
+        assert torch.equal(a, c)
+
+
+def _runs_of_frames(dev, b, t, v, seed):
+    """A CTC posterior [B, T, V] whose argmax repeats in runs of 1 to 40
+    frames, with blank (id 0) runs between them, and lengths [B]."""
+    g_ = torch.Generator().manual_seed(seed)
+    ids = torch.empty(b, t, dtype=torch.long)
+    for r in range(b):
+        pos = 0
+        while pos < t:
+            run = int(torch.randint(1, 41, (1,), generator=g_))
+            ids[r, pos:pos + run] = int(torch.randint(0, v, (1,), generator=g_))
+            pos += run
+    logits = torch.randn(b, t, v, generator=g_)
+    logits.scatter_add_(2, ids[..., None], torch.full((b, t, 1), 8.0))
+    lens = torch.tensor([t - 13 * r for r in range(b)])
+    return torch.softmax(logits, -1).to(dev), lens.to(dev)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_psd_is_deterministic(dev, dtype):
+    """Two PSD calls on the card give the same bits, with runs of up to 40
+    repeated frames summed into one segment, and agree with the CPU."""
+    from ps_slm_tpu_torch.ops.psd import psd
+
+    post, lens = _runs_of_frames(dev, 4, 516, 2000, 0)
+    feats = post.to(dtype)
+    first = psd(feats, lens, feats)
+    second = psd(feats, lens, feats)
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+    cpu = psd(feats.cpu(), lens.cpu(), feats.cpu())
+    assert torch.equal(first[1].cpu(), cpu[1])
+    torch.testing.assert_close(first[0].cpu().float(), cpu[0].float(), **TOL[dtype])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

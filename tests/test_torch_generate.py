@@ -86,3 +86,17 @@ def test_generate_greedy_tokens_equal_jax():
     got = generate(pm, tb, eos_token_id=eos, device="cpu", **kw)
     assert (want == eos).any()
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("key_name", ["key", "rng"])
+def test_generate_takes_the_jax_keywords_greedy_never_reads(key_name):
+    """length_penalty (beam search only), key or its alias rng (sampling
+    only) and spec_window (drafts only) are taken as the JAX generate
+    takes them, and greedy gives the JAX tokens."""
+    jm, pm = _pair()
+    jb, tb = _batch()
+    kw = dict(num_beams=1, max_new_tokens=8, eos_token_id=9, length_penalty=1.5, spec_window=4)
+    want = np.asarray(jax_generate(jm, jm.params, jb, **kw, **{key_name: jax.random.PRNGKey(3)}))
+    gen = torch.Generator().manual_seed(3)
+    got = generate(pm, tb, device="cpu", **kw, **{key_name: gen})
+    np.testing.assert_array_equal(got.numpy(), want)

@@ -147,7 +147,7 @@ def test_attention_is_full_sequence_only():
         tattn.attention(x, torch.zeros(1, 3, 2, 8), torch.zeros(1, 3, 2, 8))
 
 
-@pytest.mark.parametrize("shape", [(3, 5, 24), (7, 40)])
+@pytest.mark.parametrize("shape", [(3, 5, 24), (7, 40), (3, 560)])
 def test_layer_norm_plain_matches_jax(shape):
     rng = np.random.default_rng(5)
     x = rng.normal(size=shape).astype(np.float32) * 3 + 1
