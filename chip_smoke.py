@@ -28,8 +28,12 @@ Phases, each of which fails the run:
    and dq + dk/dv together against SDPA's whole backward; the RMSNorm
    backward with dw and with frozen weights (the training main path's
    call), each against ``F.rms_norm``'s autograd backward with the weight
-   trained or frozen; the route each norm call took, where a main-path
-   shape off its route (MAIN_ROUTES) fails the run;
+   trained or frozen; the beam decode's and the text-only step's shapes
+   too (RMSNorm at 16 and 795 rows, flash forward, dq and dk/dv at 5 x
+   159, the projector's LayerNorm forward and backward at 640 x 25 055 on
+   smoothed, clean and all-zero one-hot rows); the route each norm call
+   took, where a main-path shape off its route (MAIN_ROUTES) fails the
+   run;
 4. serving path, fp32, full width at reduced depth: merged embeddings,
    prefill logits and 8 greedy tokens for the serving batch on the card
    against the same model on the CPU (plain versions);
@@ -38,12 +42,17 @@ Phases, each of which fails the run:
    on the CPU: loss, accuracy and token count per step, the projector
    after the second step, the projector moved and the frozen weights
    bit-identical;
+4c. beam and text-only paths, fp32, the same model: ``generate`` with the
+   default beams (4) and 8 new tokens on the serving batch, equal tokens
+   on card and CPU; two text-only training steps (the flags swapped to
+   the paper's recipe, insertion on) on a ragged 5-row transcript batch,
+   the noise drawn once on the CPU and fed to both, as in 4b;
 5. serving main path, bf16, full width (SenseVoiceSmall + linear-silu +
    Qwen2.5-1.5B, random weights from a seed): ``generate`` on 4
    utterances, with every kernel's launch count and the decode steps
    counted around the call (every RMSNorm launch on the vectorised
-   route; the LayerNorm forward's 142 vectorised and 1 staged); two
-   ``prepare_merged`` calls, which must give bit-identical embeddings;
+   route; the LayerNorm forward's 142 vectorised and 1 staged); two calls
+   with bit-identical tokens; two ``prepare_merged`` calls, which must give bit-identical embeddings;
    the PSD's device time; then ``generate`` again under ``torch.profiler``
    (device activity only) for the device-busy share;
 5b. training main path, bf16, the same model, at bench.py's batch (5 x
@@ -51,6 +60,19 @@ Phases, each of which fails the run:
    ``make_train_step`` with every kernel's launches per step checked
    exactly, and by route as in phase 5; step ms, audio-sec/s and MFU,
    peak memory; the PSD's device time; one step under ``torch.profiler``;
+5c. beam-4 serving main path, bf16, the same model: ``generate`` with the
+   JAX default beams on phase 5's batch, exact launches (flash 98,
+   LayerNorm 142 vec + 1 staged, RMSNorm 57 x 32 at 16 decode rows), 31
+   decode steps counted around ``_step`` (no early exit), two calls with
+   bit-identical tokens; wall, first token, ms per beam step,
+   audio-sec/s, peak memory, the profiled device-busy share;
+5d. text-only training main path, bf16, the same weights with the flags
+   of ``text_only_configs()`` (noise on, insertion off): 5 transcripts of
+   128/112/96/80/64 CTC ids, 32 text tokens; 3 warm-up and 10 timed steps
+   with exact launches per step (flash 28 / 28 / 28, LayerNorm 1 staged +
+   1 backward, RMSNorm 57 / 57; the encoder does not run), finite
+   losses, frozen weights bit-identical, the projector moved; step ms,
+   peak memory, one profiled step;
 6. one JSON line listing every kernel, then the contract line
    ``{"ok": true, "device": {...}}`` last.
 
@@ -98,6 +120,20 @@ LAUNCHES_PER_TRAIN_STEP = {
     "flash_attention_fwd": 98, "flash_attention_dq": 28, "flash_attention_dkv": 28,
     "layer_norm_fwd": 143, "layer_norm_bwd": 1, "rms_norm_fwd": 57, "rms_norm_bwd": 57,
 }
+# text-only TASU (scripts/finetune_text_only.sh): transcripts of these
+# lengths in CTC ids, padded to the longest; the encoder does not run, so a
+# step launches the LLM's kernels and the projector's LayerNorm only
+TEXT_ONLY_GT_LENS = (128, 112, 96, 80, 64)
+LAUNCHES_PER_TEXT_ONLY_STEP = {
+    "flash_attention_fwd": 28, "flash_attention_dq": 28, "flash_attention_dkv": 28,
+    "layer_norm_fwd": 1, "layer_norm_bwd": 1, "rms_norm_fwd": 57, "rms_norm_bwd": 57,
+}
+# the text-only step's LLM attention: causal GQA over 5 right-padded rows
+# of the merged length, each row's valid length before the drop noise
+TEXT_ONLY_FLASH = ("text_only", 5, TEXT_LEN + max(TEXT_ONLY_GT_LENS) - 1, 12, 2, True, [0] * 5,
+                   [TEXT_LEN + n - 1 for n in TEXT_ONLY_GT_LENS])
+FP32_NEW = 8            # new tokens of the fp32 card-vs-CPU decodes
+TEXT_ONLY_INSERT = 0.1  # insertion on in the fp32 text-only phase
 
 # H100 SXM published peaks (NVIDIA H100 datasheet): memory and the
 # rate for the inputs' type (bf16 tensor cores; fp32 outside them)
@@ -132,17 +168,38 @@ VEC_KERNELS = ("norm_fwd_vec_kernel", "rms_norm_bwd_vec_kernel")
 # are the encoder's on the vectorised route and the projector's on the
 # staged one, per generate and per training step
 MAIN_ROUTES = {
-    "rms_norm_fwd": {(2172, 1536): "vec", (4, 1536): "vec"},
-    "rms_norm_bwd": {(2715, 1536): "vec"},
-    "layer_norm_fwd": {(2064, 512): "vec", (2064, 560): "vec", (2064, 25055): "staged"},
+    "rms_norm_fwd": {(2172, 1536): "vec", (4, 1536): "vec", (16, 1536): "vec",
+                     (795, 1536): "vec"},
+    "rms_norm_bwd": {(2715, 1536): "vec", (795, 1536): "vec"},
+    "layer_norm_fwd": {(2064, 512): "vec", (2064, 560): "vec", (2064, 25055): "staged",
+                       (640, 25055): "staged"},
 }
 LN_ROUTES_PER_PASS = {"vec": LN_PER_GENERATE - 1, "staged": 1, "held": 0, "general": 0}
+LN_ROUTES_TEXT_ONLY = {"vec": 0, "staged": 1, "held": 0, "general": 0}
 
 # kernel vs plain version on the card: |a - b| <= atol + rtol * |b|
 KERNEL_TOL = {"f32": (2e-5, 2e-5), "bf16": (1e-2, 1e-2)}
 # fp32 whole path, card vs CPU (matmul and reduction order differ)
 PATH_TOL = 1e-3
 PSD_CALLS = 3   # PSD calls a profiled run
+
+
+def posterior_rows(torch, dev, dtype, kind: str, n: int, d: int):
+    """[n, d] rows the projector's LayerNorm sees in text-only TASU
+    (TEXT_ONLY_GT_LENS padded to 128 frames): ``clean`` one-hots (generate),
+    or ``mixed``: each transcript's smoothed one-hots ((1 - a) onehot +
+    a / d, a in [0, 0.1)) followed by all-zero rows (pad frames, inactive
+    insertions)."""
+    g = torch.Generator(device=dev).manual_seed(n)
+    onehot = torch.nn.functional.one_hot(
+        torch.randint(0, d, (n,), device=dev, generator=g), d).float()
+    if kind == "clean":
+        return onehot.to(dtype)
+    alpha = 0.1 * torch.rand(n, 1, device=dev, generator=g)
+    n_max = max(TEXT_ONLY_GT_LENS)
+    valid = (torch.arange(n, device=dev) % n_max) < torch.tensor(
+        TEXT_ONLY_GT_LENS, device=dev).repeat_interleave(n_max)[:n]
+    return (((1 - alpha) * onehot + alpha / d) * valid[:, None]).to(dtype)
 
 
 def fail(msg: str) -> None:
@@ -189,11 +246,32 @@ def serving_batch(torch, input_size: int, seed: int = 2) -> dict:
     return batch
 
 
+def gt_batch(torch, vocab: int, seed: int = 0) -> dict:
+    """A text-only training batch: :func:`train_batch`'s 32 text tokens
+    and labels, and TEXT_ONLY_GT_LENS transcripts of CTC ids in [1, vocab)
+    padded to the longest; from numpy with ``seed``, on the CPU."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    b, n = len(TEXT_ONLY_GT_LENS), max(TEXT_ONLY_GT_LENS)
+    ids = rng.integers(1, 1000, size=(b, TEXT_LEN))
+    ids[:, 3] = SPEECH_TOKEN
+    labels = ids.copy()
+    labels[:, :8] = -100
+    return {
+        "input_ids": torch.from_numpy(ids),
+        "attention_mask": torch.ones(b, TEXT_LEN, dtype=torch.bool),
+        "labels": torch.from_numpy(labels),
+        "gt_ids": torch.from_numpy(rng.integers(1, vocab, size=(b, n))),
+        "gt_lens": torch.tensor(TEXT_ONLY_GT_LENS),
+    }
+
+
 @contextlib.contextmanager
 def counting_steps():
     """Record the host time at which each decode step of ``greedy_generate``
-    starts, by wrapping its ``_step``: the decode steps are counted without
-    the kernels' launch counters."""
+    or ``beam_generate`` starts, by wrapping their ``_step``: the decode
+    steps are counted without the kernels' launch counters."""
     from ps_slm_tpu_torch.inference import generate as gen
 
     real = gen._step
@@ -251,6 +329,14 @@ def profiled(torch, fn):
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
     return wall_ms, busy_ms, sum(v[1] for v in by_name.values()), \
         [[name[:60], ms, n] for name, (ms, n) in top]
+
+
+def print_profiled(label: str, result) -> None:
+    wall, busy, ops, top = result
+    share = "not measured" if busy is None else f"{busy / wall:.3f}"
+    busy_s = "not measured" if busy is None else f"{busy:.2f} ms"
+    print(f"profiled {label}: wall {wall:.1f} ms, device-busy {busy_s}, busy share "
+          f"{share}, {ops} device ops; largest {json.dumps(top)}", flush=True)
 
 
 def time_ms(torch, fn, iters: int = 20) -> float:
@@ -452,6 +538,7 @@ def phase_kernels(torch, dev, results):
     flash_cases = [
         ("encoder", 4, 516, 4, 4, False, [0, 0, 0, 0], [516, 404, 304, 260]),
         ("llm_prefill", 4, 543, 12, 2, True, [0, 112, 212, 256], [543] * 4),
+        TEXT_ONLY_FLASH,
     ]
     for label, b, s, hq, hkv, causal, starts, ends in flash_cases:
         d = fa.HEAD_DIM
@@ -491,14 +578,21 @@ def phase_kernels(torch, dev, results):
                   f"causal={causal} {dt}: err {err:.3e} ms {ms:.4f} plain {plain:.4f} "
                   f"sdpa {lib:.4f} bound {bms:.4f} ({by})", flush=True)
 
+    # (name, rows, width, posterior rows' kind or None for normal rows):
+    # the serving and audio training shapes, the text-only projector's rows
+    # (640 = 5 x 128 frames) and LLM rows (795 = 5 x 159), and the beam
+    # decode's 16 rows (4 x 4 beams)
     norm_cases = [
-        ("layer_norm_fwd", 2064, 560), ("layer_norm_fwd", 2064, 512),
-        ("layer_norm_fwd", 2064, 25055), ("rms_norm_fwd", 2172, 1536),
-        ("rms_norm_fwd", 4, 1536),
+        ("layer_norm_fwd", 2064, 560, None), ("layer_norm_fwd", 2064, 512, None),
+        ("layer_norm_fwd", 2064, 25055, None), ("layer_norm_fwd", 640, 25055, "mixed"),
+        ("layer_norm_fwd", 640, 25055, "clean"), ("rms_norm_fwd", 2172, 1536, None),
+        ("rms_norm_fwd", 4, 1536, None), ("rms_norm_fwd", 16, 1536, None),
+        ("rms_norm_fwd", 795, 1536, None),
     ]
-    for name, n, d in norm_cases:
+    for name, n, d, kind in norm_cases:
         for dt, dtype in dtypes.items():
-            x = (torch.randn(n, d, device=dev, generator=g) * 3 + 1).to(dtype)
+            x = (posterior_rows(torch, dev, dtype, kind, n, d) if kind else
+                 (torch.randn(n, d, device=dev, generator=g) * 3 + 1).to(dtype))
             w = (1 + 0.1 * torch.randn(d, device=dev, generator=g)).to(dtype)
             bb = (0.1 * torch.randn(d, device=dev, generator=g)).to(dtype)
             esize = x.element_size()
@@ -524,9 +618,10 @@ def phase_kernels(torch, dev, results):
             bms, by = bound(nbytes, flops, dt)
             e = entry(name)
             e["max_abs_err"] = max(e["max_abs_err"], err)
-            e["shapes"].append(dict(shape=f"{n}x{d}", dtype=dt, ms=ms, plain_ms=plain,
+            label = f"{n}x{d}" + (f" {kind}" if kind else "")
+            e["shapes"].append(dict(shape=label, dtype=dt, ms=ms, plain_ms=plain,
                                     library_ms=lib_ms, bound_ms=bms, bound_by=by, err=err))
-            print(f"kernel {name} [{n},{d}] {dt}: err {err:.3e} ms {ms:.4f} plain {plain:.4f} "
+            print(f"kernel {name} [{n},{d}]{f' {kind}' if kind else ''} {dt}: err {err:.3e} ms {ms:.4f} plain {plain:.4f} "
                   f"library {lib_ms:.4f} bound {bms:.4f} ({by}); eager call {host_ms:.4f}, "
                   f"library eager {host_lib:.4f}{route}", flush=True)
 
@@ -610,6 +705,7 @@ def phase_kernels_bwd(torch, dev, results):
     flash_cases = [
         ("training", 5, 543, 12, 2, True, [0] * 5, [543] * 5),
         ("ragged", 4, 543, 12, 2, True, [0, 112, 0, 0], [543, 543, 300, 0]),
+        TEXT_ONLY_FLASH,
     ]
     for label, b, s, hq, hkv, causal, starts, ends in flash_cases:
         d = fa.HEAD_DIM
@@ -655,10 +751,15 @@ def phase_kernels_bwd(torch, dev, results):
                   f"SDPA's whole backward {lib:.4f} ms ({(ms_dq + ms_dkv) / lib:.2f}x)", flush=True)
 
     # LayerNorm backward at the projector's norm, RMSNorm backward at the
-    # LLM's (5 x 543 merged rows)
-    for name, n, d in (("layer_norm_bwd", 2560, 25055), ("rms_norm_bwd", 2715, 1536)):
+    # LLM's (5 x 543 merged rows), each also at the text-only step's rows
+    # (the projector's on posterior rows, as in phase_kernels)
+    bwd_cases = (("layer_norm_bwd", 2560, 25055, None), ("layer_norm_bwd", 640, 25055, "mixed"),
+                 ("rms_norm_bwd", 2715, 1536, None), ("rms_norm_bwd", 795, 1536, None))
+    for name, n, d, kind in bwd_cases:
+        shape = f"{n}x{d}" + (f" {kind}" if kind else "")
         for dt, dtype in dtypes.items():
-            x = (torch.randn(n, d, device=dev, generator=g) * 3 + 1).to(dtype)
+            x = (posterior_rows(torch, dev, dtype, kind, n, d) if kind else
+                 (torch.randn(n, d, device=dev, generator=g) * 3 + 1).to(dtype))
             w = (1 + 0.1 * torch.randn(d, device=dev, generator=g)).to(dtype)
             bb = (0.1 * torch.randn(d, device=dev, generator=g)).to(dtype)
             gy = torch.randn(n, d, device=dev, generator=g).to(dtype)
@@ -687,11 +788,11 @@ def phase_kernels_bwd(torch, dev, results):
             err = max(compare(torch, a, r, dt, f"{name} [{n},{d}] {dt}", 1.0 if i == 0 else n ** 0.5)
                       for i, (a, r) in enumerate(zip(got, want)))
             ms, plain = time_ms(torch, lambda: bwd(*args)), time_ms(torch, lambda: bwd_ref(*args))
-            record(name, f"{n}x{d}", dt, ms, plain, lib, method, nbytes, flops, err)
+            record(name, shape, dt, ms, plain, lib, method, nbytes, flops, err)
             kernel_ms = time_ms(torch, lambda: bwd(*args, weight_grad=False))
             if name == "layer_norm_bwd":
-                print(f"kernel {name} {n}x{d} {dt}: {kernel_ms:.4f} ms without the partials' sum",
-                      flush=True)
+                print(f"kernel {name} {shape} {dt}: {kernel_ms:.4f} ms without the partials' "
+                      f"sum", flush=True)
                 continue
             # frozen weights, the training main path's call: dx alone,
             # against F.rms_norm's backward with the weight not requiring
@@ -700,9 +801,9 @@ def phase_kernels_bwd(torch, dev, results):
             torch.cuda.synchronize()
             err = compare(torch, dx, want[0], dt, f"{name} [{n},{d}] {dt} frozen w")
             lib, method = backward_ms(torch, lambda: F.rms_norm(xr, (d,), w, 1e-6), (xr,), gy)
-            record(name, f"{n}x{d} frozen w", dt, kernel_ms, plain, lib, method,
+            record(name, f"{shape} frozen w", dt, kernel_ms, plain, lib, method,
                    nbytes - d * esize, flops - 2.0 * n * d, err)
-            print(f"kernel {name} {n}x{d} {dt}{route}", flush=True)
+            print(f"kernel {name} {shape} {dt}{route}", flush=True)
 
 
 def phase_path_fp32(torch, dev):
@@ -798,28 +899,102 @@ def phase_train_fp32(torch, dev):
         fail("fp32 training: the first update (lr 0) changed the loss")
 
 
-def phase_train_main(torch, dev, model, launches):
-    """bench.py's training step at full width, bf16, on ``model`` (the
-    serving phase's): TRAIN_WARMUP steps, then TRAIN_STEPS timed ones with
-    every kernel's launches counted around them, then one profiled step."""
+def phase_beam_text_only_fp32(torch, dev):
+    """Phase 4c: beam search and text-only training at full width and
+    reduced depth, fp32, on the card and on the CPU from the same weights
+    (phase 4's model; for text-only its flags swapped to the paper's
+    recipe, with insertion on)."""
+    from ps_slm_tpu_torch.config import SENSEVOICE_SMALL, half_audio_configs, text_only_configs
+    from ps_slm_tpu_torch.inference.generate import generate
+    from ps_slm_tpu_torch.models.tasu import TasuFlags, model_factory
+    from ps_slm_tpu_torch.ops.pseudo_posterior import noise_draws
+    from ps_slm_tpu_torch.training.step import make_train_step
+
+    depth = (dict(num_blocks=2, tp_blocks=1), dict(num_hidden_layers=2))
+    tc, mc = half_audio_configs(*depth, seed=0)
+    t0 = time.time()
+    cpu_model = model_factory(tc, mc, device="cpu")
+    cpu_model.speech_token_id = SPEECH_TOKEN
+    gpu_model = copy.deepcopy(cpu_model).to(dev)
+    batch = serving_batch(torch, SENSEVOICE_SMALL["input_size"], seed=1)
+    toks = {name: generate(model, batch, eos_token_id=EOS, max_new_tokens=FP32_NEW,
+                           device=d).cpu()
+            for name, model, d in (("cpu", cpu_model, "cpu"), ("cuda", gpu_model, dev))}
+    print(f"beam fp32 (num_beams 4, the default, {FP32_NEW} new tokens): tokens card "
+          f"{toks['cuda'].tolist()} cpu {toks['cpu'].tolist()} ({time.time() - t0:.1f} s)",
+          flush=True)
+    if not torch.equal(toks["cpu"], toks["cuda"]):
+        fail("fp32 beam search: tokens differ between card and CPU")
+
+    t0 = time.time()
+    tc, _ = text_only_configs(*depth, seed=0)
+    tc.lr, tc.warmup_steps, tc.insert_prob = 1e-3, 1, TEXT_ONLY_INSERT
+    batch = gt_batch(torch, SENSEVOICE_SMALL["vocab_size"], seed=3)
+    gen = torch.Generator().manual_seed(5)
+    draws = [noise_draws(len(TEXT_ONLY_GT_LENS), max(TEXT_ONLY_GT_LENS), gen,
+                         insert_prob=tc.insert_prob) for _ in range(2)]
+    runs = {}
+    for name, model, d in (("cpu", cpu_model, "cpu"), ("cuda", gpu_model, dev)):
+        model.flags = TasuFlags.from_train_config(tc)
+        start = {n: p.detach().clone() for n, p in model.named_parameters()}
+        step = make_train_step(model, tc, device=d)
+        metrics = [{k: float(v) for k, v in step(batch, draws=dr).items()} for dr in draws]
+        params = dict(model.named_parameters())
+        frozen_same = all(torch.equal(params[n], p) for n, p in start.items()
+                          if n not in step.trainable)
+        moved = any(not torch.equal(params[n], start[n]) for n in step.trainable)
+        if not (frozen_same and moved):
+            fail(f"fp32 text-only training on {name}: frozen weights changed "
+                 f"({not frozen_same}) or the projector did not move ({not moved})")
+        runs[name] = (metrics, {n: params[n].detach().cpu() for n in step.trainable})
+    (m_c, p_c), (m_g, p_g) = runs["cpu"], runs["cuda"]
+    errs = {k: max(abs(a[k] - b[k]) for a, b in zip(m_c, m_g)) for k in ("loss", "acc", "ntokens")}
+    w_err = max(float((p_c[n] - p_g[n]).abs().max()) for n in p_c)
+    print(f"text-only fp32 (gt lengths {list(TEXT_ONLY_GT_LENS)}, insert_prob "
+          f"{tc.insert_prob}): losses card {[m['loss'] for m in m_g]} cpu "
+          f"{[m['loss'] for m in m_c]}; acc card {[m['acc'] for m in m_g]}; ntokens "
+          f"{[m['ntokens'] for m in m_g]}; max err loss {errs['loss']:.3e} acc "
+          f"{errs['acc']:.3e} ntokens {errs['ntokens']:.0f}, projector after step 2 "
+          f"{w_err:.3e} (tol {PATH_TOL}); frozen weights bit-identical, projector moved "
+          f"({time.time() - t0:.1f} s)", flush=True)
+    if errs["ntokens"] != 0 or max(errs["loss"], errs["acc"], w_err) > PATH_TOL:
+        fail("fp32 text-only training: card and CPU disagree beyond the tolerance")
+
+
+def phase_train_main(torch, dev, model, launches, text_only: bool = False):
+    """A training step at full width, bf16, on ``model`` (the serving
+    phase's): bench.py's step (phase 5b) or, with ``text_only``, the
+    paper's text-only step on the same weights with the flags of
+    ``text_only_configs()`` (phase 5d).  TRAIN_WARMUP steps, then
+    TRAIN_STEPS timed ones with every kernel's launches counted around
+    them, then one profiled step."""
     import statistics
 
     from ps_slm_tpu_torch.config import (
         BENCH_BATCH, BENCH_FRAMES, BENCH_TEXT_LEN, SENSEVOICE_SMALL, half_audio_configs,
+        text_only_configs,
     )
+    from ps_slm_tpu_torch.models.tasu import TasuFlags
     from ps_slm_tpu_torch.training.step import make_train_step
     from ps_slm_tpu_torch.utils.flops import H100_BF16_PEAK_FLOPS, tasu_step_flops
 
     counters = kernel_counters()
-    tc, mc = half_audio_configs()          # bench.py: lr 5e-5, warmup 200, 15000 steps
-    frames = (BENCH_FRAMES,) * BENCH_BATCH
-    batch = train_batch(torch, SENSEVOICE_SMALL["input_size"], frames, seed=0)
-    batch["input_features"] = batch["input_features"].to(torch.bfloat16)
+    audio_flags = model.flags
+    if text_only:
+        what, per_step, ln_routes = "text-only path", LAUNCHES_PER_TEXT_ONLY_STEP, LN_ROUTES_TEXT_ONLY
+        tc, mc = text_only_configs()       # lr 5e-5, warmup 200, 15000 steps
+        model.flags = TasuFlags.from_train_config(tc)
+        batch = gt_batch(torch, SENSEVOICE_SMALL["vocab_size"], seed=0)
+    else:
+        what, per_step, ln_routes = "training path", LAUNCHES_PER_TRAIN_STEP, LN_ROUTES_PER_PASS
+        tc, mc = half_audio_configs()      # bench.py: lr 5e-5, warmup 200, 15000 steps
+        frames = (BENCH_FRAMES,) * BENCH_BATCH
+        batch = train_batch(torch, SENSEVOICE_SMALL["input_size"], frames, seed=0)
+        batch["input_features"] = batch["input_features"].to(torch.bfloat16)
     if TEXT_LEN != BENCH_TEXT_LEN:
-        fail("training path: the batch is not bench.py's")
+        fail(f"{what}: the batch's text is not bench.py's")
     step = make_train_step(model, tc)
-    frozen = {n: p.detach().clone() for n, p in model.named_parameters()
-              if n not in step.trainable}
+    start = {n: p.detach().clone() for n, p in model.named_parameters()}
     t0 = time.perf_counter()
     for _ in range(TRAIN_WARMUP):
         m = step(batch)
@@ -839,39 +1014,47 @@ def phase_train_main(torch, dev, model, launches):
         launches[name] = fn.launches
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
-    for name, per_step in LAUNCHES_PER_TRAIN_STEP.items():
-        if launches[name] != per_step * TRAIN_STEPS:
-            fail(f"training path: {name} launched {launches[name]} times in {TRAIN_STEPS} "
-                 f"steps, expected {per_step} per step")
-    check_routes(counters, launches, "training path", TRAIN_STEPS)
+    for name, n in per_step.items():
+        if launches[name] != n * TRAIN_STEPS:
+            fail(f"{what}: {name} launched {launches[name]} times in {TRAIN_STEPS} "
+                 f"steps, expected {n} per step")
+    check_routes(counters, launches, what, TRAIN_STEPS, ln_routes)
     if not all(math.isfinite(x) for x in losses):
-        fail(f"training path: non-finite loss {losses}")
+        fail(f"{what}: non-finite loss {losses}")
     params = dict(model.named_parameters())
-    if not all(torch.equal(params[n], p) for n, p in frozen.items()):
-        fail("training path: a frozen weight changed")
-    del frozen
+    if not all(torch.equal(params[n], p) for n, p in start.items() if n not in step.trainable):
+        fail(f"{what}: a frozen weight changed")
+    if all(torch.equal(params[n], start[n]) for n in step.trainable):
+        fail(f"{what}: the projector did not move")
+    del start
 
-    fl = tasu_step_flops(model.llm_cfg, model.enc_cfg, mc, batch=BENCH_BATCH,
-                         frames=BENCH_FRAMES, text_len=BENCH_TEXT_LEN,
-                         freeze_llm=tc.freeze_llm, freeze_encoder=tc.freeze_encoder)
     med = statistics.median(times)
-    audio_s = sum(frames) * LFR_FRAME_SEC
-    print(f"train main path (bf16, full width, {BENCH_BATCH} x {BENCH_FRAMES} frames, "
-          f"{TEXT_LEN} text tokens, merged length {TEXT_LEN + BENCH_FRAMES - 1}): "
+    if text_only:
+        shape = (f"gt lengths {list(TEXT_ONLY_GT_LENS)} CTC ids, {TEXT_LEN} text tokens, "
+                 f"merged length {TEXT_LEN + max(TEXT_ONLY_GT_LENS) - 1}")
+        rates = ""
+    else:
+        shape = (f"{BENCH_BATCH} x {BENCH_FRAMES} frames, {TEXT_LEN} text tokens, "
+                 f"merged length {TEXT_LEN + BENCH_FRAMES - 1}")
+        fl = tasu_step_flops(model.llm_cfg, model.enc_cfg, mc, batch=BENCH_BATCH,
+                             frames=BENCH_FRAMES, text_len=BENCH_TEXT_LEN,
+                             freeze_llm=tc.freeze_llm, freeze_encoder=tc.freeze_encoder)
+        audio_s = sum(frames) * LFR_FRAME_SEC
+        rates = (f"{audio_s / med * 1e3:.1f} audio-sec/s; {fl['total'] / 1e12:.3f} TFLOP/step, "
+                 f"MFU {fl['total'] / (med / 1e3) / H100_BF16_PEAK_FLOPS:.4f} (bf16 dense "
+                 f"peak {H100_BF16_PEAK_FLOPS / 1e12:.0f} TFLOP/s); ")
+    print(f"{'text-only' if text_only else 'train'} main path (bf16, full width, {shape}): "
           f"{TRAIN_WARMUP} warm-up steps {warm_s:.1f} s; {TRAIN_STEPS} steps median "
           f"{med:.2f} ms (min {min(times):.2f}, max {max(times):.2f}; all "
-          f"{[round(t, 2) for t in times]}); {audio_s / med * 1e3:.1f} audio-sec/s; "
-          f"{fl['total'] / 1e12:.3f} TFLOP/step, MFU {fl['total'] / (med / 1e3) / H100_BF16_PEAK_FLOPS:.4f} "
-          f"(bf16 dense peak {H100_BF16_PEAK_FLOPS / 1e12:.0f} TFLOP/s); losses {losses}; "
-          f"peak memory {peak_gb:.2f} GB; launches per step "
-          f"{ {k: v // TRAIN_STEPS for k, v in launches.items()} }", flush=True)
+          f"{[round(t, 2) for t in times]}); {rates}losses {losses}; peak memory "
+          f"{peak_gb:.2f} GB; frozen weights bit-identical, projector moved; launches per "
+          f"step { {k: v // TRAIN_STEPS for k, v in launches.items()} }", flush=True)
 
-    psd_time(torch, model, batch, "training batch")
-    wall, busy, ops, top = profiled(torch, lambda: step(batch))
-    share = "not measured" if busy is None else f"{busy / wall:.3f}"
-    busy_s = "not measured" if busy is None else f"{busy:.2f} ms"
-    print(f"profiled train step: wall {wall:.1f} ms, device-busy {busy_s}, busy share "
-          f"{share}, {ops} device ops; largest {json.dumps(top)}", flush=True)
+    if not text_only:
+        psd_time(torch, model, batch, "training batch")
+    print_profiled(f"{'text-only ' if text_only else ''}train step",
+                   profiled(torch, lambda: step(batch)))
+    model.flags = audio_flags
 
 
 def psd_time(torch, model, batch, label: str) -> None:
@@ -907,16 +1090,18 @@ def reset_counters(counters) -> None:
             fn.routes[route] = 0
 
 
-def check_routes(counters, launches, what: str, passes: int) -> None:
+def check_routes(counters, launches, what: str, passes: int,
+                 ln_per_pass=LN_ROUTES_PER_PASS) -> None:
     """Fails unless every RMSNorm launch counted since the reset took the
     vectorised route (the main paths are bf16, 1536 wide), and the
-    LayerNorm forward's took the vectorised route 142 times and the staged
-    one once in each of ``passes`` generate calls or training steps; adds
-    each route's count to ``launches`` as ``name.route``."""
+    LayerNorm forward's took the routes ``ln_per_pass`` gives (by default
+    the vectorised route 142 times and the staged one once) in each of
+    ``passes`` generate calls or training steps; adds each route's count
+    to ``launches`` as ``name.route``."""
     routes = {name: dict(counters[name].routes) for name in MAIN_ROUTES}
     print(f"{what}: norm routes {routes}", flush=True)
     for name, r in routes.items():
-        want = ({k: v * passes for k, v in LN_ROUTES_PER_PASS.items()}
+        want = ({k: v * passes for k, v in ln_per_pass.items()}
                 if name == "layer_norm_fwd" else {"vec": launches[name], "general": 0})
         if r != want:
             fail(f"{what}: {name} launched {launches[name]} times, by route {r}, not {want}")
@@ -939,25 +1124,33 @@ def kernel_counters() -> dict:
     }
 
 
-def phase_main(torch, dev, launches):
+def phase_main(torch, dev, launches, model=None, beam: bool = False):
+    """The serving main path at full width, bf16: ``generate`` on the
+    serving batch, greedy (phase 5, which builds the model) or, with
+    ``beam``, with the default beams (4) on phase 5's ``model`` (phase 5c).  Launches, decode
+    steps and two calls' bit-identical tokens checked; timed, then
+    profiled.  Returns the model."""
     from ps_slm_tpu_torch.config import QWEN25_1_5B, SENSEVOICE_SMALL, half_audio_configs
     from ps_slm_tpu_torch.inference.generate import _prefill, generate
     from ps_slm_tpu_torch.models.tasu import model_factory, prepare_merged
 
     counters = kernel_counters()
-    tc, mc = half_audio_configs()
-    t0 = time.time()
-    model = model_factory(tc, mc, dtype=torch.bfloat16)   # default device: cuda
-    model.speech_token_id = SPEECH_TOKEN
-    torch.cuda.synchronize()
-    n_params = sum(p.numel() for p in model.parameters())
-    print(f"main path: {n_params / 1e9:.3f} B parameters, bf16, init {time.time() - t0:.1f} s",
-          flush=True)
+    what = "beam path (num_beams 4, the default)" if beam else "main path"
+    if model is None:
+        tc, mc = half_audio_configs()
+        t0 = time.time()
+        model = model_factory(tc, mc, dtype=torch.bfloat16)   # default device: cuda
+        model.speech_token_id = SPEECH_TOKEN
+        torch.cuda.synchronize()
+        n_params = sum(p.numel() for p in model.parameters())
+        print(f"main path: {n_params / 1e9:.3f} B parameters, bf16, init "
+              f"{time.time() - t0:.1f} s", flush=True)
     batch = serving_batch(torch, SENSEVOICE_SMALL["input_size"])
     batch["input_features"] = batch["input_features"].to(torch.bfloat16)
 
     def run(max_new):
-        return generate(model, batch, eos_token_id=EOS, num_beams=1, max_new_tokens=max_new)
+        return generate(model, batch, eos_token_id=EOS, max_new_tokens=max_new,
+                        **({} if beam else {"num_beams": 1}))
 
     run(2)   # warm-up
     torch.cuda.synchronize()
@@ -975,75 +1168,82 @@ def phase_main(torch, dev, launches):
     steps = len(step_starts)
     if tokens.shape != (len(FRAMES), MAX_NEW) or not bool(
             ((tokens >= 0) & (tokens < QWEN25_1_5B["vocab_size"])).all()):
-        fail(f"main path: bad tokens {tuple(tokens.shape)}")
+        fail(f"{what}: bad tokens {tuple(tokens.shape)}")
     tokens = tokens.cpu()
-    if steps != loop_steps(tokens, MAX_NEW):
-        fail(f"main path: {steps} decode steps, the tokens need {loop_steps(tokens, MAX_NEW)}")
+    # the beam loop has no early exit; greedy stops once every row is done
+    want_steps = MAX_NEW - 1 if beam else loop_steps(tokens, MAX_NEW)
+    if steps != want_steps:
+        fail(f"{what}: {steps} decode steps, not {want_steps}")
     need = {name: 0 for name in counters}
     need.update({"flash_attention_fwd": FLASH_PER_GENERATE, "layer_norm_fwd": LN_PER_GENERATE,
                  "rms_norm_fwd": RMS_PER_FORWARD * (1 + steps)})
     for name, n in need.items():
         if launches[name] != n:
-            fail(f"main path: {name} launched {launches[name]} times, expected {n}")
-    check_routes(counters, launches, "main path", 1)
+            fail(f"{what}: {name} launched {launches[name]} times, expected {n}")
+    check_routes(counters, launches, what, 1)
+    same = torch.equal(tokens, run(MAX_NEW).cpu())
 
     total_ms = (t_end - t0) * 1e3
     first_ms = (step_starts[0] - t0) * 1e3 if steps else total_ms
     step_ms = (t_end - step_starts[0]) * 1e3 / steps if steps else 0.0
     audio_s = sum(FRAMES) * LFR_FRAME_SEC
     n_tok = real_tokens(tokens, steps)
-    print(f"main path: generate {total_ms:.1f} ms = first token {first_ms:.1f} ms "
-          f"(front half + LLM prefill) + {steps} decode steps x {step_ms:.2f} ms; "
-          f"{audio_s / total_ms * 1e3:.1f} audio-sec/s, {n_tok} tokens generated, "
-          f"{n_tok / total_ms * 1e3:.1f} tokens/s; peak memory {peak_gb:.2f} GB; "
-          f"launches {launches}", flush=True)
-
-    # the first token's split, from a second, separately timed run
-    bd = {k: v.to(dev) for k, v in batch.items()}
-    with torch.inference_mode():
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        merged = prepare_merged(model, bd, left_padding=True)
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        logits, _, _ = _prefill(model.llm, merged.embeds, merged.attention_mask,
-                                merged.position_ids, merged.embeds.shape[1] + MAX_NEW)
-        torch.cuda.synchronize()
-        t3 = time.perf_counter()
-    if not bool(torch.isfinite(logits).all()) or not bool(torch.isfinite(merged.embeds.float()).all()):
-        fail("main path: non-finite merged embeddings or prefill logits")
-    print(f"main path, split run: merged length {merged.embeds.shape[1]}, valid merged "
-          f"lengths {merged.attention_mask.sum(1).tolist()}; front half "
-          f"{(t2 - t1) * 1e3:.1f} ms, LLM prefill {(t3 - t2) * 1e3:.1f} ms", flush=True)
-    # the front half (encoder, PSD's segment sums, projector, merge) gives
-    # the same bits on every call
-    with torch.inference_mode():
-        again = prepare_merged(model, bd, left_padding=True)
-    same = all(torch.equal(a, b) for a, b in zip(
-        (merged.embeds, merged.attention_mask, merged.position_ids),
-        (again.embeds, again.attention_mask, again.position_ids)))
-    print(f"main path: two prepare_merged calls give "
-          f"{'bit-identical' if same else 'different'} embeddings", flush=True)
+    first = "front half + LLM prefill" + (" + first top-k" if beam else "")
+    print(f"{what}: generate {total_ms:.1f} ms = first token {first_ms:.1f} ms ({first}) + "
+          f"{steps} decode steps x {step_ms:.2f} ms; {audio_s / total_ms * 1e3:.1f} "
+          f"audio-sec/s, {n_tok} tokens generated, {n_tok / total_ms * 1e3:.1f} tokens/s; "
+          f"peak memory {peak_gb:.2f} GB; two calls give "
+          f"{'bit-identical' if same else 'different'} tokens; launches {launches}"
+          + (f"; tokens {tokens.tolist()}" if beam else ""), flush=True)
     if not same:
-        fail("main path: two prepare_merged calls on the same batch differ")
-    psd_time(torch, model, bd, "serving batch")
+        fail(f"{what}: two generate calls on the same batch give different tokens")
+
+    if not beam:
+        # the first token's split, from a separately timed run
+        bd = {k: v.to(dev) for k, v in batch.items()}
+        with torch.inference_mode():
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            merged = prepare_merged(model, bd, left_padding=True)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            logits, _, _ = _prefill(model.llm, merged.embeds, merged.attention_mask,
+                                    merged.position_ids, merged.embeds.shape[1] + MAX_NEW)
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+        if not bool(torch.isfinite(logits).all()) or not bool(
+                torch.isfinite(merged.embeds.float()).all()):
+            fail("main path: non-finite merged embeddings or prefill logits")
+        print(f"main path, split run: merged length {merged.embeds.shape[1]}, valid merged "
+              f"lengths {merged.attention_mask.sum(1).tolist()}; front half "
+              f"{(t2 - t1) * 1e3:.1f} ms, LLM prefill {(t3 - t2) * 1e3:.1f} ms", flush=True)
+        # the front half (encoder, PSD's segment sums, projector, merge)
+        # gives the same bits on every call
+        with torch.inference_mode():
+            again = prepare_merged(model, bd, left_padding=True)
+        same = all(torch.equal(a, b) for a, b in zip(
+            (merged.embeds, merged.attention_mask, merged.position_ids),
+            (again.embeds, again.attention_mask, again.position_ids)))
+        print(f"main path: two prepare_merged calls give "
+              f"{'bit-identical' if same else 'different'} embeddings", flush=True)
+        if not same:
+            fail("main path: two prepare_merged calls on the same batch differ")
+        psd_time(torch, model, bd, "serving batch")
 
     # device-busy share: generate with no decode step, then the whole
     # call, each under the profiler with its own wall time
+    label = "beam " if beam else ""
     with counting_steps() as prof_steps:
         first = profiled(torch, lambda: run(1))
         whole = profiled(torch, lambda: run(MAX_NEW))
-    for label, (wall, busy, ops, top) in (("first token", first), ("whole generate", whole)):
-        share = "not measured" if busy is None else f"{busy / wall:.3f}"
-        busy_s = "not measured" if busy is None else f"{busy:.2f} ms"
-        print(f"profiled {label}: wall {wall:.1f} ms, device-busy {busy_s}, busy share "
-              f"{share}, {ops} device ops; largest {json.dumps(top)}", flush=True)
+    print_profiled(f"{label}first token", first)
+    print_profiled(f"{label}whole generate", whole)
     n = len(prof_steps)
     if n and first[1] is not None and whole[1] is not None:
         d_wall, d_busy = whole[0] - first[0], whole[1] - first[1]
-        print(f"profiled decode ({n} steps, whole - first token): {d_wall / n:.2f} ms wall, "
-              f"{d_busy / n:.3f} ms device-busy, {(whole[2] - first[2]) / n:.0f} device ops "
-              f"per step; busy share {d_busy / d_wall:.3f}", flush=True)
+        print(f"profiled {label}decode ({n} steps, whole - first token): {d_wall / n:.2f} ms "
+              f"wall, {d_busy / n:.3f} ms device-busy, {(whole[2] - first[2]) / n:.0f} device "
+              f"ops per step; busy share {d_busy / d_wall:.3f}", flush=True)
     return model
 
 
@@ -1089,10 +1289,15 @@ def main() -> None:
     phase_kernels_bwd(torch, dev, results)
     phase_path_fp32(torch, dev)
     phase_train_fp32(torch, dev)
+    phase_beam_text_only_fp32(torch, dev)
     gen_launches: dict = {}
     model = phase_main(torch, dev, gen_launches)
     train_launches: dict = {}
     phase_train_main(torch, dev, model, train_launches)
+    beam_launches: dict = {}
+    phase_main(torch, dev, beam_launches, model, beam=True)
+    text_launches: dict = {}
+    phase_train_main(torch, dev, model, text_launches, text_only=True)
 
     # (name, its launch count, the CUDA kernel it launches at the main
     # paths' bf16 shapes, source, TPU kernel it replaces, the rows of phase
@@ -1101,23 +1306,24 @@ def main() -> None:
     table = (
         ("flash_attention_fwd", "flash_attention_fwd", "flash_fwd_bf16_kernel",
          "ps_slm_tpu_torch/csrc/flash_fwd.cu", "ps_slm_tpu/ops/flash_attention.py:59",
-         ("encoder", "llm_prefill")),
+         ("encoder", "llm_prefill", "text_only")),
         ("flash_attention_dq", "flash_attention_dq", "flash_dq_bf16_kernel",
          "ps_slm_tpu_torch/csrc/flash_bwd.cu", "ps_slm_tpu/ops/flash_attention.py:125",
-         ("training", "ragged")),
+         ("training", "ragged", "text_only")),
         ("flash_attention_dkv", "flash_attention_dkv", "flash_dkv_bf16_kernel + dkv_reduce_kernel",
          "ps_slm_tpu_torch/csrc/flash_bwd.cu", "ps_slm_tpu/ops/flash_attention.py:181",
-         ("training", "ragged")),
+         ("training", "ragged", "text_only")),
         ("layer_norm_fwd (vec)", "layer_norm_fwd.vec", "norm_fwd_vec_kernel<T, chunks, LayerNorm>",
          norms_cu, "ps_slm_tpu/ops/norms.py:49", ("2064x512", "2064x560")),
         ("layer_norm_fwd (staged)", "layer_norm_fwd.staged", "layer_norm_fwd_staged_kernel<T>",
-         norms_cu, "ps_slm_tpu/ops/norms.py:49", ("2064x25055",)),
+         norms_cu, "ps_slm_tpu/ops/norms.py:49", ("2064x25055", "640x25055 mixed", "640x25055 clean")),
         ("layer_norm_bwd", "layer_norm_bwd", "layer_norm_bwd_kernel", norms_cu,
-         "ps_slm_tpu/ops/norms.py:73", ("2560x25055",)),
+         "ps_slm_tpu/ops/norms.py:73", ("2560x25055", "640x25055 mixed")),
         ("rms_norm_fwd", "rms_norm_fwd", "norm_fwd_vec_kernel<T, chunks, RMSNorm>", norms_cu,
-         "ps_slm_tpu/ops/norms.py:61", ("2172x1536", "4x1536")),
+         "ps_slm_tpu/ops/norms.py:61", ("2172x1536", "4x1536", "16x1536", "795x1536")),
         ("rms_norm_bwd", "rms_norm_bwd", "rms_norm_bwd_vec_kernel<T, chunks, no dw>", norms_cu,
-         "ps_slm_tpu/ops/norms.py:94", ("2715x1536 frozen w", "2715x1536")),
+         "ps_slm_tpu/ops/norms.py:94", ("2715x1536 frozen w", "2715x1536", "795x1536 frozen w",
+                                                    "795x1536")),
     )
     kernels = []
     for name, count, kernel, source, replaces, shapes in table:
@@ -1125,9 +1331,13 @@ def main() -> None:
         row = next(r for r in rows if r["shape"] == shapes[0] and r["dtype"] == "bf16")
         kernels.append({
             "name": name, "kernel": kernel, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": gen_launches[count] + train_launches[count],
+            "replaces": replaces,
+            "launches": sum(runs[count] for runs in (gen_launches, train_launches,
+                                                     beam_launches, text_launches)),
             "launches_per_generate": gen_launches[count],
             "launches_per_train_step": train_launches[count] // TRAIN_STEPS,
+            "launches_per_beam_generate": beam_launches[count],
+            "launches_per_text_only_step": text_launches[count] // TRAIN_STEPS,
             "max_abs_err": max(r["err"] for r in rows),
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],

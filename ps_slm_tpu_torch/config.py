@@ -44,7 +44,13 @@ class TrainConfig:
     ctc_posterior: bool = False
     voca_trans: bool = False
     gt_emb: bool = False
+    gt_emb_noise: bool = False
     cross_attn: bool = False
+    # text-only noise knobs (the JAX package's CPS noise defaults)
+    drop_prob: float = 0.05
+    insert_prob: float = 0.0
+    smooth_low: float = 0.0
+    smooth_high: float = 0.1
     use_peft: bool = False
     quantization: bool = False
     # freezing
@@ -76,10 +82,26 @@ def half_audio_configs(enc_overrides=None, llm_overrides=None, seed: int = 42):
     (``half_audio``: CTC posterior + PSD + linear-silu, encoder and LLM
     frozen) at SenseVoiceSmall + Qwen2.5-1.5B widths, random init; the
     overrides cut depth."""
+    return _published(enc_overrides, llm_overrides, TrainConfig(
+        seed=seed, ctc_posterior=True, do_psd=True, freeze_llm=True, freeze_encoder=True,
+    ))
+
+
+def text_only_configs(enc_overrides=None, llm_overrides=None, seed: int = 42):
+    """(TrainConfig, ModelConfig) of the paper's text-only TASU recipe
+    (``scripts/finetune_text_only.sh``: the CTC posterior simulated from
+    the transcript with CPS noise, ``gt_emb`` + ``gt_emb_noise``, PSD
+    flag set but unused on that branch, linear-silu, encoder and LLM
+    frozen, lr 5e-5 / warmup 200 / 15 000 steps) at the same widths."""
+    return _published(enc_overrides, llm_overrides, TrainConfig(
+        seed=seed, ctc_posterior=True, voca_trans=False, gt_emb=True, gt_emb_noise=True,
+        do_psd=True, freeze_llm=True, freeze_encoder=True,
+    ))
+
+
+def _published(enc_overrides, llm_overrides, tc: TrainConfig):
     enc = dict(SENSEVOICE_SMALL, **(enc_overrides or {}))
     llm = dict(QWEN25_1_5B, **(llm_overrides or {}))
-    tc = TrainConfig(seed=seed, ctc_posterior=True, do_psd=True,
-                     freeze_llm=True, freeze_encoder=True)
     mc = ModelConfig(
         llm_dim=llm["hidden_size"], encoder_dim=enc["vocab_size"],
         llm_config_overrides=llm, encoder_config_overrides=enc,

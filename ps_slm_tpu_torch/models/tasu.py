@@ -1,8 +1,8 @@
 """TASU composite model: SenseVoice encoder + projector + Qwen2 LLM.
 
-Counterpart of ``ps_slm_tpu/models/tasu.py`` for the serving and training
-paths of the published audio-TASU recipe (``half_audio``:
-``ctc_posterior=True``, ``do_psd=True``, the ``linear-silu`` projector):
+Counterpart of ``ps_slm_tpu/models/tasu.py`` for the two published
+recipes.  Audio TASU (``half_audio``: ``ctc_posterior=True``,
+``do_psd=True``, the ``linear-silu`` projector):
 
   1. query prepend + encoder + fp32 CTC softmax + drop the 4 query frames
   2. PSD over the posterior (when ``do_psd``)
@@ -11,9 +11,15 @@ paths of the published audio-TASU recipe (``half_audio``:
   5. (training, :func:`forward`) the LLM and the causal CE on the merged
      labels; :func:`trainable_mask` applies the freeze flags
 
-The other branches of the JAX model (text-only TASU, voca_trans, the
-cross-attention projector, the raw-feature baseline, the waveform front end)
-raise ``NotImplementedError`` naming their ROADMAP.md item.  Weights are a
+Text-only TASU (``gt_emb``, the paper's recipe) replaces steps 1-2 with a
+posterior simulated from the transcript ids in the batch (``gt_ids``,
+``gt_lens``): CPS noise in training when ``gt_emb_noise``
+(``ops/pseudo_posterior.py``), the clean one-hot when generating; the
+encoder does not run.
+
+The other branches of the JAX model (voca_trans, the cross-attention
+projector, the raw-feature baseline, the waveform front end) raise
+``NotImplementedError`` naming their ROADMAP.md item.  Weights are a
 random init from a seeded ``torch.Generator``; checkpoint loading comes
 later (``convert.from_jax_params`` maps a JAX parameter tree).
 """
@@ -32,6 +38,9 @@ from ps_slm_tpu_torch.models.qwen2 import Qwen2Config, Qwen2Model
 from ps_slm_tpu_torch.models.sensevoice import SenseVoiceConfig, SenseVoiceEncoder
 from ps_slm_tpu_torch.ops.ce_loss import chunked_ce_loss, full_ce_loss, gathered_ce_loss
 from ps_slm_tpu_torch.ops.merge import Merged, merge_audio_text
+from ps_slm_tpu_torch.ops.pseudo_posterior import (
+    NoiseDraws, noise_draws, pseudo_posterior, pseudo_posterior_noise,
+)
 from ps_slm_tpu_torch.ops.psd import psd
 
 IGNORE_ID = -100
@@ -42,15 +51,25 @@ CHUNKED_CE_BYTES = 3 * 2 ** 29   # 1.5 GB
 
 @dataclass(frozen=True)
 class TasuFlags:
-    """Static algorithm switches (the JAX ``TasuFlags`` fields the serving
-    path reads)."""
+    """Static algorithm switches (the JAX ``TasuFlags`` fields the ported
+    branches read)."""
 
     ctc_posterior: bool = False
     voca_trans: bool = False
     gt_emb: bool = False
+    gt_emb_noise: bool = False
     do_psd: bool = False
     cross_attn: bool = False
+    drop_prob: float = 0.05
+    insert_prob: float = 0.0
+    smooth_low: float = 0.0
+    smooth_high: float = 0.1
     blank_threshold: float = 0.9
+
+    @property
+    def needs_encoder(self) -> bool:
+        """Text-only TASU never reads the encoder's output."""
+        return not (self.ctc_posterior and not self.voca_trans and self.gt_emb)
 
     @staticmethod
     def from_train_config(tc, model_config=None) -> "TasuFlags":
@@ -60,7 +79,9 @@ class TasuFlags:
         )
         return TasuFlags(
             ctc_posterior=tc.ctc_posterior, voca_trans=tc.voca_trans,
-            gt_emb=tc.gt_emb, do_psd=tc.do_psd, cross_attn=cross,
+            gt_emb=tc.gt_emb, gt_emb_noise=tc.gt_emb_noise, do_psd=tc.do_psd,
+            cross_attn=cross, drop_prob=tc.drop_prob, insert_prob=tc.insert_prob,
+            smooth_low=tc.smooth_low, smooth_high=tc.smooth_high,
         )
 
     def check_ported(self) -> None:
@@ -68,11 +89,6 @@ class TasuFlags:
             raise NotImplementedError(
                 "the raw-feature baseline (ctc_posterior=False) is not ported "
                 "yet (ROADMAP.md queue 1, 'Long tail')"
-            )
-        if self.gt_emb:
-            raise NotImplementedError(
-                "text-only TASU (gt_emb) is not ported yet (ROADMAP.md "
-                "queue 1, 'Text-only TASU branch')"
             )
         if self.voca_trans or self.cross_attn:
             raise NotImplementedError(
@@ -123,9 +139,36 @@ def encode_speech(
 
 
 def compute_audio_embeds(
-    model: TasuModel, batch: Dict[str, torch.Tensor]
+    model: TasuModel, batch: Dict[str, torch.Tensor], *, generate_mode: bool = False,
+    generator: Optional[torch.Generator] = None, draws: Optional[NoiseDraws] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Audio-posterior TASU: (audio embeds [B,A,H], lens [B])."""
+    """(audio embeds [B,A,H], lens [B]) from the audio posterior or, for
+    text-only TASU, from the transcript ids.
+
+    The text-only noise (``gt_emb_noise``, off when ``generate_mode``) takes
+    ``draws`` when given, else draws them from ``generator``.
+    """
+    f = model.flags
+    if not f.needs_encoder:     # text-only TASU (gt_emb)
+        ids, lens = batch["gt_ids"], batch["gt_lens"]
+        vocab = model.enc_cfg.vocab_size
+        if f.gt_emb_noise and not generate_mode:
+            if draws is None:
+                if generator is None:
+                    raise ValueError("text-only noise (gt_emb_noise) needs a generator or draws")
+                draws = noise_draws(
+                    ids.shape[0], ids.shape[1], generator, insert_prob=f.insert_prob,
+                    smooth_low=f.smooth_low, smooth_high=f.smooth_high,
+                )
+            post, lens = pseudo_posterior_noise(
+                ids, lens, draws, vocab_size=vocab, drop_prob=f.drop_prob,
+                insert_prob=f.insert_prob, blank_id=model.enc_cfg.blank_id,
+            )
+        else:
+            post, lens = pseudo_posterior(ids, lens, vocab)
+        # the projector takes the compute dtype
+        post = post.to(model.llm.embed_tokens.weight.dtype)
+        return model.projector(post), lens // proj.downsample_rate(model.model_cfg)
     if "input_features" not in batch:
         raise NotImplementedError(
             "the on-device waveform front end is not ported yet (ROADMAP.md "
@@ -144,10 +187,14 @@ def compute_audio_embeds(
 
 
 def prepare_merged(
-    model: TasuModel, batch: Dict[str, torch.Tensor], *, left_padding: bool = False
+    model: TasuModel, batch: Dict[str, torch.Tensor], *, left_padding: bool = False,
+    generate_mode: bool = False, generator: Optional[torch.Generator] = None,
+    draws: Optional[NoiseDraws] = None,
 ) -> Merged:
     """Audio embeds merged into the text embeddings at the speech token."""
-    audio_embeds, audio_lens = compute_audio_embeds(model, batch)
+    audio_embeds, audio_lens = compute_audio_embeds(
+        model, batch, generate_mode=generate_mode, generator=generator, draws=draws,
+    )
     inputs_embeds = model.llm.embed(batch["input_ids"])
     return merge_audio_text(
         audio_embeds.to(inputs_embeds.dtype), audio_lens, inputs_embeds,
@@ -159,6 +206,7 @@ def prepare_merged(
 
 def forward(
     model: TasuModel, batch: Dict[str, torch.Tensor], *, train: bool = True,
+    generator: Optional[torch.Generator] = None, draws: Optional[NoiseDraws] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Training forward: ``(loss, {"acc", "ntokens"})``.
 
@@ -175,11 +223,12 @@ def forward(
 
     ``train`` is the JAX flag for dither and SpecAugment, which act only on
     the waveform front end, not ported yet: with ``input_features`` it
-    changes nothing.
+    changes nothing.  The text-only noise stays on whatever ``train`` is,
+    as in the JAX forward; it takes ``draws`` or draws from ``generator``.
     """
     if "labels" not in batch:
         raise ValueError("the training forward needs batch['labels']")
-    merged = prepare_merged(model, batch, left_padding=False)
+    merged = prepare_merged(model, batch, left_padding=False, generator=generator, draws=draws)
     hidden, _ = model.llm(
         merged.embeds, merged.attention_mask, merged.position_ids
     )

@@ -1,4 +1,4 @@
-"""The training and eval steps of the audio-TASU model on one device.
+"""The training and eval steps of the TASU model on one device.
 
 Counterpart of ``ps_slm_tpu/training/step.py``: forward (the model's
 dtype) -> backward into the trainable parameters -> AdamW with the
@@ -10,16 +10,22 @@ On CUDA tensors every norm and attention of the path runs through the
 port's kernels, forward and backward (``ops/norms.py``,
 ``ops/flash_attention.py``); the frozen encoder builds no autograd graph,
 so its kernels run forward only.
+
+Randomness (the text-only CPS noise) comes from a ``torch.Generator`` on
+the step's device, seeded with ``train_config.seed``: one draw a step.
+The eval step draws from a generator seeded 0 on every call, a fixed key
+per call as the JAX eval's ``PRNGKey(0)``.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
 from ps_slm_tpu_torch._build import resolve_device
 from ps_slm_tpu_torch.models import tasu
+from ps_slm_tpu_torch.ops.pseudo_posterior import NoiseDraws
 from ps_slm_tpu_torch.training.train_state import build_optimizer, warmup_cosine
 
 Metrics = Dict[str, torch.Tensor]
@@ -37,8 +43,10 @@ class TrainStep:
     """``batch -> {"loss", "acc", "ntokens"}``, one AdamW update per call.
 
     Holds the optimizer (state for the trainable parameters only), the
-    schedule and the step count; the metrics are the forward's, before the
-    update, as device tensors (no host sync).
+    schedule, the step count and the noise generator; the metrics are the
+    forward's, before the update, as device tensors (no host sync).
+    ``draws`` replaces the generator's draws for one call (tests feed the
+    JAX step's).
     """
 
     def __init__(self, model: tasu.TasuModel, train_config, device):
@@ -53,13 +61,18 @@ class TrainStep:
             train_config.lr, train_config.warmup_steps, train_config.total_steps
         )
         self.step = 0
+        self.generator = torch.Generator(device=device).manual_seed(train_config.seed)
 
-    def __call__(self, batch: Dict[str, torch.Tensor]) -> Metrics:
+    def __call__(
+        self, batch: Dict[str, torch.Tensor], draws: Optional[NoiseDraws] = None,
+    ) -> Metrics:
         batch = {k: v.to(self.device) for k, v in batch.items()}
         for group in self.optimizer.param_groups:
             group["lr"] = self.schedule(self.step)
         self.optimizer.zero_grad(set_to_none=True)
-        loss, aux = tasu.forward(self.model, batch, train=True)
+        loss, aux = tasu.forward(
+            self.model, batch, train=True, generator=self.generator, draws=draws,
+        )
         loss.backward()
         self.optimizer.step()
         self.step += 1
@@ -79,13 +92,15 @@ def make_train_step(model: tasu.TasuModel, train_config, *, device="cuda") -> Tr
 
 def make_eval_step(model: tasu.TasuModel, *, device="cuda"):
     """``batch -> {"loss", "acc", "ntokens"}`` with no gradient
-    (``train=False``)."""
+    (``train=False``); the text-only noise draws from a generator seeded 0
+    on every call."""
     dev = _on_device(model, device)
 
     @torch.no_grad()
     def eval_step(batch: Dict[str, torch.Tensor]) -> Metrics:
         batch = {k: v.to(dev) for k, v in batch.items()}
-        loss, aux = tasu.forward(model, batch, train=False)
+        generator = torch.Generator(device=dev).manual_seed(0)
+        loss, aux = tasu.forward(model, batch, train=False, generator=generator)
         return {"loss": loss, "acc": aux["acc"], "ntokens": aux["ntokens"]}
 
     return eval_step

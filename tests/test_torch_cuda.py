@@ -488,3 +488,143 @@ def test_cuda_wrappers_give_gradients_equal_to_cpu(dev):
     for name, w in grads_f64().items():
         assert got[name] is not None, name
         torch.testing.assert_close(got[name].cpu().double(), w, atol=1e-4, rtol=1e-4)
+
+
+def _posterior_rows(dev, dtype, kind, n=640, d=25055):
+    """[n, d] rows the projector's LayerNorm sees in text-only TASU (5 x 128
+    frames): smoothed one-hots ((1 - a) onehot + a / d, a in [0, 0.1)),
+    clean one-hots, all-zero rows (pad frames, inactive insertions), or a
+    batch of each utterance's smoothed frames followed by zero rows."""
+    g_ = torch.Generator(device=dev).manual_seed(n)
+    onehot = torch.nn.functional.one_hot(
+        torch.randint(0, d, (n,), device=dev, generator=g_), d).float()
+    alpha = 0.1 * torch.rand(n, 1, device=dev, generator=g_)
+    smoothed = (1 - alpha) * onehot + alpha / d
+    if kind == "mixed":
+        valid = (torch.arange(n, device=dev) % 128) < torch.tensor(
+            [128, 112, 96, 80, 64], device=dev).repeat_interleave(128)[:n]
+        return (smoothed * valid[:, None]).to(dtype)
+    return {"smoothed": smoothed, "clean": onehot, "zero": torch.zeros_like(onehot)}[kind].to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["smoothed", "clean", "zero", "mixed"])
+def test_layer_norm_on_text_only_posterior_rows_matches_plain(dev, dtype, kind):
+    """The projector's LayerNorm forward (staged in bf16, held in fp32) and
+    backward at 640 x 25 055 on near-one-hot and all-zero rows, against
+    their plain versions."""
+    n, d = 640, 25055
+    x = _posterior_rows(dev, dtype, kind, n, d)
+    g_ = torch.Generator(device=dev).manual_seed(7)
+    w = (1 + 0.1 * torch.randn(d, device=dev, generator=g_)).to(dtype)
+    b = (0.1 * torch.randn(d, device=dev, generator=g_)).to(dtype)
+    gy = torch.randn(n, d, device=dev, generator=g_).to(dtype)
+    tol = TOL[dtype]
+    before = dict(norms.layer_norm_fwd.routes)
+    y, mu, rstd = norms.layer_norm_fwd(x, w, b)
+    torch.cuda.synchronize()
+    assert _route_moved(norms.layer_norm_fwd.routes, before) == [norms.ln_route(d, dtype, ())]
+    r_y, r_mu, r_rstd = norms.layer_norm_ref(x, w, b)
+    assert torch.isfinite(y.float()).all()
+    torch.testing.assert_close(y.float(), r_y.float(), **tol)
+    torch.testing.assert_close(mu, r_mu, **TOL[torch.float32])
+    torch.testing.assert_close(rstd, r_rstd, **TOL[torch.float32])
+    got = norms.layer_norm_bwd(x, w, mu, rstd, gy)
+    torch.cuda.synchronize()
+    want = norms.layer_norm_bwd_ref(x, w, r_mu, r_rstd, gy)
+    for i, (a, e) in enumerate(zip(got, want)):
+        torch.testing.assert_close(a.float(), e.float(),
+                                   **(tol if i == 0 else dict(tol, atol=tol["atol"] * n ** 0.5)))
+
+
+@pytest.mark.parametrize("width,k", [(24, 8), (151936, 4), (4 * 151936, 8)])
+def test_beam_top_k_tie_order_on_card(dev, width, k):
+    """The beam's top-k on the card on rows full of ties: values descending,
+    the lower index first among equal values (as jax.lax.top_k), which a
+    stable sort on the CPU gives."""
+    from ps_slm_tpu_torch.inference import generate as gen
+
+    x = torch.randint(0, 4, (4, width), generator=torch.Generator().manual_seed(width)).float()
+    want_v, want_i = (t[..., :k] for t in torch.sort(x, dim=-1, descending=True, stable=True))
+    got_v, got_i = (gen.top_k if width < 100 else gen.top_k_wide)(x.to(dev), k)
+    assert torch.equal(got_v.cpu(), want_v) and torch.equal(got_i.cpu(), want_i)
+
+
+def test_beam_generate_is_bit_identical_on_card(dev):
+    """Two beam-4 decodes of a small bf16 Qwen2 (head dim 128, a head with
+    duplicated rows for exact ties) give the same tokens."""
+    from ps_slm_tpu_torch.inference.generate import beam_generate
+    from ps_slm_tpu_torch.models.qwen2 import Qwen2Config, Qwen2Model
+
+    cfg = Qwen2Config.tiny(vocab_size=1000, hidden_size=256, num_attention_heads=4,
+                           num_key_value_heads=2, head_dim=128, num_hidden_layers=2)
+    llm = Qwen2Model(cfg)
+    llm.init_weights(torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        llm.embed_tokens.weight[500:] = llm.embed_tokens.weight[:500]
+    llm = llm.to(dev, torch.bfloat16)
+    g_ = torch.Generator().manual_seed(1)
+    emb = torch.randn(3, 40, 256, generator=g_).to(dev, torch.bfloat16)
+    mask = torch.ones(3, 40, dtype=torch.bool)
+    mask[1, :7], mask[2, :30] = False, False
+    pos = (mask.long().cumsum(1) - 1).clamp(min=0)
+    runs = [beam_generate(llm, emb, mask.to(dev), pos.to(dev), max_new_tokens=12,
+                          eos_token_id=7, num_beams=4) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert runs[0].shape == (3, 12) and bool(((runs[0] >= 0) & (runs[0] < 1000)).all())
+    assert torch.equal(runs[0], runs[1])
+
+
+@pytest.mark.parametrize("do_sample,temperature,top_p,min_length,penalty", [
+    (False, 1.0, 1.0, 1, 1.0), (False, 1.0, 1.0, 3, 1.3), (True, 1.0, 1.0, 1, 1.0),
+    (True, 0.7, 1.0, 1, 1.0), (True, 1.0, 0.9, 1, 1.0), (True, 0.8, 0.5, 3, 1.3),
+])
+def test_sample_from_on_card_matches_cpu(dev, do_sample, temperature, top_p, min_length, penalty):
+    """``sample_from`` on the card (its sort, softmax, cumsum and gather of
+    the top-p cutoff) gives the CPU's tokens on the same logits and the same
+    Gumbel noise, over the full Qwen2.5 vocabulary."""
+    from ps_slm_tpu_torch.inference.generate import gumbel_noise, sample_from
+
+    b, v, eos = 8, 151936, 151645
+    g_ = torch.Generator().manual_seed(v + min_length)
+    logits = 3 * torch.randn(b, v, generator=g_)
+    logits[:, eos] += 12.0          # EOS the greedy pick, unless min_length masks it
+    seen = torch.rand(b, v, generator=g_) < 0.01
+    noise = gumbel_noise((b, v), g_)
+    kw = dict(eos_token_id=eos, do_sample=do_sample, temperature=temperature, top_p=top_p,
+              min_length=min_length, repetition_penalty=penalty)
+    for t in (0, 4):
+        want = sample_from(logits, t, seen, noise, **kw)
+        got = sample_from(logits.to(dev), t, seen.to(dev), noise.to(dev), **kw)
+        assert torch.equal(got.cpu(), want)
+
+
+def test_generate_samples_on_card_with_a_card_generator(dev):
+    """TASU ``generate(num_beams=1, do_sample=True)`` on a small text-only
+    model (head dim 128) with a ``torch.Generator`` on the card as ``key``:
+    valid tokens, the same on two calls with the same seed."""
+    from ps_slm_tpu_torch.config import text_only_configs
+    from ps_slm_tpu_torch.inference.generate import generate
+    from ps_slm_tpu_torch.models.tasu import model_factory
+
+    tc, mc = text_only_configs(
+        dict(num_blocks=1, tp_blocks=1, input_size=24, output_size=16, attention_heads=2,
+             linear_units=32, vocab_size=600),
+        dict(vocab_size=1000, hidden_size=256, intermediate_size=512, num_hidden_layers=2,
+             num_attention_heads=4, num_key_value_heads=2, head_dim=128))
+    model = model_factory(tc, mc, device=dev)
+    model.speech_token_id = 998
+    g_ = torch.Generator().manual_seed(0)
+    ids = torch.randint(1, 900, (3, 8), generator=g_)
+    ids[:, 3] = 998
+    batch = {"input_ids": ids, "attention_mask": torch.ones(3, 8, dtype=torch.bool),
+             "gt_ids": torch.randint(1, 600, (3, 20), generator=g_),
+             "gt_lens": torch.tensor([20, 13, 5])}
+    kw = dict(eos_token_id=7, num_beams=1, do_sample=True, temperature=0.8, top_p=0.9,
+              min_length=3, repetition_penalty=1.3, max_new_tokens=12, device=dev)
+    runs = [generate(model, batch, key=torch.Generator(device=dev).manual_seed(5), **kw)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert runs[0].shape == (3, 12) and bool(((runs[0] >= 0) & (runs[0] < 1000)).all())
+    assert not bool((runs[0][:, :2] == 7).any())       # min_length 3
+    assert torch.equal(runs[0], runs[1])
