@@ -47,6 +47,10 @@ Phases, each of which fails the run:
    on card and CPU; two text-only training steps (the flags swapped to
    the paper's recipe, insertion on) on a ragged 5-row transcript batch,
    the noise drawn once on the CPU and fed to both, as in 4b;
+4d. decode CLI, fp32, full width at reduced depth: the phase 6 assets
+   written from a 2+1-block encoder and a 2-layer LLM, then
+   ``cli.decode.main`` with scripts/decode.sh's overrides (beam 4, 8 new
+   tokens) on the card and on the CPU; byte-identical ``_pred`` files;
 5. serving main path, bf16, full width (SenseVoiceSmall + linear-silu +
    Qwen2.5-1.5B, random weights from a seed): ``generate`` on 4
    utterances, with every kernel's launch count and the decode steps
@@ -73,7 +77,26 @@ Phases, each of which fails the run:
    1 backward, RMSNorm 57 / 57; the encoder does not run), finite
    losses, frozen weights bit-identical, the projector moved; step ms,
    peak memory, one profiled step;
-6. one JSON line listing every kernel, then the contract line
+6. decode CLI, bf16, the published widths and depths: scripts/decode.sh's
+   assets as synthetic stand-ins in its layout, written from a seeded model
+   into a temporary directory (an HF Qwen2.5 directory with bf16
+   safetensors and a byte-level tokenizer with Qwen2.5's special tokens, a
+   funasr SenseVoiceSmall directory with an fp32 model.pt and a 560-wide
+   am.mvn, the linear-silu projector under reference keys, and a
+   multitask.jsonl over 32 utterances of 2-12 s: 24 in a Kaldi wav.ark, 4
+   .wav, 4 .flac), then ``cli.decode.main`` with the recipe's overrides
+   (beam 4, 32 new tokens instead of 200: random weights never emit EOS),
+   then the port's clean_marks and WER.  Checks: every utterance once in
+   ``_pred`` and ``_gt``; the loaded tensors bit-equal to the written ones
+   cast to bf16; parameters and CMVN on the card; per batch flash 98,
+   LayerNorm 142 vec + 1 staged, RMSNorm 57 x 32 vec; the first batch
+   re-decoded bit-identical; the fp32 front end within 1e-3 of the CPU's.
+   Prints the load seconds, each batch's rows / LFR frames / merged
+   length, the CLI's audio-s/s and tokens/s, the share of ``main`` outside
+   ``generate``, the front end's and one generate's profiled device time,
+   peak memory and the (meaningless) WER; then phase 3's forward kernels
+   at its largest batch's shapes;
+7. one JSON line listing every kernel, then the contract line
    ``{"ok": true, "device": {...}}`` last.
 
 Exits non-zero without a result when CUDA is absent or when the
@@ -134,6 +157,18 @@ TEXT_ONLY_FLASH = ("text_only", 5, TEXT_LEN + max(TEXT_ONLY_GT_LENS) - 1, 12, 2,
                    [TEXT_LEN + n - 1 for n in TEXT_ONLY_GT_LENS])
 FP32_NEW = 8            # new tokens of the fp32 card-vs-CPU decodes
 TEXT_ONLY_INSERT = 0.1  # insertion on in the fp32 text-only phase
+# the decode CLI (phases 4d and 6): scripts/decode.sh's recipe on a
+# manifest of 32 utterances of 2-12 s at 16 kHz, 16-bit (24 in one Kaldi
+# wav.ark, 4 .wav and 4 .flac files), beam 4, DECODE_MAX_NEW new tokens
+# (random weights never emit EOS and the beam loop has no early exit)
+DECODE_UTTS = {"ark": 24, "wav": 4, "flac": 4}
+DECODE_SECONDS = (2.0, 12.0)
+DECODE_MAX_NEW = 32
+# Qwen2.5's special tokens at their ids; the tokenizer adds <speech> after
+QWEN_SPECIALS = {"<|endoftext|>": 151643, "<|im_start|>": 151644, "<|im_end|>": 151645}
+WORDS = ("the cat sat on a mat while rain fell over quiet hills and old ships "
+         "sailed past bright towers into the evening sea").split()
+FRONTEND_TOL = 1e-3     # the fp32 front end, card vs CPU, on log-mel
 
 # H100 SXM published peaks (NVIDIA H100 datasheet): memory and the
 # rate for the inputs' type (bf16 tensor cores; fp32 outside them)
@@ -182,6 +217,191 @@ KERNEL_TOL = {"f32": (2e-5, 2e-5), "bf16": (1e-2, 1e-2)}
 # fp32 whole path, card vs CPU (matmul and reduction order differ)
 PATH_TOL = 1e-3
 PSD_CALLS = 3   # PSD calls a profiled run
+
+
+# ----------------------------------------------------------------------------
+# the decode CLI's assets: scripts/decode.sh's layout, synthetic stand-ins
+# ----------------------------------------------------------------------------
+
+def write_safetensors(torch, path: str, tensors: dict) -> None:
+    """A ``.safetensors`` file: 8-byte little-endian header length, JSON
+    header (names sorted, data offsets from the end of the header, padded
+    with spaces to 8 bytes), raw little-endian data."""
+    names = {torch.float32: "F32", torch.bfloat16: "BF16", torch.float16: "F16",
+             torch.int64: "I64"}
+    header, offset = {}, 0
+    for k in sorted(tensors):
+        t = tensors[k]
+        n = t.numel() * t.element_size()
+        header[k] = {"dtype": names[t.dtype], "shape": list(t.shape),
+                     "data_offsets": [offset, offset + n]}
+        offset += n
+    blob = json.dumps(header).encode()
+    blob += b" " * (-len(blob) % 8)
+    with open(path, "wb") as f:
+        f.write(len(blob).to_bytes(8, "little"))
+        f.write(blob)
+        for k in sorted(tensors):
+            f.write(tensors[k].detach().cpu().contiguous().reshape(-1).view(torch.uint8).numpy())
+
+
+def write_llm_dir(torch, path: str, llm, dtype, specials=None) -> dict:
+    """An HF Qwen2 directory from the port's ``llm``: ``config.json``
+    (``tie_word_embeddings`` as the model has it), one ``model.safetensors``
+    in ``dtype`` under the HF names, and a byte-level tokenizer: the 256
+    byte tokens (ids 0-255), no merges, ``specials`` (default: Qwen2.5's at
+    their ids) and ``<|im_end|>`` as EOS.  Returns the written tensors."""
+    from ps_slm_tpu_torch.data.bbpe import bytes_to_unicode
+    from ps_slm_tpu_torch.models.qwen2 import state_dict_to_hf
+
+    specials = specials or QWEN_SPECIALS
+    cfg = llm.cfg
+    os.makedirs(path, exist_ok=True)
+    tensors = {k: v.detach().to(dtype).cpu() for k, v in state_dict_to_hf(llm).items()}
+    write_safetensors(torch, os.path.join(path, "model.safetensors"), tensors)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump({
+            "architectures": ["Qwen2ForCausalLM"], "model_type": "qwen2",
+            "vocab_size": cfg.vocab_size, "hidden_size": cfg.hidden_size,
+            "intermediate_size": cfg.intermediate_size,
+            "num_hidden_layers": cfg.num_hidden_layers,
+            "num_attention_heads": cfg.num_attention_heads,
+            "num_key_value_heads": cfg.num_key_value_heads, "head_dim": cfg.head_dim,
+            "rope_theta": cfg.rope_theta, "rms_norm_eps": cfg.rms_norm_eps,
+            "max_position_embeddings": cfg.max_position_embeddings,
+            "tie_word_embeddings": cfg.tie_word_embeddings,
+            "torch_dtype": str(dtype).replace("torch.", ""),
+        }, f, indent=2)
+    with open(os.path.join(path, "vocab.json"), "w", encoding="utf-8") as f:
+        json.dump({c: b for b, c in sorted(bytes_to_unicode().items())}, f, ensure_ascii=False)
+    with open(os.path.join(path, "merges.txt"), "w", encoding="utf-8") as f:
+        f.write("#version: 0.2\n")
+    with open(os.path.join(path, "tokenizer_config.json"), "w") as f:
+        json.dump({
+            "tokenizer_class": "Qwen2Tokenizer", "eos_token": "<|im_end|>",
+            "pad_token": "<|endoftext|>",
+            "added_tokens_decoder": {str(i): {"content": t, "special": True}
+                                     for t, i in specials.items()},
+        }, f, indent=2)
+    return tensors
+
+
+def write_encoder_dir(torch, path: str, encoder, seed: int = 0) -> dict:
+    """A funasr SenseVoiceSmall directory from the port's ``encoder``:
+    ``model.pt`` (fp32, funasr names), ``config.yaml`` and a seeded
+    ``am.mvn`` as wide as the encoder's input.  Returns the written
+    tensors."""
+    import numpy as np
+
+    from ps_slm_tpu_torch.training.checkpoint import _encoder_to_reference
+
+    cfg = encoder.cfg
+    os.makedirs(path, exist_ok=True)
+    tensors = {k[len("encoder."):]: v for k, v in _encoder_to_reference(encoder).items()}
+    torch.save(tensors, os.path.join(path, "model.pt"))
+    with open(os.path.join(path, "config.yaml"), "w") as f:
+        f.write(f"input_size: {cfg.input_size}\nvocab_size: {cfg.vocab_size}\nencoder_conf:\n")
+        for k in ("output_size", "attention_heads", "linear_units", "num_blocks",
+                  "tp_blocks", "kernel_size"):
+            f.write(f"  {k}: {getattr(cfg, k)}\n")
+    rng = np.random.default_rng(seed)
+    d = cfg.input_size
+    shift = -(12.0 + rng.normal(size=d))                    # minus the log-mel means
+    scale = 0.25 + 0.05 * rng.random(size=d)                # inverse standard deviations
+    with open(os.path.join(path, "am.mvn"), "w") as f:
+        f.write(f"<Nnet>\n<Splice> {d} {d}\n[ 0 ]\n<AddShift> {d} {d}\n<LearnRateCoef> 0 [ ")
+        f.write(" ".join(f"{v:.6f}" for v in shift))
+        f.write(f" ]\n<Rescale> {d} {d}\n<LearnRateCoef> 0 [ ")
+        f.write(" ".join(f"{v:.6f}" for v in scale))
+        f.write(" ]\n</Nnet>\n")
+    return tensors
+
+
+def write_manifest(path: str, utts=None, seconds=DECODE_SECONDS, seed: int = 0) -> float:
+    """``path/multitask.jsonl`` over seeded 16 kHz 16-bit utterances of
+    ``seconds`` (lo, hi): ``utts["ark"]`` in one Kaldi ``wav.ark``, then
+    ``utts["wav"]`` .wav and ``utts["flac"]`` .flac files (the port's
+    writers); tasks drawn from ASR and the three translation prompts,
+    targets and GT of random words.  Returns the seconds of audio."""
+    import numpy as np
+
+    from ps_slm_tpu_torch.data import audio_io
+    from ps_slm_tpu_torch.data.flac import write_flac
+
+    utts = utts or DECODE_UTTS
+    rng = np.random.default_rng(seed)
+    rate = 16000
+    os.makedirs(path, exist_ok=True)
+    audio, rows, total = {}, [], 0.0
+    for kind, n in utts.items():
+        for i in range(n):
+            key = f"{kind}{i:02d}"
+            t = np.arange(int(rng.uniform(*seconds) * rate)) / rate
+            wave = (0.05 * rng.normal(size=t.size)
+                    + 0.1 * np.sin(2 * np.pi * rng.uniform(100, 400) * t)).astype(np.float32)
+            total += t.size / rate
+            audio[key] = (kind, wave)
+    ark = os.path.join(path, "wav.ark")
+    offsets = audio_io.write_kaldi_wav_ark(
+        ark, {k: (rate, w) for k, (kind, w) in audio.items() if kind == "ark"})
+    for key, (kind, wave) in audio.items():
+        if kind == "ark":
+            src = f"{ark}:{offsets[key]}"
+        else:
+            src = os.path.join(path, f"{key}.{kind}")
+            (audio_io.write_wav if kind == "wav" else write_flac)(src, rate, wave)
+        words = " ".join(rng.choice(WORDS, size=int(rng.integers(4, 16))))
+        task = str(rng.choice(["ASR", "ASR", "ZH2EN", "EN2ZH", "EN2DE"]))
+        rows.append({"key": key, "path": src, "target": words, "GT": words, "task": task})
+    with open(os.path.join(path, "multitask.jsonl"), "w") as f:
+        for r in rows:
+            f.write(json.dumps(r) + "\n")
+    return total
+
+
+def write_assets(torch, root: str, model, *, llm_dtype, specials=None, utts=None,
+                 seconds=DECODE_SECONDS, seed: int = 0) -> dict:
+    """scripts/decode.sh's inputs under ``root`` from the port's ``model``:
+    ``Qwen2.5-1.5B-Instruct/`` (:func:`write_llm_dir`), ``SenseVoiceSmall/``
+    (:func:`write_encoder_dir`), ``half_audio_finetuned/pytorch_model.bin``
+    (the projector under reference keys) and ``test/`` (:func:`write_manifest`).
+    Returns the paths, the written tensors by kind and the audio seconds."""
+    from ps_slm_tpu_torch.training.checkpoint import export_reference_checkpoint
+
+    out = {"llm_path": os.path.join(root, "Qwen2.5-1.5B-Instruct"),
+           "encoder_path": os.path.join(root, "SenseVoiceSmall"),
+           "ckpt_path": os.path.join(root, "half_audio_finetuned", "pytorch_model.bin"),
+           "data": os.path.join(root, "test")}
+    out["llm"] = write_llm_dir(torch, out["llm_path"], model.llm, llm_dtype, specials)
+    out["encoder"] = write_encoder_dir(torch, out["encoder_path"], model.encoder, seed)
+    os.makedirs(os.path.dirname(out["ckpt_path"]), exist_ok=True)
+    out["projector"] = export_reference_checkpoint(model, out["ckpt_path"],
+                                                   exclude=("llm", "encoder"))
+    out["audio_seconds"] = write_manifest(out["data"], utts, seconds, seed)
+    return out
+
+
+def decode_args(assets: dict, decode_log: str, max_new: int, llm_dim: int = 1536,
+                encoder_dim: int = 25055) -> list:
+    """scripts/decode.sh's overrides on ``assets`` (max_new_tokens
+    ``max_new`` instead of 200), the prompts of ``conf/multiprompt.jsonl``;
+    the CLI's log beside ``decode_log``."""
+    return [
+        f"++model_config.llm_path={assets['llm_path']}",
+        f"++model_config.llm_dim={llm_dim}",
+        f"++model_config.encoder_path={assets['encoder_path']}",
+        f"++model_config.encoder_dim={encoder_dim}",
+        "++model_config.encoder_projector=linear-silu",
+        "++train_config.ctc_posterior=true",
+        "++train_config.do_psd=true",
+        "++train_config.num_beams=4",
+        f"++train_config.max_new_tokens={max_new}",
+        f"++dataset_config.multitask_prompt_path={os.path.join(HERE, 'conf', 'multiprompt.jsonl')}",
+        f"++dataset_config.test_scp_file_path={assets['data']}/",
+        f"ckpt_path={assets['ckpt_path']}",
+        f"decode_log={decode_log}",
+        f"++log_config.log_file={decode_log}.log",
+    ]
 
 
 def posterior_rows(torch, dev, dtype, kind: str, n: int, d: int):
@@ -521,7 +741,31 @@ def route_taken(name, routes, before, n, d, dt) -> str:
     return f", route {'/'.join(moved)}"
 
 
-def phase_kernels(torch, dev, results):
+# the forward kernels' cases of phase 3: flash (label, B, S, Hq, Hkv, causal,
+# window starts, window ends) at the encoder's (non-causal, right-padded),
+# the LLM prefill's (causal GQA, left-padded) and the text-only step's
+# shapes; norms (wrapper, rows, width, posterior rows' kind or None for
+# normal rows) at the serving and audio training shapes, the text-only
+# projector's rows (640 = 5 x 128 frames) and LLM rows (795 = 5 x 159), and
+# the beam decode's 16 rows (4 x 4 beams)
+FLASH_CASES = (
+    ("encoder", 4, 516, 4, 4, False, [0, 0, 0, 0], [516, 404, 304, 260]),
+    ("llm_prefill", 4, 543, 12, 2, True, [0, 112, 212, 256], [543] * 4),
+    TEXT_ONLY_FLASH,
+)
+NORM_CASES = (
+    ("layer_norm_fwd", 2064, 560, None), ("layer_norm_fwd", 2064, 512, None),
+    ("layer_norm_fwd", 2064, 25055, None), ("layer_norm_fwd", 640, 25055, "mixed"),
+    ("layer_norm_fwd", 640, 25055, "clean"), ("rms_norm_fwd", 2172, 1536, None),
+    ("rms_norm_fwd", 4, 1536, None), ("rms_norm_fwd", 16, 1536, None),
+    ("rms_norm_fwd", 795, 1536, None),
+)
+
+
+def phase_kernels(torch, dev, results, flash_cases=FLASH_CASES, norm_cases=NORM_CASES):
+    """Phase 3's forward kernels against their plain versions, timed, at
+    ``flash_cases`` and ``norm_cases`` (phase 6 passes its largest
+    batch's)."""
     import torch.nn.functional as F
 
     from ps_slm_tpu_torch.ops import flash_attention as fa
@@ -533,13 +777,6 @@ def phase_kernels(torch, dev, results):
     def entry(name):
         return results.setdefault(name, {"max_abs_err": 0.0, "shapes": []})
 
-    # flash: encoder (non-causal, right-padded) and LLM prefill (causal GQA,
-    # left-padded) shapes of the main path
-    flash_cases = [
-        ("encoder", 4, 516, 4, 4, False, [0, 0, 0, 0], [516, 404, 304, 260]),
-        ("llm_prefill", 4, 543, 12, 2, True, [0, 112, 212, 256], [543] * 4),
-        TEXT_ONLY_FLASH,
-    ]
     for label, b, s, hq, hkv, causal, starts, ends in flash_cases:
         d = fa.HEAD_DIM
         start = torch.tensor(starts, dtype=torch.int32, device=dev)
@@ -578,17 +815,6 @@ def phase_kernels(torch, dev, results):
                   f"causal={causal} {dt}: err {err:.3e} ms {ms:.4f} plain {plain:.4f} "
                   f"sdpa {lib:.4f} bound {bms:.4f} ({by})", flush=True)
 
-    # (name, rows, width, posterior rows' kind or None for normal rows):
-    # the serving and audio training shapes, the text-only projector's rows
-    # (640 = 5 x 128 frames) and LLM rows (795 = 5 x 159), and the beam
-    # decode's 16 rows (4 x 4 beams)
-    norm_cases = [
-        ("layer_norm_fwd", 2064, 560, None), ("layer_norm_fwd", 2064, 512, None),
-        ("layer_norm_fwd", 2064, 25055, None), ("layer_norm_fwd", 640, 25055, "mixed"),
-        ("layer_norm_fwd", 640, 25055, "clean"), ("rms_norm_fwd", 2172, 1536, None),
-        ("rms_norm_fwd", 4, 1536, None), ("rms_norm_fwd", 16, 1536, None),
-        ("rms_norm_fwd", 795, 1536, None),
-    ]
     for name, n, d, kind in norm_cases:
         for dt, dtype in dtypes.items():
             x = (posterior_rows(torch, dev, dtype, kind, n, d) if kind else
@@ -961,6 +1187,50 @@ def phase_beam_text_only_fp32(torch, dev):
         fail("fp32 text-only training: card and CPU disagree beyond the tolerance")
 
 
+def phase_decode_cli_fp32(torch, dev) -> None:
+    """Phase 4d: the decode CLI (``cli.decode.main``, scripts/decode.sh's
+    overrides, fp32, FP32_NEW new tokens) on the card and on the CPU, on
+    the same assets at full width and reduced depth; the ``_pred`` files
+    must be byte-identical."""
+    import shutil
+    import tempfile
+
+    from ps_slm_tpu_torch.cli import decode
+    from ps_slm_tpu_torch.config import half_audio_configs
+    from ps_slm_tpu_torch.models.tasu import model_factory
+
+    t0 = time.time()
+    root = tempfile.mkdtemp(prefix="decode_cli_fp32_")
+    try:
+        tc, mc = half_audio_configs(dict(num_blocks=2, tp_blocks=1), dict(num_hidden_layers=2),
+                                    seed=0)
+        assets = write_assets(torch, root, model_factory(tc, mc, device="cpu"),
+                              llm_dtype=torch.bfloat16)
+        preds, walls = {}, {}
+        for name, device in (("cuda", dev), ("cpu", "cpu")):
+            log = os.path.join(root, name, "test")
+            t1 = time.time()
+            rc = decode.main(decode_args(assets, log, FP32_NEW, mc.llm_dim, mc.encoder_dim)
+                             + ["++train_config.mixed_precision=false"], device=device)
+            walls[name] = time.time() - t1
+            if rc != 0:
+                fail(f"decode CLI fp32 on {name}: main returned {rc}")
+            with open(log + "_pred", "rb") as f:
+                preds[name] = f.read()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    same = preds["cuda"] == preds["cpu"]
+    print(f"decode CLI fp32 (2+1 encoder blocks, 2 LLM layers, full width, beam 4, "
+          f"{FP32_NEW} new tokens, {sum(DECODE_UTTS.values())} utterances): _pred files "
+          f"{'byte-identical' if same else 'different'} on card and CPU ({len(preds['cpu'])} "
+          f"bytes); main {walls['cuda']:.1f} s card, {walls['cpu']:.1f} s CPU "
+          f"({time.time() - t0:.1f} s)", flush=True)
+    if not same:
+        a, b = preds["cuda"].splitlines(), preds["cpu"].splitlines()
+        diff = [(x, y) for x, y in zip(a, b) if x != y][:3]
+        fail(f"decode CLI fp32: card and CPU _pred files differ, first lines {diff}")
+
+
 def phase_train_main(torch, dev, model, launches, text_only: bool = False):
     """A training step at full width, bf16, on ``model`` (the serving
     phase's): bench.py's step (phase 5b) or, with ``text_only``, the
@@ -1247,6 +1517,255 @@ def phase_main(torch, dev, launches, model=None, beam: bool = False):
     return model
 
 
+def batch_shapes(batch, fbank_cfg) -> tuple:
+    """(rows, LFR frames, merged length) of a CLI batch: the waveform's
+    padded samples framed as the front end frames them; the merge's static
+    length is the prompt's plus the (PSD-padded) audio's, less the speech
+    token."""
+    rows, n = batch["waveform"].shape
+    sr = fbank_cfg.sample_rate
+    frame_len, shift = sr * fbank_cfg.frame_length // 1000, sr * fbank_cfg.frame_shift // 1000
+    lfr = -(-max(1 + (n - frame_len) // shift, 0) // fbank_cfg.lfr_n)
+    return rows, lfr, batch["input_ids"].shape[1] + lfr - 1
+
+
+def phase_decode_cli(torch, dev, launches) -> tuple:
+    """Phase 6: scripts/decode.sh through the port's decode CLI at the
+    published widths and depths, bf16: synthetic stand-ins of its assets
+    written from a seeded model (:func:`write_assets`), then
+    ``cli.decode.main`` with the recipe's overrides (``DECODE_MAX_NEW``
+    new tokens), then the port's clean_marks and WER on its files.  Fails
+    unless every utterance is decoded once, the loaded weights equal the
+    written ones cast to bf16 bit for bit, every parameter and the CMVN are
+    on the card, each batch launches exactly its kernels by route, the
+    first batch decodes to the same tokens again, and the front end on the
+    card is within FRONTEND_TOL of the CPU's in fp32.  Adds the launches
+    summed over the batches to ``launches`` and returns (launches per batch,
+    the largest batch's flash and norm cases for phase 3)."""
+    import shutil
+    import tempfile
+
+    from ps_slm_tpu_torch import registry
+    from ps_slm_tpu_torch.cli import decode
+    from ps_slm_tpu_torch.config import half_audio_configs
+    from ps_slm_tpu_torch.data import audio_io
+    from ps_slm_tpu_torch.models.qwen2 import hf_to_state_dict
+    from ps_slm_tpu_torch.models.tasu import model_factory, prepare_merged
+    from ps_slm_tpu_torch.ops.fbank import frontend
+    from ps_slm_tpu_torch.tools import clean_marks, wer
+    from ps_slm_tpu_torch.training import checkpoint as ckpt
+
+    what = "decode CLI"
+    counters = kernel_counters()
+    root = tempfile.mkdtemp(prefix="decode_cli_")
+    try:
+        t0 = time.perf_counter()
+        tc, mc = half_audio_configs()
+        src = model_factory(tc, mc)                  # fp32 on the card, seed 42
+        assets = write_assets(torch, root, src, llm_dtype=torch.bfloat16)
+        del src
+        torch.cuda.empty_cache()
+        sizes = {k: sum(os.path.getsize(os.path.join(assets[f"{k}_path"], f))
+                        for f in os.listdir(assets[f"{k}_path"])) / 1e9
+                 for k in ("llm", "encoder")}
+        sizes["ckpt"] = os.path.getsize(assets["ckpt_path"]) / 1e9
+        print(f"{what}: assets written in {time.perf_counter() - t0:.1f} s (Qwen2.5 dir "
+              f"{sizes['llm']:.2f} GB bf16 safetensors, SenseVoiceSmall dir "
+              f"{sizes['encoder']:.2f} GB fp32 model.pt, projector checkpoint "
+              f"{sizes['ckpt']:.2f} GB; {sum(DECODE_UTTS.values())} utterances {DECODE_UTTS}, "
+              f"{assets['audio_seconds']:.2f} s of audio)", flush=True)
+
+        # hooks around the CLI: the model its factory builds, the checkpoint
+        # import's seconds, and each batch's generate call with its launches
+        seen: dict = {"batches": []}
+        real_factory = registry.get_model_factory("tasu")
+        real_import = ckpt.import_reference_checkpoint
+        real_generate = decode.generate
+
+        def factory(*args, **kwargs):
+            seen["model"] = real_factory(*args, **kwargs)
+            return seen["model"]
+
+        def timed_import(*args, **kwargs):
+            t = time.perf_counter()
+            out = real_import(*args, **kwargs)
+            torch.cuda.synchronize()
+            seen["ckpt_s"] = time.perf_counter() - t
+            return out
+
+        def counted_generate(model, batch, **kwargs):
+            torch.cuda.synchronize()
+            reset_counters(counters)
+            with counting_steps() as steps:
+                t = time.perf_counter()
+                out = real_generate(model, batch, **kwargs)
+                torch.cuda.synchronize()
+                t_end = time.perf_counter()
+            seen["batches"].append(dict(
+                ms=(t_end - t) * 1e3, first_ms=(steps[0] - t) * 1e3 if steps else None,
+                step_ms=(t_end - steps[0]) * 1e3 / len(steps) if steps else None,
+                steps=len(steps), batch=batch, kwargs=kwargs, tokens=out.cpu(),
+                launches={n: f.launches for n, f in counters.items()},
+                routes={n: dict(counters[n].routes) for n in MAIN_ROUTES}))
+            return out
+
+        log = os.path.join(root, "decode", "test")
+        registry.register_model("tasu")(factory)
+        ckpt.import_reference_checkpoint = timed_import
+        decode.generate = counted_generate
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        try:
+            rc = decode.main(decode_args(assets, log, DECODE_MAX_NEW, mc.llm_dim,
+                                         mc.encoder_dim))          # default device: cuda
+        finally:
+            registry.register_model("tasu")(real_factory)
+            ckpt.import_reference_checkpoint = real_import
+            decode.generate = real_generate
+        main_s = time.perf_counter() - t0
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        if rc != 0:
+            fail(f"{what}: main returned {rc}")
+        model, batches = seen["model"], seen["batches"]
+
+        # every utterance once in each file
+        with open(os.path.join(assets["data"], "multitask.jsonl")) as f:
+            keys = [json.loads(line)["key"] for line in f]
+        for suffix in ("_pred", "_gt"):
+            with open(log + suffix, encoding="utf-8") as f:
+                got = [line.split("\t", 1)[0] for line in f.read().split("\n") if "\t" in line]
+            if sorted(got) != sorted(keys):
+                fail(f"{what}: {suffix} holds keys {sorted(got)}, not each of {sorted(keys)} once")
+
+        # the loaded weights: the written tensors cast once to the model's dtype
+        dt = model.llm.embed_tokens.weight.dtype
+        written = {
+            "llm": hf_to_state_dict(assets["llm"], model.llm.cfg),
+            "encoder": ckpt.funasr_to_state_dict(assets["encoder"], model.encoder.cfg),
+            "projector": ckpt.reference_to_projector(assets["projector"], "linear-silu")[0],
+        }
+        n_cmp = 0
+        for part, state in written.items():
+            have = getattr(model, part).state_dict()
+            if sorted(have) != sorted(state):
+                fail(f"{what}: the {part}'s parameters are not the written tensors' names")
+            for k, v in state.items():
+                n_cmp += 1
+                if not torch.equal(have[k].cpu(), v.to(dt)):
+                    fail(f"{what}: {part}.{k} differs from the written tensor cast to {dt}")
+        on_card = all(p.device.type == dev.type for p in model.parameters()) and \
+            model.cmvn is not None and all(c.device.type == dev.type for c in model.cmvn)
+        if not on_card or dt != torch.bfloat16:
+            fail(f"{what}: a parameter or the CMVN is off the card, or the model is {dt}")
+        native = audio_io.native_available()
+        print(f"{what}: loaded Qwen2.5 safetensors in {model.load_seconds['llm']:.2f} s, "
+              f"SenseVoiceSmall model.pt in {model.load_seconds['encoder']:.2f} s, the "
+              f"reference checkpoint in {seen['ckpt_s']:.2f} s; {n_cmp} tensors bit-equal to "
+              f"the written ones cast to {dt}; every parameter and the CMVN on {dev}; audio read "
+              f"by {'the native C++ helper' if native else 'pure Python (no native/build)'}",
+              flush=True)
+
+        # launches per batch, by route
+        want = {name: 0 for name in counters}
+        want.update({"flash_attention_fwd": FLASH_PER_GENERATE, "layer_norm_fwd": LN_PER_GENERATE,
+                     "rms_norm_fwd": RMS_PER_FORWARD * DECODE_MAX_NEW})
+        want_routes = {"layer_norm_fwd": LN_ROUTES_PER_PASS,
+                       "rms_norm_fwd": {"vec": RMS_PER_FORWARD * DECODE_MAX_NEW, "general": 0},
+                       "rms_norm_bwd": {"vec": 0, "general": 0}}
+        gen_ms = 0.0
+        for i, rec in enumerate(batches):
+            rows, frames, merged = batch_shapes(rec["batch"], model.fbank_cfg)
+            gen_ms += rec["ms"]
+            audio = float(rec["batch"]["waveform_length"].sum()) / 16000
+            print(f"{what} batch {i}: {rows} rows ({4 * rows} beam rows), {frames} LFR frames, "
+                  f"merged length {merged}, {audio:.2f} s of audio; generate {rec['ms']:.1f} ms "
+                  f"= first token {rec['first_ms']:.1f} ms + {rec['steps']} beam steps x "
+                  f"{rec['step_ms']:.2f} ms; launches {rec['launches']}, routes {rec['routes']}",
+                  flush=True)
+            if rec["steps"] != DECODE_MAX_NEW - 1:
+                fail(f"{what} batch {i}: {rec['steps']} beam steps, not {DECODE_MAX_NEW - 1}")
+            if rec["launches"] != want or rec["routes"] != want_routes:
+                fail(f"{what} batch {i}: launches {rec['launches']} by route {rec['routes']}, "
+                     f"not {want} by {want_routes}")
+        for name in counters:
+            launches[name] = sum(rec["launches"][name] for rec in batches)
+        for name in MAIN_ROUTES:
+            for route in counters[name].routes:
+                launches[f"{name}.{route}"] = sum(rec["routes"][name][route] for rec in batches)
+
+        # the first batch again: bit-identical tokens
+        first = batches[0]
+        again = real_generate(model, first["batch"], **first["kwargs"]).cpu()
+        if not torch.equal(again, first["tokens"]):
+            fail(f"{what}: re-decoding the first batch gives other tokens")
+
+        # the front end, fp32, card vs CPU, on the first batch
+        wav, wlen = first["batch"]["waveform"], first["batch"]["waveform_length"]
+        cpu_cmvn = tuple(c.cpu() for c in model.cmvn)
+        f_cpu, l_cpu = frontend(wav, wlen, cfg=model.fbank_cfg, cmvn=cpu_cmvn)
+        f_gpu, l_gpu = frontend(wav.to(dev), wlen.to(dev), cfg=model.fbank_cfg, cmvn=model.cmvn)
+        fe_err = float((f_gpu.cpu() - f_cpu).abs().max())
+        if not torch.equal(l_gpu.cpu(), l_cpu) or not fe_err <= FRONTEND_TOL:
+            fail(f"{what}: the front end on the card is {fe_err:.3e} from the CPU's")
+        fe_prof = profiled(torch, lambda: frontend(wav.to(dev), wlen.to(dev), cfg=model.fbank_cfg,
+                                                   cmvn=model.cmvn))
+        gen_prof = profiled(torch, lambda: real_generate(model, first["batch"], **first["kwargs"]))
+
+        # the CLI's own throughput line, and the scoring
+        with open(log + ".log") as f:
+            done = [line.strip() for line in f if "decode done" in line]
+        for path in (log + "_pred", log + "_gt"):
+            clean_marks.clean_file(path)
+        with open(os.devnull, "w") as null:
+            score = wer.score_files(log + "_gt", log + "_pred", stream=null)
+        host = {}
+        with open(os.path.join(assets["data"], "multitask.jsonl")) as f:
+            for row in map(json.loads, f):
+                kind = "ark" if ".ark:" in row["path"] else row["path"].rsplit(".", 1)[1]
+                t = time.perf_counter()
+                audio_io.load_audio(row["path"])
+                host[kind] = host.get(kind, 0.0) + time.perf_counter() - t
+        print(f"{what}: the CLI logs {done[-1].split(' - ', 1)[-1] if done else 'nothing'}; "
+              f"main {main_s:.2f} s wall, generate {gen_ms / 1e3:.2f} s of it, "
+              f"{1 - gen_ms / 1e3 / main_s:.3f} outside generate (loading, the manifest, audio "
+              f"reads, tokenizing, batching, detokenizing, writing); audio reads alone "
+              f"{json.dumps({k: round(v, 3) for k, v in host.items()})} s by kind; "
+              f"{assets['audio_seconds'] / (gen_ms / 1e3):.1f} audio-s/s in generate, "
+              f"{assets['audio_seconds'] / main_s:.1f} over main; peak memory {peak_gb:.2f} GB; "
+              f"front end fp32 card vs CPU {fe_err:.3e} (tol {FRONTEND_TOL}); first batch "
+              f"re-decoded bit-identical; WER {score['wer']:.2f}% (random weights: meaningless)",
+              flush=True)
+        print_profiled(f"{what} front end, first batch", fe_prof)
+        print_profiled(f"{what} generate, first batch", gen_prof)
+
+        # the largest batch's shapes for phase 3
+        big = max(batches, key=lambda rec: batch_shapes(rec["batch"], model.fbank_cfg)[0]
+                  * batch_shapes(rec["batch"], model.fbank_cfg)[2])
+        rows, frames, merged = batch_shapes(big["batch"], model.fbank_cfg)
+        bd = {k: v.to(dev) for k, v in big["batch"].items()}
+        with torch.inference_mode():
+            _, flens = frontend(bd["waveform"], bd["waveform_length"], cfg=model.fbank_cfg)
+            valid = prepare_merged(model, bd, left_padding=True, generate_mode=True
+                                   ).attention_mask.sum(1)
+        s_enc = frames + 4
+        flash = (("decode_cli encoder", rows, s_enc, 4, 4, False, [0] * rows,
+                  (flens + 4).tolist()),
+                 ("decode_cli prefill", rows, merged, 12, 2, True, (merged - valid).tolist(),
+                  [merged] * rows))
+        norm = (("layer_norm_fwd", rows * s_enc, 560, None),
+                ("layer_norm_fwd", rows * s_enc, 512, None),
+                ("layer_norm_fwd", rows * frames, 25055, None),
+                ("rms_norm_fwd", rows * merged, 1536, None),
+                ("rms_norm_fwd", 4 * rows, 1536, None))
+        per_batch = dict(batches[0]["launches"])
+        for name, routes in batches[0]["routes"].items():
+            per_batch.update({f"{name}.{route}": n for route, n in routes.items()})
+        return per_batch, flash, norm
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> None:
     import torch
 
@@ -1290,6 +1809,7 @@ def main() -> None:
     phase_path_fp32(torch, dev)
     phase_train_fp32(torch, dev)
     phase_beam_text_only_fp32(torch, dev)
+    phase_decode_cli_fp32(torch, dev)
     gen_launches: dict = {}
     model = phase_main(torch, dev, gen_launches)
     train_launches: dict = {}
@@ -1298,6 +1818,11 @@ def main() -> None:
     phase_main(torch, dev, beam_launches, model, beam=True)
     text_launches: dict = {}
     phase_train_main(torch, dev, model, text_launches, text_only=True)
+    del model
+    torch.cuda.empty_cache()
+    cli_launches: dict = {}
+    cli_per_batch, cli_flash, cli_norm = phase_decode_cli(torch, dev, cli_launches)
+    phase_kernels(torch, dev, results, cli_flash, cli_norm)
 
     # (name, its launch count, the CUDA kernel it launches at the main
     # paths' bf16 shapes, source, TPU kernel it replaces, the rows of phase
@@ -1325,19 +1850,30 @@ def main() -> None:
          "ps_slm_tpu/ops/norms.py:94", ("2715x1536 frozen w", "2715x1536", "795x1536 frozen w",
                                                     "795x1536")),
     )
+    # phase 6's largest batch, as phase 3 labelled its rows
+    cli_rows = {
+        "flash_attention_fwd": [c[0] for c in cli_flash],
+        "layer_norm_fwd (vec)": [f"{n}x{d}" for w, n, d, _ in cli_norm
+                                 if w == "layer_norm_fwd" and d < 25055],
+        "layer_norm_fwd (staged)": [f"{n}x{d}" for w, n, d, _ in cli_norm
+                                    if w == "layer_norm_fwd" and d == 25055],
+        "rms_norm_fwd": [f"{n}x{d}" for w, n, d, _ in cli_norm if w == "rms_norm_fwd"],
+    }
     kernels = []
     for name, count, kernel, source, replaces, shapes in table:
+        shapes = shapes + tuple(cli_rows.get(name, ()))
         rows = [r for r in results[name.split()[0]]["shapes"] if r["shape"] in shapes]
         row = next(r for r in rows if r["shape"] == shapes[0] and r["dtype"] == "bf16")
         kernels.append({
             "name": name, "kernel": kernel, "route": "cuda", "source": source,
             "replaces": replaces,
             "launches": sum(runs[count] for runs in (gen_launches, train_launches,
-                                                     beam_launches, text_launches)),
+                                                     beam_launches, text_launches, cli_launches)),
             "launches_per_generate": gen_launches[count],
             "launches_per_train_step": train_launches[count] // TRAIN_STEPS,
             "launches_per_beam_generate": beam_launches[count],
             "launches_per_text_only_step": text_launches[count] // TRAIN_STEPS,
+            "launches_per_decode_cli_batch": cli_per_batch[count],
             "max_abs_err": max(r["err"] for r in rows),
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],

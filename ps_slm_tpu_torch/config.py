@@ -1,19 +1,50 @@
-"""The configuration fields the port's serving and training paths read.
+"""The configuration of the port's serving, training and decode paths.
 
-A small copy of ``ps_slm_tpu/config.py``'s ``ModelConfig`` and
-``TrainConfig``: same names, same defaults, only the fields this package
-uses.  The rest of the JAX package's configuration (data, logging, the
-CLI override parser) comes with the slices that need it.
+A copy of ``ps_slm_tpu/config.py`` with the same names and defaults:
+``FbankConfig``, ``DataConfig``, ``LogConfig`` and ``RunConfig`` whole;
+``ModelConfig`` and ``TrainConfig`` with the fields the port reads; and the
+``[++]section.key=value`` override parser (``parse_cli``) that the CLIs
+take.  Fields of modules not ported yet (PEFT settings, the mesh, the
+serving router) come with their slices; an override that names one raises
+``KeyError`` like any unknown key.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Optional
+import json
+from dataclasses import dataclass, field, fields, is_dataclass
+from typing import Any, List, Optional
+
+
+@dataclass
+class FbankConfig:
+    """Kaldi-convention fbank front end, LFR stacking and global CMVN."""
+
+    num_mel_bins: int = 80
+    frame_length: int = 25          # ms
+    frame_shift: int = 10           # ms
+    dither: float = 0.001           # training only
+    window_type: str = "hamming"
+    use_energy: bool = False
+    low_freq: int = 0
+    high_freq: int = 8000
+    htk_compat: bool = True
+    sample_rate: int = 16000
+    # LFR stacking (funasr WavFrontend defaults: m=7 stack, n=6 shift -> 560-dim)
+    lfr_m: int = 7
+    lfr_n: int = 6
+    cmvn_path: Optional[str] = None  # am.mvn global CMVN stats
+    # SpecAugment on the LFR features during training (default off)
+    specaug: bool = False
+    specaug_t_masks: int = 2
+    specaug_t_width: int = 50
+    specaug_f_masks: int = 2
+    specaug_f_width: int = 10
 
 
 @dataclass
 class ModelConfig:
+    factory: str = "tasu"           # registry name (ps_slm_tpu_torch.registry)
     llm_path: str = ""
     llm_dim: int = 1536
     encoder_path: Optional[str] = None
@@ -21,6 +52,9 @@ class ModelConfig:
     encoder_projector: str = "linear-silu"
     encoder_projector_ds_rate: int = 1
     ctc_linear: Optional[str] = None
+    # encoder BPE model directory when it does not live next to the
+    # encoder weights (default: encoder_path)
+    encoder_bpe_path: Optional[str] = None
     # config overrides for random-init models (None = the tiny test config)
     llm_config_overrides: Optional[dict] = None
     encoder_config_overrides: Optional[dict] = None
@@ -57,6 +91,175 @@ class TrainConfig:
     freeze_llm: bool = False
     freeze_encoder: bool = False
     freeze_projector: bool = False
+    # decode
+    mixed_precision: bool = True          # bf16 compute, fp32 norms/softmax
+    batching_strategy: str = "dynamic"    # "dynamic" token budget | "padding"
+    val_batch_size: Optional[int] = None  # the "padding" strategy's batch
+    max_new_tokens: int = 200
+    num_beams: int = 4
+    do_sample: bool = False
+    min_length: int = 1
+    top_p: float = 1.0
+    repetition_penalty: float = 1.0
+    length_penalty: float = 1.0
+    temperature: float = 1.0
+    kv_cache_bits: int = 16
+    # serving pools and draft-verified decoding (not ported yet: the decode
+    # CLI raises on them; the knobs parse so the JAX recipes' argv does)
+    continuous_batching: bool = False
+    decode_slots: int = 8
+    decode_sync_every: int = 8
+    stream_partials: bool = False
+    speculative_ctc: bool = False
+    spec_window: int = 8
+
+
+@dataclass
+class DataConfig:
+    factory: str = "multitask"            # registry name (ps_slm_tpu_torch.registry)
+    dataset: str = "multitask_dataset"
+    encoder: str = "sensevoice"
+    encoder_path: Optional[str] = None
+    max_audio_length: int = 30            # seconds; utterances outside 0.1-30 s drop
+    train_max_frame_length: int = 1500
+    ds_rate: int = 8
+    eval_max_frame_length: int = 2000
+    multitask_prompt_path: str = "conf/multiprompt.jsonl"
+    prompt_style: str = "<|im_start|>user\n{}<speech><|im_end|>\n<|im_start|>assistant\n"
+    append_info_tasks: List[str] = field(default_factory=lambda: ["hotword"])
+    train_scp_file_path: str = ""
+    dev_scp_file_path: str = ""
+    test_scp_file_path: str = ""
+    train_split: str = "train"
+    dev_split: str = "dev"
+    test_split: str = "test"
+    inference_mode: bool = False
+    lower: bool = False
+    fix_length_audio: int = -1
+    fbank: FbankConfig = field(default_factory=FbankConfig)
+    normalize: bool = False
+    # padded lengths are bucketed: LFR frames to a multiple of
+    # feature_bucket, tokens to a multiple of token_bucket
+    feature_bucket: int = 128
+    token_bucket: int = 32
+    # host -> device waveform wire format: "int16" (half the bytes, exact
+    # for 16-bit PCM) or "float32"
+    waveform_dtype: str = "int16"
+
+
+@dataclass
+class LogConfig:
+    use_wandb: bool = False
+    wandb_dir: str = "tmp/wandb"
+    wandb_entity_name: str = "project_name"
+    wandb_project_name: str = "project_name"
+    wandb_exp_name: str = "exp_name"
+    log_file: str = "tmp/train.log"
+    log_interval: int = 5
+    profile_dir: Optional[str] = None
+
+
+@dataclass
+class RunConfig:
+    model_config: ModelConfig = field(default_factory=ModelConfig)
+    train_config: TrainConfig = field(default_factory=TrainConfig)
+    dataset_config: DataConfig = field(default_factory=DataConfig)
+    log_config: LogConfig = field(default_factory=LogConfig)
+    ckpt_path: Optional[str] = None
+    peft_ckpt: Optional[str] = None
+    decode_log: str = "decode"
+    debug: bool = False
+
+
+# ----------------------------------------------------------------------------
+# CLI overrides: ``++train_config.lr=1e-4`` / ``train_config.lr=1e-4``
+# ----------------------------------------------------------------------------
+
+def _coerce(value: str, current: Any) -> Any:
+    """Coerce a CLI string to the type of the current field value."""
+    if isinstance(current, bool) or value.lower() in ("true", "false"):
+        return value.lower() == "true"
+    if value.lower() in ("none", "null"):
+        return None
+    if isinstance(current, int) and not isinstance(current, bool):
+        try:
+            return int(value)
+        except ValueError:
+            return float(value)
+    if isinstance(current, float):
+        return float(value)
+    if value and (
+        isinstance(current, (list, dict))
+        or (value[0] in "[{" and value[-1] in "]}")
+    ):
+        return json.loads(value)
+    # ints/floats for untyped (None-default) fields
+    for caster in (int, float):
+        try:
+            return caster(value)
+        except ValueError:
+            pass
+    return value
+
+
+def apply_override(cfg: Any, dotted_key: str, value: str) -> None:
+    """Set ``a.b.c=value`` on a nested dataclass tree (in place)."""
+    parts = dotted_key.split(".")
+    obj = cfg
+    for p in parts[:-1]:
+        if not hasattr(obj, p):
+            raise KeyError(f"unknown config section: {dotted_key!r} (no {p!r})")
+        obj = getattr(obj, p)
+    leaf = parts[-1]
+    if not hasattr(obj, leaf):
+        raise KeyError(f"unknown config key: {dotted_key!r}")
+    setattr(obj, leaf, _coerce(value, getattr(obj, leaf)))
+
+
+def parse_cli(argv: List[str], cfg: Optional[RunConfig] = None) -> RunConfig:
+    """Parse ``[++]key.path=value`` overrides into a RunConfig; a bare
+    ``--config foo.json`` (or ``-c``) loads a JSON config first, and
+    ``--local_rank*`` (launcher compatibility) is ignored."""
+    cfg = cfg or RunConfig()
+    i = 0
+    while i < len(argv):
+        arg = argv[i]
+        if arg in ("--config", "-c"):
+            i += 1
+            with open(argv[i]) as f:
+                merge_dict(cfg, json.load(f))
+        elif "=" in arg:
+            key, _, value = arg.partition("=")
+            key = key.lstrip("+").lstrip("-")
+            apply_override(cfg, key, value)
+        elif arg.startswith("--local_rank"):
+            pass
+        else:
+            raise SystemExit(f"unrecognized argument: {arg!r}")
+        i += 1
+    return cfg
+
+
+def merge_dict(cfg: Any, overrides: dict) -> Any:
+    """Recursively merge a plain dict into a dataclass tree."""
+    for k, v in overrides.items():
+        if not hasattr(cfg, k):
+            raise KeyError(f"unknown config key {k!r} on {type(cfg).__name__}")
+        cur = getattr(cfg, k)
+        if is_dataclass(cur) and isinstance(v, dict):
+            merge_dict(cur, v)
+        else:
+            setattr(cfg, k, v)
+    return cfg
+
+
+def to_dict(cfg: Any) -> Any:
+    """Dataclass tree -> plain dict."""
+    if is_dataclass(cfg):
+        return {f.name: to_dict(getattr(cfg, f.name)) for f in fields(cfg)}
+    if isinstance(cfg, (list, tuple)):
+        return [to_dict(v) for v in cfg]
+    return cfg
 
 
 # the shapes of the benchmarked training step (bench.py): utterances per

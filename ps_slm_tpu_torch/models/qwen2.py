@@ -9,13 +9,23 @@ module per layer.  The KV cache is a list of per-layer (k, v) tensors
 
 Not ported yet: LoRA, prefix tuning, llama-adapter and the int8/int4
 weights and int8 KV cache (ROADMAP.md queue 1, "PEFT and quantization").
+
+Checkpoints: :func:`load_hf_checkpoint` reads an HF Qwen2 directory
+(``config.json`` + ``*.safetensors``) into a state dict of this module's
+names, with the port's own safetensors reader (:func:`read_safetensors`:
+no ``safetensors`` package needed); :func:`state_dict_to_hf` inverts the
+names for the reference-checkpoint exporter.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import json
 import math
+import os
+import sys
 from dataclasses import dataclass
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Set, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -53,6 +63,27 @@ class Qwen2Config:
         )
         base.update(kw)
         return Qwen2Config(**base)
+
+    @staticmethod
+    def from_hf(config: dict) -> "Qwen2Config":
+        """Build from an HF ``config.json`` dict (``tie_word_embeddings``
+        False where the file does not say, as HF's default)."""
+        hd = config.get("head_dim") or (
+            config["hidden_size"] // config["num_attention_heads"]
+        )
+        return Qwen2Config(
+            vocab_size=config["vocab_size"],
+            hidden_size=config["hidden_size"],
+            intermediate_size=config["intermediate_size"],
+            num_hidden_layers=config["num_hidden_layers"],
+            num_attention_heads=config["num_attention_heads"],
+            num_key_value_heads=config["num_key_value_heads"],
+            head_dim=hd,
+            rope_theta=config.get("rope_theta", 1e6),
+            rms_norm_eps=config.get("rms_norm_eps", 1e-6),
+            tie_word_embeddings=config.get("tie_word_embeddings", False),
+            max_position_embeddings=config.get("max_position_embeddings", 32768),
+        )
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
@@ -209,3 +240,128 @@ def init_cache(
         (torch.zeros(shape, dtype=dtype, device=dev), torch.zeros(shape, dtype=dtype, device=dev))
         for _ in range(cfg.num_hidden_layers)
     ]
+
+
+# ----------------------------------------------------------------------------
+# HF checkpoints
+# ----------------------------------------------------------------------------
+
+_ST_DTYPES = {
+    "F64": torch.float64, "F32": torch.float32, "F16": torch.float16,
+    "BF16": torch.bfloat16, "I64": torch.int64, "I32": torch.int32,
+    "I16": torch.int16, "I8": torch.int8, "U8": torch.uint8, "BOOL": torch.bool,
+}
+
+
+def read_safetensors(path: str) -> Dict[str, torch.Tensor]:
+    """Every tensor of a ``.safetensors`` file, as CPU tensors.
+
+    The format: an 8-byte little-endian header length n, n bytes of JSON
+    ``{name: {"dtype", "shape", "data_offsets": [begin, end]}, ...}`` (and
+    an optional ``"__metadata__"``), then the raw little-endian data, each
+    tensor's offsets counted from the end of the header.  Each tensor is
+    read into its own buffer, so its alignment never depends on its offset.
+    """
+    if sys.byteorder != "little":
+        raise NotImplementedError("safetensors data is little-endian; this host is not")
+    out: Dict[str, torch.Tensor] = {}
+    with open(path, "rb") as f:
+        n = int.from_bytes(f.read(8), "little")
+        header = json.loads(f.read(n))
+        base = 8 + n
+        for name, info in header.items():
+            if name == "__metadata__":
+                continue
+            dtype = _ST_DTYPES.get(info["dtype"])
+            if dtype is None:
+                raise ValueError(f"{path}: {name} has unsupported dtype {info['dtype']}")
+            begin, end = info["data_offsets"]
+            buf = torch.empty(end - begin, dtype=torch.uint8)
+            f.seek(base + begin)
+            if f.readinto(buf.numpy()) != end - begin:
+                raise ValueError(f"{path}: {name} is truncated")
+            out[name] = buf.view(dtype).reshape(info["shape"])
+    return out
+
+
+_HF_LAYER_KEYS = {
+    # HF name within model.layers.{i} -> this module's name within layers.{i}
+    "input_layernorm.weight": "input_layernorm.weight",
+    "post_attention_layernorm.weight": "post_attention_layernorm.weight",
+    "self_attn.q_proj.weight": "q_proj.weight",
+    "self_attn.k_proj.weight": "k_proj.weight",
+    "self_attn.v_proj.weight": "v_proj.weight",
+    "self_attn.o_proj.weight": "o_proj.weight",
+    "self_attn.q_proj.bias": "q_proj.bias",
+    "self_attn.k_proj.bias": "k_proj.bias",
+    "self_attn.v_proj.bias": "v_proj.bias",
+    "mlp.gate_proj.weight": "gate_proj.weight",
+    "mlp.up_proj.weight": "up_proj.weight",
+    "mlp.down_proj.weight": "down_proj.weight",
+}
+
+
+def hf_to_state_dict(
+    tensors: Dict[str, torch.Tensor], cfg: Qwen2Config, consumed: Optional[Set[str]] = None,
+) -> Dict[str, torch.Tensor]:
+    """An HF Qwen2 state dict (names with or without the ``model.`` prefix)
+    -> a :class:`Qwen2Model` state dict, tensors as they are (both store
+    linear weights [out, in]).  Raises ``KeyError`` on a missing tensor;
+    ``consumed`` receives the names read."""
+    def get(name):
+        for cand in (name, f"model.{name}"):
+            if cand in tensors:
+                if consumed is not None:
+                    consumed.add(cand)
+                return tensors[cand]
+        raise KeyError(name)
+
+    out = {"embed_tokens.weight": get("embed_tokens.weight"), "norm.weight": get("norm.weight")}
+    for i in range(cfg.num_hidden_layers):
+        for hf, ours in _HF_LAYER_KEYS.items():
+            if ours.endswith("bias") and not cfg.attention_bias:
+                continue
+            out[f"layers.{i}.{ours}"] = get(f"layers.{i}.{hf}")
+    if not cfg.tie_word_embeddings:
+        if "lm_head.weight" not in tensors:
+            raise KeyError("lm_head.weight (untied config)")
+        if consumed is not None:
+            consumed.add("lm_head.weight")
+        out["lm_head.weight"] = tensors["lm_head.weight"]
+    return out
+
+
+def state_dict_to_hf(llm: "Qwen2Model") -> Dict[str, torch.Tensor]:
+    """Inverse of :func:`hf_to_state_dict`: the HF names (``model.``
+    prefixed, ``lm_head.weight`` when untied), tensors as they are."""
+    sd = llm.state_dict()
+    out = {"model.embed_tokens.weight": sd["embed_tokens.weight"],
+           "model.norm.weight": sd["norm.weight"]}
+    for i in range(llm.cfg.num_hidden_layers):
+        for hf, ours in _HF_LAYER_KEYS.items():
+            if f"layers.{i}.{ours}" in sd:
+                out[f"model.layers.{i}.{hf}"] = sd[f"layers.{i}.{ours}"]
+    if "lm_head.weight" in sd:
+        out["lm_head.weight"] = sd["lm_head.weight"]
+    return out
+
+
+def load_hf_checkpoint(
+    path: str, cfg: Optional[Qwen2Config] = None,
+) -> Tuple[Dict[str, torch.Tensor], Qwen2Config]:
+    """(state dict, config) of an HF Qwen2 directory: ``config.json``
+    (unless ``cfg`` is given) and every ``*.safetensors`` file.  Tensors
+    stay in the file's dtype on the CPU; the caller casts them once into
+    the model.  A checkpoint without q/k/v biases gives a bias-free config."""
+    if cfg is None:
+        with open(os.path.join(path, "config.json")) as f:
+            cfg = Qwen2Config.from_hf(json.load(f))
+    files = sorted(f for f in os.listdir(path) if f.endswith(".safetensors"))
+    if not files:
+        raise FileNotFoundError(f"no .safetensors under {path}")
+    tensors: Dict[str, torch.Tensor] = {}
+    for fname in files:
+        tensors.update(read_safetensors(os.path.join(path, fname)))
+    if not any(k.endswith("layers.0.self_attn.q_proj.bias") for k in tensors):
+        cfg = dataclasses.replace(cfg, attention_bias=False)
+    return hf_to_state_dict(tensors, cfg), cfg

@@ -17,15 +17,22 @@ posterior simulated from the transcript ids in the batch (``gt_ids``,
 (``ops/pseudo_posterior.py``), the clean one-hot when generating; the
 encoder does not run.
 
+Audio enters as LFR features (``input_features``) or as waveforms
+(``waveform``, int16 or fp32, and ``waveform_length``), which the eval
+front end (``ops/fbank.py``: fbank, LFR, the model's CMVN) turns into
+features on the device.
+
 The other branches of the JAX model (voca_trans, the cross-attention
-projector, the raw-feature baseline, the waveform front end) raise
-``NotImplementedError`` naming their ROADMAP.md item.  Weights are a
-random init from a seeded ``torch.Generator``; checkpoint loading comes
-later (``convert.from_jax_params`` maps a JAX parameter tree).
+projector, the raw-feature baseline) raise ``NotImplementedError`` naming
+their ROADMAP.md item.  :func:`model_factory` loads an HF Qwen2 directory
+(``llm_path``) and a funasr SenseVoiceSmall directory (``encoder_path``)
+and random-initialises the rest from a seeded ``torch.Generator``
+(``convert.from_jax_params`` maps a JAX parameter tree).
 """
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
@@ -33,15 +40,19 @@ import torch
 from torch import nn
 
 from ps_slm_tpu_torch._build import resolve_device
+from ps_slm_tpu_torch.config import FbankConfig
 from ps_slm_tpu_torch.models import projector as proj
-from ps_slm_tpu_torch.models.qwen2 import Qwen2Config, Qwen2Model
+from ps_slm_tpu_torch.models.qwen2 import Qwen2Config, Qwen2Model, load_hf_checkpoint
 from ps_slm_tpu_torch.models.sensevoice import SenseVoiceConfig, SenseVoiceEncoder
 from ps_slm_tpu_torch.ops.ce_loss import chunked_ce_loss, full_ce_loss, gathered_ce_loss
+from ps_slm_tpu_torch.ops.fbank import frontend
 from ps_slm_tpu_torch.ops.merge import Merged, merge_audio_text
 from ps_slm_tpu_torch.ops.pseudo_posterior import (
     NoiseDraws, noise_draws, pseudo_posterior, pseudo_posterior_noise,
 )
 from ps_slm_tpu_torch.ops.psd import psd
+from ps_slm_tpu_torch.registry import register_model
+from ps_slm_tpu_torch.training.checkpoint import load_funasr_encoder
 
 IGNORE_ID = -100
 QUERY_IDS = (0, 1, 2, 2)   # language, event, emotion, textnorm
@@ -111,6 +122,29 @@ class TasuModel(nn.Module):
         self.encoder = SenseVoiceEncoder(enc_cfg)
         self.projector = proj.build_projector(model_cfg)
         self.llm = Qwen2Model(llm_cfg)
+        self.fbank_cfg = FbankConfig()
+        # the global CMVN of the waveform front end (``cmvn``), as buffers
+        # so that they follow the model's device
+        self.register_buffer("cmvn_neg_mean", None, persistent=False)
+        self.register_buffer("cmvn_inv_std", None, persistent=False)
+
+    @property
+    def cmvn(self) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
+        """(neg_mean, inv_stddev) fp32 on the model's device, or None."""
+        if self.cmvn_neg_mean is None:
+            return None
+        return self.cmvn_neg_mean, self.cmvn_inv_std
+
+    @cmvn.setter
+    def cmvn(self, value) -> None:
+        """Take a (neg_mean, inv_stddev) pair of arrays or tensors (as
+        ``ops.fbank.load_cmvn`` gives), or None."""
+        dev = self.llm.embed_tokens.weight.device
+        if value is None:
+            self.cmvn_neg_mean = self.cmvn_inv_std = None
+            return
+        self.cmvn_neg_mean, self.cmvn_inv_std = (
+            torch.as_tensor(v, dtype=torch.float32).to(dev) for v in value)
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:
@@ -141,11 +175,15 @@ def encode_speech(
 def compute_audio_embeds(
     model: TasuModel, batch: Dict[str, torch.Tensor], *, generate_mode: bool = False,
     generator: Optional[torch.Generator] = None, draws: Optional[NoiseDraws] = None,
+    train: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(audio embeds [B,A,H], lens [B]) from the audio posterior or, for
     text-only TASU, from the transcript ids.
 
-    The text-only noise (``gt_emb_noise``, off when ``generate_mode``) takes
+    Audio comes as ``input_features`` or, through the front end, as
+    ``waveform``; the front end's training draws (dither, SpecAugment:
+    ``train`` and not ``generate_mode``) raise, not ported yet.  The
+    text-only noise (``gt_emb_noise``, off when ``generate_mode``) takes
     ``draws`` when given, else draws them from ``generator``.
     """
     f = model.flags
@@ -169,14 +207,15 @@ def compute_audio_embeds(
         # the projector takes the compute dtype
         post = post.to(model.llm.embed_tokens.weight.dtype)
         return model.projector(post), lens // proj.downsample_rate(model.model_cfg)
-    if "input_features" not in batch:
-        raise NotImplementedError(
-            "the on-device waveform front end is not ported yet (ROADMAP.md "
-            "queue 1, 'On-device front end'); pass input_features"
+    if "input_features" in batch:
+        feats, flens = batch["input_features"], batch["input_feature_length"]
+    else:
+        feats, flens = frontend(
+            batch["waveform"], batch["waveform_length"], cfg=model.fbank_cfg,
+            cmvn=model.cmvn, train=train and not generate_mode,
         )
-    _, posterior, lens = encode_speech(
-        model.encoder, batch["input_features"], batch["input_feature_length"]
-    )
+        feats = feats.to(model.llm.embed_tokens.weight.dtype)
+    _, posterior, lens = encode_speech(model.encoder, feats, flens)
     feats = posterior
     if model.flags.do_psd:
         feats, lens = psd(
@@ -189,11 +228,12 @@ def compute_audio_embeds(
 def prepare_merged(
     model: TasuModel, batch: Dict[str, torch.Tensor], *, left_padding: bool = False,
     generate_mode: bool = False, generator: Optional[torch.Generator] = None,
-    draws: Optional[NoiseDraws] = None,
+    draws: Optional[NoiseDraws] = None, train: bool = False,
 ) -> Merged:
     """Audio embeds merged into the text embeddings at the speech token."""
     audio_embeds, audio_lens = compute_audio_embeds(
         model, batch, generate_mode=generate_mode, generator=generator, draws=draws,
+        train=train,
     )
     inputs_embeds = model.llm.embed(batch["input_ids"])
     return merge_audio_text(
@@ -222,13 +262,16 @@ def forward(
     3. full fp32 logits otherwise.
 
     ``train`` is the JAX flag for dither and SpecAugment, which act only on
-    the waveform front end, not ported yet: with ``input_features`` it
-    changes nothing.  The text-only noise stays on whatever ``train`` is,
-    as in the JAX forward; it takes ``draws`` or draws from ``generator``.
+    the waveform front end and are not ported yet: with ``input_features``
+    it changes nothing, with a waveform batch and dither or SpecAugment
+    configured it raises.  The text-only noise stays on whatever ``train``
+    is, as in the JAX forward; it takes ``draws`` or draws from
+    ``generator``.
     """
     if "labels" not in batch:
         raise ValueError("the training forward needs batch['labels']")
-    merged = prepare_merged(model, batch, left_padding=False, generator=generator, draws=draws)
+    merged = prepare_merged(model, batch, left_padding=False, generator=generator,
+                            draws=draws, train=train)
     hidden, _ = model.llm(
         merged.embeds, merged.attention_mask, merged.position_ids
     )
@@ -279,31 +322,50 @@ def trainable_mask(model: TasuModel, train_config) -> List[str]:
     return names
 
 
+@register_model("tasu")
 def model_factory(
     train_config, model_config, *, device="cuda", dtype: torch.dtype = torch.float32,
     generator: Optional[torch.Generator] = None,
 ) -> TasuModel:
-    """Build a randomly initialised TasuModel on ``device``.
+    """Build a TasuModel on ``device`` in ``dtype``.
 
-    Config overrides size the encoder and the LLM (the tiny test configs
-    when absent, as in the JAX factory).  ``generator`` (default: seeded
-    with ``train_config.seed`` on ``device``) draws every weight; the same
-    seed on another device type gives other weights, so to compare devices
-    build once and move the model.
+    ``model_config.llm_path`` (an HF Qwen2 directory: ``config.json`` and
+    safetensors) and ``encoder_path`` (a funasr SenseVoiceSmall directory:
+    ``model.pt`` and ``config.yaml``, ``encoder_config_overrides`` over the
+    latter) load their module, each tensor cast once into the model's
+    dtype; without a path the module is a random init, sized by the config
+    overrides (the tiny test configs when absent, as in the JAX factory).
+    ``generator`` (default: seeded with ``train_config.seed`` on
+    ``device``) draws every random weight; the same seed on another device
+    type gives other weights, so to compare devices build once and move
+    the model.  ``model.load_seconds`` holds each loaded module's wall
+    seconds (file read and copy to the device).
     """
     dev = resolve_device(device)
-    if model_config.llm_path or model_config.encoder_path or model_config.ctc_linear:
+    if model_config.ctc_linear:
         raise NotImplementedError(
-            "checkpoint import is not ported yet (ROADMAP.md queue 1, "
-            "'Checkpoints and the training CLI'); leave the paths empty"
+            "the pretrained CTC head (ctc_linear) of the simple_linear projector "
+            "is not ported yet (ROADMAP.md queue 1, 'Long tail')"
         )
     if train_config.use_peft or train_config.quantization:
         raise NotImplementedError(
             "PEFT and weight quantization are not ported yet (ROADMAP.md "
             "queue 1, 'PEFT and quantization')"
         )
-    llm_cfg = Qwen2Config.tiny(**(model_config.llm_config_overrides or {}))
-    enc_cfg = SenseVoiceConfig.tiny(**(model_config.encoder_config_overrides or {}))
+    t0 = time.perf_counter()
+    loaded, seconds = {}, {}
+    if model_config.llm_path:
+        loaded["llm"], llm_cfg = load_hf_checkpoint(model_config.llm_path)
+        seconds["llm"] = time.perf_counter() - t0
+    else:
+        llm_cfg = Qwen2Config.tiny(**(model_config.llm_config_overrides or {}))
+    enc_over = model_config.encoder_config_overrides or {}
+    if model_config.encoder_path:
+        t1 = time.perf_counter()
+        loaded["encoder"], enc_cfg = load_funasr_encoder(model_config.encoder_path, **enc_over)
+        seconds["encoder"] = time.perf_counter() - t1
+    else:
+        enc_cfg = SenseVoiceConfig.tiny(**enc_over)
     flags = TasuFlags.from_train_config(train_config, model_config)
     with torch.device("meta"):
         model = TasuModel(enc_cfg, llm_cfg, model_config, flags)
@@ -311,4 +373,11 @@ def model_factory(
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(train_config.seed)
     model.init_weights(generator)
+    for name, state in loaded.items():
+        t1 = time.perf_counter()
+        getattr(model, name).load_state_dict(state)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        seconds[name] += time.perf_counter() - t1
+    model.load_seconds = seconds
     return model

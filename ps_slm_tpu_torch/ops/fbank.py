@@ -1,0 +1,242 @@
+"""Kaldi-convention fbank front end + LFR + CMVN, on the device.
+
+Counterpart of ``ps_slm_tpu/ops/fbank.py`` (eval mode): batched torch ops
+on the waveform's device, from int16 or float waveforms to the [B, T', 560]
+features the encoder takes.  framing -> DC removal -> preemphasis ->
+window -> 512-point ``torch.fft.rfft`` power spectrum -> Kaldi mel banks
+(one ``power @ mel`` product) -> log -> LFR -> CMVN, as the JAX package
+computes them with ``jnp.fft.rfft`` and a plain product outside any Pallas
+kernel.
+
+Precision: the JAX package runs the fbank in fp32, and two fp32 FFTs
+(XLA's and torch's, or cuFFT's) round differently: in a mel bin whose
+power lies far below the frame's peak, the log-mel values of two fp32
+implementations can differ by more than 1e-3, each as far from the exact
+value as the other.  The port runs framing, FFT, power and the mel product
+in float64 and rounds the log-mel to fp32 once, so its features are the
+exact ones to fp32 rounding: they differ from the JAX package's by that
+package's own fp32 error (the tests' tolerance is atol 1e-3), and the card
+and the CPU give the same features but for float64 rounding, which keeps
+the discrete choices downstream (PSD's argmax and blank threshold, the
+beam's top-k) the same on both.
+
+Kaldi conventions:
+  * snip_edges frame count: 1 + (N - frame_len) // frame_shift (0 when
+    N < frame_len)
+  * waveform scaled by 32768 (funasr's WavFrontend feeds int16-range floats)
+  * remove_dc_offset, preemphasis 0.97 (x[t] - 0.97 x[t-1], x[-1] := x[0])
+  * Hamming window 0.54 - 0.46 cos(2 pi n / (N-1))
+  * power spectrum on a 512-point FFT, mel banks over bins [0, 256) (the
+    Nyquist bin excluded), mel scale 1127 ln(1 + f/700)
+  * log(max(e, eps))
+
+LFR (funasr apply_lfr): left-pad (m-1)//2 copies of frame 0, stack m frames
+every n, repeat the last valid frame to fill the tail; T_lfr = ceil(T/n).
+CMVN (funasr apply_cmvn, Kaldi am.mvn): x := (x + neg_mean) * inv_stddev.
+
+Dither and SpecAugment (training) are not ported yet: ``frontend`` raises
+where they would act (ROADMAP.md queue 1, 'On-device front end').
+"""
+
+from __future__ import annotations
+
+from functools import lru_cache
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+EPS = 1.1920928955078125e-07  # torch float32 eps, the Kaldi log-energy floor
+
+
+def _mel(freq):
+    return 1127.0 * np.log(1.0 + freq / 700.0)
+
+
+@lru_cache(maxsize=8)
+def mel_banks(
+    num_bins: int = 80,
+    fft_len: int = 512,
+    sample_rate: int = 16000,
+    low_freq: float = 0.0,
+    high_freq: float = 8000.0,
+) -> np.ndarray:
+    """Kaldi MelBanks matrix [fft_len//2, num_bins] (Nyquist bin excluded).
+    Cached: callers must not write to it."""
+    if high_freq <= 0:
+        high_freq = sample_rate / 2 + high_freq
+    num_fft_bins = fft_len // 2
+    fft_bin_width = sample_rate / fft_len
+    mel_low = _mel(low_freq)
+    mel_high = _mel(high_freq)
+    mel_delta = (mel_high - mel_low) / (num_bins + 1)
+
+    bins = np.zeros((num_fft_bins, num_bins), np.float32)
+    for j in range(num_bins):
+        left = mel_low + j * mel_delta
+        center = mel_low + (j + 1) * mel_delta
+        right = mel_low + (j + 2) * mel_delta
+        for i in range(num_fft_bins):
+            m = _mel(i * fft_bin_width)
+            if left < m < right:
+                if m <= center:
+                    bins[i, j] = (m - left) / (center - left)
+                else:
+                    bins[i, j] = (right - m) / (right - center)
+    return bins
+
+
+def _window(n: int, window_type: str) -> np.ndarray:
+    i = np.arange(n)
+    if window_type == "hamming":
+        return (0.54 - 0.46 * np.cos(2 * np.pi * i / (n - 1))).astype(np.float32)
+    if window_type == "hanning":
+        return (0.5 - 0.5 * np.cos(2 * np.pi * i / (n - 1))).astype(np.float32)
+    if window_type == "povey":
+        return ((0.5 - 0.5 * np.cos(2 * np.pi * i / (n - 1))) ** 0.85).astype(np.float32)
+    if window_type == "rectangular":
+        return np.ones(n, np.float32)
+    raise ValueError(f"unknown window {window_type!r}")
+
+
+def fbank(
+    waveform: torch.Tensor,       # [B, N] float in [-1, 1]
+    lengths: torch.Tensor,        # [B] samples
+    *,
+    num_mel_bins: int = 80,
+    frame_length_ms: int = 25,
+    frame_shift_ms: int = 10,
+    sample_rate: int = 16000,
+    window_type: str = "hamming",
+    preemphasis: float = 0.97,
+    remove_dc: bool = True,
+    low_freq: float = 0.0,
+    high_freq: float = 8000.0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Batched Kaldi log-mel fbank: ([B, T, num_mel_bins] fp32, frame
+    lengths [B] int32), computed in float64 (see the module docstring).  T
+    is the frame count of the padded N; a row's valid frames are
+    ``1 + (len - frame_len) // shift`` (0 when len < frame_len)."""
+    b, n = waveform.shape
+    dev = waveform.device
+    frame_len = sample_rate * frame_length_ms // 1000
+    shift = sample_rate * frame_shift_ms // 1000
+    fft_len = 1 << max(frame_len - 1, 1).bit_length()  # 400 -> 512
+
+    num_frames = max(1 + (n - frame_len) // shift, 0)
+    frame_lens = (1 + torch.div(lengths.to(dev) - frame_len, shift, rounding_mode="floor")
+                  ).clamp(min=0).to(torch.int32)
+
+    x = waveform.double() * 32768.0  # int16 range (funasr)
+    idx = (torch.arange(num_frames, device=dev)[:, None] * shift
+           + torch.arange(frame_len, device=dev)[None])         # [T, L]
+    frames = x[:, idx]                                          # [B, T, L]
+    if remove_dc:
+        frames = frames - frames.mean(dim=-1, keepdim=True)
+    if preemphasis > 0.0:
+        prev = torch.cat([frames[..., :1], frames[..., :-1]], dim=-1)
+        frames = frames - preemphasis * prev
+    frames = frames * torch.from_numpy(_window(frame_len, window_type)).to(dev, torch.float64)
+
+    spec = torch.fft.rfft(frames, n=fft_len, dim=-1)             # zero-padded to fft_len
+    power = spec.abs().square()[..., : fft_len // 2]            # drop Nyquist
+    mel = torch.from_numpy(
+        mel_banks(num_mel_bins, fft_len, sample_rate, low_freq, high_freq)).to(dev, torch.float64)
+    feats = torch.log(torch.clamp(power @ mel, min=EPS)).float()
+    return feats, frame_lens
+
+
+def lfr(
+    feats: torch.Tensor,     # [B, T, D]
+    lens: torch.Tensor,      # [B]
+    m: int = 7,
+    n: int = 6,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Low-frame-rate stacking (funasr apply_lfr): [B,T,D] -> [B,ceil(T/n),D*m].
+
+    Per row, on its valid frames: left-pad (m-1)//2 copies of frame 0, a
+    window of m frames every n, tail windows repeat the last valid frame
+    (a gather with indices clamped to [0, len-1]).  The output length
+    follows the padded T."""
+    b, t, d = feats.shape
+    dev = feats.device
+    t_lfr = -(-t // n)
+    lens = lens.to(dev).long()
+    base = (torch.arange(t_lfr, device=dev)[:, None] * n
+            + torch.arange(m, device=dev)[None] - (m - 1) // 2)   # [T', m]
+    hi = (lens - 1).clamp(min=0)[:, None, None]                   # [B, 1, 1]
+    idx = torch.minimum(base[None].clamp(min=0), hi)              # [B, T', m]
+    out = torch.gather(feats, 1, idx.reshape(b, t_lfr * m, 1).expand(-1, -1, d))
+    out_lens = torch.div(lens + n - 1, n, rounding_mode="floor")
+    return out.reshape(b, t_lfr, m * d), out_lens.to(torch.int32)
+
+
+def load_cmvn(path: str) -> Tuple[np.ndarray, np.ndarray]:
+    """Parse a Kaldi ``am.mvn`` (text) -> (neg_mean [D], inv_stddev [D]):
+    the last two bracketed vectors (<AddShift> means and <Rescale> vars,
+    after an optional <Splice> vector)."""
+    with open(path) as f:
+        text = f.read().split()
+    arrays = []
+    i = 0
+    while i < len(text):
+        if text[i] == "[":
+            j = i + 1
+            vals = []
+            while text[j] != "]":
+                vals.append(float(text[j]))
+                j += 1
+            arrays.append(np.asarray(vals, np.float32))
+            i = j
+        i += 1
+    if len(arrays) < 2:
+        raise ValueError(f"could not parse CMVN stats from {path}")
+    return arrays[-2], arrays[-1]
+
+
+def apply_cmvn(feats: torch.Tensor, neg_mean, inv_std) -> torch.Tensor:
+    """(feats + neg_mean) * inv_std; the vectors as tensors or arrays."""
+    neg_mean = torch.as_tensor(neg_mean, device=feats.device)
+    inv_std = torch.as_tensor(inv_std, device=feats.device)
+    return (feats + neg_mean) * inv_std
+
+
+def frontend(
+    waveform: torch.Tensor,
+    lengths: torch.Tensor,
+    *,
+    cfg=None,
+    cmvn: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    train: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """funasr WavFrontend's pipeline: fbank -> LFR -> CMVN, on the
+    waveform's device, fp32 out.  int16 waveforms (the wire format) are rescaled to
+    [-1, 1] here, so the round trip of 16-bit sources is exact.  Returns
+    ([B, T', num_mel_bins * lfr_m], lengths [B] int32).
+
+    ``train`` with dither or SpecAugment configured raises: their draws are
+    not ported yet."""
+    from ps_slm_tpu_torch.config import FbankConfig
+
+    cfg = cfg or FbankConfig()
+    if train and (cfg.dither > 0.0 or cfg.specaug):
+        raise NotImplementedError(
+            "dither and SpecAugment (the training front end) are not ported "
+            "yet (ROADMAP.md queue 1, 'On-device front end')"
+        )
+    if waveform.dtype == torch.int16:
+        waveform = waveform.float() / 32768.0
+    feats, flens = fbank(
+        waveform, lengths,
+        num_mel_bins=cfg.num_mel_bins,
+        frame_length_ms=cfg.frame_length,
+        frame_shift_ms=cfg.frame_shift,
+        sample_rate=cfg.sample_rate,
+        window_type=cfg.window_type,
+        low_freq=float(cfg.low_freq),
+        high_freq=float(cfg.high_freq),
+    )
+    feats, flens = lfr(feats, flens, cfg.lfr_m, cfg.lfr_n)
+    if cmvn is not None:
+        feats = apply_cmvn(feats, cmvn[0], cmvn[1])
+    return feats, flens

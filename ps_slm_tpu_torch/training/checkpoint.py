@@ -1,0 +1,290 @@
+"""Checkpoint import and export: funasr encoders and reference checkpoints.
+
+Counterpart of the import half of ``ps_slm_tpu/training/checkpoint.py``
+and the exporter the tests and ``chip_smoke.py`` write files with:
+
+  * :func:`load_funasr_encoder`: a funasr SenseVoiceSmall directory
+    (``model.pt`` + ``config.yaml``) -> a ``SenseVoiceEncoder`` state dict
+    and its config;
+  * :func:`export_reference_checkpoint` / :func:`import_reference_checkpoint`:
+    the composite ``pytorch_model.bin`` of the reference (``llm.*``,
+    ``encoder.*``, ``encoder_projector.*``), fp32 on export; on import each
+    tensor is cast once into the model's parameter (``load_state_dict``
+    copies into the parameter's dtype and device), and the llm and the
+    encoder each load whole or raise ``KeyError("partial ... checkpoint")``
+    (the projector loads the keys it finds, as in the JAX package);
+  * the linear-silu projector's reference key map
+    (:func:`projector_to_reference`, :func:`reference_to_projector`).
+
+Files are read with ``torch.load(weights_only=True)``: state dicts of
+tensors, never arbitrary pickles.  Not ported yet: the pretrained CTC
+head (``ctc_linear``, on which the factory raises) and the other
+projectors' key maps (ROADMAP.md queue 1, 'Long tail'); the PEFT
+adapters (ROADMAP.md queue 1, 'PEFT and quantization'); the train-state
+save and restore (ROADMAP.md queue 1, 'Checkpoints and the training CLI').
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import re
+from typing import Dict, List, Tuple, Union
+
+import torch
+
+from ps_slm_tpu_torch.models import qwen2
+from ps_slm_tpu_torch.models.sensevoice import SenseVoiceConfig
+
+StateDict = Dict[str, torch.Tensor]
+
+
+# ----------------------------------------------------------------------------
+# external assets
+# ----------------------------------------------------------------------------
+
+def _torch_load_state(path: str) -> StateDict:
+    """The tensors of a torch checkpoint (a state dict, or one under
+    ``"model"`` / ``"state_dict"``), as stored."""
+    obj = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(obj, dict) and "model" in obj and isinstance(obj["model"], dict):
+        obj = obj["model"]
+    if isinstance(obj, dict) and "state_dict" in obj:
+        obj = obj["state_dict"]
+    return {k: v for k, v in obj.items() if isinstance(v, torch.Tensor)}
+
+
+def _parse_encoder_yaml(path: str) -> dict:
+    """funasr ``config.yaml``: ``encoder_conf`` plus the top-level
+    ``input_size`` (default 560) and ``vocab_size`` (default 25 055).  With
+    PyYAML when it is installed, else a reader of the subset funasr writes
+    (top-level scalars and one level of section scalars)."""
+    try:
+        import yaml  # type: ignore
+    except ImportError:
+        yaml = None
+    if yaml is not None:
+        with open(path) as f:
+            full = yaml.safe_load(f)
+        conf = dict(full.get("encoder_conf", {}))
+        conf["input_size"] = full.get("input_size", conf.get("input_size", 560))
+        conf["vocab_size"] = full.get("vocab_size", 25055)
+        return conf
+
+    def parse(v):
+        try:
+            return json.loads(v)
+        except json.JSONDecodeError:
+            return v
+
+    conf: dict = {}
+    top: dict = {}
+    section = None
+    with open(path) as f:
+        for line in f:
+            if not line.strip() or line.lstrip().startswith("#"):
+                continue
+            indent = len(line) - len(line.lstrip())
+            m = re.match(r"([\w_]+):\s*(.*)", line.strip())
+            if not m:
+                continue
+            key, val = m.groups()
+            if indent == 0:
+                section = key if val == "" else None
+                if val != "":
+                    top[key] = parse(val)
+                continue
+            if section == "encoder_conf" and val != "":
+                conf[key] = parse(val)
+    conf["input_size"] = top.get("input_size", conf.get("input_size", 560))
+    conf["vocab_size"] = top.get("vocab_size", 25055)
+    return conf
+
+
+# funasr EncoderLayerSANM names -> the port's SANMLayer names
+_SANM_KEYS = {
+    "norm1.weight": "norm1.weight", "norm1.bias": "norm1.bias",
+    "norm2.weight": "norm2.weight", "norm2.bias": "norm2.bias",
+    "self_attn.linear_q_k_v.weight": "qkv.weight",
+    "self_attn.linear_q_k_v.bias": "qkv.bias",
+    "self_attn.linear_out.weight": "out.weight",
+    "self_attn.linear_out.bias": "out.bias",
+    "self_attn.fsmn_block.weight": "fsmn.weight",     # depthwise conv [C, 1, k]
+    "feed_forward.w_1.weight": "w1.weight", "feed_forward.w_1.bias": "w1.bias",
+    "feed_forward.w_2.weight": "w2.weight", "feed_forward.w_2.bias": "w2.bias",
+}
+_ENC_TOP_KEYS = {
+    "encoder.after_norm.weight": "after_norm.weight",
+    "encoder.after_norm.bias": "after_norm.bias",
+    "encoder.tp_norm.weight": "tp_norm.weight",
+    "encoder.tp_norm.bias": "tp_norm.bias",
+    "ctc.ctc_lo.weight": "ctc_lo.weight",
+    "ctc.ctc_lo.bias": "ctc_lo.bias",
+    "embed.weight": "query_embed",
+}
+
+
+def _encoder_layers(cfg: SenseVoiceConfig):
+    """(funasr prefix, port prefix) of every SANM layer."""
+    yield "encoder.encoders0.0", "encoders0"
+    for i in range(cfg.num_blocks - 1):
+        yield f"encoder.encoders.{i}", f"encoders.{i}"
+    for i in range(cfg.tp_blocks):
+        yield f"encoder.tp_encoders.{i}", f"tp_encoders.{i}"
+
+
+def funasr_to_state_dict(tensors: StateDict, cfg: SenseVoiceConfig, consumed=None) -> StateDict:
+    """A funasr SenseVoiceSmall state dict -> a ``SenseVoiceEncoder`` state
+    dict, tensors as they are (both store torch layouts).  A name is also
+    found without its leading ``encoder.``; ``KeyError`` on a missing one;
+    ``consumed`` receives the names read."""
+    def get(name):
+        for cand in (name, name.replace("encoder.", "", 1)):
+            if cand in tensors:
+                if consumed is not None:
+                    consumed.add(cand)
+                return tensors[cand]
+        raise KeyError(name)
+
+    out: StateDict = {}
+    for src, dst in _encoder_layers(cfg):
+        for k, ours in _SANM_KEYS.items():
+            out[f"{dst}.{ours}"] = get(f"{src}.{k}")
+    for k, ours in _ENC_TOP_KEYS.items():
+        out[ours] = get(k)
+    return out
+
+
+def _encoder_to_reference(encoder) -> StateDict:
+    """Inverse of :func:`funasr_to_state_dict`, nested under ``encoder.``
+    as in the reference checkpoint (its ``encoder`` is the funasr
+    SenseVoiceSmall module); fp32 CPU tensors."""
+    sd = encoder.state_dict()
+    out: StateDict = {}
+    for src, dst in _encoder_layers(encoder.cfg):
+        for k, ours in _SANM_KEYS.items():
+            out[f"encoder.{src}.{k}"] = sd[f"{dst}.{ours}"]
+    for k, ours in _ENC_TOP_KEYS.items():
+        out[f"encoder.{k}"] = sd[ours]
+    return {k: v.detach().float().cpu().contiguous() for k, v in out.items()}
+
+
+def load_funasr_encoder(path: str, **overrides) -> Tuple[StateDict, SenseVoiceConfig]:
+    """A funasr SenseVoiceSmall directory (``model.pt``, ``model.pb`` or
+    ``pytorch_model.bin``, and ``config.yaml``) -> (state dict as stored,
+    config); ``overrides`` take precedence over ``config.yaml``."""
+    conf: dict = {}
+    ypath = os.path.join(path, "config.yaml")
+    if os.path.exists(ypath):
+        raw = _parse_encoder_yaml(ypath)
+        for k in ("input_size", "output_size", "attention_heads", "linear_units",
+                  "num_blocks", "tp_blocks", "kernel_size", "sanm_shift", "vocab_size"):
+            if k in raw:
+                conf[k] = int(raw[k])
+    conf.update(overrides)
+    cfg = SenseVoiceConfig(**conf)
+    for cand in ("model.pt", "model.pb", "pytorch_model.bin"):
+        mpath = os.path.join(path, cand)
+        if os.path.exists(mpath):
+            return funasr_to_state_dict(_torch_load_state(mpath), cfg), cfg
+    raise FileNotFoundError(f"no model.pt under {path}")
+
+
+# ----------------------------------------------------------------------------
+# reference-format interchange (pytorch_model.bin key layout)
+# ----------------------------------------------------------------------------
+
+# linear-silu: the port's LinearSiLUProjector names -> the reference's
+_PROJ_KEYMAPS = {
+    "linear-silu": {
+        "norm.weight": "norm.weight", "norm.bias": "norm.bias",
+        "ffn1.weight": "ffn.0.weight", "ffn1.bias": "ffn.0.bias",
+        "ffn2.weight": "ffn.2.weight", "ffn2.bias": "ffn.2.bias",
+    },
+}
+
+
+def _projector_keymap(projector_name: str) -> Dict[str, str]:
+    keymap = _PROJ_KEYMAPS.get(projector_name)
+    if keymap is None:
+        raise NotImplementedError(
+            f"the reference key layout of projector {projector_name!r} is not "
+            "ported yet (ROADMAP.md queue 1, 'Long tail')"
+        )
+    return keymap
+
+
+def projector_to_reference(projector, projector_name: str) -> StateDict:
+    """The projector's weights under ``encoder_projector.*``, fp32 CPU."""
+    sd = projector.state_dict()
+    return {f"encoder_projector.{ref}": sd[ours].detach().float().cpu().contiguous()
+            for ours, ref in _projector_keymap(projector_name).items()}
+
+
+def reference_to_projector(tensors: StateDict, projector_name: str) -> Tuple[StateDict, List[str]]:
+    """(the projector's state dict entries found under
+    ``encoder_projector.*``, the reference keys read)."""
+    out, loaded = {}, []
+    for ours, ref in _projector_keymap(projector_name).items():
+        key = f"encoder_projector.{ref}"
+        if key in tensors:
+            out[ours] = tensors[key]
+            loaded.append(key)
+    return out, loaded
+
+
+def export_reference_checkpoint(model, path: str, *, exclude: tuple = ()) -> StateDict:
+    """Write a reference-layout ``pytorch_model.bin`` (fp32 tensors,
+    composite key names) when ``path`` is given; returns the tensors.
+    ``exclude`` names whole submodules ("llm", "encoder", "projector") to
+    leave out, as the reference leaves out frozen ones."""
+    tensors: StateDict = {}
+    if "llm" not in exclude:
+        for k, v in qwen2.state_dict_to_hf(model.llm).items():
+            tensors[f"llm.{k}"] = v.detach().float().cpu().contiguous()
+    if "encoder" not in exclude:
+        tensors.update(_encoder_to_reference(model.encoder))
+    if "projector" not in exclude:
+        tensors.update(projector_to_reference(model.projector, model.model_cfg.encoder_projector))
+    if path:
+        torch.save(tensors, path)
+    return tensors
+
+
+def import_reference_checkpoint(model, path_or_tensors: Union[str, StateDict]) -> List[str]:
+    """Load a composite ``pytorch_model.bin`` (a path or its tensors) into
+    ``model`` and return the reference keys loaded.
+
+    Keys no module reads are left out of the list (strict=False), not
+    fatal.  The llm and the encoder load whole: a checkpoint that holds
+    some of a module's tensors and misses one raises
+    ``KeyError("partial llm checkpoint ...")`` (or ``encoder``) before any
+    of that module's weights change."""
+    tensors = (_torch_load_state(path_or_tensors) if isinstance(path_or_tensors, str)
+               else dict(path_or_tensors))
+    loaded: List[str] = []
+
+    llm_tensors = {k[len("llm."):]: v for k, v in tensors.items() if k.startswith("llm.")}
+    if llm_tensors:
+        consumed: set = set()
+        try:
+            state = qwen2.hf_to_state_dict(llm_tensors, model.llm.cfg, consumed=consumed)
+        except KeyError as e:
+            raise KeyError(f"partial llm checkpoint, missing {e}") from e
+        model.llm.load_state_dict(state)
+        loaded += [f"llm.{k}" for k in llm_tensors if k in consumed]
+
+    enc_tensors = {k[len("encoder."):]: v for k, v in tensors.items()
+                   if k.startswith("encoder.") and not k.startswith("encoder_projector.")}
+    if enc_tensors:
+        consumed = set()
+        try:
+            state = funasr_to_state_dict(enc_tensors, model.encoder.cfg, consumed=consumed)
+        except KeyError as e:
+            raise KeyError(f"partial encoder checkpoint, missing {e}") from e
+        model.encoder.load_state_dict(state)
+        loaded += [f"encoder.{k}" for k in enc_tensors if k in consumed]
+
+    state, proj_loaded = reference_to_projector(tensors, model.model_cfg.encoder_projector)
+    model.projector.load_state_dict(state, strict=False)
+    return loaded + proj_loaded

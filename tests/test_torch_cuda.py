@@ -11,7 +11,8 @@ absolute, one bf16 rounding step of the same fp32 value.  Weight gradients
 sum over every row, so their absolute tolerance is scaled by the row
 count's square root.  The repair test (gradients through the CUDA wrappers)
 holds the card's fp32 gradients at 1e-4 against a float64 reference by
-plain autograd: a whole attention and two norms.
+plain autograd: a whole attention and two norms.  The decode slice: the
+waveform front end and one small decode CLI run, card against CPU.
 """
 
 import pytest
@@ -628,3 +629,51 @@ def test_generate_samples_on_card_with_a_card_generator(dev):
     assert runs[0].shape == (3, 12) and bool(((runs[0] >= 0) & (runs[0] < 1000)).all())
     assert not bool((runs[0][:, :2] == 7).any())       # min_length 3
     assert torch.equal(runs[0], runs[1])
+
+
+def test_frontend_on_card_matches_cpu(dev):
+    """The waveform front end (fbank in float64, LFR, CMVN) on the card
+    gives the CPU's features on int16 waveforms, ragged, with a row
+    shorter than one frame: lengths equal, values within 1e-3."""
+    from ps_slm_tpu_torch.ops.fbank import frontend
+
+    g_ = torch.Generator().manual_seed(0)
+    lens = torch.tensor([48000, 31234, 16001, 300])
+    w = (torch.randn(4, 48000, generator=g_) * 3000).round().clamp(-32768, 32767)
+    w = torch.where(torch.arange(48000)[None] < lens[:, None], w, 0).to(torch.int16)
+    cmvn = (-(12 + torch.randn(560, generator=g_)), 0.25 + 0.05 * torch.rand(560, generator=g_))
+    want, wlen = frontend(w, lens, cmvn=cmvn)
+    got, glen = frontend(w.to(dev), lens.to(dev), cmvn=tuple(c.to(dev) for c in cmvn))
+    torch.cuda.synchronize()
+    assert torch.equal(glen.cpu(), wlen) and wlen.tolist()[-1] == 0
+    torch.testing.assert_close(got.cpu(), want, atol=1e-3, rtol=0)
+
+
+def test_decode_cli_on_card_matches_cpu(dev, tmp_path):
+    """``cli.decode.main`` on the card and on the CPU, fp32, beam 4, on
+    scripts/decode.sh's asset layout (chip_smoke.py's writers) at small
+    widths with head dim 128: the ``_pred`` files are byte-identical."""
+    import chip_smoke
+    from ps_slm_tpu_torch.cli import decode
+    from ps_slm_tpu_torch.config import ModelConfig, TrainConfig
+    from ps_slm_tpu_torch.models.tasu import model_factory
+
+    llm = dict(vocab_size=1000, hidden_size=256, intermediate_size=512, num_hidden_layers=2,
+               num_attention_heads=4, num_key_value_heads=2, head_dim=128)
+    enc = dict(input_size=560, output_size=256, attention_heads=2, linear_units=512,
+               num_blocks=2, tp_blocks=1, vocab_size=600)
+    model = model_factory(TrainConfig(ctc_posterior=True, do_psd=True, seed=3), ModelConfig(
+        llm_dim=256, encoder_dim=600, llm_config_overrides=llm, encoder_config_overrides=enc),
+        device="cpu")
+    assets = chip_smoke.write_assets(
+        torch, str(tmp_path), model, llm_dtype=torch.float32,
+        specials={"<|endoftext|>": 900, "<|im_start|>": 901, "<|im_end|>": 902},
+        utts={"ark": 3, "wav": 1, "flac": 1}, seconds=(0.5, 1.5))
+    files = {}
+    for name, device in (("card", dev), ("cpu", "cpu")):
+        log = str(tmp_path / name / "test")
+        args = chip_smoke.decode_args(assets, log, 8, llm_dim=256, encoder_dim=600)
+        assert decode.main(args + ["++train_config.mixed_precision=false"], device=device) == 0
+        with open(log + "_pred", "rb") as f:
+            files[name] = f.read()
+    assert files["card"] == files["cpu"] and files["card"].count(b"\n") == 5
