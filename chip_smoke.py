@@ -96,7 +96,37 @@ Phases, each of which fails the run:
    ``generate``, the front end's and one generate's profiled device time,
    peak memory and the (meaningless) WER; then phase 3's forward kernels
    at its largest batch's shapes;
-7. one JSON line listing every kernel, then the contract line
+4e. finetune CLI, fp32, full width at reduced depth (run after 4d): phase
+   4d's assets with an 8-utterance train and a 4-utterance dev manifest
+   of 2-6 s, ``cli.finetune.main`` with scripts/finetune_half_audio.sh's
+   overrides (dither 0, lr 1e-3 from the first step, 4 steps of 2 rows,
+   validation every 2) on the card and on the CPU: per-step and eval
+   losses and every exported projector within 1e-3, the same step_N
+   checkpoints; then a resume on the card from ``step_2/state`` that must
+   report 2 skipped batches and reproduce the last two losses bit for bit;
+7. the published training chain at the published widths and depths,
+   bf16, through ``cli.finetune.main`` on phase 6's kind of assets (a
+   character BPE model beside the encoder for the transcripts' CTC ids)
+   with train, dev and test manifests of 2-12 s utterances: 7a
+   scripts/finetune_text_only.sh's overrides for one epoch, ``last/``;
+   7b scripts/finetune_half_audio.sh's from 7a's export, dither on, one
+   epoch with validation every 2 steps and step_N checkpoints, then a
+   second ``main`` resuming from step_2, which must skip 2 batches and
+   reproduce the later losses bit for bit; 7c the same with remat,
+   gradient accumulation 2 and SpecAugment, frozen weights bit-identical,
+   an AdamW update every 2nd micro-step; 7d ``cli.decode.main`` on 7b's
+   export, clean_marks and WER.  Every micro-step's and validation
+   batch's launches are checked exactly, by route (remat: flash forward
+   126 and RMSNorm forward 113 a step).  Prints for each stage the
+   synchronised step wall (median, min-max, and the median of the warm
+   micro-steps, whose batch shapes ran before), audio-s/s (none for 7a,
+   whose step reads no audio), eval seconds,
+   train-state write and restore seconds and bytes, the fast-forward's
+   seconds, peak memory with remat off and on, and one profiled loop step
+   beside phase 5b's; then phase 3's forward and backward kernels at 7a's
+   and 7b's largest batches' shapes (``finetune_cases``), labelled
+   ``finetune 7a`` / ``finetune 7b``;
+8. one JSON line listing every kernel, then the contract line
    ``{"ok": true, "device": {...}}`` last.
 
 Exits non-zero without a result when CUDA is absent or when the
@@ -107,6 +137,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import gc
 import json
 import math
 import os
@@ -169,6 +200,19 @@ QWEN_SPECIALS = {"<|endoftext|>": 151643, "<|im_start|>": 151644, "<|im_end|>": 
 WORDS = ("the cat sat on a mat while rain fell over quiet hills and old ships "
          "sailed past bright towers into the evening sea").split()
 FRONTEND_TOL = 1e-3     # the fp32 front end, card vs CPU, on log-mel
+# the finetune CLI (phases 4e and 7): utterances of 2-6 s (4e, whose CPU
+# run is at full width) and 2-12 s (7); phase 7's train, dev and test
+# manifests; a training step's launches with remat on the LLM (each block's
+# forward recomputed: one flash forward and two RMSNorms a layer more), and
+# a validation batch's (the forward kernels only)
+FINETUNE_SECONDS = (2.0, 6.0)
+CHAIN_UTTS = {"train": {"ark": 42, "wav": 3, "flac": 3}, "dev": {"ark": 8, "wav": 0, "flac": 0},
+              "test": {"ark": 6, "wav": 1, "flac": 1}}
+CHAIN_VALIDATION = 2
+LAUNCHES_PER_REMAT_STEP = dict(LAUNCHES_PER_TRAIN_STEP, flash_attention_fwd=98 + 28,
+                               rms_norm_fwd=57 + 56)
+LAUNCHES_PER_EVAL_BATCH = dict(LAUNCHES_PER_TRAIN_STEP, flash_attention_dq=0,
+                               flash_attention_dkv=0, layer_norm_bwd=0, rms_norm_bwd=0)
 
 # H100 SXM published peaks (NVIDIA H100 datasheet): memory and the
 # rate for the inputs' type (bf16 tensor cores; fp32 outside them)
@@ -217,6 +261,7 @@ KERNEL_TOL = {"f32": (2e-5, 2e-5), "bf16": (1e-2, 1e-2)}
 # fp32 whole path, card vs CPU (matmul and reduction order differ)
 PATH_TOL = 1e-3
 PSD_CALLS = 3   # PSD calls a profiled run
+CARD = "card not read"   # nvidia-smi's name and power limit, set by main()
 
 
 # ----------------------------------------------------------------------------
@@ -404,9 +449,52 @@ def decode_args(assets: dict, decode_log: str, max_new: int, llm_dim: int = 1536
     ]
 
 
+def recipe_args(name: str, env: dict) -> list:
+    """The overrides that ``scripts/<name>.sh`` passes to the finetune CLI,
+    with its shell variables (``LLM``, ``ENCODER``, ``DATA``, ``OUT``,
+    ``INIT``) taken from ``env``."""
+    import shlex
+
+    with open(os.path.join(HERE, "scripts", f"{name}.sh")) as f:
+        text = f.read().replace("\\\n", " ")
+    line = next(ln for ln in text.splitlines() if ".cli.finetune" in ln)
+    words = shlex.split(re.sub(r"\$(\w+)", lambda m: env[m.group(1)], line.replace('"$@"', "")))
+    start = next(i for i, w in enumerate(words) if w.endswith(".cli.finetune")) + 1
+    return words[start:]
+
+
+def finetune_args(assets: dict, data_root: str, output_dir: str, *, text_only: bool = False,
+                  llm_dim: int = 1536, encoder_dim: int = 25055) -> list:
+    """``scripts/finetune_half_audio.sh``'s overrides (``text_only``:
+    ``finetune_text_only.sh``'s) on ``assets``, with ``data_root/train/``
+    and ``data_root/dev/`` manifests, ``INIT`` the assets' projector
+    checkpoint, the widths given and the log in ``output_dir``."""
+    env = {"LLM": assets["llm_path"], "ENCODER": assets["encoder_path"], "DATA": data_root,
+           "OUT": output_dir, "INIT": assets["ckpt_path"]}
+    args = recipe_args("finetune_text_only" if text_only else "finetune_half_audio", env)
+    return args + [f"++model_config.llm_dim={llm_dim}", f"++model_config.encoder_dim={encoder_dim}",
+                   f"++dataset_config.multitask_prompt_path="
+                   f"{os.path.join(HERE, 'conf', 'multiprompt.jsonl')}",
+                   f"++log_config.log_file={output_dir}/train.log"]
+
+
+def write_bpe_model(encoder_path: str) -> None:
+    """A character-level SentencePiece BPE model beside the encoder (the
+    name funasr's SenseVoiceSmall uses), covering the manifest's words, so
+    the dataset tokenizes transcripts into CTC ids (``gt_ids``)."""
+    from ps_slm_tpu_torch.data import spm
+
+    pieces = [("<blank>", 0.0, spm.TYPE_CONTROL), ("<unk>", 0.0, spm.TYPE_UNKNOWN),
+              ("</s>", 0.0, spm.TYPE_CONTROL)]
+    pieces += [(c, -1.0, spm.TYPE_NORMAL) for c in "\u2581abcdefghijklmnopqrstuvwxyz"]
+    with open(os.path.join(encoder_path, "chn_jpn_yue_eng_ko_spectok.bpe.model"), "wb") as f:
+        f.write(spm.serialize_model_proto(pieces))
+
+
 def posterior_rows(torch, dev, dtype, kind: str, n: int, d: int):
     """[n, d] rows the projector's LayerNorm sees in text-only TASU
-    (TEXT_ONLY_GT_LENS padded to 128 frames): ``clean`` one-hots (generate),
+    (TEXT_ONLY_GT_LENS padded to 128 frames, repeated for more than 640
+    rows): ``clean`` one-hots (generate),
     or ``mixed``: each transcript's smoothed one-hots ((1 - a) onehot +
     a / d, a in [0, 0.1)) followed by all-zero rows (pad frames, inactive
     insertions)."""
@@ -417,8 +505,9 @@ def posterior_rows(torch, dev, dtype, kind: str, n: int, d: int):
         return onehot.to(dtype)
     alpha = 0.1 * torch.rand(n, 1, device=dev, generator=g)
     n_max = max(TEXT_ONLY_GT_LENS)
-    valid = (torch.arange(n, device=dev) % n_max) < torch.tensor(
-        TEXT_ONLY_GT_LENS, device=dev).repeat_interleave(n_max)[:n]
+    row = torch.arange(n, device=dev)
+    lens = torch.tensor(TEXT_ONLY_GT_LENS, device=dev)
+    valid = (row % n_max) < lens[(row // n_max) % len(TEXT_ONLY_GT_LENS)]
     return (((1 - alpha) * onehot + alpha / d) * valid[:, None]).to(dtype)
 
 
@@ -556,7 +645,7 @@ def print_profiled(label: str, result) -> None:
     share = "not measured" if busy is None else f"{busy / wall:.3f}"
     busy_s = "not measured" if busy is None else f"{busy:.2f} ms"
     print(f"profiled {label}: wall {wall:.1f} ms, device-busy {busy_s}, busy share "
-          f"{share}, {ops} device ops; largest {json.dumps(top)}", flush=True)
+          f"{share}, {ops} device ops [{CARD}]; largest {json.dumps(top)}", flush=True)
 
 
 def time_ms(torch, fn, iters: int = 20) -> float:
@@ -762,10 +851,11 @@ NORM_CASES = (
 )
 
 
-def phase_kernels(torch, dev, results, flash_cases=FLASH_CASES, norm_cases=NORM_CASES):
+def phase_kernels(torch, dev, results, flash_cases=FLASH_CASES, norm_cases=NORM_CASES,
+                  tag: str = ""):
     """Phase 3's forward kernels against their plain versions, timed, at
-    ``flash_cases`` and ``norm_cases`` (phase 6 passes its largest
-    batch's)."""
+    ``flash_cases`` and ``norm_cases`` (phases 6 and 7 pass their largest
+    batches'; ``tag`` labels the norm rows)."""
     import torch.nn.functional as F
 
     from ps_slm_tpu_torch.ops import flash_attention as fa
@@ -844,10 +934,11 @@ def phase_kernels(torch, dev, results, flash_cases=FLASH_CASES, norm_cases=NORM_
             bms, by = bound(nbytes, flops, dt)
             e = entry(name)
             e["max_abs_err"] = max(e["max_abs_err"], err)
-            label = f"{n}x{d}" + (f" {kind}" if kind else "")
+            label = f"{tag} " * bool(tag) + f"{n}x{d}" + (f" {kind}" if kind else "")
             e["shapes"].append(dict(shape=label, dtype=dt, ms=ms, plain_ms=plain,
                                     library_ms=lib_ms, bound_ms=bms, bound_by=by, err=err))
-            print(f"kernel {name} [{n},{d}]{f' {kind}' if kind else ''} {dt}: err {err:.3e} ms {ms:.4f} plain {plain:.4f} "
+            print(f"kernel {name} {f'{tag} ' * bool(tag)}[{n},{d}]{f' {kind}' if kind else ''} "
+                  f"{dt}: err {err:.3e} ms {ms:.4f} plain {plain:.4f} "
                   f"library {lib_ms:.4f} bound {bms:.4f} ({by}); eager call {host_ms:.4f}, "
                   f"library eager {host_lib:.4f}{route}", flush=True)
 
@@ -900,11 +991,31 @@ def phase_ln_variants(torch, dev) -> None:
                       f"{time_ms(torch, fn):.4f} bound {bms:.4f} ({by})", flush=True)
 
 
-def phase_kernels_bwd(torch, dev, results):
-    """The backward kernels against their plain versions at the training
-    shapes.  flash dq and dkv share one plain version (dq, dk, dv at once)
-    and one library call (the autograd backward of SDPA), whose times are
-    given to both."""
+# the backward kernels' cases of phase 3: flash dq/dkv (as FLASH_CASES) at
+# the LLM's causal GQA attention at bench.py's training shape (every row
+# full, as SDPA's is_causal takes it), a ragged case with a left-padded
+# row, a right-padded row and a row with no valid key, and the text-only
+# step's; norms (wrapper, rows, width, posterior rows' kind or None) at the
+# projector's LayerNorm and the LLM's RMSNorm (5 x 543 merged rows), each
+# also at the text-only step's rows
+FLASH_BWD_CASES = (
+    ("training", 5, 543, 12, 2, True, [0] * 5, [543] * 5),
+    ("ragged", 4, 543, 12, 2, True, [0, 112, 0, 0], [543, 543, 300, 0]),
+    TEXT_ONLY_FLASH,
+)
+NORM_BWD_CASES = (
+    ("layer_norm_bwd", 2560, 25055, None), ("layer_norm_bwd", 640, 25055, "mixed"),
+    ("rms_norm_bwd", 2715, 1536, None), ("rms_norm_bwd", 795, 1536, None),
+)
+
+
+def phase_kernels_bwd(torch, dev, results, flash_cases=FLASH_BWD_CASES,
+                      norm_cases=NORM_BWD_CASES, tag: str = ""):
+    """The backward kernels against their plain versions at ``flash_cases``
+    and ``norm_cases`` (phase 7 passes its largest batches'; ``tag``
+    labels the norm rows).  flash dq and
+    dkv share one plain version (dq, dk, dv at once) and one library call
+    (the autograd backward of SDPA), whose times are given to both."""
     import torch.nn.functional as F
 
     from ps_slm_tpu_torch.ops import flash_attention as fa
@@ -925,14 +1036,6 @@ def phase_kernels_bwd(torch, dev, results):
         print(f"kernel {name} {label} {dt}: err {err:.3e} ms {ms:.4f} plain {plain:.4f} "
               f"library {lib:.4f} ({method}) bound {bms:.4f} ({by})", flush=True)
 
-    # flash dq/dkv: the LLM's causal GQA attention at the training shape
-    # (every row full, as SDPA's is_causal takes it), and a ragged case
-    # with a left-padded row, a right-padded row and a row with no valid key
-    flash_cases = [
-        ("training", 5, 543, 12, 2, True, [0] * 5, [543] * 5),
-        ("ragged", 4, 543, 12, 2, True, [0, 112, 0, 0], [543, 543, 300, 0]),
-        TEXT_ONLY_FLASH,
-    ]
     for label, b, s, hq, hkv, causal, starts, ends in flash_cases:
         d = fa.HEAD_DIM
         scale = d ** -0.5
@@ -976,13 +1079,8 @@ def phase_kernels_bwd(torch, dev, results):
             print(f"flash backward {label} {dt}: dq + dk/dv {ms_dq + ms_dkv:.4f} ms against "
                   f"SDPA's whole backward {lib:.4f} ms ({(ms_dq + ms_dkv) / lib:.2f}x)", flush=True)
 
-    # LayerNorm backward at the projector's norm, RMSNorm backward at the
-    # LLM's (5 x 543 merged rows), each also at the text-only step's rows
-    # (the projector's on posterior rows, as in phase_kernels)
-    bwd_cases = (("layer_norm_bwd", 2560, 25055, None), ("layer_norm_bwd", 640, 25055, "mixed"),
-                 ("rms_norm_bwd", 2715, 1536, None), ("rms_norm_bwd", 795, 1536, None))
-    for name, n, d, kind in bwd_cases:
-        shape = f"{n}x{d}" + (f" {kind}" if kind else "")
+    for name, n, d, kind in norm_cases:
+        shape = f"{tag} " * bool(tag) + f"{n}x{d}" + (f" {kind}" if kind else "")
         for dt, dtype in dtypes.items():
             x = (posterior_rows(torch, dev, dtype, kind, n, d) if kind else
                  (torch.randn(n, d, device=dev, generator=g) * 3 + 1).to(dtype))
@@ -1123,6 +1221,294 @@ def phase_train_fp32(torch, dev):
         fail("fp32 training: card and CPU disagree beyond the tolerance")
     if m_g[0]["loss"] != m_g[1]["loss"]:
         fail("fp32 training: the first update (lr 0) changed the loss")
+
+
+class TrainProbe:
+    """Hooks around ``cli.finetune.main`` (and the ``cli.decode`` factory):
+    each micro-step's loss, wall ms with the host synchronised before and
+    after (the loop's own timer times dispatch only), audio seconds, launch
+    counts (the counters' deltas over the call) and the peak memory after
+    it; each evaluation's wall, batches and launches; each train-state save
+    (seconds, bytes) and restore (seconds); the fast-forward's seconds; the
+    model the factory built; and, at micro-step ``profile_at``, one step
+    under ``torch.profiler``.  On the CPU nothing synchronises and the
+    counters stay at 0.  A micro-step is warm when a batch of its shapes
+    ran before in this process through the same branch, audio or text-only
+    (``shapes_run``; remat runs the same GEMMs): the first use of a shape
+    pays for the allocator's growth and the GEMM libraries' choice of
+    kernels.  ``largest`` keeps the batch with the most text ids and
+    samples (text-only: transcript ids)."""
+
+    shapes_run: set = set()
+
+    def __init__(self, torch, dev, profile_at=None):
+        self.torch, self.dev, self.profile_at = torch, dev, profile_at
+        self.cuda = torch.device(dev).type == "cuda"
+        self.steps, self.evals, self.saves, self.restores = [], [], [], []
+        self.ff_s, self.model, self.prof, self.largest = None, None, None, None
+        self.after_save, self.decodes, self.collections, self.gc_start = False, [], [], 0.0
+
+    def sync(self):
+        if self.cuda:
+            self.torch.cuda.synchronize()
+
+    def counts(self):
+        return launch_counts(kernel_counters()) if self.cuda else {}
+
+    def delta(self, before):
+        after = self.counts()
+        return {n: after[n] - before[n] for n in after}
+
+    def __enter__(self):
+        from ps_slm_tpu_torch import registry
+        from ps_slm_tpu_torch.data import audio_io
+        from ps_slm_tpu_torch.training import checkpoint as ckpt
+        from ps_slm_tpu_torch.training import loop
+        from ps_slm_tpu_torch.training import step as step_mod
+
+        probe = self
+        self.saved = [(step_mod.TrainStep, "__call__", step_mod.TrainStep.__call__),
+                      (loop, "evaluate", loop.evaluate),
+                      (loop, "_fast_forward", loop._fast_forward),
+                      (ckpt, "save_train_state", ckpt.save_train_state),
+                      (ckpt, "restore_train_state", ckpt.restore_train_state)]
+        real_call, real_eval, real_ff, real_save, real_restore = (x[2] for x in self.saved)
+        self.saved.append((audio_io, "load_audio", audio_io.load_audio))
+        real_load = audio_io.load_audio
+        self.real_factory = registry.get_model_factory("tasu")
+
+        def load(*args, **kwargs):
+            t = time.perf_counter()
+            try:
+                return real_load(*args, **kwargs)
+            finally:
+                probe.decodes.append((t, time.perf_counter()))
+
+        def collected(phase, info):
+            if phase == "start":
+                probe.gc_start = time.perf_counter()
+            else:
+                probe.collections.append((probe.gc_start, time.perf_counter()))
+
+        def overlap_ms(spans, t0, t1):
+            return sum(max(0.0, min(b, t1) - max(a, t0)) for a, b in spans) * 1e3
+
+        def call(state, batch, draws=None):
+            probe.sync()
+            before = probe.counts()
+            t = time.perf_counter()
+            profiled_step = len(probe.steps) == probe.profile_at
+            if profiled_step:
+                out = []
+                probe.prof = profiled(probe.torch, lambda: out.append(real_call(state, batch, draws)))
+                m = out[0]
+            else:
+                m = real_call(state, batch, draws)
+            loss = float(m["loss"])
+            t_end = time.perf_counter()
+            ms = (t_end - t) * 1e3
+            wl = batch.get("waveform_length")
+            audio = 0.0
+            if wl is not None:
+                valid = batch.get("batch_valid")
+                audio = float((wl if valid is None else wl[valid]).sum()) / 16000
+            peak = probe.torch.cuda.max_memory_allocated() / 1e9 if probe.cuda else 0.0
+            shape = (probe.model.flags.needs_encoder,
+                     *sorted((k, tuple(v.shape)) for k, v in batch.items()))
+            probe.steps.append(dict(loss=loss, ms=ms, audio=audio, launches=probe.delta(before),
+                                    peak=peak, accum=state.accum.mini_step,
+                                    warm=shape in TrainProbe.shapes_run,
+                                    after_save=probe.after_save, profiled=profiled_step,
+                                    decode_ms=overlap_ms(probe.decodes, t, t_end),
+                                    gc_ms=overlap_ms(probe.collections, t, t_end)))
+            probe.after_save = False
+            TrainProbe.shapes_run.add(shape)
+            audio_in = batch["waveform"] if probe.model.flags.needs_encoder else batch["gt_ids"]
+            size = batch["input_ids"].numel() + audio_in.numel()
+            if probe.largest is None or size > probe.largest[0]:
+                probe.largest = (size, batch)
+            return m
+
+        def evaluate(model, batches, device, eval_step=None):
+            n = [0]
+
+            def counted():
+                for b in batches:
+                    n[0] += 1
+                    yield b
+
+            probe.sync()
+            before = probe.counts()
+            t = time.perf_counter()
+            out = real_eval(model, counted(), device, eval_step)
+            probe.sync()
+            probe.evals.append(dict(s=time.perf_counter() - t, batches=n[0],
+                                    launches=probe.delta(before), loss=out["eval_loss"]))
+            return out
+
+        def fast_forward(*args):
+            t = time.perf_counter()
+            out = real_ff(*args)
+            probe.ff_s = (probe.ff_s or 0.0) + time.perf_counter() - t
+            return out
+
+        def save(path, state):
+            probe.sync()
+            t = time.perf_counter()
+            n = real_save(path, state)
+            probe.saves.append(dict(path=path, s=time.perf_counter() - t, bytes=n))
+            probe.after_save = True
+            return n
+
+        def restore(path, state):
+            t = time.perf_counter()
+            out = real_restore(path, state)
+            probe.sync()
+            probe.restores.append(dict(path=path, s=time.perf_counter() - t))
+            return out
+
+        def factory(*args, **kwargs):
+            probe.model = probe.real_factory(*args, **kwargs)
+            return probe.model
+
+        step_mod.TrainStep.__call__ = call
+        audio_io.load_audio = load
+        gc.callbacks.append(collected)
+        self.collected = collected
+        loop.evaluate, loop._fast_forward = evaluate, fast_forward
+        ckpt.save_train_state, ckpt.restore_train_state = save, restore
+        registry.register_model("tasu")(factory)
+        return self
+
+    def __exit__(self, *exc):
+        from ps_slm_tpu_torch import registry
+
+        for obj, name, fn in self.saved:
+            setattr(obj, name, fn)
+        gc.callbacks.remove(self.collected)
+        registry.register_model("tasu")(self.real_factory)
+        return False
+
+    def losses(self):
+        return [s["loss"] for s in self.steps]
+
+    def summary(self, audio_read: bool = True) -> str:
+        """Step wall median (min-max) over the micro-steps (the profiled
+        one, slowed by the profiler, left out) and over the warm ones; each
+        step's wall, marked ``w`` warm, ``s`` the first step after a
+        train-state write, ``p`` profiled, with the ms of audio decoding
+        (``d``, the prefetch thread's ``load_audio`` calls) and of Python's
+        garbage collection (``g``) inside it; audio-s/s (``audio_read``
+        False: the batches carry audio the step does not read, so none is
+        claimed), peak memory."""
+        import statistics
+
+        timed = [s for s in self.steps if not s["profiled"]]
+        if not timed:
+            return "no steps"
+        ms = [s["ms"] for s in timed]
+        warm = [s["ms"] for s in timed if s["warm"]]
+        audio = sum(s["audio"] for s in timed)
+        rate = (f"{audio / (sum(ms) / 1e3):.1f} audio-s/s over {audio:.2f} s of audio" if audio_read
+                else f"{audio:.2f} s of audio shipped in the batches and not read by the step")
+        each = " ".join(
+            f"{st['ms']:.1f}{'w' * st['warm']}{'s' * st['after_save']}{'p' * st['profiled']}"
+            + (f"(d{st['decode_ms']:.0f})" if st["decode_ms"] >= 1 else "")
+            + (f"(g{st['gc_ms']:.0f})" if st["gc_ms"] >= 1 else "") for st in self.steps)
+        return (f"{len(self.steps)} micro-steps, wall median {statistics.median(ms):.2f} ms (min "
+                f"{min(ms):.2f}, max {max(ms):.2f}; synchronised, the profiled step left out; each "
+                f"[{each}]); warm median "
+                + (f"{statistics.median(warm):.2f} ms over {len(warm)}" if warm else "- over 0")
+                + f" micro-steps whose batch shapes ran before; {rate}, peak memory "
+                f"{max(s['peak'] for s in self.steps):.2f} GB [{CARD}]")
+
+
+def read_log(path: str) -> str:
+    with open(path) as f:
+        return f.read()
+
+
+def phase_finetune_cli_fp32(torch, dev) -> None:
+    """Phase 4e: the finetune CLI (``cli.finetune.main``, the half_audio
+    recipe's overrides, fp32, dither 0, lr 1e-3 from the first step) at full
+    width and reduced depth on phase 4d's assets and a 8-utterance train
+    and 4-utterance dev manifest: 4 steps of 2 rows, validation every 2, on
+    the card and on the CPU; per-step losses, eval losses and the exported
+    projectors within PATH_TOL; then a resume on the card from
+    ``step_2/state`` that reproduces the last two losses bit for bit."""
+    import shutil
+    import tempfile
+
+    from ps_slm_tpu_torch.cli import finetune
+    from ps_slm_tpu_torch.config import half_audio_configs
+    from ps_slm_tpu_torch.models.tasu import model_factory
+
+    what = "finetune CLI fp32"
+    t0 = time.time()
+    root = tempfile.mkdtemp(prefix="finetune_cli_fp32_")
+    try:
+        tc, mc = half_audio_configs(dict(num_blocks=2, tp_blocks=1), dict(num_hidden_layers=2),
+                                    seed=0)
+        assets = write_assets(torch, root, model_factory(tc, mc, device="cpu"),
+                              llm_dtype=torch.bfloat16, utts={"ark": 1, "wav": 0, "flac": 0})
+        write_manifest(os.path.join(root, "train"), {"ark": 6, "wav": 1, "flac": 1},
+                       FINETUNE_SECONDS, seed=1)
+        write_manifest(os.path.join(root, "dev"), {"ark": 4, "wav": 0, "flac": 0},
+                       FINETUNE_SECONDS, seed=2)
+        extra = ["++train_config.mixed_precision=false", "++dataset_config.fbank.dither=0.0",
+                 "++train_config.num_epochs=1", "++train_config.validation_interval=2",
+                 "++train_config.batching_strategy=padding",
+                 "++train_config.batch_size_training=2", "++train_config.val_batch_size=4",
+                 "++train_config.lr=1e-3", "++train_config.warmup_steps=1",
+                 "++train_config.save_last=true", "++log_config.log_interval=1"]
+        runs = {}
+        for name, device in (("cuda", dev), ("cpu", "cpu")):
+            out = os.path.join(root, name)
+            with TrainProbe(torch, device) as probe:
+                t1 = time.time()
+                rc = finetune.main(finetune_args(assets, root, out, llm_dim=mc.llm_dim,
+                                                 encoder_dim=mc.encoder_dim) + extra,
+                                   device=device)
+            if rc != 0:
+                fail(f"{what} on {name}: main returned {rc}")
+            runs[name] = dict(losses=probe.losses(), evals=[e["loss"] for e in probe.evals],
+                              wall=time.time() - t1, out=out,
+                              steps=sorted(p for p in os.listdir(out) if p.startswith("step_")))
+        card, cpu = runs["cuda"], runs["cpu"]
+        if len(card["losses"]) != 4 or card["steps"] != cpu["steps"] or "step_2" not in card["steps"]:
+            fail(f"{what}: {len(card['losses'])} steps, checkpoints {card['steps']} on the card "
+                 f"and {cpu['steps']} on the CPU; want 4 steps and step_2 on both")
+        loss_err = max(abs(a - b) for a, b in zip(card["losses"] + card["evals"],
+                                                  cpu["losses"] + cpu["evals"]))
+        proj_err = 0.0
+        for tag in card["steps"] + ["last"]:
+            a = torch.load(os.path.join(card["out"], tag, "pytorch_model.bin"), weights_only=True)
+            b = torch.load(os.path.join(cpu["out"], tag, "pytorch_model.bin"), weights_only=True)
+            if sorted(a) != sorted(b) or not all(k.startswith("encoder_projector.") for k in a):
+                fail(f"{what}: {tag}'s exports hold other keys than the projector's")
+            proj_err = max([proj_err] + [float((a[k] - b[k]).abs().max()) for k in a])
+
+        # resume on the card from step_2: the last two losses, bit for bit
+        out = os.path.join(root, "resumed")
+        with TrainProbe(torch, dev) as probe:
+            rc = finetune.main(finetune_args(assets, root, out, llm_dim=mc.llm_dim,
+                                             encoder_dim=mc.encoder_dim) + extra + [
+                f"++train_config.resume_from={card['out']}/step_2/state"], device=dev)
+        skipped = "skipping 2 trained batches" in read_log(os.path.join(out, "train.log"))
+        same = probe.losses() == card["losses"][2:]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"{what} (2+1 encoder blocks, 2 LLM layers, full width, 4 steps of 2 rows, "
+          f"validation every 2, dither 0): losses card {card['losses']} cpu {cpu['losses']}; "
+          f"eval card {card['evals']} cpu {cpu['evals']}; max err {loss_err:.3e}, exported "
+          f"projectors {proj_err:.3e} (tol {PATH_TOL}); checkpoints {card['steps']} + last; "
+          f"resumed from step_2 on the card: skipped 2 batches {skipped}, losses "
+          f"{probe.losses()} {'bit-identical' if same else 'DIFFERENT'}; main {card['wall']:.1f} s "
+          f"card, {cpu['wall']:.1f} s CPU ({time.time() - t0:.1f} s) [{CARD}]", flush=True)
+    if max(loss_err, proj_err) > PATH_TOL:
+        fail(f"{what}: card and CPU disagree beyond the tolerance")
+    if not (skipped and same):
+        fail(f"{what}: the resumed run did not skip 2 batches and reproduce the last two losses")
 
 
 def phase_beam_text_only_fp32(torch, dev):
@@ -1322,9 +1708,10 @@ def phase_train_main(torch, dev, model, launches, text_only: bool = False):
 
     if not text_only:
         psd_time(torch, model, batch, "training batch")
-    print_profiled(f"{'text-only ' if text_only else ''}train step",
-                   profiled(torch, lambda: step(batch)))
+    prof = profiled(torch, lambda: step(batch))
+    print_profiled(f"{'text-only ' if text_only else ''}train step", prof)
     model.flags = audio_flags
+    return prof
 
 
 def psd_time(torch, model, batch, label: str) -> None:
@@ -1349,6 +1736,287 @@ def psd_time(torch, model, batch, label: str) -> None:
     print(f"psd ({label}, posterior {list(post.shape)} {post.dtype}): device-busy {busy_s} "
           f"a call in {ops / PSD_CALLS:.0f} device ops, wall {wall / PSD_CALLS:.2f} ms "
           f"({PSD_CALLS} calls); largest {json.dumps(top[:4])}", flush=True)
+
+
+def launch_counts(counters) -> dict:
+    """Every wrapper's launch count, and each norm wrapper's by route as
+    ``name.route``."""
+    out = {n: f.launches for n, f in counters.items()}
+    for name in MAIN_ROUTES:
+        out.update({f"{name}.{r}": n for r, n in counters[name].routes.items()})
+    return out
+
+
+def with_routes(per: dict, ln_routes: dict, passes: int = 1) -> dict:
+    """``per`` (launches by wrapper) times ``passes``, with the routes the
+    main paths take: every RMSNorm vectorised, the LayerNorm forward by
+    ``ln_routes`` a pass."""
+    out = {k: v * passes for k, v in per.items()}
+    out.update({f"layer_norm_fwd.{r}": n * passes for r, n in ln_routes.items()})
+    for name in ("rms_norm_fwd", "rms_norm_bwd"):
+        out.update({f"{name}.vec": out[name], f"{name}.general": 0})
+    return out
+
+
+def check_step_launches(probe, want: dict, ln_routes: dict, what: str) -> None:
+    """Fails unless every micro-step the probe saw launched exactly
+    ``want`` (by wrapper; ``ln_routes`` the LayerNorm forward's routes) and
+    every validation LAUNCHES_PER_EVAL_BATCH a batch, by route as the
+    training steps."""
+    want = with_routes(want, ln_routes)
+    for i, st in enumerate(probe.steps):
+        if st["launches"] != want:
+            fail(f"{what}: micro-step {i + 1} launched {st['launches']}, not {want}")
+    for ev in probe.evals:
+        per = with_routes(LAUNCHES_PER_EVAL_BATCH, ln_routes, ev["batches"])
+        if ev["launches"] != per:
+            fail(f"{what}: an evaluation of {ev['batches']} batches launched {ev['launches']}, "
+                 f"not {per}")
+
+
+def finetune_cases(torch, dev, model, batch, tag: str) -> dict:
+    """Phase 3's cases at one finetune micro-step's batch, labelled ``tag``:
+    the LLM's causal GQA attention at B x the merged length with the
+    right-padded windows ``prepare_merged`` gives (forward, dq, dk/dv), and
+    RMSNorm forward and backward on those rows; the projector's LayerNorm
+    forward and backward at 25 055 wide on B x LFR frames of CTC posteriors
+    or, for text-only TASU, B x transcript ids of smoothed one-hots; with
+    the encoder, its non-causal attention at B x (LFR frames + the 4 query
+    frames) with each row's valid prefix, and its LayerNorms (560 and 512
+    wide) on those rows.  The dither and masks change no shape, so the
+    batch is merged without them; text-only windows are those without the
+    CPS noise, whose random drops end the step's rows a few ids earlier."""
+    from ps_slm_tpu_torch.models.tasu import QUERY_IDS, prepare_merged
+    from ps_slm_tpu_torch.ops import flash_attention as fa
+    from ps_slm_tpu_torch.ops.fbank import frontend
+
+    llm, vocab = model.llm.cfg, model.enc_cfg.vocab_size
+    with torch.inference_mode():
+        mask = prepare_merged(model, batch, generate_mode=True).attention_mask
+        rows, s = mask.shape
+        start, end = fa.window_from_mask(mask, rows, s, dev)
+        flash = [(f"{tag} llm", rows, s, llm.num_attention_heads, llm.num_key_value_heads, True,
+                  start.tolist(), end.tolist())]
+        cases = {"flash_bwd": list(flash),
+                 "norm": [("rms_norm_fwd", rows * s, llm.hidden_size, None)],
+                 "norm_bwd": [("rms_norm_bwd", rows * s, llm.hidden_size, None)]}
+        if model.flags.needs_encoder:
+            feats, flens = frontend(batch["waveform"], batch["waveform_length"],
+                                    cfg=model.fbank_cfg)
+            frames, q = feats.shape[1], len(QUERY_IDS)
+            enc = model.encoder.cfg
+            flash.insert(0, (f"{tag} encoder", rows, frames + q, enc.attention_heads,
+                             enc.attention_heads, False, [0] * rows, (flens + q).tolist()))
+            cases["norm"] += [("layer_norm_fwd", rows * (frames + q), d, None)
+                              for d in (enc.input_size, enc.output_size)]
+            proj = (rows * frames, None)
+        else:
+            proj = (batch["gt_ids"].numel(), "mixed")
+    cases["flash"] = flash
+    cases["norm"].append(("layer_norm_fwd", proj[0], vocab, proj[1]))
+    cases["norm_bwd"].insert(0, ("layer_norm_bwd", proj[0], vocab, proj[1]))
+    shapes = {k: [c[:5] for c in v] for k, v in cases.items()}
+    print(f"finetune chain {tag}: the largest batch's kernel cases for phase 3 (label or "
+          f"wrapper, B or rows, S or width, ...) {json.dumps(shapes)}", flush=True)
+    return cases
+
+
+def phase_finetune_chain(torch, dev, launches: dict, step_5b_prof) -> dict:
+    """Phase 7: the published training chain at full widths and depths,
+    bf16, through ``cli.finetune.main``: synthetic stand-ins of the assets
+    (phase 6's writers, a character BPE model beside the encoder) and train,
+    dev and test manifests of 2-12 s utterances, then (7a) the text-only
+    recipe's overrides for one epoch, ``save_last``; (7b) the half_audio
+    recipe's from 7a's ``last/pytorch_model.bin``, dither on, one epoch with
+    validation every CHAIN_VALIDATION steps and step_N checkpoints, then a
+    second ``main`` resuming from step_2, which must skip 2 batches and
+    reproduce the uninterrupted run's later losses bit for bit; (7c) the
+    half_audio step with remat, gradient accumulation 2 and SpecAugment;
+    (7d) the decode CLI on 7b's export, clean_marks and WER.  Launches are
+    checked exactly per micro-step and per validation batch; frozen weights
+    bit-identical.  Adds each stage's launches to ``launches`` (by stage)
+    and returns the per-micro-step launches without and with remat, a
+    validation batch's, and phase 3's cases at 7a's and 7b's largest
+    batches (:func:`finetune_cases`, by stage)."""
+    import shutil
+    import tempfile
+
+    from ps_slm_tpu_torch.cli import decode, finetune
+    from ps_slm_tpu_torch.config import half_audio_configs
+    from ps_slm_tpu_torch.models.tasu import model_factory
+    from ps_slm_tpu_torch.tools import clean_marks, wer
+
+    what = "finetune chain"
+    counters = kernel_counters()
+    root = tempfile.mkdtemp(prefix="finetune_chain_")
+    try:
+        t0 = time.perf_counter()
+        tc, mc = half_audio_configs()
+        src = model_factory(tc, mc)                  # fp32 on the card, seed 42
+        assets = write_assets(torch, root, src, llm_dtype=torch.bfloat16,
+                              utts=CHAIN_UTTS["test"])
+        del src
+        torch.cuda.empty_cache()
+        write_bpe_model(assets["encoder_path"])
+        audio = {split: write_manifest(os.path.join(root, split), CHAIN_UTTS[split],
+                                       DECODE_SECONDS, seed=seed)
+                 for split, seed in (("train", 1), ("dev", 2))}
+        print(f"{what}: assets and manifests written in {time.perf_counter() - t0:.1f} s "
+              f"(train {sum(CHAIN_UTTS['train'].values())} utterances, {audio['train']:.2f} s; "
+              f"dev {sum(CHAIN_UTTS['dev'].values())}, {audio['dev']:.2f} s; test "
+              f"{sum(CHAIN_UTTS['test'].values())}, {assets['audio_seconds']:.2f} s)", flush=True)
+        cut = ["++train_config.num_epochs=1"]
+
+        def run(stage, args, profile_at=None):
+            torch.cuda.synchronize()
+            reset_counters(counters)
+            with TrainProbe(torch, dev, profile_at) as probe:
+                t = time.perf_counter()
+                rc = finetune.main(args)              # default device: cuda
+                wall = time.perf_counter() - t
+            if rc != 0:
+                fail(f"{what} {stage}: main returned {rc}")
+            launches[stage] = launch_counts(counters)
+            if not all(math.isfinite(x) for x in probe.losses()) or not probe.steps:
+                fail(f"{what} {stage}: no steps or a non-finite loss {probe.losses()}")
+            return probe, wall
+
+        # 7a: the text-only recipe, then last/
+        out_a = os.path.join(root, "exp", "text_only")
+        dims = dict(llm_dim=mc.llm_dim, encoder_dim=mc.encoder_dim)
+        probe, wall = run("7a", finetune_args(assets, root, out_a, text_only=True, **dims) + cut + [
+            "++train_config.save_last=true"])
+        check_step_launches(probe, LAUNCHES_PER_TEXT_ONLY_STEP, LN_ROUTES_TEXT_ONLY, f"{what} 7a")
+        save = probe.saves[-1]
+        cases = {"7a": finetune_cases(torch, dev, probe.model, probe.largest[1], "finetune 7a")}
+        probe.model = probe.largest = None
+        torch.cuda.empty_cache()
+        print(f"{what} 7a (scripts/finetune_text_only.sh, 1 epoch): "
+              f"{probe.summary(audio_read=False)}; losses "
+              f"{[round(x, 4) for x in probe.losses()]}; last/ train state {save['bytes'] / 1e9:.3f} "
+              f"GB written in {save['s']:.2f} s; main {wall:.1f} s", flush=True)
+        init = os.path.join(out_a, "last", "pytorch_model.bin")
+
+        # 7b: the half_audio recipe from 7a's export, dither on
+        env_b = ["++train_config.validation_interval=%d" % CHAIN_VALIDATION] + cut
+        out_b = os.path.join(root, "exp", "half_audio")
+        args_b = [a if not a.startswith("ckpt_path=") else f"ckpt_path={init}"
+                  for a in finetune_args(assets, root, out_b, **dims)] + env_b
+        probe_b, wall = run("7b", args_b, profile_at=3)
+        model = probe_b.model
+        if model.fbank_cfg.dither <= 0 or model.remat:
+            fail(f"{what} 7b: dither off or remat on")
+        check_step_launches(probe_b, LAUNCHES_PER_TRAIN_STEP, LN_ROUTES_PER_PASS, f"{what} 7b")
+        cases["7b"] = finetune_cases(torch, dev, model, probe_b.largest[1], "finetune 7b")
+        n_b = len(probe_b.steps)
+        tags = sorted(p for p in os.listdir(out_b) if p.startswith("step_"))
+        if n_b <= CHAIN_VALIDATION or "step_%d" % CHAIN_VALIDATION not in tags:
+            fail(f"{what} 7b: {n_b} steps and checkpoints {tags}; want more than "
+                 f"{CHAIN_VALIDATION} steps and step_{CHAIN_VALIDATION}")
+        ev = probe_b.evals
+        print(f"{what} 7b (scripts/finetune_half_audio.sh from 7a's export, dither "
+              f"{model.fbank_cfg.dither}, 1 epoch, validation every {CHAIN_VALIDATION}): "
+              f"{probe_b.summary()}; losses {[round(x, 4) for x in probe_b.losses()]}; evals "
+              f"{[(e['batches'], round(e['loss'], 4), round(e['s'], 3)) for e in ev]} (batches, "
+              f"loss, s); checkpoints {tags}, train state "
+              f"{[(round(x['bytes'] / 1e9, 3), round(x['s'], 2)) for x in probe_b.saves]} (GB, s "
+              f"written); main {wall:.1f} s", flush=True)
+        print_profiled(f"{what} 7b loop step (micro-step 4)", probe_b.prof)
+        if step_5b_prof is not None:
+            print_profiled("for comparison, phase 5b's bench.py step", step_5b_prof)
+        del model
+        probe_b.model = probe_b.largest = None
+        torch.cuda.empty_cache()
+
+        # 7b resumed from step_2: skips 2 batches, reproduces the later losses
+        out_r = os.path.join(root, "exp", "half_audio_resumed")
+        state = os.path.join(out_b, "step_%d" % CHAIN_VALIDATION, "state")
+        args_r = [a.replace(out_b, out_r) for a in args_b] + [f"++train_config.resume_from={state}"]
+        probe_r, wall = run("7b resumed", args_r)
+        check_step_launches(probe_r, LAUNCHES_PER_TRAIN_STEP, LN_ROUTES_PER_PASS,
+                            f"{what} 7b resumed")
+        skipped = f"skipping {CHAIN_VALIDATION} trained batches" in read_log(
+            os.path.join(out_r, "train.log"))
+        want = probe_b.losses()[CHAIN_VALIDATION:]
+        got = probe_r.losses()
+        same = got == want
+        print(f"{what} 7b resumed from step_{CHAIN_VALIDATION}: {probe_r.summary()}; reported "
+              f"skipping {CHAIN_VALIDATION} batches {skipped}; fast-forward {probe_r.ff_s:.3f} s; "
+              f"restore {probe_r.restores[0]['s']:.2f} s; losses {got} vs uninterrupted {want}: "
+              f"{'bit-identical' if same else 'DIFFERENT'}; main {wall:.1f} s [{CARD}]", flush=True)
+        if not (skipped and same):
+            fail(f"{what} 7b: the resumed run did not skip {CHAIN_VALIDATION} batches or did "
+                 f"not reproduce the later losses")
+        shutil.rmtree(out_r, ignore_errors=True)
+
+        # 7c: remat, gradient accumulation 2, SpecAugment
+        out_c = os.path.join(root, "exp", "half_audio_remat")
+        args_c = [a.replace(out_b, out_c) for a in args_b] + [
+            "++train_config.remat=true", "++train_config.gradient_accumulation_steps=2",
+            "++dataset_config.fbank.specaug=true", "++train_config.run_validation=false",
+            "++train_config.save_model=false"]
+        frozen = {}
+
+        def snapshot(*args, **kwargs):
+            step = real_make(*args, **kwargs)
+            frozen.update({n: p.detach().cpu().clone() for n, p in step.model.named_parameters()
+                           if n not in step.trainable})
+            frozen["_step"] = step
+            return step
+
+        from ps_slm_tpu_torch.training import step as step_mod
+
+        real_make = step_mod.make_train_step
+        step_mod.make_train_step = snapshot
+        try:
+            probe_c, wall = run("7c", args_c)
+        finally:
+            step_mod.make_train_step = real_make
+        step_c = frozen.pop("_step")
+        check_step_launches(probe_c, LAUNCHES_PER_REMAT_STEP, LN_ROUTES_PER_PASS, f"{what} 7c")
+        params = dict(step_c.model.named_parameters())
+        same_frozen = all(torch.equal(params[n].cpu(), p) for n, p in frozen.items())
+        moved = step_c.accum.gradient_step == len(probe_c.steps) // 2
+        print(f"{what} 7c (remat, gradient_accumulation_steps 2, SpecAugment): "
+              f"{probe_c.summary()}; AdamW updates {step_c.accum.gradient_step} over "
+              f"{len(probe_c.steps)} micro-steps; {len(frozen)} frozen tensors "
+              f"{'bit-identical' if same_frozen else 'CHANGED'}; peak memory remat off "
+              f"{max(s['peak'] for s in probe_b.steps):.2f} GB, on "
+              f"{max(s['peak'] for s in probe_c.steps):.2f} GB; main {wall:.1f} s", flush=True)
+        if not (same_frozen and moved):
+            fail(f"{what} 7c: a frozen weight changed or the updates were not every 2nd micro-step")
+        del step_c, params, frozen
+        torch.cuda.empty_cache()
+
+        # 7d: decode 7b's export, then clean_marks and WER
+        export = os.path.join(out_b, tags[-1], "pytorch_model.bin")
+        log = os.path.join(root, "decode", "test")
+        args_d = [a if not a.startswith("ckpt_path=") else f"ckpt_path={export}"
+                  for a in decode_args(assets, log, DECODE_MAX_NEW, **dims)]
+        torch.cuda.synchronize()
+        reset_counters(counters)
+        t = time.perf_counter()
+        rc = decode.main(args_d)
+        wall = time.perf_counter() - t
+        launches["7d"] = launch_counts(counters)
+        if rc != 0:
+            fail(f"{what} 7d: decode main returned {rc}")
+        for path in (log + "_pred", log + "_gt"):
+            clean_marks.clean_file(path)
+        with open(os.devnull, "w") as null:
+            score = wer.score_files(log + "_gt", log + "_pred", stream=null)
+        with open(log + "_pred") as f:
+            n_pred = sum(1 for line in f if "\t" in line)
+        print(f"{what} 7d (cli.decode on 7b's {tags[-1]} export): {n_pred} utterances decoded in "
+              f"{wall:.1f} s; WER {score['wer']:.2f}% (random weights: meaningless) [{CARD}]",
+              flush=True)
+        if n_pred != sum(CHAIN_UTTS["test"].values()):
+            fail(f"{what} 7d: {n_pred} utterances decoded")
+        return {"step": probe_b.steps[0]["launches"], "remat": probe_c.steps[0]["launches"],
+                "eval": {k: v // ev[0]["batches"] for k, v in ev[0]["launches"].items()},
+                "cases": cases}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 def reset_counters(counters) -> None:
@@ -1783,6 +2451,8 @@ def main() -> None:
     except (OSError, subprocess.SubprocessError, IndexError) as e:
         fail(f"nvidia-smi: {e}")
     print(f"card: {card}", flush=True)
+    global CARD
+    CARD = card
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1810,10 +2480,11 @@ def main() -> None:
     phase_train_fp32(torch, dev)
     phase_beam_text_only_fp32(torch, dev)
     phase_decode_cli_fp32(torch, dev)
+    phase_finetune_cli_fp32(torch, dev)
     gen_launches: dict = {}
     model = phase_main(torch, dev, gen_launches)
     train_launches: dict = {}
-    phase_train_main(torch, dev, model, train_launches)
+    step_5b_prof = phase_train_main(torch, dev, model, train_launches)
     beam_launches: dict = {}
     phase_main(torch, dev, beam_launches, model, beam=True)
     text_launches: dict = {}
@@ -1823,6 +2494,12 @@ def main() -> None:
     cli_launches: dict = {}
     cli_per_batch, cli_flash, cli_norm = phase_decode_cli(torch, dev, cli_launches)
     phase_kernels(torch, dev, results, cli_flash, cli_norm)
+    chain_launches: dict = {}
+    chain_per_step = phase_finetune_chain(torch, dev, chain_launches, step_5b_prof)
+    for stage, cases in chain_per_step["cases"].items():
+        phase_kernels(torch, dev, results, cases["flash"], cases["norm"], f"finetune {stage}")
+        phase_kernels_bwd(torch, dev, results, cases["flash_bwd"], cases["norm_bwd"],
+                          f"finetune {stage}")
 
     # (name, its launch count, the CUDA kernel it launches at the main
     # paths' bf16 shapes, source, TPU kernel it replaces, the rows of phase
@@ -1851,7 +2528,7 @@ def main() -> None:
                                                     "795x1536")),
     )
     # phase 6's largest batch, as phase 3 labelled its rows
-    cli_rows = {
+    path_rows: dict = {
         "flash_attention_fwd": [c[0] for c in cli_flash],
         "layer_norm_fwd (vec)": [f"{n}x{d}" for w, n, d, _ in cli_norm
                                  if w == "layer_norm_fwd" and d < 25055],
@@ -1859,21 +2536,38 @@ def main() -> None:
                                     if w == "layer_norm_fwd" and d == 25055],
         "rms_norm_fwd": [f"{n}x{d}" for w, n, d, _ in cli_norm if w == "rms_norm_fwd"],
     }
+    # phase 7's largest batches, as phases 3 labelled their rows
+    for stage, cases in chain_per_step["cases"].items():
+        tag = f"finetune {stage}"
+        flash = [c[0] for c in cases["flash"]]
+        for name in ("flash_attention_fwd", "flash_attention_dq", "flash_attention_dkv"):
+            path_rows.setdefault(name, []).extend(flash if name.endswith("fwd") else
+                                                 [c[0] for c in cases["flash_bwd"]])
+        for w, n, d, kind in cases["norm"] + cases["norm_bwd"]:
+            label = f"{tag} {n}x{d}" + (f" {kind}" if kind else "")
+            name = (f"{w} ({'staged' if d == 25055 else 'vec'})" if w == "layer_norm_fwd" else w)
+            path_rows.setdefault(name, []).append(label)
+            if w == "rms_norm_bwd":
+                path_rows[name].append(f"{label} frozen w")
     kernels = []
     for name, count, kernel, source, replaces, shapes in table:
-        shapes = shapes + tuple(cli_rows.get(name, ()))
+        shapes = shapes + tuple(path_rows.get(name, ()))
         rows = [r for r in results[name.split()[0]]["shapes"] if r["shape"] in shapes]
         row = next(r for r in rows if r["shape"] == shapes[0] and r["dtype"] == "bf16")
         kernels.append({
             "name": name, "kernel": kernel, "route": "cuda", "source": source,
             "replaces": replaces,
             "launches": sum(runs[count] for runs in (gen_launches, train_launches,
-                                                     beam_launches, text_launches, cli_launches)),
+                                                     beam_launches, text_launches, cli_launches))
+            + sum(runs[count] for runs in chain_launches.values()),
             "launches_per_generate": gen_launches[count],
             "launches_per_train_step": train_launches[count] // TRAIN_STEPS,
             "launches_per_beam_generate": beam_launches[count],
             "launches_per_text_only_step": text_launches[count] // TRAIN_STEPS,
             "launches_per_decode_cli_batch": cli_per_batch[count],
+            "launches_per_finetune_step": chain_per_step["step"][count],
+            "launches_per_finetune_step_remat": chain_per_step["remat"][count],
+            "launches_per_validation_batch": chain_per_step["eval"][count],
             "max_abs_err": max(r["err"] for r in rows),
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],

@@ -4,9 +4,13 @@ A copy of ``ps_slm_tpu/config.py`` with the same names and defaults:
 ``FbankConfig``, ``DataConfig``, ``LogConfig`` and ``RunConfig`` whole;
 ``ModelConfig`` and ``TrainConfig`` with the fields the port reads; and the
 ``[++]section.key=value`` override parser (``parse_cli``) that the CLIs
-take.  Fields of modules not ported yet (PEFT settings, the mesh, the
-serving router) come with their slices; an override that names one raises
-``KeyError`` like any unknown key.
+take, and :func:`dump`, which writes a run's resolved config.  A field is
+here when the port reads it; a field whose feature is not ported yet
+(``mesh_shape``, ``use_peft``, ``quantization``) parses and raises where it
+would act, naming its ROADMAP.md item.  Other fields of the JAX configs (the
+PEFT and quantization settings, layer freezing, the sharding knobs) come
+with their slices; an override that names one raises ``KeyError`` like any
+unknown key.
 """
 
 from __future__ import annotations
@@ -62,21 +66,28 @@ class ModelConfig:
 
 @dataclass
 class TrainConfig:
-    seed: int = 42
+    run_validation: bool = True
+    batch_size_training: Optional[int] = None   # the "padding" strategy's batch
+    batching_strategy: str = "dynamic"    # "dynamic" token budget | "padding"
+    gradient_accumulation_steps: int = 1  # optax.MultiSteps semantics
+    num_epochs: int = 3
     # optimizer and schedule (AdamW + warmup-cosine, conf/ds_config.json)
-    lr: float = 5e-5
     warmup_steps: int = 200
     total_steps: int = 15000
+    validation_interval: int = 1000
+    lr: float = 5e-5
     adam_beta1: float = 0.9
     adam_beta2: float = 0.999
     adam_eps: float = 1e-6
     weight_decay: float = 0.0
-    gradient_accumulation_steps: int = 1
-    remat: bool = False
+    seed: int = 42
+    mixed_precision: bool = True          # bf16 compute, fp32 norms/softmax
+    val_batch_size: Optional[int] = None  # the "padding" strategy's eval batch
     # TASU algorithm switches
     do_psd: bool = False
     ctc_posterior: bool = False
     voca_trans: bool = False
+    use_peft: bool = False
     gt_emb: bool = False
     gt_emb_noise: bool = False
     cross_attn: bool = False
@@ -85,16 +96,19 @@ class TrainConfig:
     insert_prob: float = 0.0
     smooth_low: float = 0.0
     smooth_high: float = 0.1
-    use_peft: bool = False
-    quantization: bool = False
     # freezing
     freeze_llm: bool = False
     freeze_encoder: bool = False
     freeze_projector: bool = False
+    # run
+    output_dir: str = "out"
+    quantization: bool = False
+    save_model: bool = True               # step_N/ on a new best eval loss
+    save_last: bool = False               # last/ at the end of training
+    resume_from: Optional[str] = None     # a train-state directory (step_N/state)
+    mesh_shape: Optional[dict] = None     # not ported: the finetune CLI raises on it
+    remat: bool = False                   # activation checkpointing of the blocks
     # decode
-    mixed_precision: bool = True          # bf16 compute, fp32 norms/softmax
-    batching_strategy: str = "dynamic"    # "dynamic" token budget | "padding"
-    val_batch_size: Optional[int] = None  # the "padding" strategy's batch
     max_new_tokens: int = 200
     num_beams: int = 4
     do_sample: bool = False
@@ -260,6 +274,12 @@ def to_dict(cfg: Any) -> Any:
     if isinstance(cfg, (list, tuple)):
         return [to_dict(v) for v in cfg]
     return cfg
+
+
+def dump(cfg: Any, path: str) -> None:
+    """Write ``cfg`` as indented JSON (a run's ``resolved_config.json``)."""
+    with open(path, "w") as f:
+        json.dump(to_dict(cfg), f, indent=2, default=str)
 
 
 # the shapes of the benchmarked training step (bench.py): utterances per

@@ -12,8 +12,19 @@ import math
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ps_slm_tpu_torch.ops.norms import LayerNormFn
+
+
+def run_block(layer: nn.Module, remat: bool, *args) -> torch.Tensor:
+    """``layer(*args)``; with ``remat``, under ``torch.utils.checkpoint``:
+    nothing inside is saved for the backward, which runs the block again
+    (the JAX ``jax.checkpoint`` of the block body).  The blocks draw no
+    random numbers, so no RNG state is kept."""
+    if remat:
+        return checkpoint(layer, *args, use_reentrant=False, preserve_rng_state=False)
+    return layer(*args)
 
 
 def layer_norm(

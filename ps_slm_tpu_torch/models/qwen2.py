@@ -32,7 +32,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ps_slm_tpu_torch._build import resolve_device
-from ps_slm_tpu_torch.models.layers import normal_
+from ps_slm_tpu_torch.models.layers import normal_, run_block
 from ps_slm_tpu_torch.ops.attention import attention, decode_attention
 from ps_slm_tpu_torch.ops.norms import RMSNormFn
 
@@ -189,6 +189,8 @@ class Qwen2Model(nn.Module):
             None if cfg.tie_word_embeddings
             else nn.Linear(cfg.hidden_size, cfg.vocab_size, bias=False)
         )
+        # activation checkpointing of each block while gradients are recorded
+        self.remat = False
 
     def embed(self, input_ids: torch.Tensor) -> torch.Tensor:
         return self.embed_tokens(input_ids)
@@ -206,16 +208,17 @@ class Qwen2Model(nn.Module):
         cache_index: Optional[int] = None,
     ) -> Tuple[torch.Tensor, Optional[KVCache]]:
         """Run the decoder stack: (last hidden after the final norm, cache).
+        With ``remat`` and no cache, while gradients are recorded, each block
+        is recomputed in the backward (:func:`run_block`).
 
         attention_mask: [B,S] without a cache, [B,capacity] with one.
         position_ids: [B,S] (the merge's, or the next positions in decode).
         """
         x = inputs_embeds
+        remat = self.remat and cache is None and torch.is_grad_enabled()
         for i, layer in enumerate(self.layers):
-            x = layer(
-                x, position_ids, attention_mask,
-                None if cache is None else cache[i], cache_index,
-            )
+            x = run_block(layer, remat, x, position_ids, attention_mask,
+                          None if cache is None else cache[i], cache_index)
         return self.norm(x), cache
 
     @torch.no_grad()

@@ -19,7 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ps_slm_tpu_torch.models.layers import LayerNorm, linear_init_, normal_, uniform_
+from ps_slm_tpu_torch.models.layers import LayerNorm, linear_init_, normal_, run_block, uniform_
 from ps_slm_tpu_torch.ops.attention import attention
 
 
@@ -126,6 +126,9 @@ class SenseVoiceEncoder(nn.Module):
         self.tp_norm = LayerNorm(d)
         self.ctc_lo = nn.Linear(d, cfg.vocab_size)
         self.query_embed = nn.Parameter(torch.empty(cfg.n_query_embed, cfg.input_size))
+        # activation checkpointing of each block while gradients are recorded
+        # (a frozen encoder records none, so it changes nothing there)
+        self.remat = False
 
     def forward(
         self, xs: torch.Tensor, lens: torch.Tensor
@@ -139,11 +142,12 @@ class SenseVoiceEncoder(nn.Module):
         pe = sinusoidal_pe(t, cfg.input_size, xs.device)
         xs = (xs.float() + pe[None]).to(xs.dtype)
         xs = self.encoders0(xs, mask)
+        remat = self.remat and torch.is_grad_enabled()
         for layer in self.encoders:
-            xs = layer(xs, mask)
+            xs = run_block(layer, remat, xs, mask)
         xs = self.after_norm(xs)
         for layer in self.tp_encoders:
-            xs = layer(xs, mask)
+            xs = run_block(layer, remat, xs, mask)
         return self.tp_norm(xs), lens
 
     def ctc_logits(self, hidden: torch.Tensor) -> torch.Tensor:

@@ -18,9 +18,14 @@ posterior simulated from the transcript ids in the batch (``gt_ids``,
 encoder does not run.
 
 Audio enters as LFR features (``input_features``) or as waveforms
-(``waveform``, int16 or fp32, and ``waveform_length``), which the eval
-front end (``ops/fbank.py``: fbank, LFR, the model's CMVN) turns into
-features on the device.
+(``waveform``, int16 or fp32, and ``waveform_length``), which the front
+end (``ops/fbank.py``: fbank, LFR, the model's CMVN; dither and
+SpecAugment in training) turns into features on the device.
+
+``model.remat`` checkpoints each transformer block of the LLM and the
+encoder while gradients are recorded (``torch.utils.checkpoint``, no
+saved residuals, as the JAX ``jax.checkpoint`` of the block body): the
+backward recomputes each block's forward.
 
 The other branches of the JAX model (voca_trans, the cross-attention
 projector, the raw-feature baseline) raise ``NotImplementedError`` naming
@@ -34,7 +39,7 @@ from __future__ import annotations
 
 import time
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -45,7 +50,7 @@ from ps_slm_tpu_torch.models import projector as proj
 from ps_slm_tpu_torch.models.qwen2 import Qwen2Config, Qwen2Model, load_hf_checkpoint
 from ps_slm_tpu_torch.models.sensevoice import SenseVoiceConfig, SenseVoiceEncoder
 from ps_slm_tpu_torch.ops.ce_loss import chunked_ce_loss, full_ce_loss, gathered_ce_loss
-from ps_slm_tpu_torch.ops.fbank import frontend
+from ps_slm_tpu_torch.ops.fbank import FrontendDraws, frontend
 from ps_slm_tpu_torch.ops.merge import Merged, merge_audio_text
 from ps_slm_tpu_torch.ops.pseudo_posterior import (
     NoiseDraws, noise_draws, pseudo_posterior, pseudo_posterior_noise,
@@ -146,6 +151,14 @@ class TasuModel(nn.Module):
         self.cmvn_neg_mean, self.cmvn_inv_std = (
             torch.as_tensor(v, dtype=torch.float32).to(dev) for v in value)
 
+    @property
+    def remat(self) -> bool:
+        return self.llm.remat
+
+    @remat.setter
+    def remat(self, value: bool) -> None:
+        self.llm.remat = self.encoder.remat = bool(value)
+
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:
         self.llm.init_weights(generator)
@@ -172,21 +185,29 @@ def encode_speech(
     return hidden[:, n:], posterior[:, n:], (out_lens - n).clamp(min=0)
 
 
+Draws = Union[NoiseDraws, FrontendDraws]
+
+
 def compute_audio_embeds(
     model: TasuModel, batch: Dict[str, torch.Tensor], *, generate_mode: bool = False,
-    generator: Optional[torch.Generator] = None, draws: Optional[NoiseDraws] = None,
+    generator: Optional[torch.Generator] = None, draws: Optional[Draws] = None,
     train: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(audio embeds [B,A,H], lens [B]) from the audio posterior or, for
     text-only TASU, from the transcript ids.
 
     Audio comes as ``input_features`` or, through the front end, as
-    ``waveform``; the front end's training draws (dither, SpecAugment:
-    ``train`` and not ``generate_mode``) raise, not ported yet.  The
-    text-only noise (``gt_emb_noise``, off when ``generate_mode``) takes
-    ``draws`` when given, else draws them from ``generator``.
+    ``waveform``; the front end dithers and masks (as ``model.fbank_cfg``
+    asks) when ``train`` and not ``generate_mode``.  The text-only noise
+    (``gt_emb_noise``, off when ``generate_mode``) acts whatever ``train``
+    is.  Either takes ``draws`` (a ``NoiseDraws`` for the text-only noise, a
+    ``FrontendDraws`` for the front end) when given, else draws from
+    ``generator``.
     """
     f = model.flags
+    want = NoiseDraws if not f.needs_encoder else FrontendDraws
+    if draws is not None and not isinstance(draws, want):
+        raise TypeError(f"this branch takes {want.__name__}, not {type(draws).__name__}")
     if not f.needs_encoder:     # text-only TASU (gt_emb)
         ids, lens = batch["gt_ids"], batch["gt_lens"]
         vocab = model.enc_cfg.vocab_size
@@ -212,7 +233,8 @@ def compute_audio_embeds(
     else:
         feats, flens = frontend(
             batch["waveform"], batch["waveform_length"], cfg=model.fbank_cfg,
-            cmvn=model.cmvn, train=train and not generate_mode,
+            cmvn=model.cmvn, train=train and not generate_mode, generator=generator,
+            draws=draws,
         )
         feats = feats.to(model.llm.embed_tokens.weight.dtype)
     _, posterior, lens = encode_speech(model.encoder, feats, flens)
@@ -228,7 +250,7 @@ def compute_audio_embeds(
 def prepare_merged(
     model: TasuModel, batch: Dict[str, torch.Tensor], *, left_padding: bool = False,
     generate_mode: bool = False, generator: Optional[torch.Generator] = None,
-    draws: Optional[NoiseDraws] = None, train: bool = False,
+    draws: Optional[Draws] = None, train: bool = False,
 ) -> Merged:
     """Audio embeds merged into the text embeddings at the speech token."""
     audio_embeds, audio_lens = compute_audio_embeds(
@@ -246,7 +268,7 @@ def prepare_merged(
 
 def forward(
     model: TasuModel, batch: Dict[str, torch.Tensor], *, train: bool = True,
-    generator: Optional[torch.Generator] = None, draws: Optional[NoiseDraws] = None,
+    generator: Optional[torch.Generator] = None, draws: Optional[Draws] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Training forward: ``(loss, {"acc", "ntokens"})``.
 
@@ -262,11 +284,10 @@ def forward(
     3. full fp32 logits otherwise.
 
     ``train`` is the JAX flag for dither and SpecAugment, which act only on
-    the waveform front end and are not ported yet: with ``input_features``
-    it changes nothing, with a waveform batch and dither or SpecAugment
-    configured it raises.  The text-only noise stays on whatever ``train``
-    is, as in the JAX forward; it takes ``draws`` or draws from
-    ``generator``.
+    the waveform front end: with ``input_features`` it changes nothing.
+    The text-only noise stays on whatever ``train`` is, as in the JAX
+    forward.  The branch's draws come from ``draws`` or ``generator``
+    (:func:`compute_audio_embeds`).
     """
     if "labels" not in batch:
         raise ValueError("the training forward needs batch['labels']")
@@ -370,6 +391,7 @@ def model_factory(
     with torch.device("meta"):
         model = TasuModel(enc_cfg, llm_cfg, model_config, flags)
     model = model.to(dtype=dtype).to_empty(device=dev)
+    model.remat = train_config.remat
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(train_config.seed)
     model.init_weights(generator)

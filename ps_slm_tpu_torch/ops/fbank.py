@@ -34,19 +34,37 @@ LFR (funasr apply_lfr): left-pad (m-1)//2 copies of frame 0, stack m frames
 every n, repeat the last valid frame to fill the tail; T_lfr = ceil(T/n).
 CMVN (funasr apply_cmvn, Kaldi am.mvn): x := (x + neg_mean) * inv_stddev.
 
-Dither and SpecAugment (training) are not ported yet: ``frontend`` raises
-where they would act (ROADMAP.md queue 1, 'On-device front end').
+Training (``frontend(train=True)``) adds dither and SpecAugment, as the
+JAX front end does: ``dither * N(0, 1)`` noise on the int16-range frames
+before DC removal, then, after CMVN, time masks drawn inside each row's
+valid LFR frames and frequency masks over all bins, zero-filled.  The
+JAX functions draw from ``jax.random`` inside; torch's generators cannot
+reproduce those draws, so here every random number of one call comes in a
+:class:`FrontendDraws` (tests feed the JAX draws recomputed from the same
+key) or is drawn by :func:`frontend_draws` from a ``torch.Generator`` on
+the waveform's device.  The fp32 noise is added to the float64 frames.
 """
 
 from __future__ import annotations
 
 from functools import lru_cache
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 EPS = 1.1920928955078125e-07  # torch float32 eps, the Kaldi log-energy floor
+
+
+class FrontendDraws(NamedTuple):
+    """The random numbers of one training front end call; a field is None
+    when its augmentation is off."""
+
+    dither: Optional[torch.Tensor] = None     # [B, T, frame_len] fp32 N(0, 1)
+    t_starts: Optional[torch.Tensor] = None   # [B, t_masks] in [0, max(lfr_len, 1))
+    t_widths: Optional[torch.Tensor] = None   # [B, t_masks] in [0, t_width]
+    f_starts: Optional[torch.Tensor] = None   # [B, f_masks] in [0, D)
+    f_widths: Optional[torch.Tensor] = None   # [B, f_masks] in [0, f_width]
 
 
 def _mel(freq):
@@ -112,25 +130,32 @@ def fbank(
     remove_dc: bool = True,
     low_freq: float = 0.0,
     high_freq: float = 8000.0,
+    dither: float = 0.0,
+    noise: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Batched Kaldi log-mel fbank: ([B, T, num_mel_bins] fp32, frame
     lengths [B] int32), computed in float64 (see the module docstring).  T
     is the frame count of the padded N; a row's valid frames are
-    ``1 + (len - frame_len) // shift`` (0 when len < frame_len)."""
+    ``1 + (len - frame_len) // shift`` (0 when len < frame_len).  With
+    ``dither`` > 0 and ``noise`` (N(0, 1) of shape [B, T, frame_len]),
+    ``dither * noise`` is added to the int16-range frames before DC
+    removal."""
     b, n = waveform.shape
     dev = waveform.device
     frame_len = sample_rate * frame_length_ms // 1000
     shift = sample_rate * frame_shift_ms // 1000
     fft_len = 1 << max(frame_len - 1, 1).bit_length()  # 400 -> 512
 
-    num_frames = max(1 + (n - frame_len) // shift, 0)
-    frame_lens = (1 + torch.div(lengths.to(dev) - frame_len, shift, rounding_mode="floor")
-                  ).clamp(min=0).to(torch.int32)
+    num_frames, frame_lens = framing(n, lengths.to(dev), frame_len, shift)
 
     x = waveform.double() * 32768.0  # int16 range (funasr)
     idx = (torch.arange(num_frames, device=dev)[:, None] * shift
            + torch.arange(frame_len, device=dev)[None])         # [T, L]
     frames = x[:, idx]                                          # [B, T, L]
+    if dither > 0.0 and noise is not None:
+        if noise.shape != frames.shape:
+            raise ValueError(f"dither noise {tuple(noise.shape)}, frames {tuple(frames.shape)}")
+        frames = frames + dither * noise.to(dev, torch.float64)
     if remove_dc:
         frames = frames - frames.mean(dim=-1, keepdim=True)
     if preemphasis > 0.0:
@@ -167,8 +192,7 @@ def lfr(
     hi = (lens - 1).clamp(min=0)[:, None, None]                   # [B, 1, 1]
     idx = torch.minimum(base[None].clamp(min=0), hi)              # [B, T', m]
     out = torch.gather(feats, 1, idx.reshape(b, t_lfr * m, 1).expand(-1, -1, d))
-    out_lens = torch.div(lens + n - 1, n, rounding_mode="floor")
-    return out.reshape(b, t_lfr, m * d), out_lens.to(torch.int32)
+    return out.reshape(b, t_lfr, m * d), lfr_lengths(lens, n)
 
 
 def load_cmvn(path: str) -> Tuple[np.ndarray, np.ndarray]:
@@ -201,6 +225,82 @@ def apply_cmvn(feats: torch.Tensor, neg_mean, inv_std) -> torch.Tensor:
     return (feats + neg_mean) * inv_std
 
 
+def framing(num_samples: int, lengths: torch.Tensor, frame_len: int, shift: int
+            ) -> Tuple[int, torch.Tensor]:
+    """Kaldi snip_edges framing: (frames of a waveform padded to
+    ``num_samples``, int32 valid frames of each row of ``lengths``
+    samples), each ``1 + (samples - frame_len) // shift`` and at least 0."""
+    num_frames = max(1 + (num_samples - frame_len) // shift, 0)
+    lens = (1 + torch.div(lengths - frame_len, shift, rounding_mode="floor")).clamp(min=0)
+    return num_frames, lens.to(torch.int32)
+
+
+def lfr_lengths(lens: torch.Tensor, n: int) -> torch.Tensor:
+    """int32 LFR frames of rows of ``lens`` frames, one every ``n``."""
+    return torch.div(lens.long() + n - 1, n, rounding_mode="floor").to(torch.int32)
+
+
+def _randint(shape, high: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """Integers uniform in [0, high) (``high`` >= 1, broadcast to ``shape``)."""
+    u = torch.rand(shape, generator=generator, device=generator.device, dtype=torch.float64)
+    return torch.minimum((u * high).floor().long(), high - 1)
+
+
+def mask_draws(lfr_lens: torch.Tensor, feat_dim: int, generator: torch.Generator, cfg
+               ) -> Tuple[torch.Tensor, ...]:
+    """SpecAugment's (t_starts, t_widths, f_starts, f_widths) for rows of
+    ``lfr_lens`` valid LFR frames: starts uniform inside each row's valid
+    frames (at least [0, 1)) and over the ``feat_dim`` bins, widths uniform
+    in [0, width], as the JAX ``spec_augment`` draws them."""
+    dev = generator.device
+    b = lfr_lens.shape[0]
+    t_lim = lfr_lens.to(dev).long().clamp(min=1)[:, None]
+    t_starts = _randint((b, cfg.specaug_t_masks), t_lim, generator)
+    t_widths = _randint((b, cfg.specaug_t_masks), torch.tensor(cfg.specaug_t_width + 1, device=dev),
+                        generator)
+    f_starts = _randint((b, cfg.specaug_f_masks), torch.tensor(feat_dim, device=dev), generator)
+    f_widths = _randint((b, cfg.specaug_f_masks), torch.tensor(cfg.specaug_f_width + 1, device=dev),
+                        generator)
+    return t_starts, t_widths, f_starts, f_widths
+
+
+def frontend_draws(waveform: torch.Tensor, lengths: torch.Tensor, generator: torch.Generator,
+                   cfg) -> FrontendDraws:
+    """Every draw of one ``frontend(train=True)`` call under ``cfg``, from
+    ``generator`` (on the waveform's device): the dither noise when
+    ``cfg.dither`` > 0, the masks when ``cfg.specaug``."""
+    b, n = waveform.shape
+    frame_len = cfg.sample_rate * cfg.frame_length // 1000
+    t, flens = framing(n, lengths.to(generator.device), frame_len,
+                       cfg.sample_rate * cfg.frame_shift // 1000)
+    dither = None
+    if cfg.dither > 0.0:
+        dither = torch.randn((b, t, frame_len), generator=generator, device=generator.device)
+    if not cfg.specaug:
+        return FrontendDraws(dither)
+    return FrontendDraws(dither, *mask_draws(lfr_lengths(flens, cfg.lfr_n),
+                                             cfg.num_mel_bins * cfg.lfr_m, generator, cfg))
+
+
+def spec_augment(feats: torch.Tensor, lens: torch.Tensor, draws: FrontendDraws) -> torch.Tensor:
+    """SpecAugment time and frequency masking, zero fill: frame t of a row
+    is masked when some time mask covers it (start <= t < start + width)
+    and t < the row's length; bin f when some frequency mask covers it."""
+    b, t, d = feats.shape
+    dev = feats.device
+
+    def hit(starts, widths, size):
+        pos = torch.arange(size, device=dev)[None, None, :]
+        starts, widths = starts.to(dev)[..., None], widths.to(dev)[..., None]
+        return ((pos >= starts) & (pos < starts + widths)).any(dim=1)   # [B, size]
+
+    t_mask = hit(draws.t_starts, draws.t_widths, t) & (
+        torch.arange(t, device=dev)[None] < lens.to(dev)[:, None])
+    f_mask = hit(draws.f_starts, draws.f_widths, d)
+    out = torch.where(t_mask[..., None], 0.0, feats)
+    return torch.where(f_mask[:, None, :], 0.0, out)
+
+
 def frontend(
     waveform: torch.Tensor,
     lengths: torch.Tensor,
@@ -208,22 +308,29 @@ def frontend(
     cfg=None,
     cmvn: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     train: bool = False,
+    generator: Optional[torch.Generator] = None,
+    draws: Optional[FrontendDraws] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """funasr WavFrontend's pipeline: fbank -> LFR -> CMVN, on the
     waveform's device, fp32 out.  int16 waveforms (the wire format) are rescaled to
     [-1, 1] here, so the round trip of 16-bit sources is exact.  Returns
     ([B, T', num_mel_bins * lfr_m], lengths [B] int32).
 
-    ``train`` with dither or SpecAugment configured raises: their draws are
-    not ported yet."""
+    ``train`` adds dither (``cfg.dither`` > 0) and SpecAugment
+    (``cfg.specaug``), from ``draws`` when given, else drawn from
+    ``generator``; without ``train`` neither acts."""
     from ps_slm_tpu_torch.config import FbankConfig
 
     cfg = cfg or FbankConfig()
-    if train and (cfg.dither > 0.0 or cfg.specaug):
-        raise NotImplementedError(
-            "dither and SpecAugment (the training front end) are not ported "
-            "yet (ROADMAP.md queue 1, 'On-device front end')"
-        )
+    augment = train and (cfg.dither > 0.0 or cfg.specaug)
+    if augment and draws is None:
+        if generator is None:
+            raise ValueError("the training front end (dither, SpecAugment) needs a generator "
+                             "or draws")
+        draws = frontend_draws(waveform, lengths, generator, cfg)
+    if augment and ((cfg.dither > 0.0 and draws.dither is None)
+                    or (cfg.specaug and draws.t_starts is None)):
+        raise ValueError("the draws lack the dither noise or the masks that cfg asks for")
     if waveform.dtype == torch.int16:
         waveform = waveform.float() / 32768.0
     feats, flens = fbank(
@@ -235,8 +342,12 @@ def frontend(
         window_type=cfg.window_type,
         low_freq=float(cfg.low_freq),
         high_freq=float(cfg.high_freq),
+        dither=cfg.dither if augment else 0.0,
+        noise=draws.dither if augment else None,
     )
     feats, flens = lfr(feats, flens, cfg.lfr_m, cfg.lfr_n)
     if cmvn is not None:
         feats = apply_cmvn(feats, cmvn[0], cmvn[1])
+    if augment and cfg.specaug:
+        feats = spec_augment(feats, flens, draws)
     return feats, flens

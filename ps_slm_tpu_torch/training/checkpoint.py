@@ -1,4 +1,4 @@
-"""Checkpoint import and export: funasr encoders and reference checkpoints.
+"""Checkpoints: funasr encoders, reference checkpoints and train states.
 
 Counterpart of the import half of ``ps_slm_tpu/training/checkpoint.py``
 and the exporter the tests and ``chip_smoke.py`` write files with:
@@ -14,14 +14,20 @@ and the exporter the tests and ``chip_smoke.py`` write files with:
     encoder each load whole or raise ``KeyError("partial ... checkpoint")``
     (the projector loads the keys it finds, as in the JAX package);
   * the linear-silu projector's reference key map
-    (:func:`projector_to_reference`, :func:`reference_to_projector`).
+    (:func:`projector_to_reference`, :func:`reference_to_projector`);
+  * :func:`save_train_state` / :func:`restore_train_state`: the whole
+    state of a training run (every parameter, AdamW's state, the
+    accumulated gradients, the micro-step count and the generator), as the
+    JAX package's Orbax train states hold it, so ``resume_from`` alone
+    restores the run.  The JAX package writes Orbax, which this package
+    does not read; the two hand weights to each other through the
+    reference ``pytorch_model.bin``.
 
 Files are read with ``torch.load(weights_only=True)``: state dicts of
 tensors, never arbitrary pickles.  Not ported yet: the pretrained CTC
 head (``ctc_linear``, on which the factory raises) and the other
 projectors' key maps (ROADMAP.md queue 1, 'Long tail'); the PEFT
-adapters (ROADMAP.md queue 1, 'PEFT and quantization'); the train-state
-save and restore (ROADMAP.md queue 1, 'Checkpoints and the training CLI').
+adapters (ROADMAP.md queue 1, 'PEFT and quantization').
 """
 
 from __future__ import annotations
@@ -288,3 +294,31 @@ def import_reference_checkpoint(model, path_or_tensors: Union[str, StateDict]) -
     state, proj_loaded = reference_to_projector(tensors, model.model_cfg.encoder_projector)
     model.projector.load_state_dict(state, strict=False)
     return loaded + proj_loaded
+
+
+TRAIN_STATE_FILE = "train_state.pt"
+
+
+def save_train_state(path: str, state) -> int:
+    """Write the train state of ``state`` (a ``training.step.TrainStep``)
+    into the directory ``path`` (``train_state.pt``: the model's state dict
+    and ``state.state_dict()``), through a temporary file renamed into
+    place.  Returns the bytes written."""
+    os.makedirs(path, exist_ok=True)
+    out = os.path.join(path, TRAIN_STATE_FILE)
+    tmp = f"{out}.{os.getpid()}.tmp"
+    torch.save({"model": state.model.state_dict(), "train": state.state_dict()}, tmp)
+    os.replace(tmp, out)
+    return os.path.getsize(out)
+
+
+def restore_train_state(path: str, state):
+    """Load a :func:`save_train_state` directory into ``state`` (a
+    ``TrainStep`` over a model of the same shapes) and its model, in
+    place; each tensor is copied into its parameter's dtype and device.
+    Returns ``state``."""
+    blob = torch.load(os.path.join(path, TRAIN_STATE_FILE), map_location="cpu",
+                      weights_only=True, mmap=True)
+    state.model.load_state_dict(blob["model"])
+    state.load_state_dict(blob["train"])
+    return state

@@ -11,22 +11,35 @@ port's kernels, forward and backward (``ops/norms.py``,
 ``ops/flash_attention.py``); the frozen encoder builds no autograd graph,
 so its kernels run forward only.
 
-Randomness (the text-only CPS noise) comes from a ``torch.Generator`` on
-the step's device, seeded with ``train_config.seed``: one draw a step.
+``train_config.remat`` acts through the model, whose factory sets it
+(``models/tasu.py::model_factory``: the blocks are recomputed in the
+backward); ``gradient_accumulation_steps`` > 1 accumulates with optax.MultiSteps
+semantics (``training/train_state.py::MultiSteps``).  ``TrainStep.step``
+counts micro-steps, as the JAX ``TrainState.step`` does.
+
+Randomness (the text-only CPS noise, the front end's dither and
+SpecAugment) comes from one ``torch.Generator`` on the step's device,
+seeded with ``train_config.seed`` and drawn from in sequence.  The JAX
+step folds the step count into a fixed key instead, so its resume needs no
+RNG state; here :meth:`TrainStep.state_dict` carries the generator's state
+(with the step, the optimizer and the accumulated gradients), so a resumed
+run draws what the uninterrupted one would have, and one generator stays
+what a captured CUDA graph would own.
 The eval step draws from a generator seeded 0 on every call, a fixed key
 per call as the JAX eval's ``PRNGKey(0)``.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Union
 
 import torch
 
 from ps_slm_tpu_torch._build import resolve_device
 from ps_slm_tpu_torch.models import tasu
+from ps_slm_tpu_torch.ops.fbank import FrontendDraws
 from ps_slm_tpu_torch.ops.pseudo_posterior import NoiseDraws
-from ps_slm_tpu_torch.training.train_state import build_optimizer, warmup_cosine
+from ps_slm_tpu_torch.training.train_state import MultiSteps, build_optimizer, warmup_cosine
 
 Metrics = Dict[str, torch.Tensor]
 
@@ -40,13 +53,14 @@ def _on_device(model: tasu.TasuModel, device) -> torch.device:
 
 
 class TrainStep:
-    """``batch -> {"loss", "acc", "ntokens"}``, one AdamW update per call.
+    """``batch -> {"loss", "acc", "ntokens"}``, one micro-step per call.
 
     Holds the optimizer (state for the trainable parameters only), the
-    schedule, the step count and the noise generator; the metrics are the
-    forward's, before the update, as device tensors (no host sync).
-    ``draws`` replaces the generator's draws for one call (tests feed the
-    JAX step's).
+    accumulation (``accum``, which sets the scheduled learning rate), the
+    micro-step count and the generator; the metrics are the forward's,
+    before the update, as device tensors (no host sync).  ``draws``
+    replaces the generator's draws for one call (tests feed the JAX
+    step's).
     """
 
     def __init__(self, model: tasu.TasuModel, train_config, device):
@@ -57,36 +71,45 @@ class TrainStep:
         self.optimizer = build_optimizer(
             (params[n] for n in self.trainable), train_config
         )
-        self.schedule = warmup_cosine(
-            train_config.lr, train_config.warmup_steps, train_config.total_steps
+        self.accum = MultiSteps(
+            self.optimizer,
+            warmup_cosine(train_config.lr, train_config.warmup_steps, train_config.total_steps),
+            train_config.gradient_accumulation_steps,
         )
         self.step = 0
         self.generator = torch.Generator(device=device).manual_seed(train_config.seed)
 
     def __call__(
-        self, batch: Dict[str, torch.Tensor], draws: Optional[NoiseDraws] = None,
+        self, batch: Dict[str, torch.Tensor],
+        draws: Optional[Union[NoiseDraws, FrontendDraws]] = None,
     ) -> Metrics:
         batch = {k: v.to(self.device) for k, v in batch.items()}
-        for group in self.optimizer.param_groups:
-            group["lr"] = self.schedule(self.step)
         self.optimizer.zero_grad(set_to_none=True)
         loss, aux = tasu.forward(
             self.model, batch, train=True, generator=self.generator, draws=draws,
         )
         loss.backward()
-        self.optimizer.step()
+        self.accum.step()
         self.step += 1
         return {"loss": loss.detach(), "acc": aux["acc"], "ntokens": aux["ntokens"]}
+
+    def state_dict(self) -> Dict:
+        """What an exact resume needs besides the parameters: the
+        micro-step count, AdamW's state, the accumulation and the
+        generator's state."""
+        return {"step": self.step, "accum": self.accum.state_dict(),
+                "generator": self.generator.get_state()}
+
+    def load_state_dict(self, state: Dict) -> None:
+        self.step = state["step"]
+        self.accum.load_state_dict(state["accum"])
+        self.generator.set_state(state["generator"])
 
 
 def make_train_step(model: tasu.TasuModel, train_config, *, device="cuda") -> TrainStep:
     """The training step of ``model`` (which must already be on ``device``)
-    under ``train_config``'s freeze flags, optimizer and schedule."""
-    if train_config.remat:
-        raise NotImplementedError(
-            "remat (activation checkpointing of the transformer blocks) is not "
-            "ported yet (ROADMAP.md queue 1, 'Training options')"
-        )
+    under ``train_config``'s freeze flags, optimizer, schedule and gradient
+    accumulation (remat is the model's own, set by its factory)."""
     return TrainStep(model, train_config, _on_device(model, device))
 
 

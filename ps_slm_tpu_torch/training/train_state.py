@@ -12,12 +12,20 @@ moments, eps added outside the square root, and the decoupled weight decay
 lr * wd * p taken from the weight before the step.  The learning rate is
 set from :func:`warmup_cosine` before each update, at the step count
 before it, as optax evaluates its schedule: the first update has lr = 0.
+
+Gradient accumulation (``gradient_accumulation_steps`` k > 1) follows
+``optax.MultiSteps(adamw, every_k_schedule=k)``: :class:`MultiSteps` keeps
+the running mean of the micro-steps' gradients (``acc + (g - acc) / (n +
+1)``, optax's update), AdamW steps on every k-th micro-step only, on that
+mean, and the parameters do not move in between; the schedule is read at
+the count of applied updates (MultiSteps' inner count), not at the
+micro-step count.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Iterable
+from typing import Callable, Dict, Iterable
 
 import torch
 
@@ -47,12 +55,8 @@ def warmup_cosine(
 
 def build_optimizer(params: Iterable[torch.nn.Parameter], train_config) -> torch.optim.AdamW:
     """AdamW over ``params`` (the trainable ones only) with the config's
-    betas, eps and weight decay; the caller sets the lr before each step."""
-    if train_config.gradient_accumulation_steps > 1:
-        raise NotImplementedError(
-            "gradient_accumulation_steps > 1 (optax.MultiSteps) is not ported "
-            "yet (ROADMAP.md queue 1, 'Training options')"
-        )
+    betas, eps and weight decay; the caller sets the lr before each step
+    (:class:`MultiSteps` does)."""
     params = list(params)
     if not params:
         raise ValueError("no trainable parameters: every module is frozen")
@@ -61,3 +65,53 @@ def build_optimizer(params: Iterable[torch.nn.Parameter], train_config) -> torch
         betas=(train_config.adam_beta1, train_config.adam_beta2),
         eps=train_config.adam_eps, weight_decay=train_config.weight_decay,
     )
+
+
+class MultiSteps:
+    """Gradient accumulation over ``every_k`` micro-steps around
+    ``optimizer``, with the learning rate of ``schedule`` (optax.MultiSteps
+    semantics, module docstring).  Call :meth:`step` after each backward;
+    the parameters' ``.grad`` hold that micro-step's gradients."""
+
+    def __init__(self, optimizer: torch.optim.Optimizer, schedule: Callable[[int], float],
+                 every_k: int = 1):
+        if every_k < 1:
+            raise ValueError(f"gradient_accumulation_steps must be >= 1, got {every_k}")
+        self.optimizer, self.schedule, self.every_k = optimizer, schedule, every_k
+        self.params = [p for group in optimizer.param_groups for p in group["params"]]
+        self.mini_step = 0        # micro-steps folded into the running mean
+        self.gradient_step = 0    # AdamW updates applied (the schedule's count)
+        self.acc = None           # the running mean, one tensor a parameter (None: zeros)
+
+    def step(self) -> bool:
+        """Fold this micro-step's gradients in; on the ``every_k``-th, set
+        the learning rate at the applied-update count and step AdamW on the
+        mean.  Returns whether the parameters moved."""
+        if self.every_k > 1:
+            if self.acc is None:
+                self.acc = [torch.zeros_like(p) for p in self.params]
+            for a, p in zip(self.acc, self.params):
+                g = torch.zeros_like(p) if p.grad is None else p.grad
+                a.add_((g - a) / (self.mini_step + 1))
+            if self.mini_step < self.every_k - 1:
+                self.mini_step += 1
+                return False
+            for a, p in zip(self.acc, self.params):
+                p.grad = a
+            self.acc, self.mini_step = None, 0
+        for group in self.optimizer.param_groups:
+            group["lr"] = self.schedule(self.gradient_step)
+        self.optimizer.step()
+        self.gradient_step += 1
+        return True
+
+    def state_dict(self) -> Dict:
+        return {"optimizer": self.optimizer.state_dict(), "mini_step": self.mini_step,
+                "gradient_step": self.gradient_step,
+                "acc": None if self.acc is None else [a.clone() for a in self.acc]}
+
+    def load_state_dict(self, state: Dict) -> None:
+        self.optimizer.load_state_dict(state["optimizer"])
+        self.mini_step, self.gradient_step = state["mini_step"], state["gradient_step"]
+        self.acc = None if state["acc"] is None else [
+            a.to(p.device, p.dtype) for a, p in zip(state["acc"], self.params)]

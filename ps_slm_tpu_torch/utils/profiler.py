@@ -1,14 +1,41 @@
-"""Step timing and audio-seconds throughput.
+"""Profiler traces, step timing and audio-seconds throughput.
 
-Counterpart of ``ps_slm_tpu/utils/profiler.py::StepTimer``.  The caller
-makes the timed work finish before ``stop`` (a device-to-host copy of the
-result, or ``torch.cuda.synchronize()``).
+Counterpart of ``ps_slm_tpu/utils/profiler.py``: :func:`trace` records a
+``torch.profiler`` trace (host and, on CUDA, device activity) and writes
+it as a Chrome trace into ``profile_dir``; :class:`StepTimer` times steps
+on the host clock.  The timer measures what the host waited for: the
+caller makes the timed work finish before ``stop`` (a device-to-host copy
+of the result, or ``torch.cuda.synchronize()``) when it wants device time
+in it; the training loop does not, so its rates time dispatch.
 """
 
 from __future__ import annotations
 
+import contextlib
+import os
 import time
 from typing import Optional
+
+import torch
+
+
+@contextlib.contextmanager
+def trace(profile_dir: Optional[str]):
+    """``with trace("/tmp/profile"):`` records a ``torch.profiler`` trace
+    of the block into ``profile_dir/trace.json`` (Chrome trace format);
+    nothing when ``profile_dir`` is empty."""
+    if not profile_dir:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(profile_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
 
 
 class StepTimer:
@@ -36,6 +63,11 @@ class StepTimer:
                 self._times.pop(0)
                 self._audio.pop(0)
         self._last = None
+
+    @property
+    def steps_per_sec(self) -> float:
+        t = sum(self._times)
+        return len(self._times) / t if t else 0.0
 
     @property
     def seconds(self) -> float:

@@ -12,7 +12,11 @@ sum over every row, so their absolute tolerance is scaled by the row
 count's square root.  The repair test (gradients through the CUDA wrappers)
 holds the card's fp32 gradients at 1e-4 against a float64 reference by
 plain autograd: a whole attention and two norms.  The decode slice: the
-waveform front end and one small decode CLI run, card against CPU.
+waveform front end and one small decode CLI run, card against CPU.  The
+training slice: the front end's training draws made on the card (masks in
+bounds, the same features as the CPU with those draws), the prefetcher's
+side-stream copy under a busy stream, remat bit-identical to no remat, and
+a train-state save/restore that continues bit-identically.
 """
 
 import pytest
@@ -677,3 +681,136 @@ def test_decode_cli_on_card_matches_cpu(dev, tmp_path):
         with open(log + "_pred", "rb") as f:
             files[name] = f.read()
     assert files["card"] == files["cpu"] and files["card"].count(b"\n") == 5
+
+
+def _small_audio_model(dev, dtype=torch.float32, **train):
+    """A small audio-TASU model on the card (head dim 128, 560-wide input),
+    its LLM trainable so the backward runs through every LLM kernel."""
+    from ps_slm_tpu_torch.config import ModelConfig, TrainConfig
+    from ps_slm_tpu_torch.models.tasu import model_factory
+
+    llm = dict(vocab_size=1000, hidden_size=256, intermediate_size=512, num_hidden_layers=2,
+               num_attention_heads=4, num_key_value_heads=2, head_dim=128)
+    enc = dict(input_size=560, output_size=256, attention_heads=2, linear_units=512,
+               num_blocks=2, tp_blocks=1, vocab_size=600)
+    tc = TrainConfig(ctc_posterior=True, do_psd=True, freeze_encoder=True, seed=3,
+                     mixed_precision=dtype == torch.bfloat16, **train)
+    model = model_factory(tc, ModelConfig(llm_dim=256, encoder_dim=600, llm_config_overrides=llm,
+                                          encoder_config_overrides=enc), device=dev, dtype=dtype)
+    model.speech_token_id = 998
+    return tc, model
+
+
+def _waveform_batch(n=3, samples=16000, seed=0):
+    g_ = torch.Generator().manual_seed(seed)
+    ids = torch.randint(1, 900, (n, 12), generator=g_)
+    ids[:, 3] = 998
+    labels = ids.clone()
+    labels[:, :4] = -100
+    lens = torch.tensor([samples, samples - 3000, samples // 3][:n])
+    w = (torch.randn(n, samples, generator=g_) * 3000).round().clamp(-32768, 32767)
+    w = torch.where(torch.arange(samples)[None] < lens[:, None], w, 0).to(torch.int16)
+    return {"input_ids": ids, "attention_mask": torch.ones(n, 12, dtype=torch.bool),
+            "labels": labels, "waveform": w, "waveform_length": lens}
+
+
+def test_frontend_training_draws_on_card(dev):
+    """``frontend(train=True)`` with a generator on the card draws on the
+    card: dither noise [B, T, 400] fp32, widths in [0, w], time starts in
+    each row's valid LFR frames; the CPU front end fed the same draws gives
+    the same masks and features within 1e-3."""
+    from ps_slm_tpu_torch.config import FbankConfig
+    from ps_slm_tpu_torch.ops import fbank as fb
+
+    cfg = FbankConfig(specaug=True, specaug_t_width=5)
+    batch = _waveform_batch()
+    w, lens = batch["waveform"].to(dev), batch["waveform_length"].to(dev)
+    draws = fb.frontend_draws(w, lens, torch.Generator(device=dev).manual_seed(0), cfg)
+    assert all(t.device.type == "cuda" for t in draws)
+    assert draws.dither.shape == (3, 98, 400) and draws.dither.dtype == torch.float32
+    lfr = [-(-max(1 + (int(n) - 400) // 160, 0) // 6) for n in batch["waveform_length"]]
+    for row, n in enumerate(lfr):
+        assert bool((draws.t_starts[row] < max(n, 1)).all())
+    assert bool((draws.t_widths <= 5).all() & (draws.f_widths <= 10).all() & (draws.f_starts < 560).all())
+    got, glen = fb.frontend(w, lens, cfg=cfg, train=True, draws=draws)
+    want, wlen = fb.frontend(batch["waveform"], batch["waveform_length"], cfg=cfg, train=True,
+                             draws=fb.FrontendDraws(*(t.cpu() for t in draws)))
+    torch.cuda.synchronize()
+    assert torch.equal(glen.cpu(), wlen)
+    assert torch.equal(got.cpu() == 0, want == 0) and bool((want == 0).any())
+    torch.testing.assert_close(got.cpu(), want, atol=1e-3, rtol=0)
+
+
+def test_device_prefetch_copy_equals_host_batch_under_busy_stream(dev):
+    """The producer thread's pinned, non-blocking copies on a side stream,
+    made while the consumer's stream is busy with large products, arrive
+    equal to the host batches, in order."""
+    import numpy as np
+
+    from ps_slm_tpu_torch.data.prefetch import device_prefetch
+
+    rng = np.random.default_rng(0)
+    host = [{"x": rng.normal(size=(256, 1024)).astype(np.float32),
+             "ids": rng.integers(0, 100, size=(64,)), "key": f"b{i}"} for i in range(8)]
+    a = torch.randn(4096, 4096, device=dev)
+    seen = []
+    for h, d in device_prefetch(iter(host), dev, lambda b: {"x": b["x"], "ids": b["ids"]}):
+        for _ in range(4):
+            a = torch.tanh(a @ a * 1e-3)          # keeps the consumer's stream busy
+        seen.append((h["key"], d["x"].sum() - float(h["x"].sum()), d["ids"].cpu()))
+    torch.cuda.synchronize()
+    assert [k for k, _, _ in seen] == [f"b{i}" for i in range(8)]
+    for (_, diff, ids), h in zip(seen, host):
+        assert abs(float(diff)) < 1e-2 and torch.equal(ids, torch.from_numpy(h["ids"]))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_remat_is_bit_identical_on_card(dev, dtype):
+    """A training forward and backward with remat on and off: the same
+    loss and projector gradients bit for bit; remat adds one flash forward
+    a layer and two RMSNorm forwards a layer (the recomputed blocks)."""
+    from ps_slm_tpu_torch.models import tasu
+
+    batch = {k: v.to(dev) for k, v in _waveform_batch().items()}
+    out, launches = {}, {}
+    for remat in (False, True):
+        tc, model = _small_audio_model(dev, dtype)
+        model.remat = remat
+        tasu.trainable_mask(model, tc)
+        f0, r0 = fa.flash_attention_fwd.launches, norms.rms_norm_fwd.launches
+        loss, _ = tasu.forward(model, batch, generator=torch.Generator(device=dev).manual_seed(1))
+        loss.backward()
+        torch.cuda.synchronize()
+        launches[remat] = (fa.flash_attention_fwd.launches - f0, norms.rms_norm_fwd.launches - r0)
+        out[remat] = (loss.detach(), [p.grad.clone() for n, p in model.named_parameters()
+                                      if n.startswith("projector.")])
+    assert torch.equal(out[False][0], out[True][0])
+    assert all(torch.equal(a, b) for a, b in zip(out[False][1], out[True][1]))
+    assert launches[True] == (launches[False][0] + 2, launches[False][1] + 4)
+
+
+def test_train_state_round_trip_on_card(dev, tmp_path):
+    """Two steps, save, two more; a fresh step restored from the save
+    makes the same two steps bit for bit (the card generator's state, which
+    draws the dither and the masks, included)."""
+    from ps_slm_tpu_torch.config import FbankConfig
+    from ps_slm_tpu_torch.training import checkpoint as ckpt
+    from ps_slm_tpu_torch.training.step import make_train_step
+
+    batch = _waveform_batch()
+    runs = []
+    for restore in (False, True):
+        tc, model = _small_audio_model(dev, gradient_accumulation_steps=2, lr=1e-3,
+                                       warmup_steps=1)
+        model.fbank_cfg = FbankConfig(specaug=True)
+        step = make_train_step(model, tc, device=dev)
+        if restore:
+            ckpt.restore_train_state(str(tmp_path / "s"), step)
+        else:
+            for _ in range(3):
+                step(batch)
+            ckpt.save_train_state(str(tmp_path / "s"), step)
+        losses = [float(step(batch)["loss"]) for _ in range(2)]
+        runs.append((losses, [p.detach().clone() for p in model.parameters()]))
+    assert runs[0][0] == runs[1][0]
+    assert all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))

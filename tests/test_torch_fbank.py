@@ -105,11 +105,19 @@ def test_int16_wire_is_exact_for_16_bit_sources():
 
 
 def test_training_front_end_names_its_roadmap_item():
+    """The training front end is ported (tests/test_torch_frontend_train.py
+    holds it against the JAX one): with dither configured it needs a
+    generator or draws; with neither dither nor SpecAugment it is the eval
+    front end."""
     w, lens = _waves("int16")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, 'On-device front end'"):
+    with pytest.raises(ValueError, match="generator or draws"):
         fb.frontend(torch.from_numpy(w), torch.from_numpy(lens), train=True)
     cfg = config.FbankConfig(dither=0.0)
     out, _ = fb.frontend(torch.from_numpy(w), torch.from_numpy(lens), cfg=cfg, train=True)
+    assert torch.isfinite(out).all()
+    assert torch.equal(out, fb.frontend(torch.from_numpy(w), torch.from_numpy(lens))[0])
+    out, _ = fb.frontend(torch.from_numpy(w), torch.from_numpy(lens), train=True,
+                         generator=torch.Generator().manual_seed(0))
     assert torch.isfinite(out).all()
 
 
@@ -154,12 +162,14 @@ def test_waveform_batch_through_the_model_equals_jax():
             generate_mode=True)
     np.testing.assert_array_equal(glen.numpy(), np.asarray(wlen))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=ATOL)
-    # the training forward would dither: not ported
+    # the training forward dithers: from the step's generator
     batch = {"waveform": torch.from_numpy(w), "waveform_length": torch.from_numpy(lens),
              "input_ids": torch.zeros(len(LENS), 4, dtype=torch.long),
              "attention_mask": torch.ones(len(LENS), 4, dtype=torch.bool),
              "labels": torch.zeros(len(LENS), 4, dtype=torch.long)}
-    with pytest.raises(NotImplementedError, match="'On-device front end'"):
+    with pytest.raises(ValueError, match="generator or draws"):
         tasu.forward(pm, batch, train=True)
+    loss, _ = tasu.forward(pm, batch, train=True, generator=torch.Generator().manual_seed(0))
+    assert torch.isfinite(loss)
     pm.cmvn = None
     assert pm.cmvn is None

@@ -118,9 +118,9 @@ def test_decode_cli_defaults_to_cuda_and_raises_without_it(tmp_path):
 
 
 def test_decode_slice_not_ported_names_its_roadmap_item(tmp_path):
-    """ctc_linear, whisper, the training front end and the serving modes
-    raise NotImplementedError naming their ROADMAP.md item; HF transformers
-    tokenizers raise ImportError."""
+    """ctc_linear, whisper and the serving modes raise NotImplementedError
+    naming their ROADMAP.md item (the training front end is ported); HF
+    transformers tokenizers raise ImportError."""
     from ps_slm_tpu_torch.cli import decode
     from ps_slm_tpu_torch.config import DataConfig, FbankConfig
     from ps_slm_tpu_torch.data import dataset, tokenizer
@@ -135,8 +135,9 @@ def test_decode_slice_not_ported_names_its_roadmap_item(tmp_path):
     coll = dataset.Collator(tokenizer.StubTokenizer(), DataConfig(encoder="whisper"), True)
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, 'Long tail'"):
         coll(samples)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, 'On-device front end'"):
-        fbank.frontend(torch.zeros(1, 800), torch.tensor([800]), cfg=FbankConfig(), train=True)
+    out, _ = fbank.frontend(torch.zeros(1, 800), torch.tensor([800]), cfg=FbankConfig(),
+                            train=True, generator=torch.Generator().manual_seed(0))
+    assert torch.isfinite(out).all()
     for knob in ("continuous_batching", "speculative_ctc"):
         with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, 'Serving'"):
             decode.main([f"++train_config.{knob}=true", f"decode_log={tmp_path}/x"],
@@ -159,19 +160,27 @@ def test_train_entry_points_default_to_cuda_and_raise_without_it():
     with pytest.raises(RuntimeError, match="cuda"):
         train_step.make_eval_step(model)
     assert callable(train_step.make_train_step(model, tc, device="cpu"))
+    import inspect
+
+    from ps_slm_tpu_torch.cli import finetune
+
+    assert inspect.signature(finetune.main).parameters["device"].default == "cuda"
+    with pytest.raises(RuntimeError, match="cuda"):
+        finetune.main(["++train_config.ctc_posterior=true"])
 
 
-def test_training_options_not_ported_name_their_roadmap_item():
+def test_training_options_not_ported_name_their_roadmap_item(tmp_path, monkeypatch):
+    """remat and gradient accumulation are ported (they build a step); a
+    mesh, more than one process, PEFT and quantization raise, naming their
+    ROADMAP.md item, in the model, the step and the finetune CLI."""
+    from ps_slm_tpu_torch.cli import finetune
+
     mc = ModelConfig(encoder_dim=11, llm_dim=64)
     tc = TrainConfig(ctc_posterior=True, do_psd=True, freeze_llm=True, freeze_encoder=True)
-    model = tasu.model_factory(tc, mc, device="cpu")
-    for field, value, item in (
-        ("remat", True, "Training options"),
-        ("gradient_accumulation_steps", 2, "Training options"),
-    ):
-        bad = TrainConfig(**{**tc.__dict__, field: value})
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1, '{item}'"):
-            train_step.make_train_step(model, bad, device="cpu")
+    options = TrainConfig(**{**tc.__dict__, "remat": True, "gradient_accumulation_steps": 2})
+    model = tasu.model_factory(options, mc, device="cpu")
+    step = train_step.make_train_step(model, options, device="cpu")
+    assert model.remat and step.accum.every_k == 2
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, 'PEFT and quantization'"):
         tasu.trainable_mask(model, TrainConfig(**{**tc.__dict__, "use_peft": True}))
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, 'PEFT and quantization'"):
@@ -179,6 +188,18 @@ def test_training_options_not_ported_name_their_roadmap_item():
     all_frozen = TrainConfig(**{**tc.__dict__, "freeze_projector": True})
     with pytest.raises(ValueError, match="no trainable"):
         train_state.build_optimizer([], all_frozen)
+    base = [f"++train_config.output_dir={tmp_path}/out", f"++log_config.log_file={tmp_path}/log"]
+    for args, item in ((['++train_config.mesh_shape={"data": 2}'], "Parallelism"),
+                       (["++train_config.use_peft=true"], "PEFT and quantization"),
+                       (["++train_config.quantization=true"], "PEFT and quantization")):
+        with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1, '{item}'"):
+            finetune.main(base + args, device="cpu")
+    for env, value in (("PS_NUM_HOSTS", "2"), ("PS_COORDINATOR", "localhost:1234")):
+        with monkeypatch.context() as m:
+            m.setenv(env, value)
+            with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, 'Parallelism'"):
+                finetune.main(base, device="cpu")
+    assert not os.path.exists(f"{tmp_path}/out")   # raised before writing anything
 
 
 @pytest.mark.parametrize("what,item", [
