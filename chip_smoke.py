@@ -126,7 +126,29 @@ Phases, each of which fails the run:
    beside phase 5b's; then phase 3's forward and backward kernels at 7a's
    and 7b's largest batches' shapes (``finetune_cases``), labelled
    ``finetune 7a`` / ``finetune 7b``;
-8. one JSON line listing every kernel, then the contract line
+8. the serving recipe, scripts/decode_serving.sh (its argv parsed from
+   the script per MODE, ``quantization=true``: int8 weights), run after
+   phase 6 on its assets (a BPE model as wide as the CTC head beside the
+   encoder, for the drafts): 8b at full size, bf16, 32 new tokens instead
+   of 200: MODE=continuous, speculative and plain, plain with a bf16 LLM
+   and continuous with ``kv_cache_bits=8``; each utterance once in
+   ``_pred`` and ``_gt``, the serving path's kernels on their routes, the
+   int8 LLM at most 0.6x the bf16 LLM's bytes; main, load and decode
+   seconds, audio-s/s, the CLI's tokens/s, peak memory, weight and KV
+   bytes, the speculative forwards, each mode's agreement with plain
+   (reported); 8c the greedy and speculative pools driven directly on
+   8b's int8 model, 32 requests capped at 4-32 tokens: each answered
+   once within its cap, exact launches per chunk and per refill, one
+   chunk profiled, an oracle draft through ``generate(draft_ids=...)``
+   against plain greedy; 8a fp32 at full width and reduced depth (2+1
+   encoder blocks, 2 LLM layers, 4 utterances, 3 slots, 8 new tokens):
+   plain, speculative, continuous, both, the beam-4 pool, int4 weights and
+   the int8 KV cache on the card and the CPU, byte-identical ``_pred``
+   files, and on the card the pool and speculative modes byte-identical
+   to plain greedy (the beam pool to static beam-4); then phase 3's
+   forward kernels at the pools' shapes, labelled ``serving pool`` (the
+   prefill of 8 x 2 000 left-padded, RMSNorm at 8 / 64 / 32 step rows);
+9. one JSON line listing every kernel, then the contract line
    ``{"ok": true, "device": {...}}`` last.
 
 Exits non-zero without a result when CUDA is absent or when the
@@ -142,8 +164,10 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -449,18 +473,39 @@ def decode_args(assets: dict, decode_log: str, max_new: int, llm_dim: int = 1536
     ]
 
 
-def recipe_args(name: str, env: dict) -> list:
-    """The overrides that ``scripts/<name>.sh`` passes to the finetune CLI,
-    with its shell variables (``LLM``, ``ENCODER``, ``DATA``, ``OUT``,
-    ``INIT``) taken from ``env``."""
+def recipe_args(name: str, env: dict, cli: str = "finetune") -> list:
+    """The overrides that ``scripts/<name>.sh`` passes to the ``cli`` CLI
+    (finetune or decode), with its shell variables (``LLM``, ``ENCODER``,
+    ``DATA``, ``OUT``, ``INIT``, ``CKPT``, ``LOG``) taken from ``env``; with
+    ``MODE`` in ``env`` (``scripts/decode_serving.sh``), ``EXTRA`` is what
+    the script's ``case`` sets for that mode."""
     import shlex
 
     with open(os.path.join(HERE, "scripts", f"{name}.sh")) as f:
         text = f.read().replace("\\\n", " ")
-    line = next(ln for ln in text.splitlines() if ".cli.finetune" in ln)
+    env = dict(env)
+    if "MODE" in env:
+        modes = dict(re.findall(r'^\s*(\w+)\)\s*\n\s*EXTRA="([^"]*)"', text, re.M))
+        env["EXTRA"] = modes[env["MODE"]]
+    line = next(ln for ln in text.splitlines() if f".cli.{cli}" in ln)
     words = shlex.split(re.sub(r"\$(\w+)", lambda m: env[m.group(1)], line.replace('"$@"', "")))
-    start = next(i for i, w in enumerate(words) if w.endswith(".cli.finetune")) + 1
+    start = next(i for i, w in enumerate(words) if w.endswith(f".cli.{cli}")) + 1
     return words[start:]
+
+
+def serving_args(assets: dict, mode: str, decode_log: str, max_new: int, llm_dim: int = 1536,
+                 encoder_dim: int = 25055) -> list:
+    """``scripts/decode_serving.sh``'s overrides in ``MODE=mode`` on
+    ``assets`` (max_new_tokens ``max_new`` instead of 200, the widths
+    given), the CLI's log beside ``decode_log``."""
+    env = {"LLM": assets["llm_path"], "ENCODER": assets["encoder_path"],
+           "DATA": os.path.dirname(assets["data"]), "CKPT": assets["ckpt_path"],
+           "LOG": decode_log, "MODE": mode}
+    return recipe_args("decode_serving", env, cli="decode") + [
+        f"++model_config.llm_dim={llm_dim}", f"++model_config.encoder_dim={encoder_dim}",
+        f"++train_config.max_new_tokens={max_new}",
+        f"++dataset_config.multitask_prompt_path={os.path.join(HERE, 'conf', 'multiprompt.jsonl')}",
+        f"++log_config.log_file={decode_log}.log"]
 
 
 def finetune_args(assets: dict, data_root: str, output_dir: str, *, text_only: bool = False,
@@ -478,15 +523,18 @@ def finetune_args(assets: dict, data_root: str, output_dir: str, *, text_only: b
                    f"++log_config.log_file={output_dir}/train.log"]
 
 
-def write_bpe_model(encoder_path: str) -> None:
+def write_bpe_model(encoder_path: str, vocab: int = 0) -> None:
     """A character-level SentencePiece BPE model beside the encoder (the
     name funasr's SenseVoiceSmall uses), covering the manifest's words, so
-    the dataset tokenizes transcripts into CTC ids (``gt_ids``)."""
+    the dataset tokenizes transcripts into CTC ids (``gt_ids``); with
+    ``vocab``, filled up to that many pieces (``\u2581<i>``), so every id
+    of a CTC head that wide decodes (the speculative drafts)."""
     from ps_slm_tpu_torch.data import spm
 
     pieces = [("<blank>", 0.0, spm.TYPE_CONTROL), ("<unk>", 0.0, spm.TYPE_UNKNOWN),
               ("</s>", 0.0, spm.TYPE_CONTROL)]
     pieces += [(c, -1.0, spm.TYPE_NORMAL) for c in "\u2581abcdefghijklmnopqrstuvwxyz"]
+    pieces += [(f"\u2581{i}", -2.0, spm.TYPE_NORMAL) for i in range(vocab - len(pieces))]
     with open(os.path.join(encoder_path, "chn_jpn_yue_eng_ko_spectok.bpe.model"), "wb") as f:
         f.write(spm.serialize_model_proto(pieces))
 
@@ -2197,7 +2245,7 @@ def batch_shapes(batch, fbank_cfg) -> tuple:
     return rows, lfr, batch["input_ids"].shape[1] + lfr - 1
 
 
-def phase_decode_cli(torch, dev, launches) -> tuple:
+def phase_decode_cli(torch, dev, launches, root=None) -> tuple:
     """Phase 6: scripts/decode.sh through the port's decode CLI at the
     published widths and depths, bf16: synthetic stand-ins of its assets
     written from a seeded model (:func:`write_assets`), then
@@ -2209,7 +2257,8 @@ def phase_decode_cli(torch, dev, launches) -> tuple:
     first batch decodes to the same tokens again, and the front end on the
     card is within FRONTEND_TOL of the CPU's in fp32.  Adds the launches
     summed over the batches to ``launches`` and returns (launches per batch,
-    the largest batch's flash and norm cases for phase 3)."""
+    the largest batch's flash and norm cases for phase 3, the assets).
+    With ``root`` the assets are written there and left for the caller."""
     import shutil
     import tempfile
 
@@ -2225,7 +2274,8 @@ def phase_decode_cli(torch, dev, launches) -> tuple:
 
     what = "decode CLI"
     counters = kernel_counters()
-    root = tempfile.mkdtemp(prefix="decode_cli_")
+    own = root is None
+    root = root or tempfile.mkdtemp(prefix="decode_cli_")
     try:
         t0 = time.perf_counter()
         tc, mc = half_audio_configs()
@@ -2429,9 +2479,576 @@ def phase_decode_cli(torch, dev, launches) -> tuple:
         per_batch = dict(batches[0]["launches"])
         for name, routes in batches[0]["routes"].items():
             per_batch.update({f"{name}.{route}": n for route, n in routes.items()})
-        return per_batch, flash, norm
+        return per_batch, flash, norm, assets
+    finally:
+        if own:
+            shutil.rmtree(root, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the serving recipe, scripts/decode_serving.sh
+# ---------------------------------------------------------------------------
+
+LLM_LAYERS = 28
+ENC_FLASH = FLASH_PER_GENERATE - LLM_LAYERS   # flash launches of one front half (70 blocks)
+SERVE_FP32_UTTS = {"ark": 2, "wav": 1, "flac": 1}
+# 8a: fp32, 3 slots for 4 utterances (so a slot is refilled), a 512-frame
+# pool bucket (the merged prefills are under 300 long) to keep the CPU runs short
+SERVE_FP32_ARGS = ["++train_config.mixed_precision=false", "++train_config.decode_slots=3",
+                   "++dataset_config.eval_max_frame_length=512"]
+# (label, the script's MODE, overrides after the script's, run on the CPU too)
+SERVE_FP32_MODES = (
+    ("plain", "plain", [], True),
+    ("speculative", "speculative", [], True),
+    ("continuous", "continuous", [], True),
+    ("continuous+speculative", "continuous", ["++train_config.speculative_ctc=true"], True),
+    ("continuous beam-4", "continuous", ["++train_config.num_beams=4"], True),
+    ("static beam-4", "plain", ["++train_config.num_beams=4"], False),
+    ("quant_bits=4", "plain", ["++train_config.quant_bits=4"], True),
+    ("kv_cache_bits=8", "plain", ["++train_config.kv_cache_bits=8"], True),
+)
+# on the card, these modes' _pred must equal the named mode's
+SERVE_SAME = {"speculative": "plain", "continuous": "plain", "continuous+speculative": "plain",
+              "continuous beam-4": "static beam-4"}
+# 8b: (label, MODE, overrides, int8 weights as the script sets them)
+SERVE_RUNS = (
+    ("continuous", "continuous", [], True),
+    ("speculative", "speculative", [], True),
+    ("plain", "plain", [], True),
+    ("plain bf16", "plain", [], False),
+    ("continuous kv8", "continuous", ["++train_config.kv_cache_bits=8"], True),
+)
+POOL_CAPS = (4, 32)     # 8c: stop_after caps drawn from this range
+
+
+def read_pred(path: str) -> dict:
+    """{key: text} of a ``_pred`` or ``_gt`` file; fails on a repeated key."""
+    out = {}
+    with open(path, encoding="utf-8") as f:
+        for line in f.read().split("\n"):
+            if "\t" in line:
+                key, text = line.split("\t", 1)
+                if key in out:
+                    fail(f"{path}: {key} appears twice")
+                out[key] = text
+    return out
+
+
+@contextlib.contextmanager
+def recorded_tokens():
+    """Record the ids of every text the decode CLI writes (the byte-level
+    tokenizer's ``decode``, which ``batch_decode`` calls row by row), each
+    cut at its first EOS, in call order: the synthetic tokenizer decodes
+    only its 256 byte tokens to text, so the files alone hide most ids."""
+    from ps_slm_tpu_torch.data import tokenizer
+
+    calls: list = []
+    real = tokenizer.OwnBPETokenizer.decode
+
+    def decode(self, ids, skip_special_tokens: bool = True):
+        row = [int(i) for i in ids]
+        calls.append(row[:row.index(self.eos_token_id)] if self.eos_token_id in row else row)
+        return real(self, ids, skip_special_tokens)
+
+    tokenizer.OwnBPETokenizer.decode = decode
+    try:
+        yield calls
+    finally:
+        tokenizer.OwnBPETokenizer.decode = real
+
+
+def tokens_by_key(pred_path: str, calls: list, what: str) -> dict:
+    """{key: ids} from a ``_pred`` file's keys, in file order, and the
+    decodes recorded while it was written (one a line)."""
+    keys = list(read_pred(pred_path))
+    if len(keys) != len(calls):
+        fail(f"{what}: {len(calls)} decodes recorded for {len(keys)} lines")
+    return dict(zip(keys, map(tuple, calls)))
+
+
+def phase_serving_fp32(torch, dev) -> None:
+    """Phase 8a: scripts/decode_serving.sh's modes through ``cli.decode.main``
+    in fp32 at full width and reduced depth (2+1 encoder blocks, 2 LLM
+    layers), on the card and on the CPU, each with the script's
+    ``quantization=true``.  The card's ``_pred`` must be byte-identical to
+    the CPU's in every mode, and on the card the pool and speculative modes'
+    to plain greedy's (the beam pool's to static beam-4's), its lines sorted
+    (the pools write in completion order)."""
+    import shutil
+    import tempfile
+
+    from ps_slm_tpu_torch.cli import decode
+    from ps_slm_tpu_torch.config import half_audio_configs
+    from ps_slm_tpu_torch.models.tasu import model_factory
+
+    t0 = time.time()
+    root = tempfile.mkdtemp(prefix="serving_fp32_")
+    try:
+        tc, mc = half_audio_configs(dict(num_blocks=2, tp_blocks=1), dict(num_hidden_layers=2),
+                                    seed=0)
+        assets = write_assets(torch, root, model_factory(tc, mc, device="cpu"),
+                              llm_dtype=torch.bfloat16, utts=SERVE_FP32_UTTS)
+        write_bpe_model(assets["encoder_path"], vocab=mc.encoder_dim)
+        preds, walls, toks = {}, {}, {}
+        for label, mode, extra, on_cpu in SERVE_FP32_MODES:
+            for name, device in (("cuda", dev), ("cpu", "cpu"))[:1 + on_cpu]:
+                log = os.path.join(root, name, label.replace(" ", "_"), "test")
+                args = serving_args(assets, mode, log, FP32_NEW, mc.llm_dim, mc.encoder_dim)
+                t1 = time.time()
+                with recorded_tokens() as calls:
+                    if decode.main(args + SERVE_FP32_ARGS + extra, device=device) != 0:
+                        fail(f"serving fp32 {label} on {name}: main returned nonzero")
+                walls[label, name] = time.time() - t1
+                with open(log + "_pred", "rb") as f:
+                    # the pools write in completion order: compare the lines sorted
+                    preds[label, name] = b"\n".join(sorted(f.read().split(b"\n")))
+                toks[label, name] = tokens_by_key(log + "_pred", calls, f"serving fp32 {label}")
+                if sorted(read_pred(log + "_pred")) != sorted(read_pred(log + "_gt")):
+                    fail(f"serving fp32 {label} on {name}: _pred and _gt hold other keys")
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    n = sum(SERVE_FP32_UTTS.values())
+
+    def same(a, b) -> bool:
+        return preds[a] == preds[b] and toks[a] == toks[b]
+
+    for label, _, _, on_cpu in SERVE_FP32_MODES:
+        same_cpu = "CPU not run" if not on_cpu else (
+            "identical to the CPU's" if same((label, "cuda"), (label, "cpu"))
+            else "DIFFERENT from the CPU's")
+        ref = SERVE_SAME.get(label)
+        same_ref = "" if ref is None else (
+            f", {'identical to' if same((label, 'cuda'), (ref, 'cuda')) else 'DIFFERENT from'} "
+            f"{ref}'s on the card")
+        cpu_wall = f", {walls[label, 'cpu']:.1f} s CPU" if on_cpu else ""
+        n_tok = sum(map(len, toks[label, "cuda"].values()))
+        print(f"serving fp32 {label} (2+1 encoder blocks, 2 LLM layers, full width, quantized, "
+              f"{FP32_NEW} new tokens, {n} utterances): _pred bytes and token ids {same_cpu}"
+              f"{same_ref} ({len(preds[label, 'cuda'])} bytes, {n_tok} tokens); main "
+              f"{walls[label, 'cuda']:.1f} s card{cpu_wall}", flush=True)
+    for label, _, _, on_cpu in SERVE_FP32_MODES:
+        if on_cpu and not same((label, "cuda"), (label, "cpu")):
+            fail(f"serving fp32 {label}: the card's _pred or tokens differ from the CPU's")
+        ref = SERVE_SAME.get(label)
+        if ref and not same((label, "cuda"), (ref, "cuda")):
+            fail(f"serving fp32 {label}: the card's _pred or tokens differ from {ref}'s")
+    print(f"serving fp32: {time.time() - t0:.1f} s", flush=True)
+
+
+@contextlib.contextmanager
+def serving_hooks(torch):
+    """Record, while the decode CLI runs: the model its factory builds and
+    the factory's and checkpoint import's seconds, the largest KV cache
+    allocated (bytes), and the speculative loop's forwards (with rows)."""
+    from ps_slm_tpu_torch import registry
+    from ps_slm_tpu_torch.inference import (
+        continuous, continuous_beam, continuous_spec, generate, speculative,
+    )
+    from ps_slm_tpu_torch.models import qwen2
+    from ps_slm_tpu_torch.training import checkpoint as ckpt
+
+    seen = {"kv_bytes": 0, "forwards": [], "load_s": 0.0}
+    real_factory = registry.get_model_factory("tasu")
+    real_import = ckpt.import_reference_checkpoint
+    real_spec = speculative.speculative_greedy_generate
+
+    def factory(*args, **kwargs):
+        t = time.perf_counter()
+        seen["model"] = real_factory(*args, **kwargs)
+        seen["load_s"] += time.perf_counter() - t
+        return seen["model"]
+
+    def timed_import(*args, **kwargs):
+        t = time.perf_counter()
+        out = real_import(*args, **kwargs)
+        torch.cuda.synchronize()
+        seen["load_s"] += time.perf_counter() - t
+        return out
+
+    def cache(*args, **kwargs):
+        out = qwen2.init_cache(*args, **kwargs)
+        seen["kv_bytes"] = max(seen["kv_bytes"], sum(t.nbytes for layer in out for t in layer))
+        return out
+
+    def spec(llm, embeds, *args, **kwargs):
+        out, n_fwd = real_spec(llm, embeds, *args, **kwargs)
+        seen["forwards"].append((n_fwd, embeds.shape[0]))
+        return out, n_fwd
+
+    mods = (continuous, continuous_beam, continuous_spec, generate, speculative)
+    registry.register_model("tasu")(factory)
+    ckpt.import_reference_checkpoint = timed_import
+    speculative.speculative_greedy_generate = spec
+    for m in mods:
+        m.init_cache = cache
+    try:
+        yield seen
+    finally:
+        registry.register_model("tasu")(real_factory)
+        ckpt.import_reference_checkpoint = real_import
+        speculative.speculative_greedy_generate = real_spec
+        for m in mods:
+            m.init_cache = qwen2.init_cache
+
+
+def llm_bytes(llm) -> tuple:
+    """(all bytes of the LLM's parameters and buffers, the bytes of its
+    projection weights or codes)."""
+    from ps_slm_tpu_torch.models.quantization import QUANT_TARGETS
+
+    total = sum(t.nbytes for t in list(llm.parameters()) + list(llm.buffers()))
+    proj = sum(t.nbytes for layer in llm.layers for name in QUANT_TARGETS
+               for leaf, t in getattr(layer, name).named_parameters(recurse=False) if leaf == "weight")
+    proj += sum(t.nbytes for layer in llm.layers for name in QUANT_TARGETS
+                for leaf, t in getattr(layer, name).named_buffers() if leaf in ("q8", "q4"))
+    return total, proj
+
+
+def phase_serving(torch, dev, launches, assets) -> dict:
+    """Phase 8b: scripts/decode_serving.sh through the port's decode CLI at
+    full size, bf16, on phase 6's synthetic assets (32 utterances of 2-12 s,
+    DECODE_MAX_NEW new tokens instead of 200): MODE=continuous, speculative
+    and plain as the script passes them (int8 weights), plain with a bf16
+    LLM to compare against, and continuous with the int8 KV cache.  Fails
+    unless every utterance is answered once in each file, the int8 LLM's
+    weights take at most 0.6x the bf16 LLM's bytes, and every run launches
+    the serving path's kernels, the norms on their main routes.  Adds the
+    launches to ``launches`` and returns the continuous run's model."""
+    from ps_slm_tpu_torch.cli import decode
+    from ps_slm_tpu_torch.config import half_audio_configs
+
+    what = "serving"
+    counters = kernel_counters()
+    _, mc = half_audio_configs()
+    write_bpe_model(assets["encoder_path"], vocab=mc.encoder_dim)
+    with open(os.path.join(assets["data"], "multitask.jsonl")) as f:
+        keys = sorted(json.loads(line)["key"] for line in f)
+    preds, out = {}, {}
+    for name in counters:
+        launches.setdefault(name, 0)
+    for label, mode, extra, quantized in SERVE_RUNS:
+        log = os.path.join(os.path.dirname(assets["data"]), "serving", label.replace(" ", "_"),
+                           "test")
+        args = serving_args(assets, mode, log, DECODE_MAX_NEW, mc.llm_dim, mc.encoder_dim) + extra
+        if not quantized:
+            args.remove("++train_config.quantization=true")
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counters(counters)
+        held_gb = torch.cuda.memory_allocated() / 1e9
+        with serving_hooks(torch) as seen, recorded_tokens() as calls:
+            t0 = time.perf_counter()
+            if decode.main(args) != 0:                 # default device: cuda
+                fail(f"{what} {label}: main returned nonzero")
+            wall = time.perf_counter() - t0
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        run = {n: f.launches for n, f in counters.items()}
+        routes = {n: dict(counters[n].routes) for n in MAIN_ROUTES}
+        for n, c in run.items():
+            launches[n] += c
+        for n, r in routes.items():
+            for route, c in r.items():
+                launches[f"{n}.{route}"] = launches.get(f"{n}.{route}", 0) + c
+        if not (run["flash_attention_fwd"] and routes["layer_norm_fwd"]["vec"]
+                and routes["layer_norm_fwd"]["staged"] and run["rms_norm_fwd"]):
+            fail(f"{what} {label}: a serving-path kernel was not launched: {run} {routes}")
+        if routes["rms_norm_fwd"]["general"] or routes["layer_norm_fwd"]["general"] \
+                or routes["layer_norm_fwd"]["held"]:
+            fail(f"{what} {label}: a norm left its main route: {routes}")
+        for suffix in ("_pred", "_gt"):
+            if sorted(read_pred(log + suffix)) != keys:
+                fail(f"{what} {label}: {suffix} does not hold each utterance once")
+        preds[label] = tokens_by_key(log + "_pred", calls, f"{what} {label}")
+        with open(log + ".log") as f:
+            done = [line.strip().split(" - ", 1)[-1] for line in f if "decode done" in line]
+        model = seen["model"]
+        total_b, proj_b = llm_bytes(model.llm)
+        decode_s = wall - seen["load_s"]
+        spec = ""
+        if seen["forwards"]:
+            fwd = sum(n for n, _ in seen["forwards"])
+            spec = (f"; speculative: {fwd} LLM forwards over {len(seen['forwards'])} batches "
+                    f"({[n for n, _ in seen['forwards']]}; plain greedy takes up to "
+                    f"{DECODE_MAX_NEW} a batch), one host sync each")
+        out[label] = dict(total_b=total_b, proj_b=proj_b, decode_s=decode_s)
+        print(f"{what} {label} (scripts/decode_serving.sh MODE={mode}"
+              f"{' ' + ' '.join(extra) if extra else ''}{'' if quantized else ', LLM in bf16'}): "
+              f"main {wall:.2f} s wall, load {seen['load_s']:.2f} s, decode {decode_s:.2f} s, "
+              f"{assets['audio_seconds'] / decode_s:.1f} audio-s/s over the decode; the CLI logs "
+              f"{done[-1] if done else 'nothing'}; peak memory {peak_gb:.2f} GB ({held_gb:.2f} "
+              f"held before the run); LLM weights "
+              f"{total_b / 1e9:.3f} GB ({proj_b / 1e9:.3f} GB projections); largest KV cache "
+              f"{seen['kv_bytes'] / 1e9:.4f} GB; launches {nonzero(run)}, routes {routes}{spec} [{CARD}]",
+              flush=True)
+        if label == "continuous":
+            out["model"] = model
+        del model, seen
+    for label in preds:
+        if label != "plain":
+            same = sum(preds[label][k] == preds["plain"][k] for k in keys)
+            pos = sum(len(preds["plain"][k]) for k in keys)
+            agree = sum(a == b for k in keys for a, b in zip(preds[label][k], preds["plain"][k]))
+            print(f"{what} {label}: {same} of {len(keys)} utterances' tokens equal plain's, "
+                  f"{agree} of {pos} token positions (int8 weights' plain; bf16, reported, not "
+                  f"asserted)", flush=True)
+    ratio = out["plain"]["total_b"] / out["plain bf16"]["total_b"]
+    print(f"{what}: int8 LLM {out['plain']['total_b'] / 1e9:.3f} GB against bf16 "
+          f"{out['plain bf16']['total_b'] / 1e9:.3f} GB ({ratio:.3f}x; projections "
+          f"{out['plain']['proj_b'] / 1e9:.3f} against {out['plain bf16']['proj_b'] / 1e9:.3f} GB); "
+          f"decode {out['plain']['decode_s']:.2f} s int8 against {out['plain bf16']['decode_s']:.2f} s "
+          f"bf16 [{CARD}]", flush=True)
+    if ratio > 0.6:
+        fail(f"{what}: the int8 LLM takes {ratio:.3f}x the bf16 LLM's bytes, above 0.6")
+    return out["model"]
+
+
+def nonzero(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if v}
+
+
+def launch_delta(counters, before: dict) -> dict:
+    """Launches by wrapper and by norm route since ``before`` (a
+    :func:`launch_snapshot`)."""
+    now = launch_snapshot(counters)
+    return {k: now[k] - before[k] for k in now}
+
+
+def launch_snapshot(counters) -> dict:
+    snap = {n: f.launches for n, f in counters.items()}
+    for n in MAIN_ROUTES:
+        snap.update({f"{n}.{r}": c for r, c in counters[n].routes.items()})
+    return snap
+
+
+def want_launches(counters, flash=0, ln=0, rms=0) -> dict:
+    """Exact launches by wrapper and route: ``ln`` front halves (142 LayerNorm
+    launches on the vectorised route and 1 staged each), ``rms`` RMSNorm
+    launches (vectorised), ``flash`` flash forwards."""
+    want = {n: 0 for n in counters}
+    want.update(flash_attention_fwd=flash, rms_norm_fwd=rms,
+                layer_norm_fwd=sum(LN_ROUTES_PER_PASS.values()) * ln)
+    for n in MAIN_ROUTES:
+        want.update({f"{n}.{r}": 0 for r in counters[n].routes})
+    want.update({f"layer_norm_fwd.{r}": c * ln for r, c in LN_ROUTES_PER_PASS.items()})
+    want["rms_norm_fwd.vec"] = rms
+    return want
+
+
+def shape_groups(batches) -> list:
+    """The sizes of the same-shape groups the pools' front half stacks."""
+    groups: dict = {}
+    for b in batches:
+        sig = tuple(sorted((k, tuple(v.shape)) for k, v in b.items()))
+        groups[sig] = groups.get(sig, 0) + 1
+    return list(groups.values())
+
+
+def instrument_pool(counters, dec, rec: dict) -> None:
+    """Count the launches of each chunk and each refill of ``dec``, checked
+    exactly: a chunk is ``sync_every`` forwards of the pool (57 RMSNorm
+    each, nothing else); a refill of k requests runs the front half once a
+    power-of-two chunk of each same-shape group (70 flash, 143 LayerNorm)
+    and the prefill once a power-of-two chunk of k (28 flash, 57 RMSNorm)."""
+    real_launch, real_refill = dec._launch_chunk, dec._refill_many
+
+    def launch():
+        before = launch_snapshot(counters)
+        copy = real_launch()
+        got = launch_delta(counters, before)
+        want = want_launches(counters, rms=RMS_PER_FORWARD * dec.sync_every)
+        if got != want:
+            fail(f"{rec['what']}: a chunk launched {got}, not {want}")
+        rec["chunks"].append(got)
+        return copy
+
+    def refill(slot_req):
+        before = launch_snapshot(counters)
+        real_refill(slot_req)
+        got = launch_delta(counters, before)
+        fronts = sum(bin(n).count("1") for n in shape_groups(
+            [dec._payload_batch(p) for _, _, p in slot_req]))
+        prefills = bin(len(slot_req)).count("1")
+        want = want_launches(counters, flash=ENC_FLASH * fronts + LLM_LAYERS * prefills,
+                             ln=fronts, rms=RMS_PER_FORWARD * prefills)
+        if got != want:
+            fail(f"{rec['what']}: a refill of {len(slot_req)} launched {got}, not {want}")
+        rec["refills"].append((len(slot_req), fronts, prefills, got))
+
+    dec._launch_chunk, dec._refill_many = launch, refill
+
+
+def phase_serving_pools(torch, dev, launches, model, assets) -> dict:
+    """Phase 8c: the greedy and speculative pools driven directly at full
+    width on 8b's int8 model: the 32 requests with ``stop_after`` caps drawn
+    from POOL_CAPS, the greedy pool uncapped to compare, exact launches per
+    chunk and per refill, one chunk profiled, and an oracle draft through
+    ``generate(draft_ids=...)`` against plain greedy.  Fails unless each
+    request is answered exactly once with at most its cap of tokens.  Adds
+    the launches to ``launches``; returns the launch columns of the
+    ``kernels`` line and phase 3's cases at the pools' largest shapes."""
+    import numpy as np
+
+    from ps_slm_tpu_torch.config import RunConfig, parse_cli
+    from ps_slm_tpu_torch.data.dataset import Collator, MultiTaskDataset
+    from ps_slm_tpu_torch.data.spm import SenseVoiceTokenizer
+    from ps_slm_tpu_torch.data.tokenizer import load_tokenizer
+    from ps_slm_tpu_torch.inference import ctc_draft, make_pool_decoder, speculative
+    from ps_slm_tpu_torch.inference.generate import generate
+    from ps_slm_tpu_torch.models.tasu import prepare_merged
+
+    what = "serving pools"
+    counters = kernel_counters()
+    cfg = parse_cli(serving_args(assets, "continuous", "unused", DECODE_MAX_NEW), RunConfig())
+    tc, dc = cfg.train_config, cfg.dataset_config
+    dc.inference_mode = True
+    tok = load_tokenizer(assets["llm_path"])
+    enc_tok = SenseVoiceTokenizer(assets["encoder_path"])
+    ds = MultiTaskDataset(dc, tok, "test", encoder_tokenizer=enc_tok)
+    coll = Collator(tok, dc, inference_mode=True)
+    samples = list(ds)
+    reqs = [(s.key, {k: torch.from_numpy(v).to(dev) for k, v in coll([s]).items()
+                     if isinstance(v, np.ndarray)}) for s in samples]
+    rng = np.random.default_rng(0)
+    caps = {k: int(rng.integers(POOL_CAPS[0], POOL_CAPS[1] + 1)) for k, _ in reqs}
+    eos = tok.eos_token_id
+    drafts = {k: ctc_draft(model, b, enc_tok, tok) for k, b in reqs}
+    spec_tc = parse_cli(serving_args(assets, "speculative", "unused", DECODE_MAX_NEW)
+                        + ["++train_config.continuous_batching=true"], RunConfig()).train_config
+
+    def pool(kind, stop_after=None):
+        dec = make_pool_decoder(model, spec_tc if kind == "speculative" else tc, dc,
+                                eos_token_id=eos)
+        rec = {"what": f"{what} {kind}", "chunks": [], "refills": []}
+        instrument_pool(counters, dec, rec)
+        items = [(k, (b, drafts[k], len(drafts[k])) if kind == "speculative" else b)
+                 for k, b in reqs]
+        torch.cuda.synchronize()
+        reset_counters(counters)
+        t0 = time.perf_counter()
+        got = list(dec.run(iter(items), stop_after=stop_after))
+        wall = time.perf_counter() - t0
+        for n, c in launch_snapshot(counters).items():
+            launches[n] = launches.get(n, 0) + c
+        answered = [k for k, _ in got]
+        if sorted(answered) != sorted(caps):
+            fail(f"{rec['what']}: answered {sorted(answered)}, not each request once")
+        got = dict(got)
+        if stop_after:
+            over = {k: len(v) for k, v in got.items() if len(v) > stop_after[k]}
+            if over:
+                fail(f"{rec['what']}: requests over their cap {over}")
+        return got, wall, rec, dec
+
+    full, wall_full, rec_full, _ = pool("greedy")
+    capped, wall_cap, rec_cap, _ = pool("greedy", caps)
+    spec, wall_spec, rec_spec, dec_spec = pool("speculative", caps)
+    n_tok = {k: len(v) for k, v in capped.items()}
+    for label, got, wall, rec in (("greedy, uncapped", full, wall_full, rec_full),
+                                  ("greedy, capped", capped, wall_cap, rec_cap),
+                                  ("speculative, capped", spec, wall_spec, rec_spec)):
+        agree = sum(np.array_equal(got[k], full[k][:len(got[k])]) for k in got)
+        print(f"{what} {label}: {len(got)} requests in {wall:.2f} s, "
+              f"{sum(map(len, got.values()))} tokens ({sum(map(len, got.values())) / wall:.1f} "
+              f"tokens/s); {len(rec['chunks'])} chunks of {nonzero(rec['chunks'][0])} launches; "
+              f"{len(rec['refills'])} refills (requests, front halves, prefills) "
+              f"{[r[:3] for r in rec['refills']]}, the first's launches "
+              f"{nonzero(rec['refills'][0][3])}; "
+              f"{agree} of {len(got)} requests' tokens a prefix of the uncapped run's "
+              f"(bf16, reported) [{CARD}]", flush=True)
+    print(f"{what}: caps {json.dumps(caps)}; capped tokens {json.dumps(n_tok)}", flush=True)
+
+    # an oracle draft (plain greedy's own tokens) through generate, on the
+    # first 16 requests as one static batch
+    orc = []
+    real_spec = speculative.speculative_greedy_generate
+
+    def spec_fn(*args, **kwargs):
+        out, n_fwd = real_spec(*args, **kwargs)
+        orc.append(n_fwd)
+        return out, n_fwd
+
+    speculative.speculative_greedy_generate = spec_fn
+    try:
+        for i in (0,):
+            batch = {k: torch.from_numpy(v).to(dev) for k, v in coll(samples[i:i + 16]).items()
+                     if isinstance(v, np.ndarray)}
+            kw = dict(eos_token_id=eos, num_beams=1, max_new_tokens=DECODE_MAX_NEW)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            plain = generate(model, batch, **kw)
+            torch.cuda.synchronize()
+            t_plain = time.perf_counter() - t0
+            ids = plain.clone()
+            lens = (plain != eos).sum(1)
+            t0 = time.perf_counter()
+            oracle = generate(model, batch, draft_ids=ids, draft_lens=lens, spec_window=8, **kw)
+            torch.cuda.synchronize()
+            t_orc = time.perf_counter() - t0
+            same = int((oracle == plain).all(1).sum())
+            print(f"{what} oracle draft, batch {i // 16} ({ids.shape[0]} rows): {orc[-1]} forwards "
+                  f"(plain greedy: {min(int(lens.max()) + 1, DECODE_MAX_NEW)}), generate {t_orc * 1e3:.1f} ms "
+                  f"against plain greedy {t_plain * 1e3:.1f} ms; {same} of {ids.shape[0]} rows "
+                  f"equal (bf16, reported) [{CARD}]", flush=True)
+    finally:
+        speculative.speculative_greedy_generate = real_spec
+
+    # one greedy pool chunk profiled, the pool full
+    dec = make_pool_decoder(model, tc, dc, eos_token_id=eos)
+    dec._emitted_n = [0] * dec.num_slots
+    dec._free = []
+    dec._refill_many([(i, k, b) for i, (k, b) in enumerate(reqs[:dec.num_slots])])
+
+    def chunk():
+        with torch.inference_mode():
+            dec._launch_chunk().get()
+
+    chunk()
+    prof = profiled(torch, chunk)
+    print_profiled(f"{what} greedy chunk ({dec.sync_every} steps of {dec.num_slots} slots)", prof)
+
+    # phase 3's cases at the pools' largest shapes: the first refill's
+    # prefill (k x prefill_len, left-padded), the largest request's front
+    # half, and the step rows of the greedy, speculative and beam pools
+    k = dec.num_slots
+    with torch.inference_mode():
+        valid = [int(prepare_merged(model, b, left_padding=True, generate_mode=True)
+                     .attention_mask.sum()) for _, b in reqs[:k]]
+    big = max(reqs, key=lambda kb: kb[1]["waveform"].shape[1])[1]
+    frames = batch_shapes(big, model.fbank_cfg)[1]
+    P = dc.eval_max_frame_length
+    flash = (("serving pool prefill", k, P, 12, 2, True, [P - v for v in valid], [P] * k),
+             ("serving pool encoder", 1, frames + 4, 4, 4, False, [0], [frames + 4]))
+    norm = (("layer_norm_fwd", frames + 4, 560, None), ("layer_norm_fwd", frames + 4, 512, None),
+            ("layer_norm_fwd", frames, 25055, None), ("rms_norm_fwd", k * P, 1536, None),
+            ("rms_norm_fwd", k, 1536, None), ("rms_norm_fwd", k * tc.spec_window, 1536, None),
+            ("rms_norm_fwd", k * 4, 1536, None))
+    del dec, dec_spec
+    return {"chunk": {"greedy": rec_cap["chunks"][0], "speculative": rec_spec["chunks"][0]},
+            "refill": rec_cap["refills"][0][3], "flash": flash, "norm": norm}
+
+
+def run_decode_and_serving(torch, dev, results, cli_launches, serve_launches) -> tuple:
+    """Phase 6, phase 3 at its largest batch, then phase 8 on phase 6's
+    assets (8b, 8c; 8a after the assets are deleted) and phase 3 at the
+    pools' shapes.  Returns phase 6's launches per batch and cases, and
+    8c's pool columns."""
+    root = tempfile.mkdtemp(prefix="serving_")
+    try:
+        cli_per_batch, cli_flash, cli_norm, assets = phase_decode_cli(torch, dev, cli_launches,
+                                                                      root)
+        phase_kernels(torch, dev, results, cli_flash, cli_norm)
+        t8 = time.time()
+        model = phase_serving(torch, dev, serve_launches, assets)
+        pools = phase_serving_pools(torch, dev, serve_launches, model, assets)
+        del model
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    phase_serving_fp32(torch, dev)
+    phase_kernels(torch, dev, results, pools["flash"], pools["norm"], "serving pool")
+    print(f"serving phases (8a-8c and their phase 3 cases): {time.time() - t8:.1f} s", flush=True)
+    return cli_per_batch, cli_flash, cli_norm, pools
 
 
 def main() -> None:
@@ -2491,9 +3108,9 @@ def main() -> None:
     phase_train_main(torch, dev, model, text_launches, text_only=True)
     del model
     torch.cuda.empty_cache()
-    cli_launches: dict = {}
-    cli_per_batch, cli_flash, cli_norm = phase_decode_cli(torch, dev, cli_launches)
-    phase_kernels(torch, dev, results, cli_flash, cli_norm)
+    cli_launches, serve_launches = {}, {}
+    cli_per_batch, cli_flash, cli_norm, pools = run_decode_and_serving(
+        torch, dev, results, cli_launches, serve_launches)
     chain_launches: dict = {}
     chain_per_step = phase_finetune_chain(torch, dev, chain_launches, step_5b_prof)
     for stage, cases in chain_per_step["cases"].items():
@@ -2536,6 +3153,11 @@ def main() -> None:
                                     if w == "layer_norm_fwd" and d == 25055],
         "rms_norm_fwd": [f"{n}x{d}" for w, n, d, _ in cli_norm if w == "rms_norm_fwd"],
     }
+    # phase 8c's pool shapes, as phase 3 labelled their rows
+    path_rows["flash_attention_fwd"] += [c[0] for c in pools["flash"]]
+    for w, n, d, kind in pools["norm"]:
+        name = f"{w} ({'staged' if d == 25055 else 'vec'})" if w == "layer_norm_fwd" else w
+        path_rows[name].append(f"serving pool {n}x{d}")
     # phase 7's largest batches, as phases 3 labelled their rows
     for stage, cases in chain_per_step["cases"].items():
         tag = f"finetune {stage}"
@@ -2558,7 +3180,8 @@ def main() -> None:
             "name": name, "kernel": kernel, "route": "cuda", "source": source,
             "replaces": replaces,
             "launches": sum(runs[count] for runs in (gen_launches, train_launches,
-                                                     beam_launches, text_launches, cli_launches))
+                                                     beam_launches, text_launches, cli_launches,
+                                                     serve_launches))
             + sum(runs[count] for runs in chain_launches.values()),
             "launches_per_generate": gen_launches[count],
             "launches_per_train_step": train_launches[count] // TRAIN_STEPS,
@@ -2568,6 +3191,8 @@ def main() -> None:
             "launches_per_finetune_step": chain_per_step["step"][count],
             "launches_per_finetune_step_remat": chain_per_step["remat"][count],
             "launches_per_validation_batch": chain_per_step["eval"][count],
+            "launches_per_pool_chunk": {k: c[count] for k, c in pools["chunk"].items()},
+            "launches_per_pool_refill": pools["refill"][count],
             "max_abs_err": max(r["err"] for r in rows),
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],

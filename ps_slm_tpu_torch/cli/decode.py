@@ -16,9 +16,13 @@ sampled decoding there, and write ``<decode_log>_pred`` / ``_gt`` lines
 the JAX CLI's overrides (``scripts/decode.sh``) and runs on the CUDA
 device; ``main(argv, device="cpu")`` runs the plain versions on the CPU.
 ``PS_NUM_HOSTS`` / ``PS_HOST_ID`` split the manifest between processes,
-each writing ``<decode_log>.part<id>_pred``.  The slot-pool
-(``continuous_batching``) and draft-verified (``speculative_ctc``) modes
-raise (ROADMAP.md queue 1, 'Serving').
+each writing ``<decode_log>.part<id>_pred``.  The serving modes of
+``scripts/decode_serving.sh``: ``continuous_batching`` decodes through a
+slot pool (greedy, beam with ``num_beams`` > 1, or speculative), one
+request at a time, refilled as slots finish; ``speculative_ctc`` verifies
+the CTC head's transcript as a draft (static batches, or in every pool
+slot with ``continuous_batching``); ``quantization`` (the model factory)
+and ``kv_cache_bits=8`` combine with any of them.
 """
 
 from __future__ import annotations
@@ -93,12 +97,25 @@ def main(argv=None, *, device="cuda") -> int:
         decode_log = f"{decode_log}.part{host_id}"
     os.makedirs(os.path.dirname(decode_log) or ".", exist_ok=True)
     pred_path, gt_path = decode_log + "_pred", decode_log + "_gt"
+    if tc.speculative_ctc and encoder_tokenizer is None:
+        raise ValueError(
+            "speculative_ctc needs the encoder BPE model (model_config.encoder_path) "
+            "to decode the CTC draft")
+    if tc.continuous_batching:
+        return _decode_continuous(model, tc, dc, tokenizer, encoder_tokenizer, num_hosts,
+                                  host_id, pred_path, gt_path, logger, dev)
+
     timer = StepTimer(window=None)   # the whole run
     n_tokens = 0
     with open(pred_path, "w") as fpred, open(gt_path, "w") as fgt:
         for batch in batches:
             tbatch = {k: torch.from_numpy(v) for k, v in batch.items()
                       if isinstance(v, np.ndarray)}
+            spec_kwargs = {}
+            if tc.speculative_ctc:
+                spec_kwargs = _ctc_draft_kwargs(
+                    model, {k: v.to(dev) for k, v in tbatch.items()}, encoder_tokenizer,
+                    tokenizer, tc.spec_window)
             timer.start()
             out = generate(
                 model, tbatch, eos_token_id=tokenizer.eos_token_id, device=dev,
@@ -106,6 +123,7 @@ def main(argv=None, *, device="cuda") -> int:
                 do_sample=tc.do_sample, min_length=tc.min_length, top_p=tc.top_p,
                 temperature=tc.temperature, length_penalty=tc.length_penalty,
                 repetition_penalty=tc.repetition_penalty, kv_bits=tc.kv_cache_bits,
+                **spec_kwargs,
             ).cpu().numpy()
             timer.stop(_audio_secs(batch))
             n_tokens += int((out != tokenizer.eos_token_id).sum())
@@ -127,15 +145,86 @@ def main(argv=None, *, device="cuda") -> int:
     return 0
 
 
+def _decode_continuous(model, tc, dc, tokenizer, encoder_tokenizer, num_hosts: int,
+                       host_id: int, pred_path: str, gt_path: str, logger, dev) -> int:
+    """Slot-pool decode: one request per manifest row (this host's rows by
+    sample index), refilled as slots finish; the beam pool with
+    ``num_beams`` > 1, a CTC-draft window in every slot with
+    ``speculative_ctc``."""
+    import time
+
+    from ps_slm_tpu_torch.data.dataset import Collator, MultiTaskDataset
+    from ps_slm_tpu_torch.inference import ctc_draft, make_pool_decoder
+
+    ds = MultiTaskDataset(dc, tokenizer, "test", encoder_tokenizer=encoder_tokenizer)
+    coll = Collator(tokenizer, dc, inference_mode=True)
+    targets: dict = {}
+    stats = {"audio": 0.0, "n": 0}
+
+    def requests():
+        for i, sample in enumerate(ds):
+            if i % num_hosts != host_id:
+                continue
+            batch = {k: torch.from_numpy(v).to(dev) for k, v in coll([sample]).items()
+                     if isinstance(v, np.ndarray)}
+            targets[sample.key] = sample.target
+            stats["audio"] += (len(sample.waveform) / 16000.0 if sample.waveform is not None
+                               else sample.est_frames * 0.060)
+            stats["n"] += 1
+            if tc.speculative_ctc:
+                draft = ctc_draft(model, batch, encoder_tokenizer, tokenizer)
+                yield sample.key, (batch, draft, len(draft))
+            else:
+                yield sample.key, batch
+
+    dec = make_pool_decoder(model, tc, dc, eos_token_id=tokenizer.eos_token_id, device=dev)
+    n_tokens = 0
+    t0 = time.perf_counter()
+    with open(pred_path, "w") as fpred, open(gt_path, "w") as fgt:
+        for key, toks in dec.run(requests()):
+            n_tokens += len(toks)
+            fpred.write(f"{key}\t{tokenizer.decode(toks)}\n")
+            fgt.write(f"{key}\t{targets.pop(key)}\n")
+    dt = time.perf_counter() - t0
+    rtf_inv = stats["audio"] / max(dt, 1e-9)
+    mode = f"continuous{'+spec' if tc.speculative_ctc else ''} x{tc.decode_slots}"
+    logger.info(
+        f"decode done ({stats['n']} utts, {mode}): {pred_path}; {rtf_inv:.1f} audio-s/s "
+        f"(RTF {1.0 / rtf_inv if rtf_inv else float('inf'):.4f}), "
+        f"{n_tokens / max(dt, 1e-9):.1f} tokens/s"
+    )
+    return 0
+
+
 def _validate_decode_mode(tc) -> None:
     """The static path honours every decode knob; the slot pools and the
-    draft-verified path are not ported yet."""
-    for knob in ("continuous_batching", "speculative_ctc"):
-        if getattr(tc, knob):
-            raise NotImplementedError(
-                f"{knob} (the serving pools and CTC-draft decoding) is not "
-                "ported yet (ROADMAP.md queue 1, 'Serving')"
-            )
+    draft-verified path reject what they would silently ignore."""
+    if not (tc.continuous_batching or tc.speculative_ctc):
+        return
+    from ps_slm_tpu_torch.inference import validate_pool_decode_knobs
+
+    validate_pool_decode_knobs(
+        tc, "continuous_batching" if tc.continuous_batching else "speculative_ctc")
+
+
+def _ctc_draft_kwargs(model, batch, encoder_tokenizer, tokenizer, window: int) -> dict:
+    """The batch's CTC transcripts re-tokenized into LLM drafts for
+    ``generate``: the width bucketed to a multiple of 64, as the JAX CLI
+    buckets it for its jit signature, the padding masked by
+    ``draft_lens``."""
+    from ps_slm_tpu_torch.inference.generate import ctc_transcript_ids
+
+    drafts = [tokenizer.encode(encoder_tokenizer.decode(r))
+              for r in ctc_transcript_ids(model, batch)]
+    d = max(max((len(x) for x in drafts), default=1), 1)
+    d = -(-d // 64) * 64
+    ids = np.zeros((len(drafts), d), np.int64)
+    lens = np.zeros((len(drafts),), np.int64)
+    for i, x in enumerate(drafts):
+        ids[i, :len(x)] = x
+        lens[i] = len(x)
+    return {"draft_ids": torch.from_numpy(ids), "draft_lens": torch.from_numpy(lens),
+            "spec_window": window}
 
 
 def _audio_secs(batch) -> float:

@@ -24,8 +24,9 @@ the CPU; the default is the CUDA device.
 
 Not ported, and raising where they would act: a device mesh
 (``mesh_shape``) and more than one process (``PS_NUM_HOSTS`` > 1,
-``PS_COORDINATOR``), ROADMAP.md queue 1 'Parallelism'; PEFT and weight
-quantization, 'PEFT and quantization'.
+``PS_COORDINATOR``), ROADMAP.md queue 1 'Parallelism'; PEFT and training
+over a weight-quantized LLM, which comes with LoRA, 'PEFT and
+quantization'.
 """
 
 from __future__ import annotations
@@ -48,8 +49,8 @@ def check_ported(tc) -> None:
         )
     if tc.use_peft or tc.quantization:
         raise NotImplementedError(
-            "PEFT and weight quantization are not ported yet (ROADMAP.md queue 1, "
-            "'PEFT and quantization')"
+            "PEFT and training over a weight-quantized LLM are not ported yet "
+            "(ROADMAP.md queue 1, 'PEFT and quantization')"
         )
 
 

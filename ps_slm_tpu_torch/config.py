@@ -6,9 +6,9 @@ A copy of ``ps_slm_tpu/config.py`` with the same names and defaults:
 ``[++]section.key=value`` override parser (``parse_cli``) that the CLIs
 take, and :func:`dump`, which writes a run's resolved config.  A field is
 here when the port reads it; a field whose feature is not ported yet
-(``mesh_shape``, ``use_peft``, ``quantization``) parses and raises where it
-would act, naming its ROADMAP.md item.  Other fields of the JAX configs (the
-PEFT and quantization settings, layer freezing, the sharding knobs) come
+(``mesh_shape``, ``use_peft``; ``quantization`` in training) parses and
+raises where it would act, naming its ROADMAP.md item.  Other fields of the
+JAX configs (the PEFT settings, layer freezing, the sharding knobs) come
 with their slices; an override that names one raises ``KeyError`` like any
 unknown key.
 """
@@ -102,7 +102,9 @@ class TrainConfig:
     freeze_projector: bool = False
     # run
     output_dir: str = "out"
-    quantization: bool = False
+    quantization: bool = False            # weight-only LLM (models/quantization.py)
+    quant_bits: int = 8                   # 8 (per output channel) or 4 (group-wise)
+    q4_group_size: int = 128              # contraction-group size of the int4 scales
     save_model: bool = True               # step_N/ on a new best eval loss
     save_last: bool = False               # last/ at the end of training
     resume_from: Optional[str] = None     # a train-state directory (step_N/state)
@@ -118,8 +120,8 @@ class TrainConfig:
     length_penalty: float = 1.0
     temperature: float = 1.0
     kv_cache_bits: int = 16
-    # serving pools and draft-verified decoding (not ported yet: the decode
-    # CLI raises on them; the knobs parse so the JAX recipes' argv does)
+    # serving pools (inference/continuous*.py) and draft-verified decoding
+    # (inference/speculative.py)
     continuous_batching: bool = False
     decode_slots: int = 8
     decode_sync_every: int = 8

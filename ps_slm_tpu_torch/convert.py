@@ -9,9 +9,14 @@ so this module never imports JAX, and returns a state dict for
   into one module per layer;
 * linear kernels [in, out] transposed to ``nn.Linear``'s [out, in];
 * the FSMN kernel [k, 1, C] transposed to conv1d's [C, 1, k];
-* tied embeddings: no ``lm_head`` in the tree, none in the state dict.
+* tied embeddings: no ``lm_head`` in the tree, none in the state dict;
+* quantized LLM projections (``q8``/``scale`` or ``q4``/``scale4``, JAX
+  layout [in, out]) carried as they are, into the buffers of a model
+  quantized with the same scheme (``models.quantization.quantize_llm``).
 
-Tensors come out fp32; ``load_state_dict`` casts them to the model's dtype.
+Tensors come out fp32, integer codes int8 (a JAX int4 leaf arrives as an
+``ml_dtypes.int4`` array); ``load_state_dict`` casts them to the model's
+dtypes.
 """
 
 from __future__ import annotations
@@ -28,14 +33,23 @@ def _t(x) -> torch.Tensor:
     return torch.from_numpy(np.array(x, dtype=np.float32))
 
 
+def _codes(x) -> torch.Tensor:
+    return torch.from_numpy(np.asarray(x).astype(np.int8))
+
+
 def _linear(p: Dict[str, Any], name: str, out: StateDict) -> None:
-    extra = set(p) - {"kernel", "bias"}
+    extra = set(p) - {"kernel", "bias", "q8", "scale", "q4", "scale4"}
     if extra:
         raise NotImplementedError(
-            f"{name}: leaves {sorted(extra)} (LoRA or quantized weights) are "
-            "not ported yet (ROADMAP.md queue 1, 'PEFT and quantization')"
+            f"{name}: leaves {sorted(extra)} (LoRA) are not ported yet "
+            "(ROADMAP.md queue 1, 'PEFT and quantization')"
         )
-    out[f"{name}.weight"] = _t(p["kernel"]).T.contiguous()
+    if "q8" in p:
+        out[f"{name}.q8"], out[f"{name}.scale"] = _codes(p["q8"]), _t(p["scale"])
+    elif "q4" in p:
+        out[f"{name}.q4"], out[f"{name}.scale4"] = _codes(p["q4"]), _t(p["scale4"])
+    else:
+        out[f"{name}.weight"] = _t(p["kernel"]).T.contiguous()
     if "bias" in p:
         out[f"{name}.bias"] = _t(p["bias"])
 

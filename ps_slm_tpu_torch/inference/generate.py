@@ -19,20 +19,24 @@ Every top-k breaks ties toward the lower index, as ``jax.lax.top_k`` does
 input (JAX's ``categorical`` is ``argmax(logits + gumbel)``), drawn from a
 ``torch.Generator`` or from a hook that tests fill with JAX's draws.
 
-Draft-verified (speculative) decoding and the int8 KV cache raise for now
-(ROADMAP.md queue 1, "Serving" and "PEFT and quantization").
+``kv_bits=8`` keeps the cache int8 (``models/qwen2.py``).  Drafts
+(``draft_ids``, ``draft_lens``) with ``num_beams=1`` switch :func:`generate`
+to the draft-verified loop of :mod:`~ps_slm_tpu_torch.inference.speculative`,
+whose tokens equal greedy decoding's; :func:`ctc_transcript_ids` gives the
+CTC head's collapsed argmax, the free draft.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, List, Optional
 
 import torch
 
 from ps_slm_tpu_torch._build import resolve_device
 from ps_slm_tpu_torch.models.qwen2 import Qwen2Model, init_cache
-from ps_slm_tpu_torch.models.tasu import TasuModel, prepare_merged
+from ps_slm_tpu_torch.models.tasu import TasuModel, encode_speech, prepare_merged
 from ps_slm_tpu_torch.ops import fp32_reciprocal
+from ps_slm_tpu_torch.ops.fbank import frontend
 
 NEG_INF = -1e30
 # a hook giving step t's Gumbel noise [B, V] fp32 (t = 0 for the first token)
@@ -67,11 +71,12 @@ def top_k_wide(x: torch.Tensor, k: int):
     return vals, idx.gather(-1, order)
 
 
-def _prefill(llm: Qwen2Model, embeds, attn_mask, position_ids, capacity: int):
+def _prefill(llm: Qwen2Model, embeds, attn_mask, position_ids, capacity: int,
+             kv_bits: int = 16):
     b, s, _ = embeds.shape
     cache = init_cache(
         llm.cfg, b, capacity, dtype=llm.embed_tokens.weight.dtype,
-        device=embeds.device,
+        device=embeds.device, kv_bits=kv_bits,
     )
     full_mask = torch.zeros(b, capacity, dtype=torch.bool, device=embeds.device)
     full_mask[:, :s] = attn_mask
@@ -164,6 +169,7 @@ def greedy_generate(
     repetition_penalty: float = 1.0,
     generator: Optional[torch.Generator] = None,
     gumbel: Optional[GumbelHook] = None,
+    kv_bits: int = 16,
 ) -> torch.Tensor:
     """Greedy or sampled decode: [B, max_new_tokens] int64, EOS-filled after
     a row ends.  Sampling draws step t's Gumbel noise from ``gumbel(t)``
@@ -172,7 +178,7 @@ def greedy_generate(
     b, s, _ = inputs_embeds.shape
     dev = inputs_embeds.device
     logits, cache, full_mask = _prefill(
-        llm, inputs_embeds, attention_mask, position_ids, s + max_new_tokens
+        llm, inputs_embeds, attention_mask, position_ids, s + max_new_tokens, kv_bits
     )
     next_pos = position_ids[:, -1] + 1   # left padding: the last position is valid
     vocab = logits.shape[-1]
@@ -224,6 +230,7 @@ def beam_generate(
     length_penalty: float = 1.0,
     min_length: int = 1,
     repetition_penalty: float = 1.0,
+    kv_bits: int = 16,
 ) -> torch.Tensor:
     """Beam search with HF semantics, as the JAX ``beam_generate``: expand
     2 * beams candidates a step, bank an EOS candidate only when it ranks
@@ -240,9 +247,9 @@ def beam_generate(
     # the prefill once at batch B, then the cache, mask and positions tiled
     # to B * bm rows (beam j of row i at i * bm + j)
     logits, cache, full_mask = _prefill(
-        llm, inputs_embeds, attention_mask, position_ids, s + max_new_tokens
+        llm, inputs_embeds, attention_mask, position_ids, s + max_new_tokens, kv_bits
     )
-    cache = [(k.repeat_interleave(bm, dim=0), v.repeat_interleave(bm, dim=0)) for k, v in cache]
+    cache = [tuple(leaf.repeat_interleave(bm, dim=0) for leaf in layer) for layer in cache]
     full_mask = full_mask.repeat_interleave(bm, dim=0)
     next_pos = (position_ids[:, -1] + 1).repeat_interleave(bm, dim=0)
     vocab = logits.shape[-1]
@@ -319,9 +326,9 @@ def beam_generate(
         # [s, s + max_new_tokens) only: the prefill cells are the same for
         # every beam of a row (tiled once, permuted within the row since)
         flat_src = (rows[:, None] * bm + beam_src).reshape(-1)
-        for k, v in cache:
-            k[:, s:] = k[flat_src, s:]
-            v[:, s:] = v[flat_src, s:]
+        for layer in cache:
+            for leaf in layer:
+                leaf[:, s:] = leaf[flat_src, s:]
 
     # unfinished beams compete with the banked ones at full length
     full = (float(max_new_tokens) ** length_penalty)
@@ -329,6 +336,34 @@ def beam_generate(
         fin, seqs, scores * fp32_reciprocal(full), torch.ones_like(beam_done))
     best = torch.where(fin_valid, fin_scores, NEG_INF).argmax(dim=1)
     return fin_seqs[rows, best]
+
+
+@torch.inference_mode()
+def ctc_transcript_ids(model: TasuModel, batch: Dict[str, torch.Tensor]) -> List[List[int]]:
+    """The CTC head's argmax, runs collapsed and blanks (0) dropped, per row
+    (the SenseVoice decode rule), from the same front end the merge uses:
+    B lists of encoder-vocabulary ids, the free draft of speculative
+    decoding.  ``batch`` lies on the model's device; the collapse runs on
+    the host, as in the JAX package."""
+    if "input_features" in batch:
+        feats, flens = batch["input_features"], batch["input_feature_length"]
+    else:
+        feats, flens = frontend(
+            batch["waveform"], batch["waveform_length"], cfg=model.fbank_cfg,
+            cmvn=model.cmvn, train=False,
+        )
+        feats = feats.to(model.llm.embed_tokens.weight.dtype)
+    _, posterior, lens = encode_speech(model.encoder, feats, flens)
+    ids, lens = posterior.argmax(dim=-1).cpu().tolist(), lens.cpu().tolist()
+    out = []
+    for row, n in zip(ids, lens):
+        toks, prev = [], -1
+        for t in row[:n]:
+            if t != prev and t != 0:
+                toks.append(t)
+            prev = t
+        out.append(toks)
+    return out
 
 
 def generate(
@@ -346,20 +381,21 @@ def generate(
 
     ``batch`` is moved to ``device``, where the model must already be.
     ``key`` (alias ``rng``) is the ``torch.Generator`` sampling draws from;
-    ``gumbel`` (port only) gives step t's noise instead.  Drafts
-    (``draft_ids``, ``draft_lens``) raise; ``spec_window`` is taken as the
-    JAX ``generate`` takes it, which reads it only with drafts.
+    ``gumbel`` (port only) gives step t's noise instead.  ``kv_bits=8``
+    keeps the KV cache int8.  ``draft_ids`` [B, D] / ``draft_lens`` [B]
+    (LLM-vocabulary drafts) with ``num_beams=1`` run the draft-verified loop
+    (windows of ``spec_window`` tokens), whose tokens equal greedy
+    decoding's; it refuses the knobs that would change them.  With beams the
+    drafts are ignored, as in the JAX package.
     """
     dev = resolve_device(device)
-    if kv_bits != 16:
-        raise NotImplementedError(
-            f"kv_bits={kv_bits}: the int8 KV cache is not ported yet (ROADMAP.md "
-            "queue 1, 'PEFT and quantization')"
-        )
-    if draft_ids is not None or draft_lens is not None:
-        raise NotImplementedError(
-            "draft-verified (speculative) decoding is not ported yet (ROADMAP.md "
-            "queue 1, 'Serving')"
+    speculative = draft_ids is not None and num_beams == 1
+    if speculative and (do_sample or repetition_penalty != 1.0 or temperature != 1.0
+                        or min_length > 1):
+        raise ValueError(
+            "draft-speculative decoding is bit-identical to plain greedy; "
+            "do_sample/temperature/repetition_penalty/min_length are not "
+            "supported with draft_ids"
         )
     model_dev = next(model.parameters()).device
     if model_dev != dev:
@@ -368,8 +404,18 @@ def generate(
     with torch.inference_mode():
         merged = prepare_merged(model, batch, left_padding=True, generate_mode=True)
     args = (model.llm, merged.embeds, merged.attention_mask, merged.position_ids)
+    if speculative:
+        from ps_slm_tpu_torch.inference.speculative import speculative_greedy_generate
+
+        out, _ = speculative_greedy_generate(
+            *args, torch.as_tensor(draft_ids).to(dev), torch.as_tensor(draft_lens).to(dev),
+            max_new_tokens=max_new_tokens, eos_token_id=eos_token_id, window=spec_window,
+            kv_bits=kv_bits,
+        )
+        return out
     common = dict(max_new_tokens=max_new_tokens, eos_token_id=eos_token_id,
-                  min_length=min_length, repetition_penalty=repetition_penalty)
+                  min_length=min_length, repetition_penalty=repetition_penalty,
+                  kv_bits=kv_bits)
     if num_beams > 1:
         return beam_generate(*args, num_beams=num_beams, length_penalty=length_penalty,
                              **common)

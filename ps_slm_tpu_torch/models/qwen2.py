@@ -3,12 +3,19 @@
 Counterpart of ``ps_slm_tpu/models/qwen2.py``: RMSNorm (fp32 statistics,
 the CUDA kernels on CUDA tensors), rotate-half rotary embeddings in fp32,
 GQA attention with q/k/v biases, SwiGLU MLP, tied or untied LM head.  One
-module per layer.  The KV cache is a list of per-layer (k, v) tensors
-[B, capacity, Hkv, D] that :meth:`Qwen2Model.forward` updates in place
-(the JAX package returns new arrays; writing in place keeps one copy).
+module per layer.  The KV cache is a list of per-layer tuples that
+:meth:`Qwen2Model.forward` updates in place (the JAX package returns new
+arrays; writing in place keeps one copy): (k, v) [B, capacity, Hkv, D] in
+the model's dtype, or with ``kv_bits=8`` (k8, kscale, v8, vscale), int8
+cells and one fp32 scale per [D] vector, quantized at write and
+dequantized at read.  Every cache leaf has the batch on axis 0 and the
+capacity on axis 1.  A chunk is written at ``cache_index``, an int or a
+[B] tensor of per-row offsets (the slot pools).
 
-Not ported yet: LoRA, prefix tuning, llama-adapter and the int8/int4
-weights and int8 KV cache (ROADMAP.md queue 1, "PEFT and quantization").
+The projections may be :class:`QuantLinear` (int8 or group-wise int4
+weights, :func:`ps_slm_tpu_torch.models.quantization.quantize_llm`).  Not
+ported yet: LoRA, prefix tuning and llama-adapter (ROADMAP.md queue 1,
+"PEFT and quantization").
 
 Checkpoints: :func:`load_hf_checkpoint` reads an HF Qwen2 directory
 (``config.json`` + ``*.safetensors``) into a state dict of this module's
@@ -25,7 +32,7 @@ import math
 import os
 import sys
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Set, Tuple
+from typing import Dict, List, Optional, Set, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -33,10 +40,15 @@ from torch import nn
 
 from ps_slm_tpu_torch._build import resolve_device
 from ps_slm_tpu_torch.models.layers import normal_, run_block
-from ps_slm_tpu_torch.ops.attention import attention, decode_attention
+from ps_slm_tpu_torch.models.quantization import (
+    _group_size, dequantize_kernel, dequantize_kernel4, dequantize_kv, q4_matmul, q8_matmul,
+    quantize_kernel, quantize_kernel4, quantize_kv,
+)
+from ps_slm_tpu_torch.ops.attention import attention, decode_attention, mha_reference
 from ps_slm_tpu_torch.ops.norms import RMSNormFn
 
-KVCache = List[Tuple[torch.Tensor, torch.Tensor]]
+KVCache = List[Tuple[torch.Tensor, ...]]
+CacheIndex = Union[int, torch.Tensor]
 
 
 @dataclass(frozen=True)
@@ -113,6 +125,85 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
 
 
+class QuantLinear(nn.Module):
+    """A projection with weight-only int8 or group-wise int4 weights: the
+    codes (``q8`` or ``q4``, int8 [in, out], the JAX layout) and their fp32
+    scales (``scale`` [out] or ``scale4`` [in / gs, out]) are buffers with
+    no gradient; the bias stays a parameter in the model's dtype.  Computes
+    what the JAX ``_linear`` computes: the quantized product in x's dtype
+    (:func:`~ps_slm_tpu_torch.models.quantization.q8_matmul`, ``q4_matmul``),
+    then the bias."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool, bits: int = 8,
+                 group_size: int = 128, *, dtype=torch.float32, device=None):
+        super().__init__()
+        if bits not in (4, 8):
+            raise ValueError(f"quant_bits must be 4 or 8, got {bits}")
+        self.in_features, self.out_features, self.bits = in_features, out_features, bits
+        codes = torch.zeros(in_features, out_features, dtype=torch.int8, device=device)
+        if bits == 8:
+            self.register_buffer("q8", codes)
+            self.register_buffer("scale", torch.ones(out_features, device=device))
+        else:
+            groups = in_features // _group_size(in_features, group_size)
+            self.register_buffer("q4", codes)
+            self.register_buffer("scale4", torch.ones(groups, out_features, device=device))
+        if bias:
+            self.bias = nn.Parameter(torch.zeros(out_features, dtype=dtype, device=device))
+        else:
+            self.register_parameter("bias", None)
+
+    def _node(self) -> Dict[str, torch.Tensor]:
+        names = ("q8", "scale") if self.bits == 8 else ("q4", "scale4")
+        return {n: getattr(self, n) for n in names}
+
+    @classmethod
+    @torch.no_grad()
+    def from_linear(cls, lin: nn.Linear, bits: int, group_size: int = 128) -> "QuantLinear":
+        """Quantize ``lin``'s weight as it stands in its dtype; the bias
+        parameter is kept."""
+        w = lin.weight.T                                       # [in, out]
+        m = cls(lin.in_features, lin.out_features, False, bits, group_size,
+                dtype=w.dtype, device=w.device)
+        node = quantize_kernel(w) if bits == 8 else quantize_kernel4(w, group_size)
+        for name, value in node.items():
+            getattr(m, name).copy_(value)
+        m.bias = lin.bias
+        return m
+
+    @torch.no_grad()
+    def to_linear(self, dtype) -> nn.Linear:
+        """An ``nn.Linear`` holding the dequantized kernel in ``dtype``."""
+        node = self._node()
+        w = dequantize_kernel(node, dtype) if self.bits == 8 else dequantize_kernel4(node, dtype)
+        lin = nn.Linear(self.in_features, self.out_features, bias=self.bias is not None,
+                        dtype=dtype, device=w.device)
+        lin.weight.copy_(w.T)
+        if self.bias is not None:
+            lin.bias.copy_(self.bias)
+        return lin
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.bits == 8:
+            y = q8_matmul(x, self.q8, self.scale)
+        else:
+            y = q4_matmul(x, self.q4, self.scale4)
+        return y if self.bias is None else y + self.bias
+
+
+def _write_cells(leaf: torch.Tensor, value: torch.Tensor, cache_index: CacheIndex) -> None:
+    """Write a chunk [B, S, ...] into a cache leaf at ``cache_index`` (an int,
+    or a [B] tensor of per-row offsets).  Every caller keeps its writes
+    inside the capacity (the cache is sized for it), so no write is dropped."""
+    s = value.shape[1]
+    if torch.is_tensor(cache_index) and cache_index.dim() == 1:
+        rows = torch.arange(leaf.shape[0], device=leaf.device)[:, None]
+        cols = cache_index[:, None] + torch.arange(s, device=leaf.device)
+        leaf[rows, cols] = value.to(leaf.dtype)
+    else:
+        leaf[:, cache_index:cache_index + s] = value.to(leaf.dtype)
+
+
 class Qwen2Block(nn.Module):
     def __init__(self, cfg: Qwen2Config):
         super().__init__()
@@ -132,13 +223,17 @@ class Qwen2Block(nn.Module):
     def forward(
         self, x: torch.Tensor, positions: torch.Tensor,
         attn_mask: Optional[torch.Tensor],
-        cache_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-        cache_index: Optional[int] = None,
+        cache_kv: Optional[Tuple[torch.Tensor, ...]] = None,
+        cache_index: Optional[CacheIndex] = None,
     ) -> torch.Tensor:
         """One block.  Without a cache: causal attention over x's own
-        positions.  With a cache: k/v are written at ``cache_index``; a
-        prefill (``cache_index`` 0, S > 1) attends over its own k/v through
-        the flash kernel, a one-token step over the cache (plain)."""
+        positions.  With a cache: k/v are written at ``cache_index`` (int8
+        cells quantized at write); a prefill (``cache_index`` the int 0,
+        S > 1) attends over its own S cells through the flash kernel (the
+        int8 cache: their dequantized values, as the JAX prefill reads them
+        back), a one-token step over the cache (plain), and a chunk of more
+        tokens after the prefill (speculative windows) over the cache,
+        causally from ``cache_index`` (plain, as the JAX package)."""
         cfg = self.cfg
         b, s, _ = x.shape
         nh, nkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
@@ -150,18 +245,27 @@ class Qwen2Block(nn.Module):
         if cache_kv is None:
             attn = attention(q, k, v, kv_mask=attn_mask, causal=True)
         else:
-            k_cache, v_cache = cache_kv
-            k_cache[:, cache_index:cache_index + s] = k
-            v_cache[:, cache_index:cache_index + s] = v
+            prefill = s > 1 and not torch.is_tensor(cache_index) and cache_index == 0
+            if len(cache_kv) == 4:
+                k8, kscale, v8, vscale = cache_kv
+                for leaf, value in zip(cache_kv, (*quantize_kv(k), *quantize_kv(v))):
+                    _write_cells(leaf, value, cache_index)
+                cells = slice(0, s) if prefill else slice(None)
+                k_cache = dequantize_kv(k8[:, cells], kscale[:, cells], q.dtype)
+                v_cache = dequantize_kv(v8[:, cells], vscale[:, cells], q.dtype)
+            else:
+                k_cache, v_cache = cache_kv
+                _write_cells(k_cache, k, cache_index)
+                _write_cells(v_cache, v, cache_index)
+                if prefill:
+                    k_cache, v_cache = k, v
             if s == 1:
                 attn = decode_attention(q, k_cache, v_cache, attn_mask)
-            elif cache_index == 0:
-                attn = attention(q, k, v, kv_mask=attn_mask[:, :s], causal=True)
+            elif prefill:
+                attn = attention(q, k_cache, v_cache, kv_mask=attn_mask[:, :s], causal=True)
             else:
-                raise NotImplementedError(
-                    "multi-token chunks after the prefill (speculative "
-                    "windows) are not ported yet (ROADMAP.md queue 1, 'Serving')"
-                )
+                attn = mha_reference(q, k_cache, v_cache, kv_mask=attn_mask, causal=True,
+                                     q_offset=cache_index)
 
         x = x + self.o_proj(attn.reshape(b, s, nh * hd))
         y = self.post_attention_layernorm(x)
@@ -173,6 +277,8 @@ class Qwen2Block(nn.Module):
         self.post_attention_layernorm.weight.fill_(1.0)
         for lin in (self.q_proj, self.k_proj, self.v_proj, self.o_proj,
                     self.gate_proj, self.up_proj, self.down_proj):
+            if not isinstance(lin, nn.Linear):
+                raise TypeError("init_weights draws dense weights; quantize after it")
             normal_(lin.weight, 1.0 / math.sqrt(lin.in_features), generator)
             if lin.bias is not None:
                 lin.bias.zero_()
@@ -205,7 +311,7 @@ class Qwen2Model(nn.Module):
         attention_mask: Optional[torch.Tensor],
         position_ids: torch.Tensor,
         cache: Optional[KVCache] = None,
-        cache_index: Optional[int] = None,
+        cache_index: Optional[CacheIndex] = None,
     ) -> Tuple[torch.Tensor, Optional[KVCache]]:
         """Run the decoder stack: (last hidden after the final norm, cache).
         With ``remat`` and no cache, while gradients are recorded, each block
@@ -234,15 +340,25 @@ class Qwen2Model(nn.Module):
 
 def init_cache(
     cfg: Qwen2Config, batch: int, capacity: int, dtype: torch.dtype, device="cuda",
+    kv_bits: int = 16,
 ) -> KVCache:
-    """Zeroed per-layer (k, v) caches [batch, capacity, Hkv, D] in ``dtype``
-    (the int8 cache waits for ROADMAP.md queue 1, 'PEFT and quantization')."""
+    """Zeroed per-layer caches: (k, v) [batch, capacity, Hkv, D] in ``dtype``,
+    or with ``kv_bits=8`` (k8, kscale, v8, vscale), int8 cells and fp32
+    scales [batch, capacity, Hkv]."""
     dev = resolve_device(device)
     shape = (batch, capacity, cfg.num_key_value_heads, cfg.head_dim)
-    return [
-        (torch.zeros(shape, dtype=dtype, device=dev), torch.zeros(shape, dtype=dtype, device=dev))
-        for _ in range(cfg.num_hidden_layers)
-    ]
+    if kv_bits == 8:
+        def layer():
+            cells = torch.zeros(shape, dtype=torch.int8, device=dev)
+            scales = torch.zeros(shape[:-1], dtype=torch.float32, device=dev)
+            return (cells, scales, torch.zeros_like(cells), torch.zeros_like(scales))
+    elif kv_bits == 16:
+        def layer():
+            return (torch.zeros(shape, dtype=dtype, device=dev),
+                    torch.zeros(shape, dtype=dtype, device=dev))
+    else:
+        raise ValueError(f"kv_bits must be 8 or 16, got {kv_bits}")
+    return [layer() for _ in range(cfg.num_hidden_layers)]
 
 
 # ----------------------------------------------------------------------------
@@ -336,8 +452,12 @@ def hf_to_state_dict(
 
 def state_dict_to_hf(llm: "Qwen2Model") -> Dict[str, torch.Tensor]:
     """Inverse of :func:`hf_to_state_dict`: the HF names (``model.``
-    prefixed, ``lm_head.weight`` when untied), tensors as they are."""
-    sd = llm.state_dict()
+    prefixed, ``lm_head.weight`` when untied), tensors as they are; a
+    quantized projection gives its dequantized kernel in bf16, as the JAX
+    exporter's ``dequantize_llm``."""
+    from ps_slm_tpu_torch.models.quantization import dequantize_state_dict
+
+    sd = dequantize_state_dict(llm.state_dict())
     out = {"model.embed_tokens.weight": sd["embed_tokens.weight"],
            "model.norm.weight": sd["norm.weight"]}
     for i in range(llm.cfg.num_hidden_layers):

@@ -47,6 +47,7 @@ from torch import nn
 from ps_slm_tpu_torch._build import resolve_device
 from ps_slm_tpu_torch.config import FbankConfig
 from ps_slm_tpu_torch.models import projector as proj
+from ps_slm_tpu_torch.models.quantization import quantize_llm
 from ps_slm_tpu_torch.models.qwen2 import Qwen2Config, Qwen2Model, load_hf_checkpoint
 from ps_slm_tpu_torch.models.sensevoice import SenseVoiceConfig, SenseVoiceEncoder
 from ps_slm_tpu_torch.ops.ce_loss import chunked_ce_loss, full_ce_loss, gathered_ce_loss
@@ -360,7 +361,9 @@ def model_factory(
     ``device``) draws every random weight; the same seed on another device
     type gives other weights, so to compare devices build once and move
     the model.  ``model.load_seconds`` holds each loaded module's wall
-    seconds (file read and copy to the device).
+    seconds (file read and copy to the device).  ``quantization`` makes the
+    LLM's projections weight-only int8 (``quant_bits`` 8) or group-wise int4
+    (4, ``q4_group_size``) after loading.
     """
     dev = resolve_device(device)
     if model_config.ctc_linear:
@@ -368,10 +371,10 @@ def model_factory(
             "the pretrained CTC head (ctc_linear) of the simple_linear projector "
             "is not ported yet (ROADMAP.md queue 1, 'Long tail')"
         )
-    if train_config.use_peft or train_config.quantization:
+    if train_config.use_peft:
         raise NotImplementedError(
-            "PEFT and weight quantization are not ported yet (ROADMAP.md "
-            "queue 1, 'PEFT and quantization')"
+            "PEFT (LoRA, prefix tuning, llama-adapter) is not ported yet "
+            "(ROADMAP.md queue 1, 'PEFT and quantization')"
         )
     t0 = time.perf_counter()
     loaded, seconds = {}, {}
@@ -401,5 +404,10 @@ def model_factory(
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         seconds[name] += time.perf_counter() - t1
+    if train_config.quantization:
+        # weight-only LLM from the weights in the model's dtype, as the JAX
+        # factory quantizes its loaded or random parameters
+        quantize_llm(model.llm, bits=train_config.quant_bits,
+                     group_size=train_config.q4_group_size)
     model.load_seconds = seconds
     return model

@@ -12,7 +12,9 @@ and the exporter the tests and ``chip_smoke.py`` write files with:
     tensor is cast once into the model's parameter (``load_state_dict``
     copies into the parameter's dtype and device), and the llm and the
     encoder each load whole or raise ``KeyError("partial ... checkpoint")``
-    (the projector loads the keys it finds, as in the JAX package);
+    (the projector loads the keys it finds, as in the JAX package); a
+    quantized LLM exports its dequantized kernels (bf16-rounded, as the
+    JAX exporter) and re-quantizes imported ones with its own scheme;
   * the linear-silu projector's reference key map
     (:func:`projector_to_reference`, :func:`reference_to_projector`);
   * :func:`save_train_state` / :func:`restore_train_state`: the whole
@@ -39,7 +41,7 @@ from typing import Dict, List, Tuple, Union
 
 import torch
 
-from ps_slm_tpu_torch.models import qwen2
+from ps_slm_tpu_torch.models import quantization, qwen2
 from ps_slm_tpu_torch.models.sensevoice import SenseVoiceConfig
 
 StateDict = Dict[str, torch.Tensor]
@@ -277,6 +279,12 @@ def import_reference_checkpoint(model, path_or_tensors: Union[str, StateDict]) -
             state = qwen2.hf_to_state_dict(llm_tensors, model.llm.cfg, consumed=consumed)
         except KeyError as e:
             raise KeyError(f"partial llm checkpoint, missing {e}") from e
+        spec = quantization.quant_spec(model.llm)
+        if spec is not None:
+            # keep the factory's scheme: the fresh weights in the model's
+            # dtype, quantized as the JAX import re-quantizes them
+            state = quantization.quantize_state_dict(
+                state, *spec, dtype=model.llm.embed_tokens.weight.dtype)
         model.llm.load_state_dict(state)
         loaded += [f"llm.{k}" for k in llm_tensors if k in consumed]
 

@@ -16,7 +16,9 @@ waveform front end and one small decode CLI run, card against CPU.  The
 training slice: the front end's training draws made on the card (masks in
 bounds, the same features as the CPU with those draws), the prefetcher's
 side-stream copy under a busy stream, remat bit-identical to no remat, and
-a train-state save/restore that continues bit-identically.
+a train-state save/restore that continues bit-identically.  The serving
+slice: the int8 / int4 weight and int8 KV codes and scales bit-equal to the
+CPU's.
 """
 
 import pytest
@@ -814,3 +816,23 @@ def test_train_state_round_trip_on_card(dev, tmp_path):
         runs.append((losses, [p.detach().clone() for p in model.parameters()]))
     assert runs[0][0] == runs[1][0]
     assert all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
+
+
+@pytest.mark.parametrize("what", ["q8", "q4", "kv"])
+def test_quantization_on_card_equals_cpu(dev, what):
+    """Weight codes and scales (as the JAX package's eager factory divides)
+    and KV codes and scales (as its jitted forward multiplies) are the same
+    bits on the card as on the CPU."""
+    from ps_slm_tpu_torch.models import quantization as q
+
+    g = torch.Generator().manual_seed(0)
+    if what == "kv":
+        x = torch.randn(64, 32, 2, 128, generator=g) * 3
+        got, want = q.quantize_kv(x.to(dev)), q.quantize_kv(x)
+    else:
+        w = torch.randn(2, 1536, 896, generator=g) * 0.02
+        fn = q.quantize_kernel if what == "q8" else q.quantize_kernel4
+        got, want = fn(w.to(dev)), fn(w)
+        got, want = [got[k] for k in sorted(got)], [want[k] for k in sorted(want)]
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)

@@ -169,12 +169,6 @@ def test_host_shards_merge_to_the_single_host_decode(fixtures, tmp_path, monkeyp
     assert {**parts[0], **parts[1]} == want
 
 
-@pytest.mark.parametrize("knob", ["continuous_batching", "speculative_ctc"])
-def test_serving_modes_name_their_roadmap_item(fixtures, knob):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, 'Serving'"):
-        decode.main(_random_args(fixtures) + [f"++train_config.{knob}=true"], device="cpu")
-
-
 def test_token_ids_outside_the_llm_vocabulary_raise(fixtures):
     """A tokenizer whose special ids do not fit the LLM's embedding rows
     (the stub's <speech> is 254) fails before any batch is decoded."""

@@ -39,6 +39,13 @@ def _forbidden(name: str) -> bool:
 ABSENT_ON_CARD = ("safetensors", "transformers", "sentencepiece", "regex")
 
 
+# the serving recipe's modules (scripts/decode_serving.sh), imported too
+SERVING_MODULES = tuple(f"ps_slm_tpu_torch.{m}" for m in (
+    "models.quantization", "inference.speculative", "inference.continuous",
+    "inference.continuous_spec", "inference.continuous_beam",
+))
+
+
 def _port_files():
     for dirpath, _, files in os.walk(PACKAGE):
         for f in files:
@@ -55,6 +62,7 @@ def test_importing_every_module_loads_no_jax():
         "    importlib.import_module(m.name)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"('jax', 'jaxlib', 'ps_slm_tpu') + {ABSENT_ON_CARD!r})\n"
+        f"bad += sorted(set({SERVING_MODULES!r}) - set(sys.modules))\n"
         "print(len([m for m in sys.modules if m.startswith('ps_slm_tpu_torch')]), bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
@@ -117,11 +125,46 @@ def test_decode_cli_defaults_to_cuda_and_raises_without_it(tmp_path):
     assert not os.path.exists(f"{tmp_path}/y_pred")
 
 
+def test_serving_entry_points_default_to_cuda_and_raise_without_it():
+    """The slot pools (and the pool factory) default to the card and raise
+    without it; generate refuses the knobs that would change the tokens
+    of draft-verified decoding."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the default device is valid")
+    import inspect
+    from types import SimpleNamespace
+
+    from ps_slm_tpu_torch import inference
+    from ps_slm_tpu_torch.config import DataConfig
+    from ps_slm_tpu_torch.inference import continuous, continuous_beam, continuous_spec
+
+    tc = TrainConfig(ctc_posterior=True, do_psd=True, num_beams=1)
+    model = tasu.model_factory(tc, ModelConfig(encoder_dim=11, llm_dim=64), device="cpu")
+    for cls in (continuous.ContinuousGreedyDecoder, continuous_spec.ContinuousSpeculativeDecoder,
+                continuous_beam.ContinuousBeamDecoder):
+        assert inspect.signature(cls).parameters["device"].default == "cuda"
+        with pytest.raises(RuntimeError, match="cuda"):
+            cls(model, prefill_len=8, eos_token_id=0)
+    assert inspect.signature(inference.make_pool_decoder).parameters["device"].default == "cuda"
+    with pytest.raises(RuntimeError, match="cuda"):
+        inference.make_pool_decoder(model, tc, DataConfig(), eos_token_id=0)
+    batch = {"input_ids": torch.zeros(1, 4, dtype=torch.long)}
+    drafts = dict(draft_ids=torch.zeros(1, 2, dtype=torch.long), draft_lens=torch.ones(1))
+    for kw in (dict(do_sample=True), dict(temperature=0.5), dict(repetition_penalty=1.2),
+               dict(min_length=3)):
+        with pytest.raises(ValueError, match="bit-identical to plain greedy"):
+            generate(model, batch, eos_token_id=0, num_beams=1, device="cpu", **kw, **drafts)
+    knobs = SimpleNamespace(repetition_penalty=1.0, do_sample=False, min_length=1,
+                            speculative_ctc=True, spec_window=1, num_beams=1,
+                            stream_partials=False)
+    with pytest.raises(ValueError, match="spec_window"):
+        inference.validate_pool_decode_knobs(knobs, "speculative_ctc")
+
+
 def test_decode_slice_not_ported_names_its_roadmap_item(tmp_path):
-    """ctc_linear, whisper and the serving modes raise NotImplementedError
-    naming their ROADMAP.md item (the training front end is ported); HF
-    transformers tokenizers raise ImportError."""
-    from ps_slm_tpu_torch.cli import decode
+    """ctc_linear and whisper raise NotImplementedError naming their
+    ROADMAP.md item (the training front end is ported); HF transformers
+    tokenizers raise ImportError."""
     from ps_slm_tpu_torch.config import DataConfig, FbankConfig
     from ps_slm_tpu_torch.data import dataset, tokenizer
     from ps_slm_tpu_torch.ops import fbank
@@ -138,10 +181,6 @@ def test_decode_slice_not_ported_names_its_roadmap_item(tmp_path):
     out, _ = fbank.frontend(torch.zeros(1, 800), torch.tensor([800]), cfg=FbankConfig(),
                             train=True, generator=torch.Generator().manual_seed(0))
     assert torch.isfinite(out).all()
-    for knob in ("continuous_batching", "speculative_ctc"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, 'Serving'"):
-            decode.main([f"++train_config.{knob}=true", f"decode_log={tmp_path}/x"],
-                        device="cpu")
     (tmp_path / "tokenizer.json").write_text("{}")
     with pytest.raises(ImportError, match="transformers"):
         tokenizer.load_tokenizer(str(tmp_path))
@@ -203,27 +242,18 @@ def test_training_options_not_ported_name_their_roadmap_item(tmp_path, monkeypat
 
 
 @pytest.mark.parametrize("what,item", [
-    ("kv_bits", "PEFT and quantization"), ("draft_ids", "Serving"), ("draft_lens", "Serving"),
     ("voca_trans", "Long tail"), ("cross_attn", "Long tail"), ("raw_features", "Long tail"),
 ])
 def test_generate_rejects_what_is_not_ported(what, item):
-    """Beam search, sampling and text-only TASU run now; what still raises
-    names its ROADMAP.md item."""
+    """Beam search, sampling, text-only TASU, the int8 KV cache and drafts
+    run now; what still raises names its ROADMAP.md item."""
     mc = ModelConfig(encoder_dim=11, llm_dim=64)
     match = f"ROADMAP.md queue 1, '{item}'"
     flags = {"voca_trans": dict(ctc_posterior=True, voca_trans=True),
              "cross_attn": dict(ctc_posterior=True, cross_attn=True),
              "raw_features": dict(ctc_posterior=False)}
-    if what in flags:
-        with pytest.raises(NotImplementedError, match=match):
-            tasu.model_factory(TrainConfig(**flags[what]), mc, device="cpu")
-        return
-    model = tasu.model_factory(TrainConfig(ctc_posterior=True, do_psd=True), mc, device="cpu")
-    batch = {"input_ids": torch.zeros(1, 4, dtype=torch.long)}
-    kw = {"kv_bits": dict(kv_bits=8), "draft_ids": dict(draft_ids=torch.zeros(1, 2)),
-          "draft_lens": dict(draft_lens=torch.ones(1))}[what]
     with pytest.raises(NotImplementedError, match=match):
-        generate(model, batch, eos_token_id=0, device="cpu", **kw)
+        tasu.model_factory(TrainConfig(**flags[what]), mc, device="cpu")
 
 
 def test_wrappers_raise_off_cpu_and_cuda():
