@@ -48,7 +48,8 @@ Phases, each of which fails the run:
    the paper's recipe, insertion on) on a ragged 5-row transcript batch,
    the noise drawn once on the CPU and fed to both, as in 4b;
 4d. decode CLI, fp32, full width at reduced depth: the phase 6 assets
-   written from a 2+1-block encoder and a 2-layer LLM, then
+   (8 of its 32 utterances) written from a 2+1-block encoder and a
+   2-layer LLM, then
    ``cli.decode.main`` with scripts/decode.sh's overrides (beam 4, 8 new
    tokens) on the card and on the CPU; byte-identical ``_pred`` files;
 5. serving main path, bf16, full width (SenseVoiceSmall + linear-silu +
@@ -110,8 +111,8 @@ Phases, each of which fails the run:
    with train, dev and test manifests of 2-12 s utterances: 7a
    scripts/finetune_text_only.sh's overrides for one epoch, ``last/``;
    7b scripts/finetune_half_audio.sh's from 7a's export, dither on, one
-   epoch with validation every 2 steps and step_N checkpoints, then a
-   second ``main`` resuming from step_2, which must skip 2 batches and
+   epoch with validation every 3 steps and step_N checkpoints, then a
+   second ``main`` resuming from step_3, which must skip 3 batches and
    reproduce the later losses bit for bit; 7c the same with remat,
    gradient accumulation 2 and SpecAugment, frozen weights bit-identical,
    an AdamW update every 2nd micro-step; 7d ``cli.decode.main`` on 7b's
@@ -142,12 +143,39 @@ Phases, each of which fails the run:
    chunk profiled, an oracle draft through ``generate(draft_ids=...)``
    against plain greedy; 8a fp32 at full width and reduced depth (2+1
    encoder blocks, 2 LLM layers, 4 utterances, 3 slots, 8 new tokens):
-   plain, speculative, continuous, both, the beam-4 pool, int4 weights and
-   the int8 KV cache on the card and the CPU, byte-identical ``_pred``
-   files, and on the card the pool and speculative modes byte-identical
+   plain, speculative, int4 weights and the int8 KV cache on the card and
+   the CPU, byte-identical ``_pred`` files; continuous, both and the
+   beam-4 pool on the card only (phase 10a runs the pools card vs CPU
+   through the serve CLI); on the card the pool and speculative modes byte-identical
    to plain greedy (the beam pool to static beam-4); then phase 3's
    forward kernels at the pools' shapes, labelled ``serving pool`` (the
    prefill of 8 x 2 000 left-padded, RMSNorm at 8 / 64 / 32 step rows);
+10. the streaming server, ``cli.serve.main``, on requests files of
+   manifest rows plus a malformed line and an unreadable path: 10b at
+   full size, bf16, on phase 8's assets with MODE=continuous's knobs
+   (int8, 8 slots, the 2 000-frame bucket), 32 requests, through the
+   pool, static batches, ``serve_route=auto`` (probe 8, static below 64)
+   and streamed partials down a pipe one request every 100 ms: each
+   request answered once, error lines for the bad ones, partials growing
+   prefixes, the first streamed line before the last request is written,
+   the norms on their routes; serving wall, requests/s, tokens/s, time to
+   the first result, auto's decisions and segment rates, peak memory;
+   10a fp32 at 8a's depth on card and CPU through every route (pool,
+   static, partials, drafts, beam-4 pool): identical lines, and on the
+   card the greedy routes' tokens equal plain greedy decode's;
+11. PEFT finetuning through ``cli.finetune.main``: 11a fp32 at reduced
+   depth on card and CPU, 2 steps each of LoRA, QLoRA over int8, prefix
+   tuning and llama-adapter (losses within 1e-3, exported adapters within
+   2e-5, AdamW's first moments within 1e-3 of their size, the base
+   bit-identical, a ``peft_ckpt`` import reproducing the
+   logits); 11b scripts/finetune_half_audio.sh + ``use_peft`` (LoRA r 64,
+   dropout 0.05) at full size, bf16, one epoch on phase 7's assets from
+   7a's export: 7b's launches a micro-step exactly, 73 859 072 LoRA
+   parameters, the base bit-identical, the adapters moved, one step_N
+   and last/ (the merged LLM exported in fp32, ~6.2 GB each: the cut),
+   micro-step walls, peak memory, the exports' seconds and bytes; then
+   QLoRA over int8 for the same epoch without checkpoints (peak memory);
+   11c ``cli.serve.main`` on the merged export, 8 requests answered;
 9. one JSON line listing every kernel, then the contract line
    ``{"ok": true, "device": {...}}`` last.
 
@@ -217,6 +245,7 @@ TEXT_ONLY_INSERT = 0.1  # insertion on in the fp32 text-only phase
 # wav.ark, 4 .wav and 4 .flac files), beam 4, DECODE_MAX_NEW new tokens
 # (random weights never emit EOS and the beam loop has no early exit)
 DECODE_UTTS = {"ark": 24, "wav": 4, "flac": 4}
+DECODE_FP32_UTTS = {"ark": 6, "wav": 1, "flac": 1}   # phase 4d, whose CPU run is at full width
 DECODE_SECONDS = (2.0, 12.0)
 DECODE_MAX_NEW = 32
 # Qwen2.5's special tokens at their ids; the tokenizer adds <speech> after
@@ -224,15 +253,17 @@ QWEN_SPECIALS = {"<|endoftext|>": 151643, "<|im_start|>": 151644, "<|im_end|>": 
 WORDS = ("the cat sat on a mat while rain fell over quiet hills and old ships "
          "sailed past bright towers into the evening sea").split()
 FRONTEND_TOL = 1e-3     # the fp32 front end, card vs CPU, on log-mel
-# the finetune CLI (phases 4e and 7): utterances of 2-6 s (4e, whose CPU
-# run is at full width) and 2-12 s (7); phase 7's train, dev and test
-# manifests; a training step's launches with remat on the LLM (each block's
-# forward recomputed: one flash forward and two RMSNorms a layer more), and
-# a validation batch's (the forward kernels only)
+# the finetune CLI (phases 4e, 11a and 7): utterances of 2-6 s (4e) and
+# 1-2 s (11a; both run on the CPU too, at full width) and 2-12 s (7);
+# phase 7's train, dev
+# and test manifests; a training step's launches with remat on the LLM
+# (each block's forward recomputed: one flash forward and two RMSNorms a
+# layer more), and a validation batch's (the forward kernels only)
 FINETUNE_SECONDS = (2.0, 6.0)
+PEFT_SECONDS = (1.0, 2.0)
 CHAIN_UTTS = {"train": {"ark": 42, "wav": 3, "flac": 3}, "dev": {"ark": 8, "wav": 0, "flac": 0},
               "test": {"ark": 6, "wav": 1, "flac": 1}}
-CHAIN_VALIDATION = 2
+CHAIN_VALIDATION = 3
 LAUNCHES_PER_REMAT_STEP = dict(LAUNCHES_PER_TRAIN_STEP, flash_attention_fwd=98 + 28,
                                rms_norm_fwd=57 + 56)
 LAUNCHES_PER_EVAL_BATCH = dict(LAUNCHES_PER_TRAIN_STEP, flash_attention_dq=0,
@@ -284,8 +315,15 @@ LN_ROUTES_TEXT_ONLY = {"vec": 0, "staged": 1, "held": 0, "general": 0}
 KERNEL_TOL = {"f32": (2e-5, 2e-5), "bf16": (1e-2, 1e-2)}
 # fp32 whole path, card vs CPU (matmul and reduction order differ)
 PATH_TOL = 1e-3
+# 11a, card vs CPU: the exported adapters (one AdamW step at lr 1e-3 moves
+# an element by about 1e-3, so this is 2% of a step) and AdamW's first
+# moments (the gradients' average: each tensor's gap over its own largest
+# magnitude), which a gradient of the right sign but wrong size fails
+ADAPTER_TOL = 2e-5
+MOMENT_TOL = 1e-3
 PSD_CALLS = 3   # PSD calls a profiled run
 CARD = "card not read"   # nvidia-smi's name and power limit, set by main()
+PHASE_SECONDS: dict = {}   # each phase's wall seconds, filled by timed()
 
 
 # ----------------------------------------------------------------------------
@@ -1639,7 +1677,7 @@ def phase_decode_cli_fp32(torch, dev) -> None:
         tc, mc = half_audio_configs(dict(num_blocks=2, tp_blocks=1), dict(num_hidden_layers=2),
                                     seed=0)
         assets = write_assets(torch, root, model_factory(tc, mc, device="cpu"),
-                              llm_dtype=torch.bfloat16)
+                              llm_dtype=torch.bfloat16, utts=DECODE_FP32_UTTS)
         preds, walls = {}, {}
         for name, device in (("cuda", dev), ("cpu", "cpu")):
             log = os.path.join(root, name, "test")
@@ -1655,7 +1693,7 @@ def phase_decode_cli_fp32(torch, dev) -> None:
         shutil.rmtree(root, ignore_errors=True)
     same = preds["cuda"] == preds["cpu"]
     print(f"decode CLI fp32 (2+1 encoder blocks, 2 LLM layers, full width, beam 4, "
-          f"{FP32_NEW} new tokens, {sum(DECODE_UTTS.values())} utterances): _pred files "
+          f"{FP32_NEW} new tokens, {sum(DECODE_FP32_UTTS.values())} utterances): _pred files "
           f"{'byte-identical' if same else 'different'} on card and CPU ({len(preds['cpu'])} "
           f"bytes); main {walls['cuda']:.1f} s card, {walls['cpu']:.1f} s CPU "
           f"({time.time() - t0:.1f} s)", flush=True)
@@ -1869,7 +1907,7 @@ def finetune_cases(torch, dev, model, batch, tag: str) -> dict:
     return cases
 
 
-def phase_finetune_chain(torch, dev, launches: dict, step_5b_prof) -> dict:
+def phase_finetune_chain(torch, dev, launches: dict, step_5b_prof, root: str) -> dict:
     """Phase 7: the published training chain at full widths and depths,
     bf16, through ``cli.finetune.main``: synthetic stand-ins of the assets
     (phase 6's writers, a character BPE model beside the encoder) and train,
@@ -1877,18 +1915,18 @@ def phase_finetune_chain(torch, dev, launches: dict, step_5b_prof) -> dict:
     recipe's overrides for one epoch, ``save_last``; (7b) the half_audio
     recipe's from 7a's ``last/pytorch_model.bin``, dither on, one epoch with
     validation every CHAIN_VALIDATION steps and step_N checkpoints, then a
-    second ``main`` resuming from step_2, which must skip 2 batches and
+    second ``main`` resuming from step_CHAIN_VALIDATION, which must skip
+    that many batches and
     reproduce the uninterrupted run's later losses bit for bit; (7c) the
     half_audio step with remat, gradient accumulation 2 and SpecAugment;
     (7d) the decode CLI on 7b's export, clean_marks and WER.  Launches are
     checked exactly per micro-step and per validation batch; frozen weights
-    bit-identical.  Adds each stage's launches to ``launches`` (by stage)
-    and returns the per-micro-step launches without and with remat, a
-    validation batch's, and phase 3's cases at 7a's and 7b's largest
-    batches (:func:`finetune_cases`, by stage)."""
-    import shutil
-    import tempfile
-
+    bit-identical.  Writes under ``root`` (the caller deletes it).  Adds
+    each stage's launches to ``launches`` (by stage) and returns the
+    per-micro-step launches without and with remat, a validation batch's,
+    phase 3's cases at 7a's and 7b's largest batches
+    (:func:`finetune_cases`, by stage), and for phase 11 the assets, 7a's
+    export, the widths and 7b's micro-steps."""
     from ps_slm_tpu_torch.cli import decode, finetune
     from ps_slm_tpu_torch.config import half_audio_configs
     from ps_slm_tpu_torch.models.tasu import model_factory
@@ -1896,175 +1934,173 @@ def phase_finetune_chain(torch, dev, launches: dict, step_5b_prof) -> dict:
 
     what = "finetune chain"
     counters = kernel_counters()
-    root = tempfile.mkdtemp(prefix="finetune_chain_")
-    try:
-        t0 = time.perf_counter()
-        tc, mc = half_audio_configs()
-        src = model_factory(tc, mc)                  # fp32 on the card, seed 42
-        assets = write_assets(torch, root, src, llm_dtype=torch.bfloat16,
-                              utts=CHAIN_UTTS["test"])
-        del src
-        torch.cuda.empty_cache()
-        write_bpe_model(assets["encoder_path"])
-        audio = {split: write_manifest(os.path.join(root, split), CHAIN_UTTS[split],
-                                       DECODE_SECONDS, seed=seed)
-                 for split, seed in (("train", 1), ("dev", 2))}
-        print(f"{what}: assets and manifests written in {time.perf_counter() - t0:.1f} s "
-              f"(train {sum(CHAIN_UTTS['train'].values())} utterances, {audio['train']:.2f} s; "
-              f"dev {sum(CHAIN_UTTS['dev'].values())}, {audio['dev']:.2f} s; test "
-              f"{sum(CHAIN_UTTS['test'].values())}, {assets['audio_seconds']:.2f} s)", flush=True)
-        cut = ["++train_config.num_epochs=1"]
+    t0 = time.perf_counter()
+    tc, mc = half_audio_configs()
+    src = model_factory(tc, mc)                  # fp32 on the card, seed 42
+    assets = write_assets(torch, root, src, llm_dtype=torch.bfloat16,
+                          utts=CHAIN_UTTS["test"])
+    del src
+    torch.cuda.empty_cache()
+    write_bpe_model(assets["encoder_path"])
+    audio = {split: write_manifest(os.path.join(root, split), CHAIN_UTTS[split],
+                                   DECODE_SECONDS, seed=seed)
+             for split, seed in (("train", 1), ("dev", 2))}
+    print(f"{what}: assets and manifests written in {time.perf_counter() - t0:.1f} s "
+          f"(train {sum(CHAIN_UTTS['train'].values())} utterances, {audio['train']:.2f} s; "
+          f"dev {sum(CHAIN_UTTS['dev'].values())}, {audio['dev']:.2f} s; test "
+          f"{sum(CHAIN_UTTS['test'].values())}, {assets['audio_seconds']:.2f} s)", flush=True)
+    cut = ["++train_config.num_epochs=1"]
 
-        def run(stage, args, profile_at=None):
-            torch.cuda.synchronize()
-            reset_counters(counters)
-            with TrainProbe(torch, dev, profile_at) as probe:
-                t = time.perf_counter()
-                rc = finetune.main(args)              # default device: cuda
-                wall = time.perf_counter() - t
-            if rc != 0:
-                fail(f"{what} {stage}: main returned {rc}")
-            launches[stage] = launch_counts(counters)
-            if not all(math.isfinite(x) for x in probe.losses()) or not probe.steps:
-                fail(f"{what} {stage}: no steps or a non-finite loss {probe.losses()}")
-            return probe, wall
-
-        # 7a: the text-only recipe, then last/
-        out_a = os.path.join(root, "exp", "text_only")
-        dims = dict(llm_dim=mc.llm_dim, encoder_dim=mc.encoder_dim)
-        probe, wall = run("7a", finetune_args(assets, root, out_a, text_only=True, **dims) + cut + [
-            "++train_config.save_last=true"])
-        check_step_launches(probe, LAUNCHES_PER_TEXT_ONLY_STEP, LN_ROUTES_TEXT_ONLY, f"{what} 7a")
-        save = probe.saves[-1]
-        cases = {"7a": finetune_cases(torch, dev, probe.model, probe.largest[1], "finetune 7a")}
-        probe.model = probe.largest = None
-        torch.cuda.empty_cache()
-        print(f"{what} 7a (scripts/finetune_text_only.sh, 1 epoch): "
-              f"{probe.summary(audio_read=False)}; losses "
-              f"{[round(x, 4) for x in probe.losses()]}; last/ train state {save['bytes'] / 1e9:.3f} "
-              f"GB written in {save['s']:.2f} s; main {wall:.1f} s", flush=True)
-        init = os.path.join(out_a, "last", "pytorch_model.bin")
-
-        # 7b: the half_audio recipe from 7a's export, dither on
-        env_b = ["++train_config.validation_interval=%d" % CHAIN_VALIDATION] + cut
-        out_b = os.path.join(root, "exp", "half_audio")
-        args_b = [a if not a.startswith("ckpt_path=") else f"ckpt_path={init}"
-                  for a in finetune_args(assets, root, out_b, **dims)] + env_b
-        probe_b, wall = run("7b", args_b, profile_at=3)
-        model = probe_b.model
-        if model.fbank_cfg.dither <= 0 or model.remat:
-            fail(f"{what} 7b: dither off or remat on")
-        check_step_launches(probe_b, LAUNCHES_PER_TRAIN_STEP, LN_ROUTES_PER_PASS, f"{what} 7b")
-        cases["7b"] = finetune_cases(torch, dev, model, probe_b.largest[1], "finetune 7b")
-        n_b = len(probe_b.steps)
-        tags = sorted(p for p in os.listdir(out_b) if p.startswith("step_"))
-        if n_b <= CHAIN_VALIDATION or "step_%d" % CHAIN_VALIDATION not in tags:
-            fail(f"{what} 7b: {n_b} steps and checkpoints {tags}; want more than "
-                 f"{CHAIN_VALIDATION} steps and step_{CHAIN_VALIDATION}")
-        ev = probe_b.evals
-        print(f"{what} 7b (scripts/finetune_half_audio.sh from 7a's export, dither "
-              f"{model.fbank_cfg.dither}, 1 epoch, validation every {CHAIN_VALIDATION}): "
-              f"{probe_b.summary()}; losses {[round(x, 4) for x in probe_b.losses()]}; evals "
-              f"{[(e['batches'], round(e['loss'], 4), round(e['s'], 3)) for e in ev]} (batches, "
-              f"loss, s); checkpoints {tags}, train state "
-              f"{[(round(x['bytes'] / 1e9, 3), round(x['s'], 2)) for x in probe_b.saves]} (GB, s "
-              f"written); main {wall:.1f} s", flush=True)
-        print_profiled(f"{what} 7b loop step (micro-step 4)", probe_b.prof)
-        if step_5b_prof is not None:
-            print_profiled("for comparison, phase 5b's bench.py step", step_5b_prof)
-        del model
-        probe_b.model = probe_b.largest = None
-        torch.cuda.empty_cache()
-
-        # 7b resumed from step_2: skips 2 batches, reproduces the later losses
-        out_r = os.path.join(root, "exp", "half_audio_resumed")
-        state = os.path.join(out_b, "step_%d" % CHAIN_VALIDATION, "state")
-        args_r = [a.replace(out_b, out_r) for a in args_b] + [f"++train_config.resume_from={state}"]
-        probe_r, wall = run("7b resumed", args_r)
-        check_step_launches(probe_r, LAUNCHES_PER_TRAIN_STEP, LN_ROUTES_PER_PASS,
-                            f"{what} 7b resumed")
-        skipped = f"skipping {CHAIN_VALIDATION} trained batches" in read_log(
-            os.path.join(out_r, "train.log"))
-        want = probe_b.losses()[CHAIN_VALIDATION:]
-        got = probe_r.losses()
-        same = got == want
-        print(f"{what} 7b resumed from step_{CHAIN_VALIDATION}: {probe_r.summary()}; reported "
-              f"skipping {CHAIN_VALIDATION} batches {skipped}; fast-forward {probe_r.ff_s:.3f} s; "
-              f"restore {probe_r.restores[0]['s']:.2f} s; losses {got} vs uninterrupted {want}: "
-              f"{'bit-identical' if same else 'DIFFERENT'}; main {wall:.1f} s [{CARD}]", flush=True)
-        if not (skipped and same):
-            fail(f"{what} 7b: the resumed run did not skip {CHAIN_VALIDATION} batches or did "
-                 f"not reproduce the later losses")
-        shutil.rmtree(out_r, ignore_errors=True)
-
-        # 7c: remat, gradient accumulation 2, SpecAugment
-        out_c = os.path.join(root, "exp", "half_audio_remat")
-        args_c = [a.replace(out_b, out_c) for a in args_b] + [
-            "++train_config.remat=true", "++train_config.gradient_accumulation_steps=2",
-            "++dataset_config.fbank.specaug=true", "++train_config.run_validation=false",
-            "++train_config.save_model=false"]
-        frozen = {}
-
-        def snapshot(*args, **kwargs):
-            step = real_make(*args, **kwargs)
-            frozen.update({n: p.detach().cpu().clone() for n, p in step.model.named_parameters()
-                           if n not in step.trainable})
-            frozen["_step"] = step
-            return step
-
-        from ps_slm_tpu_torch.training import step as step_mod
-
-        real_make = step_mod.make_train_step
-        step_mod.make_train_step = snapshot
-        try:
-            probe_c, wall = run("7c", args_c)
-        finally:
-            step_mod.make_train_step = real_make
-        step_c = frozen.pop("_step")
-        check_step_launches(probe_c, LAUNCHES_PER_REMAT_STEP, LN_ROUTES_PER_PASS, f"{what} 7c")
-        params = dict(step_c.model.named_parameters())
-        same_frozen = all(torch.equal(params[n].cpu(), p) for n, p in frozen.items())
-        moved = step_c.accum.gradient_step == len(probe_c.steps) // 2
-        print(f"{what} 7c (remat, gradient_accumulation_steps 2, SpecAugment): "
-              f"{probe_c.summary()}; AdamW updates {step_c.accum.gradient_step} over "
-              f"{len(probe_c.steps)} micro-steps; {len(frozen)} frozen tensors "
-              f"{'bit-identical' if same_frozen else 'CHANGED'}; peak memory remat off "
-              f"{max(s['peak'] for s in probe_b.steps):.2f} GB, on "
-              f"{max(s['peak'] for s in probe_c.steps):.2f} GB; main {wall:.1f} s", flush=True)
-        if not (same_frozen and moved):
-            fail(f"{what} 7c: a frozen weight changed or the updates were not every 2nd micro-step")
-        del step_c, params, frozen
-        torch.cuda.empty_cache()
-
-        # 7d: decode 7b's export, then clean_marks and WER
-        export = os.path.join(out_b, tags[-1], "pytorch_model.bin")
-        log = os.path.join(root, "decode", "test")
-        args_d = [a if not a.startswith("ckpt_path=") else f"ckpt_path={export}"
-                  for a in decode_args(assets, log, DECODE_MAX_NEW, **dims)]
+    def run(stage, args, profile_at=None):
         torch.cuda.synchronize()
         reset_counters(counters)
-        t = time.perf_counter()
-        rc = decode.main(args_d)
-        wall = time.perf_counter() - t
-        launches["7d"] = launch_counts(counters)
+        with TrainProbe(torch, dev, profile_at) as probe:
+            t = time.perf_counter()
+            rc = finetune.main(args)              # default device: cuda
+            wall = time.perf_counter() - t
         if rc != 0:
-            fail(f"{what} 7d: decode main returned {rc}")
-        for path in (log + "_pred", log + "_gt"):
-            clean_marks.clean_file(path)
-        with open(os.devnull, "w") as null:
-            score = wer.score_files(log + "_gt", log + "_pred", stream=null)
-        with open(log + "_pred") as f:
-            n_pred = sum(1 for line in f if "\t" in line)
-        print(f"{what} 7d (cli.decode on 7b's {tags[-1]} export): {n_pred} utterances decoded in "
-              f"{wall:.1f} s; WER {score['wer']:.2f}% (random weights: meaningless) [{CARD}]",
-              flush=True)
-        if n_pred != sum(CHAIN_UTTS["test"].values()):
-            fail(f"{what} 7d: {n_pred} utterances decoded")
-        return {"step": probe_b.steps[0]["launches"], "remat": probe_c.steps[0]["launches"],
-                "eval": {k: v // ev[0]["batches"] for k, v in ev[0]["launches"].items()},
-                "cases": cases}
+            fail(f"{what} {stage}: main returned {rc}")
+        launches[stage] = launch_counts(counters)
+        if not all(math.isfinite(x) for x in probe.losses()) or not probe.steps:
+            fail(f"{what} {stage}: no steps or a non-finite loss {probe.losses()}")
+        return probe, wall
+
+    # 7a: the text-only recipe, then last/
+    out_a = os.path.join(root, "exp", "text_only")
+    dims = dict(llm_dim=mc.llm_dim, encoder_dim=mc.encoder_dim)
+    probe, wall = run("7a", finetune_args(assets, root, out_a, text_only=True, **dims) + cut + [
+        "++train_config.save_last=true"])
+    check_step_launches(probe, LAUNCHES_PER_TEXT_ONLY_STEP, LN_ROUTES_TEXT_ONLY, f"{what} 7a")
+    save = probe.saves[-1]
+    cases = {"7a": finetune_cases(torch, dev, probe.model, probe.largest[1], "finetune 7a")}
+    probe.model = probe.largest = None
+    torch.cuda.empty_cache()
+    print(f"{what} 7a (scripts/finetune_text_only.sh, 1 epoch): "
+          f"{probe.summary(audio_read=False)}; losses "
+          f"{[round(x, 4) for x in probe.losses()]}; last/ train state {save['bytes'] / 1e9:.3f} "
+          f"GB written in {save['s']:.2f} s; main {wall:.1f} s", flush=True)
+    init = os.path.join(out_a, "last", "pytorch_model.bin")
+
+    # 7b: the half_audio recipe from 7a's export, dither on
+    env_b = ["++train_config.validation_interval=%d" % CHAIN_VALIDATION] + cut
+    out_b = os.path.join(root, "exp", "half_audio")
+    args_b = [a if not a.startswith("ckpt_path=") else f"ckpt_path={init}"
+              for a in finetune_args(assets, root, out_b, **dims)] + env_b
+    probe_b, wall = run("7b", args_b, profile_at=3)
+    model = probe_b.model
+    if model.fbank_cfg.dither <= 0 or model.remat:
+        fail(f"{what} 7b: dither off or remat on")
+    check_step_launches(probe_b, LAUNCHES_PER_TRAIN_STEP, LN_ROUTES_PER_PASS, f"{what} 7b")
+    cases["7b"] = finetune_cases(torch, dev, model, probe_b.largest[1], "finetune 7b")
+    n_b = len(probe_b.steps)
+    tags = sorted(p for p in os.listdir(out_b) if p.startswith("step_"))
+    if n_b <= CHAIN_VALIDATION or "step_%d" % CHAIN_VALIDATION not in tags:
+        fail(f"{what} 7b: {n_b} steps and checkpoints {tags}; want more than "
+             f"{CHAIN_VALIDATION} steps and step_{CHAIN_VALIDATION}")
+    ev = probe_b.evals
+    print(f"{what} 7b (scripts/finetune_half_audio.sh from 7a's export, dither "
+          f"{model.fbank_cfg.dither}, 1 epoch, validation every {CHAIN_VALIDATION}): "
+          f"{probe_b.summary()}; losses {[round(x, 4) for x in probe_b.losses()]}; evals "
+          f"{[(e['batches'], round(e['loss'], 4), round(e['s'], 3)) for e in ev]} (batches, "
+          f"loss, s); checkpoints {tags}, train state "
+          f"{[(round(x['bytes'] / 1e9, 3), round(x['s'], 2)) for x in probe_b.saves]} (GB, s "
+          f"written); main {wall:.1f} s", flush=True)
+    print_profiled(f"{what} 7b loop step (micro-step 4)", probe_b.prof)
+    if step_5b_prof is not None:
+        print_profiled("for comparison, phase 5b's bench.py step", step_5b_prof)
+    del model
+    probe_b.model = probe_b.largest = None
+    torch.cuda.empty_cache()
+
+    # 7b resumed from its first step_N: skips N batches, reproduces the later losses
+    out_r = os.path.join(root, "exp", "half_audio_resumed")
+    state = os.path.join(out_b, "step_%d" % CHAIN_VALIDATION, "state")
+    args_r = [a.replace(out_b, out_r) for a in args_b] + [f"++train_config.resume_from={state}"]
+    probe_r, wall = run("7b resumed", args_r)
+    check_step_launches(probe_r, LAUNCHES_PER_TRAIN_STEP, LN_ROUTES_PER_PASS,
+                        f"{what} 7b resumed")
+    skipped = f"skipping {CHAIN_VALIDATION} trained batches" in read_log(
+        os.path.join(out_r, "train.log"))
+    want = probe_b.losses()[CHAIN_VALIDATION:]
+    got = probe_r.losses()
+    same = got == want
+    print(f"{what} 7b resumed from step_{CHAIN_VALIDATION}: {probe_r.summary()}; reported "
+          f"skipping {CHAIN_VALIDATION} batches {skipped}; fast-forward {probe_r.ff_s:.3f} s; "
+          f"restore {probe_r.restores[0]['s']:.2f} s; losses {got} vs uninterrupted {want}: "
+          f"{'bit-identical' if same else 'DIFFERENT'}; main {wall:.1f} s [{CARD}]", flush=True)
+    if not (skipped and same):
+        fail(f"{what} 7b: the resumed run did not skip {CHAIN_VALIDATION} batches or did "
+             f"not reproduce the later losses")
+    shutil.rmtree(out_r, ignore_errors=True)
+
+    # 7c: remat, gradient accumulation 2, SpecAugment
+    out_c = os.path.join(root, "exp", "half_audio_remat")
+    args_c = [a.replace(out_b, out_c) for a in args_b] + [
+        "++train_config.remat=true", "++train_config.gradient_accumulation_steps=2",
+        "++dataset_config.fbank.specaug=true", "++train_config.run_validation=false",
+        "++train_config.save_model=false"]
+    frozen = {}
+
+    def snapshot(*args, **kwargs):
+        step = real_make(*args, **kwargs)
+        frozen.update({n: p.detach().cpu().clone() for n, p in step.model.named_parameters()
+                       if n not in step.trainable})
+        frozen["_step"] = step
+        return step
+
+    from ps_slm_tpu_torch.training import step as step_mod
+
+    real_make = step_mod.make_train_step
+    step_mod.make_train_step = snapshot
+    try:
+        probe_c, wall = run("7c", args_c)
     finally:
-        shutil.rmtree(root, ignore_errors=True)
+        step_mod.make_train_step = real_make
+    step_c = frozen.pop("_step")
+    check_step_launches(probe_c, LAUNCHES_PER_REMAT_STEP, LN_ROUTES_PER_PASS, f"{what} 7c")
+    params = dict(step_c.model.named_parameters())
+    same_frozen = all(torch.equal(params[n].cpu(), p) for n, p in frozen.items())
+    moved = step_c.accum.gradient_step == len(probe_c.steps) // 2
+    print(f"{what} 7c (remat, gradient_accumulation_steps 2, SpecAugment): "
+          f"{probe_c.summary()}; AdamW updates {step_c.accum.gradient_step} over "
+          f"{len(probe_c.steps)} micro-steps; {len(frozen)} frozen tensors "
+          f"{'bit-identical' if same_frozen else 'CHANGED'}; peak memory remat off "
+          f"{max(s['peak'] for s in probe_b.steps):.2f} GB, on "
+          f"{max(s['peak'] for s in probe_c.steps):.2f} GB; main {wall:.1f} s", flush=True)
+    if not (same_frozen and moved):
+        fail(f"{what} 7c: a frozen weight changed or the updates were not every 2nd micro-step")
+    del step_c, params, frozen
+    torch.cuda.empty_cache()
+
+    # 7d: decode 7b's export, then clean_marks and WER
+    export = os.path.join(out_b, tags[-1], "pytorch_model.bin")
+    log = os.path.join(root, "decode", "test")
+    args_d = [a if not a.startswith("ckpt_path=") else f"ckpt_path={export}"
+              for a in decode_args(assets, log, DECODE_MAX_NEW, **dims)]
+    torch.cuda.synchronize()
+    reset_counters(counters)
+    t = time.perf_counter()
+    rc = decode.main(args_d)
+    wall = time.perf_counter() - t
+    launches["7d"] = launch_counts(counters)
+    if rc != 0:
+        fail(f"{what} 7d: decode main returned {rc}")
+    for path in (log + "_pred", log + "_gt"):
+        clean_marks.clean_file(path)
+    with open(os.devnull, "w") as null:
+        score = wer.score_files(log + "_gt", log + "_pred", stream=null)
+    with open(log + "_pred") as f:
+        n_pred = sum(1 for line in f if "\t" in line)
+    print(f"{what} 7d (cli.decode on 7b's {tags[-1]} export): {n_pred} utterances decoded in "
+          f"{wall:.1f} s; WER {score['wer']:.2f}% (random weights: meaningless) [{CARD}]",
+          flush=True)
+    if n_pred != sum(CHAIN_UTTS["test"].values()):
+        fail(f"{what} 7d: {n_pred} utterances decoded")
+    shutil.rmtree(out_b, ignore_errors=True)     # 7b's checkpoints: not read again
+    return {"step": probe_b.steps[0]["launches"], "remat": probe_c.steps[0]["launches"],
+            "eval": {k: v // ev[0]["batches"] for k, v in ev[0]["launches"].items()},
+            "cases": cases, "assets": assets, "root": root, "init": init, "dims": dims,
+            "steps": n_b}
 
 
 def reset_counters(counters) -> None:
@@ -2500,9 +2536,10 @@ SERVE_FP32_ARGS = ["++train_config.mixed_precision=false", "++train_config.decod
 SERVE_FP32_MODES = (
     ("plain", "plain", [], True),
     ("speculative", "speculative", [], True),
-    ("continuous", "continuous", [], True),
-    ("continuous+speculative", "continuous", ["++train_config.speculative_ctc=true"], True),
-    ("continuous beam-4", "continuous", ["++train_config.num_beams=4"], True),
+    # the pools' CPU runs: phase 10a runs them card vs CPU through cli.serve
+    ("continuous", "continuous", [], False),
+    ("continuous+speculative", "continuous", ["++train_config.speculative_ctc=true"], False),
+    ("continuous beam-4", "continuous", ["++train_config.num_beams=4"], False),
     ("static beam-4", "plain", ["++train_config.num_beams=4"], False),
     ("quant_bits=4", "plain", ["++train_config.quant_bits=4"], True),
     ("kv_cache_bits=8", "plain", ["++train_config.kv_cache_bits=8"], True),
@@ -2569,11 +2606,12 @@ def tokens_by_key(pred_path: str, calls: list, what: str) -> dict:
 def phase_serving_fp32(torch, dev) -> None:
     """Phase 8a: scripts/decode_serving.sh's modes through ``cli.decode.main``
     in fp32 at full width and reduced depth (2+1 encoder blocks, 2 LLM
-    layers), on the card and on the CPU, each with the script's
+    layers), on the card and (the modes without a pool; phase 10a runs the
+    pools card vs CPU) on the CPU, each with the script's
     ``quantization=true``.  The card's ``_pred`` must be byte-identical to
-    the CPU's in every mode, and on the card the pool and speculative modes'
-    to plain greedy's (the beam pool's to static beam-4's), its lines sorted
-    (the pools write in completion order)."""
+    the CPU's in every mode run on both, and on the card the pool and
+    speculative modes' to plain greedy's (the beam pool's to static
+    beam-4's), its lines sorted (the pools write in completion order)."""
     import shutil
     import tempfile
 
@@ -3028,27 +3066,679 @@ def phase_serving_pools(torch, dev, launches, model, assets) -> dict:
             "refill": rec_cap["refills"][0][3], "flash": flash, "norm": norm}
 
 
-def run_decode_and_serving(torch, dev, results, cli_launches, serve_launches) -> tuple:
-    """Phase 6, phase 3 at its largest batch, then phase 8 on phase 6's
-    assets (8b, 8c; 8a after the assets are deleted) and phase 3 at the
-    pools' shapes.  Returns phase 6's launches per batch and cases, and
-    8c's pool columns."""
-    root = tempfile.mkdtemp(prefix="serving_")
+# ---------------------------------------------------------------------------
+# phase 10: the streaming server, cli/serve.py
+# ---------------------------------------------------------------------------
+
+# 10a: (label, overrides after scripts/decode_serving.sh's MODE=plain and
+# SERVE_FP32_ARGS); on the card the greedy ones' texts must equal plain
+# greedy decode's
+SERVE_FP32_ROUTES = (
+    ("pool", ["++train_config.serve_route=pool"]),
+    ("static", ["++train_config.serve_route=static"]),
+    ("stream_partials", ["++train_config.stream_partials=true"]),
+    ("speculative_ctc", ["++train_config.speculative_ctc=true"]),
+    ("beam-4 pool", ["++train_config.serve_route=pool", "++train_config.num_beams=4"]),
+)
+SERVE_GREEDY = ("pool", "static", "stream_partials", "speculative_ctc")
+# 10b: scripts/decode_serving.sh's MODE=continuous knobs (8 slots, the
+# 2 000-frame prefill bucket), 32 requests; random weights never emit EOS,
+# so every completion is DECODE_MAX_NEW long and auto needs a threshold
+# above it to leave the pool
+SERVE_RUNS_CLI = (
+    ("pool", ["++train_config.serve_route=pool"]),
+    ("static", ["++train_config.serve_route=static"]),
+    ("auto", ["++train_config.serve_route=auto", "++train_config.route_probe=8",
+              "++train_config.route_static_below=64"]),
+    ("stream_partials", ["++train_config.stream_partials=true"]),
+)
+SERVE_GAP_S = 0.1       # 10b stream: one request down a pipe every 100 ms
+
+
+def write_requests(manifest_dir: str, path: str, n=None) -> list:
+    """A serve CLI requests file: the key, path and task of the first ``n``
+    manifest rows, then a malformed line and an unreadable path (last, so
+    the good requests draw their prompts in the decode CLI's order);
+    returns the good keys."""
+    with open(os.path.join(manifest_dir, "multitask.jsonl")) as f:
+        rows = [json.loads(line) for line in f][:n]
+    lines = [json.dumps({"key": r["key"], "path": r["path"], "task": r["task"]}) for r in rows]
+    lines += ["{not json", json.dumps({"key": "unreadable",
+                                       "path": os.path.join(manifest_dir, "missing.wav")})]
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return [r["key"] for r in rows]
+
+
+class LineClock:
+    """A ``stdout`` for ``cli.serve.main``: each JSON line with the host
+    time it was written."""
+
+    def __init__(self):
+        self.buf, self.lines = "", []
+
+    def write(self, s: str) -> int:
+        self.buf += s
+        while "\n" in self.buf:
+            line, self.buf = self.buf.split("\n", 1)
+            self.lines.append((time.perf_counter(), json.loads(line)))
+        return len(s)
+
+    def flush(self) -> None:
+        pass
+
+
+def serve_finals(what: str, lines, good) -> dict:
+    """{key: final text}; fails unless every good key has one final line,
+    the two bad lines one error line each, and every partial line is a
+    growing prefix of its key's final text (a trailing U+FFFD aside: a
+    prefix can end inside a UTF-8 character that the next token
+    completes)."""
+    finals, errors, last = {}, [], {}
+    for _, r in lines:
+        if "error" in r:
+            errors.append(r["key"])
+        elif r.get("partial"):
+            text = r["text"].rstrip("�")
+            if r["key"] in finals or not text.startswith(last.get(r["key"], "")):
+                fail(f"{what}: partial line {r} after its final or not growing")
+            last[r["key"]] = text
+        elif r["key"] in finals:
+            fail(f"{what}: {r['key']} answered twice")
+        else:
+            finals[r["key"]] = r["text"]
+    if sorted(finals) != sorted(good) or len(errors) != 2 or "unreadable" not in errors:
+        fail(f"{what}: answered {sorted(finals)}, errors {errors}; want {sorted(good)} and the "
+             f"two bad lines")
+    for key, text in last.items():
+        if not finals[key].startswith(text):
+            fail(f"{what}: a partial of {key} is not a prefix of its final text")
+    return finals
+
+
+@contextlib.contextmanager
+def serve_segments():
+    """Record each ``run`` of a slot pool or a static decoder while the
+    serve CLI runs (``serve_route=auto`` runs one per segment): (route,
+    completions, seconds)."""
+    from ps_slm_tpu_torch.inference import continuous, static_serve
+
+    segs: list = []
+    saved = [(continuous._SlotPoolBase, "pool"), (static_serve.StaticBatchDecoder, "static")]
+    real = {cls: cls.run for cls, _ in saved}
+
+    def timed(cls, kind):
+        def run(self, *args, **kwargs):
+            t, n = time.perf_counter(), 0
+            for item in real[cls](self, *args, **kwargs):
+                n += 1
+                yield item
+            segs.append((kind, n, time.perf_counter() - t))
+        return run
+
+    for cls, kind in saved:
+        cls.run = timed(cls, kind)
     try:
-        cli_per_batch, cli_flash, cli_norm, assets = phase_decode_cli(torch, dev, cli_launches,
-                                                                      root)
-        phase_kernels(torch, dev, results, cli_flash, cli_norm)
-        t8 = time.time()
-        model = phase_serving(torch, dev, serve_launches, assets)
-        pools = phase_serving_pools(torch, dev, serve_launches, model, assets)
-        del model
-        torch.cuda.empty_cache()
+        yield segs
+    finally:
+        for cls, _ in saved:
+            cls.run = real[cls]
+
+
+class Started:
+    """A request source for ``cli.serve.main``'s reader thread that notes
+    the host time the server starts reading it (its model loaded)."""
+
+    def __init__(self, f):
+        import threading
+
+        self.f, self.event, self.t = f, threading.Event(), None
+
+    def __iter__(self):
+        self.t = time.perf_counter()
+        self.event.set()
+        return iter(self.f)
+
+
+def serve_requests(serve_main, args: list, req_path: str, gap) -> tuple:
+    """``cli.serve.main`` on the lines of ``req_path``, given on stdin: read
+    from the file, or with ``gap`` seconds from a pipe that a writer thread
+    fills one line at a time once the server reads.  Returns (the output
+    lines with their times, the time reading started, the time the last
+    line was written or None)."""
+    import threading
+
+    clock = LineClock()
+    if gap is None:
+        with open(req_path) as f:
+            src = Started(f)
+            if serve_main(args, stdin=src, stdout=clock) != 0:     # default device: cuda
+                fail("serve: main returned nonzero")
+        return clock.lines, src.t, None
+    with open(req_path) as f:
+        lines = f.read().splitlines()
+    r, w = os.pipe()
+    wrote: list = []
+    with os.fdopen(r) as pipe_r:
+        src = Started(pipe_r)
+
+        def writer():
+            with os.fdopen(w, "w") as out:
+                src.event.wait(600)
+                for line in lines:
+                    time.sleep(gap)
+                    out.write(line + "\n")
+                    out.flush()
+                    wrote.append(time.perf_counter())
+
+        th = threading.Thread(target=writer, daemon=True)
+        th.start()
+        rc = serve_main(args, stdin=src, stdout=clock)
+        th.join(timeout=60)
+    if rc != 0 or th.is_alive():
+        fail(f"serve through a pipe: main returned {rc}, writer alive {th.is_alive()}")
+    return clock.lines, src.t, wrote[-1]
+
+
+def phase_serve_cli_fp32(torch, dev) -> None:
+    """Phase 10a: ``cli.serve.main`` in fp32 at full width and reduced depth
+    (8a's 2+1 encoder blocks, 2 LLM layers, assets and knobs: int8 weights,
+    3 slots, 8 new tokens) on 4 utterances and two bad lines, through the
+    pool, static batches, streamed partials, CTC drafts and the beam-4 pool,
+    on the card and on the CPU.  Each route's final and error lines must be
+    identical card against CPU (as sets: lines come in completion order),
+    and on the card the greedy routes' token ids equal plain greedy decode's
+    (the decode CLI, MODE=plain; streamed partials: the pool's texts)."""
+    from ps_slm_tpu_torch.cli import decode, serve
+    from ps_slm_tpu_torch.config import half_audio_configs
+    from ps_slm_tpu_torch.models.tasu import model_factory
+
+    what = "serve CLI fp32"
+    t0 = time.time()
+    root = tempfile.mkdtemp(prefix="serve_fp32_")
+    try:
+        tc, mc = half_audio_configs(dict(num_blocks=2, tp_blocks=1), dict(num_hidden_layers=2),
+                                    seed=0)
+        assets = write_assets(torch, root, model_factory(tc, mc, device="cpu"),
+                              llm_dtype=torch.bfloat16, utts=SERVE_FP32_UTTS)
+        write_bpe_model(assets["encoder_path"], vocab=mc.encoder_dim)
+        req = os.path.join(root, "requests.jsonl")
+        good = write_requests(assets["data"], req)
+        log = os.path.join(root, "decode", "test")
+        with recorded_tokens() as calls:
+            if decode.main(serving_args(assets, "plain", log, FP32_NEW, mc.llm_dim,
+                                        mc.encoder_dim) + SERVE_FP32_ARGS, device=dev) != 0:
+                fail(f"{what}: the plain decode returned nonzero")
+        greedy = tokens_by_key(log + "_pred", calls, f"{what} plain decode")
+        base = [a for a in serving_args(assets, "plain", os.path.join(root, "serve"), FP32_NEW,
+                                        mc.llm_dim, mc.encoder_dim)
+                if not a.startswith("decode_log=")] + SERVE_FP32_ARGS
+        out, walls, toks = {}, {}, {}
+        for label, extra in SERVE_FP32_ROUTES:
+            for name, device in (("cuda", dev), ("cpu", "cpu")):
+                clock = LineClock()
+                t1 = time.time()
+                with recorded_tokens() as calls:
+                    if serve.main(base + extra + [req], stdout=clock, device=device) != 0:
+                        fail(f"{what} {label} on {name}: main returned nonzero")
+                walls[label, name] = time.time() - t1
+                out[label, name] = clock.lines
+                # without partials, the decodes are the final lines', in order
+                keys = [r["key"] for _, r in clock.lines if "text" in r]
+                toks[label, name] = dict(zip(keys, map(tuple, calls)))
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    phase_serving_fp32(torch, dev)
-    phase_kernels(torch, dev, results, pools["flash"], pools["norm"], "serving pool")
-    print(f"serving phases (8a-8c and their phase 3 cases): {time.time() - t8:.1f} s", flush=True)
-    return cli_per_batch, cli_flash, cli_norm, pools
+    bad = []
+    for label, _ in SERVE_FP32_ROUTES:
+        finals = {n: serve_finals(f"{what} {label} on {n}", out[label, n], good)
+                  for n in ("cuda", "cpu")}
+        lines = {n: sorted(json.dumps(r, sort_keys=True) for _, r in out[label, n]
+                           if not r.get("partial")) for n in ("cuda", "cpu")}
+        partials = {n: sum(1 for _, r in out[label, n] if r.get("partial")) for n in ("cuda", "cpu")}
+        same_cpu = lines["cuda"] == lines["cpu"]
+        if label == "stream_partials":   # its decodes include the partials': texts against the pool's
+            same_greedy = finals["cuda"] == serve_finals(what, out["pool", "cuda"], good)
+        else:
+            same_greedy = toks[label, "cuda"] == {k: greedy[k] for k in good}
+        if not same_cpu or (label in SERVE_GREEDY and not same_greedy):
+            bad.append(label)
+        print(f"{what} {label} (2+1 encoder blocks, 2 LLM layers, full width, quantized, "
+              f"{FP32_NEW} new tokens, {len(good)} requests + 2 bad lines): final and error lines "
+              f"{'identical to' if same_cpu else 'DIFFERENT from'} the CPU's; texts "
+              f"{'equal' if same_greedy else 'unequal'} to plain greedy decode's on the card"
+              f"{'' if label in SERVE_GREEDY else ' (beam: not asserted)'}; partial lines card "
+              f"{partials['cuda']}, CPU {partials['cpu']}; main {walls[label, 'cuda']:.1f} s card, "
+              f"{walls[label, 'cpu']:.1f} s CPU", flush=True)
+    print(f"{what}: {time.time() - t0:.1f} s", flush=True)
+    if bad:
+        fail(f"{what}: {bad} differ card against CPU or from plain greedy on the card")
+
+
+def phase_serve_cli(torch, dev, launches, assets) -> dict:
+    """Phase 10b: ``cli.serve.main`` at full size, bf16, on phase 8's
+    assets with scripts/decode_serving.sh's MODE=continuous knobs (int8
+    weights, 8 slots, the 2 000-frame prefill bucket): 32 requests of 2-12
+    s and two bad lines on stdin, DECODE_MAX_NEW new tokens, through the
+    pool, static batches, ``serve_route=auto`` (probe 8, static below 64
+    tokens) and streamed partials fed down a pipe one request every 100 ms
+    once the server reads (times from then: the model's load apart).
+    Fails unless every good request is answered once, the bad lines get
+    error lines, partials grow as prefixes of their final text, the first
+    streamed line (a partial) arrives before the last request is written, and every
+    norm launch stays on its main route.  Adds the launches to
+    ``launches``; returns each run's launches."""
+    from ps_slm_tpu_torch.cli import serve
+    from ps_slm_tpu_torch.config import half_audio_configs
+
+    what = "serve CLI"
+    counters = kernel_counters()
+    _, mc = half_audio_configs()
+    root = os.path.dirname(assets["data"])
+    req = os.path.join(root, "requests.jsonl")
+    good = write_requests(assets["data"], req)
+    log = os.path.join(root, "serve")
+    base = [a for a in serving_args(assets, "continuous", log, DECODE_MAX_NEW, mc.llm_dim,
+                                    mc.encoder_dim) if not a.startswith("decode_log=")]
+    per_run = {}
+    for label, extra in SERVE_RUNS_CLI:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counters(counters)
+        args = base + extra
+        with serve_segments() as segs, recorded_tokens() as calls:
+            t_main = time.perf_counter()
+            lines, t0, last_write = serve_requests(
+                serve.main, args, req, SERVE_GAP_S if label == "stream_partials" else None)
+            wall = time.perf_counter() - t0             # serving, after the model's load
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        run = launch_snapshot(counters)
+        per_run[label] = run
+        for n, c in run.items():
+            launches[n] = launches.get(n, 0) + c
+        routes = {n: dict(counters[n].routes) for n in MAIN_ROUTES}
+        if routes["rms_norm_fwd"]["general"] or routes["layer_norm_fwd"]["general"] \
+                or routes["layer_norm_fwd"]["held"] or not run["flash_attention_fwd"]:
+            fail(f"{what} {label}: a norm left its main route or no flash ran: {routes}")
+        finals = serve_finals(f"{what} {label}", lines, good)
+        first = next(t for t, r in lines if "text" in r and not r.get("partial"))
+        n_part = sum(1 for _, r in lines if r.get("partial"))
+        tokens = "" if n_part else (
+            f", {sum(map(len, calls))} tokens ({sum(map(len, calls)) / wall:.1f} tokens/s)")
+        decisions = ""
+        if label == "auto":
+            with open(log + ".log") as f:
+                decisions = [line.split(" - ", 1)[-1].strip() for line in f
+                             if "serve_route=auto" in line]
+            decisions = f"; decisions {decisions}"
+        stream = ""
+        if last_write is not None:
+            streamed = next(t for t, r in lines if "text" in r)    # a partial or a final
+            stream = (f"; first streamed line {streamed - t0:.2f} s, last request written at "
+                      f"{last_write - t0:.2f} s, {n_part} partial lines")
+            if streamed >= last_write:
+                fail(f"{what} {label}: the first result came after the last request was written")
+        rates = [(k, n, round(n / s, 2) if s else 0.0) for k, n, s in segs]
+        print(f"{what} {label} (scripts/decode_serving.sh MODE=continuous, {' '.join(extra)}): "
+              f"main {t0 - t_main + wall:.2f} s, of which loading {t0 - t_main:.2f} s and serving "
+              f"{len(finals)} requests {wall:.2f} s ({len(finals) / wall:.2f} requests/s"
+              f"{tokens}); time to the first result {first - t0:.2f} s; segments (route, "
+              f"completions, completions/s) {rates}{decisions}{stream}; peak memory "
+              f"{peak_gb:.2f} GB; launches {nonzero({n: c for n, c in run.items() if '.' not in n})}, "
+              f"routes {routes} [{CARD}]",
+              flush=True)
+    return per_run
+
+
+# ---------------------------------------------------------------------------
+# phase 11: PEFT finetuning through cli/finetune.py
+# ---------------------------------------------------------------------------
+
+# 11a: (label, overrides after the half_audio recipe's and use_peft=true)
+PEFT_FP32_SETUPS = (
+    ("LoRA", ["++train_config.peft_config.lora_dropout=0.0"]),
+    ("QLoRA int8", ["++train_config.peft_config.lora_dropout=0.0",
+                    "++train_config.quantization=true"]),
+    ("prefix", ["++train_config.peft_config.peft_method=prefix"]),
+    ("llama-adapter", ["++train_config.peft_config.peft_method=llama_adapter"]),
+)
+# LoRA's trainable parameters at r 64 on Qwen2.5-1.5B's seven projections:
+# r x 28 layers x the sum of their in + out widths (q 1536 + 1536, k and v
+# 1536 + 256, o 1536 + 1536, gate and up 1536 + 8960, down 8960 + 1536)
+LORA_PARAMS = 64 * 28 * 41216
+
+
+@contextlib.contextmanager
+def base_snapshot(torch):
+    """Hold the train step ``cli.finetune.main`` builds and a CPU copy of
+    every LLM tensor it does not train (parameters and quantized codes)."""
+    from ps_slm_tpu_torch.training import step as step_mod
+
+    seen: dict = {}
+    real = step_mod.make_train_step
+
+    def make(*args, **kwargs):
+        step = real(*args, **kwargs)
+        seen["step"] = step
+        seen["base"] = {n: t.detach().cpu().clone() for n, t in step.model.state_dict().items()
+                        if n.startswith("llm.") and n not in step.trainable}
+        return step
+
+    step_mod.make_train_step = make
+    try:
+        yield seen
+    finally:
+        step_mod.make_train_step = real
+
+
+def base_unchanged(seen) -> bool:
+    now = seen["step"].model.state_dict()
+    return all(now[n].cpu().equal(t) for n, t in seen["base"].items())
+
+
+@contextlib.contextmanager
+def export_timer(torch):
+    """Seconds and bytes of each reference and adapter export the finetune
+    CLI writes."""
+    from ps_slm_tpu_torch.training import checkpoint as ckpt
+
+    rec: list = []
+    saved = {name: getattr(ckpt, name) for name in ("export_reference_checkpoint",
+                                                    "export_peft_adapters")}
+
+    def timed(name):
+        def run(model, path, **kwargs):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = saved[name](model, path, **kwargs)
+            files = [path] if name.startswith("export_reference") else [
+                os.path.join(path, f) for f in os.listdir(path)]
+            rec.append((name, time.perf_counter() - t, sum(os.path.getsize(f) for f in files)))
+            return out
+        return run
+
+    for name in saved:
+        setattr(ckpt, name, timed(name))
+    try:
+        yield rec
+    finally:
+        for name, fn in saved.items():
+            setattr(ckpt, name, fn)
+
+
+@contextlib.contextmanager
+def adapters_only(torch):
+    """While the finetune CLI runs, its checkpoints write the PEFT adapters
+    alone: no train state and no reference export (11a compares only the
+    adapters; 11b writes both at full size)."""
+    from ps_slm_tpu_torch.training import checkpoint as ckpt
+
+    saved = (ckpt.save_train_state, ckpt.export_reference_checkpoint)
+    ckpt.save_train_state = lambda path, state: 0
+    ckpt.export_reference_checkpoint = lambda model, path, **kwargs: {}
+    try:
+        yield
+    finally:
+        ckpt.save_train_state, ckpt.export_reference_checkpoint = saved
+
+
+def phase_peft_fp32(torch, dev) -> None:
+    """Phase 11a: ``cli.finetune.main`` with ``use_peft`` in fp32 at full
+    width and reduced depth (2+1 encoder blocks, 2 LLM layers; phase 4e's
+    kind of assets, 4 training utterances of 1-2 s, 2 steps of 2 rows, lr
+    1e-3 after the warm-up's first step at 0; dither 0; the projector
+    frozen, so only the adapters train; one initial adapter, drawn on the
+    CPU, given to both as ``peft_ckpt``; ``last/`` writes the adapters
+    alone, 11b writes the whole checkpoint), on the card and on the CPU: LoRA
+    (dropout 0), QLoRA over int8, prefix tuning and llama-adapter.  Losses
+    within PATH_TOL, the exported adapters (``last/adapter``) within
+    ADAPTER_TOL and AdamW's first moments of every trained tensor within
+    MOMENT_TOL of the tensor's largest, card against CPU; the base LLM
+    bit-identical after training; the exported
+    adapters, imported into a fresh model by ``peft_ckpt``'s
+    ``import_peft_adapters``, reproduce the trained LLM's logits."""
+    from ps_slm_tpu_torch.cli import finetune
+    from ps_slm_tpu_torch.config import RunConfig, half_audio_configs, parse_cli
+    from ps_slm_tpu_torch.models.tasu import model_factory
+    from ps_slm_tpu_torch.training import checkpoint as ckpt
+
+    what = "PEFT finetune fp32"
+    t0 = time.time()
+    root = tempfile.mkdtemp(prefix="peft_fp32_")
+    bad = []
+    try:
+        tc, mc = half_audio_configs(dict(num_blocks=2, tp_blocks=1), dict(num_hidden_layers=2),
+                                    seed=0)
+        assets = write_assets(torch, root, model_factory(tc, mc, device="cpu"),
+                              llm_dtype=torch.bfloat16, utts={"ark": 1, "wav": 0, "flac": 0})
+        write_manifest(os.path.join(root, "train"), {"ark": 2, "wav": 1, "flac": 1},
+                       PEFT_SECONDS, seed=1)
+        extra = ["++train_config.mixed_precision=false", "++dataset_config.fbank.dither=0.0",
+                 "++train_config.num_epochs=1", "++train_config.run_validation=false",
+                 "++train_config.batching_strategy=padding",
+                 "++train_config.batch_size_training=2", "++train_config.lr=1e-3",
+                 "++train_config.warmup_steps=1", "++train_config.save_last=true",
+                 "++log_config.log_interval=1", "++train_config.use_peft=true",
+                 "++train_config.freeze_projector=true"]
+        inits = {}
+        for label, peft in PEFT_FP32_SETUPS:
+            # one initial adapter for both devices (each device's generator
+            # draws its own), handed over as peft_ckpt; QLoRA takes LoRA's
+            method = next((a for a in peft if "peft_method" in a), "lora")
+            if method not in inits:
+                inits[method] = os.path.join(root, label.replace(" ", "_"), "init_adapter")
+                cfg = parse_cli(finetune_args(assets, root, inits[method], llm_dim=mc.llm_dim,
+                                              encoder_dim=mc.encoder_dim) + extra + peft,
+                                RunConfig())
+                ckpt.export_peft_adapters(
+                    model_factory(cfg.train_config, cfg.model_config, device="cpu"),
+                    inits[method])
+            init = inits[method]
+            runs = {}
+            for name, device in (("cuda", dev), ("cpu", "cpu")):
+                out = os.path.join(root, label.replace(" ", "_"), name)
+                args = finetune_args(assets, root, out, llm_dim=mc.llm_dim,
+                                     encoder_dim=mc.encoder_dim) + extra + peft + [
+                    f"peft_ckpt={init}"]
+                with TrainProbe(torch, device) as probe, base_snapshot(torch) as seen, \
+                        adapters_only(torch):
+                    t1 = time.time()
+                    if finetune.main(args, device=device) != 0:
+                        fail(f"{what} {label} on {name}: main returned nonzero")
+                adapter = torch.load(os.path.join(out, "last", "adapter", "adapter_model.bin"),
+                                     weights_only=True)
+                step = seen["step"]
+                params = dict(step.model.named_parameters())
+                moments = {n: step.optimizer.state[params[n]]["exp_avg"].detach().cpu()
+                           for n in step.trainable}
+                runs[name] = dict(losses=probe.losses(), adapter=adapter, wall=time.time() - t1,
+                                  same_base=base_unchanged(seen), model=probe.model, args=args,
+                                  out=out, moments=moments)
+            card, cpu = runs["cuda"], runs["cpu"]
+            loss_err = max(abs(a - b) for a, b in zip(card["losses"], cpu["losses"]))
+            ad_err = max(float((card["adapter"][k] - cpu["adapter"][k]).abs().max())
+                         for k in card["adapter"])
+            # each trained tensor's gap over its own largest first moment
+            # (0 over 0 where its gradient is 0 on both: LoRA's A before B
+            # moves, llama-adapter's prompts before the gate does)
+            mom_err = max(float((card["moments"][n] - m).abs().max())
+                          / max(float(m.abs().max()), 1e-30) for n, m in cpu["moments"].items())
+            # peft_ckpt's import into a fresh model: the trained LLM's logits
+            cfg = parse_cli([a for a in card["args"] if not a.startswith("peft_ckpt=")],
+                            RunConfig())
+            fresh = model_factory(cfg.train_config, cfg.model_config, device=dev)
+            ckpt.import_peft_adapters(fresh, os.path.join(card["out"], "last", "adapter"))
+            x = torch.randn(2, 16, mc.llm_dim, generator=torch.Generator().manual_seed(0)).to(dev)
+            pos = torch.arange(16, device=dev).expand(2, 16)
+            with torch.no_grad():
+                logit_err = float((fresh.llm.unembed(fresh.llm(x, None, pos)[0])
+                                   - card["model"].llm.unembed(card["model"].llm(x, None, pos)[0]))
+                                  .abs().max())
+            ok = (len(card["losses"]) == 2 and sorted(card["adapter"]) == sorted(cpu["adapter"])
+                  and sorted(card["moments"]) == sorted(cpu["moments"])
+                  and loss_err <= PATH_TOL and ad_err <= ADAPTER_TOL and mom_err <= MOMENT_TOL
+                  and card["same_base"] and cpu["same_base"]
+                  and logit_err <= KERNEL_TOL["f32"][0])
+            if not ok:
+                bad.append(label)
+            print(f"{what} {label} (2+1 encoder blocks, 2 LLM layers, full width, 2 steps of 2 "
+                  f"rows): losses card {card['losses']} cpu {cpu['losses']}, max err "
+                  f"{loss_err:.3e} (tol {PATH_TOL}); {len(card['adapter'])} exported adapter "
+                  f"tensors, max err {ad_err:.3e} (tol {ADAPTER_TOL}); AdamW first moments of "
+                  f"{len(card['moments'])} trained tensors, max err over each one's largest "
+                  f"{mom_err:.3e} (tol {MOMENT_TOL}); base LLM bit-identical card "
+                  f"{card['same_base']}, CPU {cpu['same_base']}; peft_ckpt re-import: logits "
+                  f"max err {logit_err:.3e}; main {card['wall']:.1f} s card, {cpu['wall']:.1f} s "
+                  f"CPU", flush=True)
+            del runs, card, cpu, fresh
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"{what}: {time.time() - t0:.1f} s", flush=True)
+    if bad:
+        fail(f"{what}: {bad} disagree card against CPU, changed the base or did not re-import")
+
+
+def phase_peft(torch, dev, launches: dict, chain: dict) -> dict:
+    """Phase 11b: scripts/finetune_half_audio.sh's overrides with
+    ``use_peft=true`` (LoRA r 64, alpha 16, the seven projections, dropout
+    0.05) through ``cli.finetune.main`` at full size, bf16, for one epoch
+    on phase 7's assets from 7a's export, validating once (one ``step_N``)
+    and saving ``last/``; then QLoRA over int8 weights for the same epoch
+    without checkpoints; 11c: ``cli.serve.main`` on the merged export with
+    phase 7's 8 test utterances.  Fails unless every micro-step launches
+    exactly 7b's kernels by route, LoRA trains exactly LORA_PARAMS
+    parameters, the base LLM stays bit-identical and the adapters moved,
+    and every serve request is answered.  Adds 11b's launches to
+    ``launches``; returns its launches a micro-step."""
+    from ps_slm_tpu_torch.cli import finetune, serve
+    from ps_slm_tpu_torch.models.lora import ADAPTER_LEAVES
+
+    what = "PEFT finetune"
+    counters = kernel_counters()
+    assets, root, init, dims = chain["assets"], chain["root"], chain["init"], chain["dims"]
+    interval = chain["steps"] // 2 + 1        # one validation in the epoch
+    out = os.path.join(root, "exp", "half_audio_lora")
+
+    def args(out_dir, *extra):
+        return [a if not a.startswith("ckpt_path=") else f"ckpt_path={init}"
+                for a in finetune_args(assets, root, out_dir, **dims)] + [
+            "++train_config.num_epochs=1", "++train_config.use_peft=true", *extra]
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters(counters)
+    with TrainProbe(torch, dev) as probe, base_snapshot(torch) as seen, \
+            export_timer(torch) as exports:
+        t0 = time.perf_counter()
+        if finetune.main(args(out, f"++train_config.validation_interval={interval}",
+                              "++train_config.save_last=true")) != 0:
+            fail(f"{what}: main returned nonzero")
+        wall = time.perf_counter() - t0
+    run = launch_counts(counters)
+    for n, c in run.items():
+        launches[n] = launches.get(n, 0) + c
+    check_step_launches(probe, LAUNCHES_PER_TRAIN_STEP, LN_ROUTES_PER_PASS, what)
+    step = seen["step"]
+    params = dict(step.model.named_parameters())
+    n_lora = sum(params[n].numel() for n in step.trainable if n.endswith(("lora_a", "lora_b")))
+    others = sorted({n.split(".")[0] for n in step.trainable if not n.endswith(ADAPTER_LEAVES)})
+    same_base = base_unchanged(seen)
+    moved = all(bool(params[n].any()) for n in step.trainable if n.endswith("lora_b"))
+    tags = sorted(p for p in os.listdir(out) if p.startswith("step_"))
+    print(f"{what} 11b (scripts/finetune_half_audio.sh + use_peft: LoRA r 64, alpha 16, 7 "
+          f"projections, dropout 0.05; 1 epoch from 7a's export, validation every {interval}): "
+          f"{probe.summary()}; launches a micro-step {nonzero(probe.steps[0]['launches'])} (7b's "
+          f"{nonzero(LAUNCHES_PER_TRAIN_STEP)}); LoRA parameters {n_lora} (want {LORA_PARAMS}), "
+          f"also training {others}; base LLM bit-identical {same_base}; every lora_b moved "
+          f"{moved}; checkpoints {tags} + last; train states "
+          f"{[(round(x['bytes'] / 1e9, 3), round(x['s'], 2)) for x in probe.saves]} (GB, s); "
+          f"exports {[(n.split('_')[1], round(b / 1e9, 3), round(s, 2)) for n, s, b in exports]} "
+          f"(kind, GB, s); main {wall:.1f} s [{CARD}]", flush=True)
+    if n_lora != LORA_PARAMS or not same_base or not moved or len(tags) != 1:
+        fail(f"{what}: {n_lora} LoRA parameters, base unchanged {same_base}, adapters moved "
+             f"{moved}, checkpoints {tags}")
+    per_step = probe.steps[0]["launches"]
+    lora_peak = max(s["peak"] for s in probe.steps)
+    del step, params, seen, probe
+    torch.cuda.empty_cache()
+
+    # QLoRA: the same epoch over int8 weights, no checkpoint
+    out_q = os.path.join(root, "exp", "half_audio_qlora")
+    torch.cuda.reset_peak_memory_stats()
+    with TrainProbe(torch, dev) as probe_q, base_snapshot(torch) as seen_q:
+        t0 = time.perf_counter()
+        if finetune.main(args(out_q, "++train_config.quantization=true",
+                              "++train_config.run_validation=false",
+                              "++train_config.save_model=false")) != 0:
+            fail(f"{what} QLoRA: main returned nonzero")
+        wall = time.perf_counter() - t0
+    same_q = base_unchanged(seen_q)
+    q_peak = max(s["peak"] for s in probe_q.steps)
+    print(f"{what} 11b QLoRA over int8 (the same epoch, no checkpoint): {probe_q.summary()}; base "
+          f"LLM bit-identical {same_q}; peak memory {q_peak:.2f} GB against LoRA's "
+          f"{lora_peak:.2f} GB; main {wall:.1f} s [{CARD}]", flush=True)
+    if not same_q or not all(math.isfinite(x) for x in probe_q.losses()):
+        fail(f"{what} QLoRA: the base changed or a loss is not finite")
+    del seen_q, probe_q
+    torch.cuda.empty_cache()
+
+    # 11c: serve the merged export
+    export = os.path.join(out, "last", "pytorch_model.bin")
+    req = os.path.join(root, "requests_peft.jsonl")
+    good = write_requests(assets["data"], req)
+    log = os.path.join(root, "serve_peft")
+    serve_args = [a if not a.startswith("ckpt_path=") else f"ckpt_path={export}"
+                  for a in serving_args(assets, "continuous", log, DECODE_MAX_NEW, **dims)
+                  if not a.startswith("decode_log=")]
+    clock = LineClock()
+    t0 = time.perf_counter()
+    if serve.main(serve_args + ["++train_config.serve_route=static", req], stdout=clock) != 0:
+        fail(f"{what} 11c: serve main returned nonzero")
+    wall = time.perf_counter() - t0
+    finals = serve_finals(f"{what} 11c", clock.lines, good)
+    print(f"{what} 11c (cli.serve on 11b's merged last/ export, int8, static batches): "
+          f"{len(finals)} of {len(good)} requests answered in {wall:.2f} s [{CARD}]", flush=True)
+    return per_step
+
+
+def timed(label: str, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, its wall seconds printed and kept in
+    PHASE_SECONDS under ``label``."""
+    t = time.time()
+    try:
+        return fn(*args, **kwargs)
+    finally:
+        PHASE_SECONDS[label] = round(time.time() - t, 1)
+        print(f"phase {label}: {PHASE_SECONDS[label]:.1f} s", flush=True)
+
+
+def run_decode_and_serving(torch, dev, results, cli_launches, serve_launches,
+                           serve_cli_launches) -> tuple:
+    """Phase 6, phase 3 at its largest batch, then phase 8 on phase 6's
+    assets (8b, 8c; 8a after the assets are deleted), phase 10 (10b on the
+    same assets, 10a after 8a) and phase 3 at the pools' shapes.  Returns
+    phase 6's launches per batch and cases, 8c's pool columns and 10b's
+    launches by run."""
+    root = tempfile.mkdtemp(prefix="serving_")
+    try:
+        cli_per_batch, cli_flash, cli_norm, assets = timed(
+            "6 decode CLI", phase_decode_cli, torch, dev, cli_launches, root)
+        timed("3 at 6's shapes", phase_kernels, torch, dev, results, cli_flash, cli_norm)
+        model = timed("8b serving", phase_serving, torch, dev, serve_launches, assets)
+        pools = timed("8c serving pools", phase_serving_pools, torch, dev, serve_launches,
+                      model, assets)
+        del model
+        torch.cuda.empty_cache()
+        serve_runs = timed("10b serve CLI", phase_serve_cli, torch, dev, serve_cli_launches,
+                           assets)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    timed("8a serving fp32", phase_serving_fp32, torch, dev)
+    timed("3 at 8c's shapes", phase_kernels, torch, dev, results, pools["flash"],
+          pools["norm"], "serving pool")
+    timed("10a serve CLI fp32", phase_serve_cli_fp32, torch, dev)
+    return cli_per_batch, cli_flash, cli_norm, pools, serve_runs
 
 
 def main() -> None:
@@ -3080,6 +3770,7 @@ def main() -> None:
         logs = _build.build_all()
     except RuntimeError as e:
         fail(f"build: {e}")
+    PHASE_SECONDS["1-2 build"] = round(time.time() - t0, 1)
     print(f"build: {time.time() - t0:.1f} s ({', '.join(_build.SOURCES)})", flush=True)
     phase_paths(logs)
     if "--variants" in sys.argv[1:]:
@@ -3091,32 +3782,43 @@ def main() -> None:
           + ", ".join(f"{dt} atol {a} rtol {r}" for dt, (a, r) in KERNEL_TOL.items()),
           flush=True)
     results: dict = {}
-    phase_kernels(torch, dev, results)
-    phase_kernels_bwd(torch, dev, results)
-    phase_path_fp32(torch, dev)
-    phase_train_fp32(torch, dev)
-    phase_beam_text_only_fp32(torch, dev)
-    phase_decode_cli_fp32(torch, dev)
-    phase_finetune_cli_fp32(torch, dev)
+    timed("3 kernels", phase_kernels, torch, dev, results)
+    timed("3 kernels backward", phase_kernels_bwd, torch, dev, results)
+    timed("4 serving path fp32", phase_path_fp32, torch, dev)
+    timed("4b train fp32", phase_train_fp32, torch, dev)
+    timed("4c beam and text-only fp32", phase_beam_text_only_fp32, torch, dev)
+    timed("4d decode CLI fp32", phase_decode_cli_fp32, torch, dev)
+    timed("4e finetune CLI fp32", phase_finetune_cli_fp32, torch, dev)
+    timed("11a PEFT fp32", phase_peft_fp32, torch, dev)
     gen_launches: dict = {}
-    model = phase_main(torch, dev, gen_launches)
+    model = timed("5 main path", phase_main, torch, dev, gen_launches)
     train_launches: dict = {}
-    step_5b_prof = phase_train_main(torch, dev, model, train_launches)
+    step_5b_prof = timed("5b train", phase_train_main, torch, dev, model, train_launches)
     beam_launches: dict = {}
-    phase_main(torch, dev, beam_launches, model, beam=True)
+    timed("5c beam", phase_main, torch, dev, beam_launches, model, beam=True)
     text_launches: dict = {}
-    phase_train_main(torch, dev, model, text_launches, text_only=True)
+    timed("5d text-only train", phase_train_main, torch, dev, model, text_launches,
+          text_only=True)
     del model
     torch.cuda.empty_cache()
-    cli_launches, serve_launches = {}, {}
-    cli_per_batch, cli_flash, cli_norm, pools = run_decode_and_serving(
-        torch, dev, results, cli_launches, serve_launches)
-    chain_launches: dict = {}
-    chain_per_step = phase_finetune_chain(torch, dev, chain_launches, step_5b_prof)
+    cli_launches, serve_launches, serve_cli_launches = {}, {}, {}
+    cli_per_batch, cli_flash, cli_norm, pools, serve_runs = run_decode_and_serving(
+        torch, dev, results, cli_launches, serve_launches, serve_cli_launches)
+    chain_launches, peft_launches = {}, {}
+    chain_root = tempfile.mkdtemp(prefix="finetune_chain_")
+    try:
+        chain_per_step = timed("7 finetune chain", phase_finetune_chain, torch, dev,
+                               chain_launches, step_5b_prof, chain_root)
+        peft_per_step = timed("11b-c PEFT", phase_peft, torch, dev, peft_launches,
+                              chain_per_step)
+    finally:
+        shutil.rmtree(chain_root, ignore_errors=True)
+    t3 = time.time()
     for stage, cases in chain_per_step["cases"].items():
         phase_kernels(torch, dev, results, cases["flash"], cases["norm"], f"finetune {stage}")
         phase_kernels_bwd(torch, dev, results, cases["flash_bwd"], cases["norm_bwd"],
                           f"finetune {stage}")
+    PHASE_SECONDS["3 at 7's shapes"] = round(time.time() - t3, 1)
 
     # (name, its launch count, the CUDA kernel it launches at the main
     # paths' bf16 shapes, source, TPU kernel it replaces, the rows of phase
@@ -3181,7 +3883,8 @@ def main() -> None:
             "replaces": replaces,
             "launches": sum(runs[count] for runs in (gen_launches, train_launches,
                                                      beam_launches, text_launches, cli_launches,
-                                                     serve_launches))
+                                                     serve_launches, serve_cli_launches,
+                                                     peft_launches))
             + sum(runs[count] for runs in chain_launches.values()),
             "launches_per_generate": gen_launches[count],
             "launches_per_train_step": train_launches[count] // TRAIN_STEPS,
@@ -3193,11 +3896,14 @@ def main() -> None:
             "launches_per_validation_batch": chain_per_step["eval"][count],
             "launches_per_pool_chunk": {k: c[count] for k, c in pools["chunk"].items()},
             "launches_per_pool_refill": pools["refill"][count],
+            "launches_per_serve_cli_run": {k: c[count] for k, c in serve_runs.items()},
+            "launches_per_peft_step": peft_per_step[count],
             "max_abs_err": max(r["err"] for r in rows),
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "shape": f"{shapes[0]} bf16",
         })
+    print(f"phase seconds: {json.dumps(PHASE_SECONDS)}", flush=True)
     print(f"total {time.time() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -22,11 +22,16 @@ A checkpoint ``<output_dir>/<tag>/`` holds the whole train state under
 frozen modules.  ``main(argv, device="cpu")`` runs the plain versions on
 the CPU; the default is the CUDA device.
 
+``use_peft`` trains ``peft_config``'s adapter (LoRA, prefix tuning or
+llama-adapter) on the LLM, over its int8 / int4 weights with
+``quantization`` (QLoRA); ``peft_ckpt`` loads HF-PEFT adapters before
+training.  Its checkpoints keep the LLM in ``pytorch_model.bin`` (LoRA
+merged into the dequantized kernels) and write the adapters beside it
+under ``adapter/``.
+
 Not ported, and raising where they would act: a device mesh
 (``mesh_shape``) and more than one process (``PS_NUM_HOSTS`` > 1,
-``PS_COORDINATOR``), ROADMAP.md queue 1 'Parallelism'; PEFT and training
-over a weight-quantized LLM, which comes with LoRA, 'PEFT and
-quantization'.
+``PS_COORDINATOR``), ROADMAP.md queue 1 'Parallelism'.
 """
 
 from __future__ import annotations
@@ -46,11 +51,6 @@ def check_ported(tc) -> None:
         raise NotImplementedError(
             "a device mesh and multi-process training (mesh_shape, PS_NUM_HOSTS, "
             "PS_COORDINATOR) are not ported yet (ROADMAP.md queue 1, 'Parallelism')"
-        )
-    if tc.use_peft or tc.quantization:
-        raise NotImplementedError(
-            "PEFT and training over a weight-quantized LLM are not ported yet "
-            "(ROADMAP.md queue 1, 'PEFT and quantization')"
         )
 
 
@@ -97,6 +97,9 @@ def main(argv=None, *, device="cuda") -> int:
     if cfg.ckpt_path:
         loaded = ckpt.import_reference_checkpoint(model, cfg.ckpt_path)
         logger.info(f"loaded {len(loaded)} tensors from {cfg.ckpt_path}")
+    if cfg.peft_ckpt and tc.use_peft:
+        n = len(ckpt.import_peft_adapters(model, cfg.peft_ckpt))
+        logger.info(f"loaded {n} adapter tensors from {cfg.peft_ckpt}")
 
     state = make_train_step(model, tc, device=dev)
     log_model_size(logger, model, state.trainable)
@@ -126,7 +129,7 @@ def main(argv=None, *, device="cuda") -> int:
             ))
 
     exclude = tuple(name for name, frozen in (
-        ("llm", tc.freeze_llm), ("encoder", tc.freeze_encoder),
+        ("llm", tc.freeze_llm and not tc.use_peft), ("encoder", tc.freeze_encoder),
         ("projector", tc.freeze_projector)) if frozen)
 
     def checkpoint_fn(state, tag):
@@ -134,6 +137,8 @@ def main(argv=None, *, device="cuda") -> int:
         ckpt.save_train_state(os.path.join(path, "state"), state)
         ckpt.export_reference_checkpoint(
             model, os.path.join(path, "pytorch_model.bin"), exclude=exclude)
+        if tc.use_peft:
+            ckpt.export_peft_adapters(model, os.path.join(path, "adapter"))
 
     metric_logger = MetricLogger(lc)
     try:

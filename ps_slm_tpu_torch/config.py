@@ -2,15 +2,15 @@
 
 A copy of ``ps_slm_tpu/config.py`` with the same names and defaults:
 ``FbankConfig``, ``DataConfig``, ``LogConfig`` and ``RunConfig`` whole;
-``ModelConfig`` and ``TrainConfig`` with the fields the port reads; and the
-``[++]section.key=value`` override parser (``parse_cli``) that the CLIs
-take, and :func:`dump`, which writes a run's resolved config.  A field is
-here when the port reads it; a field whose feature is not ported yet
-(``mesh_shape``, ``use_peft``; ``quantization`` in training) parses and
-raises where it would act, naming its ROADMAP.md item.  Other fields of the
-JAX configs (the PEFT settings, layer freezing, the sharding knobs) come
-with their slices; an override that names one raises ``KeyError`` like any
-unknown key.
+``PeftConfig`` whole; ``ModelConfig`` and ``TrainConfig`` with every field
+but those of features not ported yet; and the ``[++]section.key=value``
+override parser (``parse_cli``) that the CLIs take, and :func:`dump`, which
+writes a run's resolved config.  Fields the JAX package itself never reads
+(``model_name``, ``llm_name``, ``gamma``, ...) are carried, inert, so the
+same overrides parse.  ``mesh_shape`` parses and raises where it would act,
+naming its ROADMAP.md item; the other fields of unported features (the
+sharding knobs, the long tail's projectors and branches) are absent, and
+an override that names one raises ``KeyError`` like any unknown key.
 """
 
 from __future__ import annotations
@@ -18,6 +18,30 @@ from __future__ import annotations
 import json
 from dataclasses import dataclass, field, fields, is_dataclass
 from typing import Any, List, Optional
+
+
+@dataclass
+class PeftConfig:
+    """Adapter settings of ``use_peft`` (models/lora.py)."""
+
+    peft_method: str = "lora"             # "lora" | "prefix" | "llama_adapter"
+    r: int = 64
+    lora_alpha: int = 16
+    target_modules: List[str] = field(
+        default_factory=lambda: [
+            "q_proj", "k_proj", "v_proj", "o_proj",
+            "up_proj", "gate_proj", "down_proj",
+        ]
+    )
+    bias: str = "none"
+    task_type: str = "CAUSAL_LM"
+    lora_dropout: float = 0.05
+    inference_mode: bool = False
+    num_virtual_tokens: int = 30          # prefix tuning
+    # llama-adapter: the adaption prompt's length, and how many of the top
+    # decoder layers carry one
+    adapter_len: int = 10
+    adapter_layers: int = 30
 
 
 @dataclass
@@ -49,8 +73,11 @@ class FbankConfig:
 @dataclass
 class ModelConfig:
     factory: str = "tasu"           # registry name (ps_slm_tpu_torch.registry)
+    llm_name: str = "Qwen2.5-1.5B-Instruct"   # inert
     llm_path: str = ""
+    llm_type: str = "decoder_only"            # inert
     llm_dim: int = 1536
+    encoder_name: str = "sensevoice"          # inert
     encoder_path: Optional[str] = None
     encoder_dim: int = 512
     encoder_projector: str = "linear-silu"
@@ -66,11 +93,14 @@ class ModelConfig:
 
 @dataclass
 class TrainConfig:
+    model_name: str = "asr_model"         # inert
     run_validation: bool = True
     batch_size_training: Optional[int] = None   # the "padding" strategy's batch
     batching_strategy: str = "dynamic"    # "dynamic" token budget | "padding"
+    context_length: int = 4096            # inert
     gradient_accumulation_steps: int = 1  # optax.MultiSteps semantics
     num_epochs: int = 3
+    num_workers_dataloader: int = 1       # inert
     # optimizer and schedule (AdamW + warmup-cosine, conf/ds_config.json)
     warmup_steps: int = 200
     total_steps: int = 15000
@@ -80,6 +110,7 @@ class TrainConfig:
     adam_beta2: float = 0.999
     adam_eps: float = 1e-6
     weight_decay: float = 0.0
+    gamma: float = 0.85                   # inert
     seed: int = 42
     mixed_precision: bool = True          # bf16 compute, fp32 norms/softmax
     val_batch_size: Optional[int] = None  # the "padding" strategy's eval batch
@@ -87,10 +118,12 @@ class TrainConfig:
     do_psd: bool = False
     ctc_posterior: bool = False
     voca_trans: bool = False
-    use_peft: bool = False
+    use_peft: bool = False                # adapters by peft_config (models/lora.py)
+    use_emb: bool = False                 # embed_tokens trains under PEFT
     gt_emb: bool = False
     gt_emb_noise: bool = False
     cross_attn: bool = False
+    gaussian_sim: bool = False            # inert
     # text-only noise knobs (the JAX package's CPS noise defaults)
     drop_prob: float = 0.05
     insert_prob: float = 0.0
@@ -100,7 +133,10 @@ class TrainConfig:
     freeze_llm: bool = False
     freeze_encoder: bool = False
     freeze_projector: bool = False
+    freeze_layers: bool = False           # inert
+    num_freeze_layers: int = 1            # inert
     # run
+    peft_config: PeftConfig = field(default_factory=PeftConfig)
     output_dir: str = "out"
     quantization: bool = False            # weight-only LLM (models/quantization.py)
     quant_bits: int = 8                   # 8 (per output channel) or 4 (group-wise)
@@ -108,6 +144,7 @@ class TrainConfig:
     save_model: bool = True               # step_N/ on a new best eval loss
     save_last: bool = False               # last/ at the end of training
     resume_from: Optional[str] = None     # a train-state directory (step_N/state)
+    device: Optional[int] = 0             # inert
     mesh_shape: Optional[dict] = None     # not ported: the finetune CLI raises on it
     remat: bool = False                   # activation checkpointing of the blocks
     # decode
@@ -126,6 +163,14 @@ class TrainConfig:
     decode_slots: int = 8
     decode_sync_every: int = 8
     stream_partials: bool = False
+    # cli/serve.py's route: "auto" serves the first route_probe completions
+    # through the slot pool, then static batches (inference/static_serve.py)
+    # while the median completion is under route_static_below tokens, and
+    # measured rates decide after that (inference/routing.py); "pool" /
+    # "static" force one.  Streaming and speculation always take the pool.
+    serve_route: str = "auto"
+    route_probe: int = 16
+    route_static_below: int = 32
     speculative_ctc: bool = False
     spec_window: int = 8
 

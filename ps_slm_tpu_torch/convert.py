@@ -12,7 +12,13 @@ so this module never imports JAX, and returns a state dict for
 * tied embeddings: no ``lm_head`` in the tree, none in the state dict;
 * quantized LLM projections (``q8``/``scale`` or ``q4``/``scale4``, JAX
   layout [in, out]) carried as they are, into the buffers of a model
-  quantized with the same scheme (``models.quantization.quantize_llm``).
+  quantized with the same scheme (``models.quantization.quantize_llm``);
+* the PEFT leaves (``models/lora.py``) split per layer under their own
+  names: a projection's ``lora_a`` [in, r] / ``lora_b`` [r, out] in the
+  JAX layout and ``lora_scale`` a scalar; a block's ``prefix_k`` /
+  ``prefix_v`` [P, Hkv, D], ``adaption_prompt`` [P, H] and the scalars
+  ``adaption_gate`` / ``adaption_mask``, into a model with the same
+  adapter attached.
 
 Tensors come out fp32, integer codes int8 (a JAX int4 leaf arrives as an
 ``ml_dtypes.int4`` array); ``load_state_dict`` casts them to the model's
@@ -26,6 +32,8 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from ps_slm_tpu_torch.models.lora import BLOCK_LEAVES, LORA_LEAVES
+
 StateDict = Dict[str, torch.Tensor]
 
 
@@ -38,12 +46,12 @@ def _codes(x) -> torch.Tensor:
 
 
 def _linear(p: Dict[str, Any], name: str, out: StateDict) -> None:
-    extra = set(p) - {"kernel", "bias", "q8", "scale", "q4", "scale4"}
+    extra = set(p) - {"kernel", "bias", "q8", "scale", "q4", "scale4", *LORA_LEAVES}
     if extra:
-        raise NotImplementedError(
-            f"{name}: leaves {sorted(extra)} (LoRA) are not ported yet "
-            "(ROADMAP.md queue 1, 'PEFT and quantization')"
-        )
+        raise ValueError(f"{name}: unknown leaves {sorted(extra)}")
+    for leaf in LORA_LEAVES:
+        if leaf in p:
+            out[f"{name}.{leaf}"] = _t(p[leaf])
     if "q8" in p:
         out[f"{name}.q8"], out[f"{name}.scale"] = _codes(p["q8"]), _t(p["scale"])
     elif "q4" in p:
@@ -118,14 +126,11 @@ _QWEN2_LINEARS = (
 def qwen2_state_dict(tree: Dict[str, Any]) -> StateDict:
     """JAX Qwen2 params -> ``Qwen2Model`` state dict."""
     layers = tree["layers"]
-    extra = set(layers) - set(_QWEN2_LINEARS) - {
+    extra = set(layers) - set(_QWEN2_LINEARS) - set(BLOCK_LEAVES) - {
         "input_layernorm", "post_attention_layernorm"
     }
     if extra:
-        raise NotImplementedError(
-            f"Qwen2 layer leaves {sorted(extra)} (prefix tuning or adapters) "
-            "are not ported yet (ROADMAP.md queue 1, 'PEFT and quantization')"
-        )
+        raise ValueError(f"Qwen2 layers: unknown leaves {sorted(extra)}")
     out: StateDict = {"embed_tokens.weight": _t(tree["embed_tokens"])}
     for i in range(_n_layers(layers)):
         lp = _layer(layers, i)
@@ -135,6 +140,9 @@ def qwen2_state_dict(tree: Dict[str, Any]) -> StateDict:
         )
         for lin in _QWEN2_LINEARS:
             _linear(lp[lin], f"layers.{i}.{lin}", out)
+        for leaf in BLOCK_LEAVES:
+            if leaf in lp:
+                out[f"layers.{i}.{leaf}"] = _t(lp[leaf])
     out["norm.weight"] = _t(tree["norm"])
     if "lm_head" in tree:
         out["lm_head.weight"] = _t(tree["lm_head"]).T.contiguous()

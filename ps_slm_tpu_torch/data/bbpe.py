@@ -15,12 +15,11 @@ package):
 The JAX package compiles the patterns with the third-party ``regex``
 module, whose ``\p{L}`` / ``\p{N}`` classes the standard ``re`` lacks.
 The port compiles them with ``re`` (:func:`to_stdlib_pattern`): ``\p{L}``
-and ``\p{N}`` become explicit character classes built from
-``unicodedata`` (the letter and number categories), and ``\s`` / ``\S``
-the whitespace class ``regex`` uses (``re``'s ``\s`` also takes
-U+001C-U+001F).  Characters assigned after the running Python's Unicode
-version (``unicodedata.unidata_version``) are classed as that version has
-them; the tests hold the ids to the JAX package's on multilingual text.
+and ``\p{N}`` become explicit character classes from the code-point
+ranges of ``_unicode_classes.py``, generated from the ``regex`` module
+(its Unicode version, not the interpreter's ``unicodedata``), and ``\s`` /
+``\S`` the whitespace class ``regex`` uses (``re``'s ``\s`` also takes
+U+001C-U+001F).  The tests hold every code point's class to ``regex``'s.
 """
 
 from __future__ import annotations
@@ -28,10 +27,11 @@ from __future__ import annotations
 import json
 import os
 import re
-import sys
 import unicodedata
 from functools import lru_cache
 from typing import Dict, List, Optional, Tuple
+
+from ._unicode_classes import LETTER_RANGES, NUMBER_RANGES
 
 # Qwen2/2.5 pattern (transformers' PRETOKENIZE_REGEX for Qwen2: a single
 # \p{N}, unlike cl100k's \p{N}{1,3}), in the ``regex`` module's syntax
@@ -77,31 +77,18 @@ _WHITESPACE = r"\t\n\x0b\x0c\r \x85\xa0\u1680\u2000-\u200a\u2028\u2029\u202f\u20
 
 
 @lru_cache(maxsize=None)
-def _category_class(prefix: str) -> str:
-    """The body of a character class (no brackets) of every code point
-    whose Unicode category starts with ``prefix`` ("L" letters, "N"
-    numbers), as ranges."""
-    parts = []
-    lo = prev = None
-    for cp in range(sys.maxunicode + 1):
-        if unicodedata.category(chr(cp)).startswith(prefix):
-            if lo is None:
-                lo = cp
-            prev = cp
-        elif lo is not None:
-            parts.append(re.escape(chr(lo)) if lo == prev
-                         else f"{re.escape(chr(lo))}-{re.escape(chr(prev))}")
-            lo = None
-    if lo is not None:
-        parts.append(f"{re.escape(chr(lo))}-{re.escape(chr(prev))}")
-    return "".join(parts)
+def _category_class(ranges: Tuple[Tuple[int, int], ...]) -> str:
+    """The body of a character class (no brackets) of the code-point
+    ranges ``ranges``."""
+    return "".join(re.escape(chr(lo)) if lo == hi else f"{re.escape(chr(lo))}-{re.escape(chr(hi))}"
+                   for lo, hi in ranges)
 
 
 def to_stdlib_pattern(pattern: str) -> str:
     r"""Rewrite a ``regex``-module pattern that uses ``\p{L}``, ``\p{N}``,
     ``\s`` and ``\S`` into one the standard ``re`` compiles to the same
     matches: each class written out, inside a bracket expression or not."""
-    classes = {"p{L}": _category_class("L"), "p{N}": _category_class("N"),
+    classes = {"p{L}": _category_class(LETTER_RANGES), "p{N}": _category_class(NUMBER_RANGES),
                "s": _WHITESPACE}
     out = []
     i, in_class = 0, False

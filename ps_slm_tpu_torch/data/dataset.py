@@ -92,7 +92,7 @@ class MultiTaskDataset:
         self.tokenizer = tokenizer
         self.encoder_tokenizer = encoder_tokenizer
         self.split = split
-        self.inference_mode = split == "test" or dataset_config.inference_mode
+        self.inference_mode = split in ("test", "serve") or dataset_config.inference_mode
         self.load_audio = load_audio
         self.lazy_audio = lazy_audio
         self.seed = seed
@@ -104,12 +104,21 @@ class MultiTaskDataset:
             self.data_path = dataset_config.dev_scp_file_path
         elif split == "test":
             self.data_path = dataset_config.test_scp_file_path
+        elif split == "serve":
+            self.data_path = None
         else:
-            raise ValueError("split must be train/val/test")
-        self.manifest = os.path.join(self.data_path, "multitask.jsonl")
+            raise ValueError("split must be train/val/test/serve")
+        self.manifest = (None if self.data_path is None
+                         else os.path.join(self.data_path, "multitask.jsonl"))
         self.sample_rate = 16000
         self.max_samples = dataset_config.max_audio_length * self.sample_rate
         self.min_samples = int(0.1 * self.sample_rate)
+
+    @classmethod
+    def for_requests(cls, dataset_config, tokenizer, encoder_tokenizer=None):
+        """A builder with no manifest, for serving: only :meth:`_build` is
+        used, on request dicts (``cli/serve.py``)."""
+        return cls(dataset_config, tokenizer, "serve", encoder_tokenizer, seed=0)
 
     def __len__(self) -> int:
         with open(self.manifest, "rb") as f:

@@ -13,9 +13,15 @@ capacity on axis 1.  A chunk is written at ``cache_index``, an int or a
 [B] tensor of per-row offsets (the slot pools).
 
 The projections may be :class:`QuantLinear` (int8 or group-wise int4
-weights, :func:`ps_slm_tpu_torch.models.quantization.quantize_llm`).  Not
-ported yet: LoRA, prefix tuning and llama-adapter (ROADMAP.md queue 1,
-"PEFT and quantization").
+weights, :func:`ps_slm_tpu_torch.models.quantization.quantize_llm`).  The
+PEFT adapters (:mod:`ps_slm_tpu_torch.models.lora`) act inside the block
+as in the JAX ``_block``: LoRA adds ``((x @ A) @ B) * scale`` to its
+projection (the input under the training step's dropout masks); a prefix
+(prefix tuning) is prepended, un-rotated, to the keys and values every
+query attends over, in the plain ``mha_reference`` as the JAX forward
+takes it, and is never written to the KV cache; llama-adapter adds a gated
+attention over the layer's own projections of its prompt before
+``o_proj``.
 
 Checkpoints: :func:`load_hf_checkpoint` reads an HF Qwen2 directory
 (``config.json`` + ``*.safetensors``) into a state dict of this module's
@@ -40,6 +46,7 @@ from torch import nn
 
 from ps_slm_tpu_torch._build import resolve_device
 from ps_slm_tpu_torch.models.layers import normal_, run_block
+from ps_slm_tpu_torch.models.lora import lora_delta, lora_dropout_masks
 from ps_slm_tpu_torch.models.quantization import (
     _group_size, dequantize_kernel, dequantize_kernel4, dequantize_kv, q4_matmul, q8_matmul,
     quantize_kernel, quantize_kernel4, quantize_kv,
@@ -219,12 +226,55 @@ class Qwen2Block(nn.Module):
         self.gate_proj = nn.Linear(h, i, bias=False)
         self.up_proj = nn.Linear(h, i, bias=False)
         self.down_proj = nn.Linear(i, h, bias=False)
+        # PEFT (models/lora.py): set by add_prefix_tuning / add_llama_adapter
+        for name in ("prefix_k", "prefix_v", "adaption_prompt", "adaption_gate"):
+            self.register_parameter(name, None)
+        self.register_buffer("adaption_mask", None)
+
+    def _proj(self, name: str, x: torch.Tensor, keep: Optional[Dict[str, torch.Tensor]] = None,
+              rate: float = 0.0) -> torch.Tensor:
+        """Projection ``name`` of x, plus its LoRA (x under ``keep[name]``,
+        the dropout mask, when given)."""
+        lin = getattr(self, name)
+        y = lin(x)
+        delta = lora_delta(lin, x, None if keep is None else keep.get(name), rate)
+        return y if delta is None else y + delta
+
+    def _with_prefix(self, k, v, mask, offset):
+        """The learned prefix prepended to keys, values and mask; the causal
+        offset moves by its length P (every key position shifts by P)."""
+        b, n_pre = k.shape[0], self.prefix_k.shape[0]
+        pk = self.prefix_k.to(k.dtype)[None].expand(b, -1, -1, -1)
+        pv = self.prefix_v.to(v.dtype)[None].expand(b, -1, -1, -1)
+        if mask is not None:
+            mask = torch.cat([torch.ones(b, n_pre, dtype=mask.dtype, device=mask.device),
+                              mask], dim=1)
+        return torch.cat([pk, k], dim=1), torch.cat([pv, v], dim=1), mask, offset + n_pre
+
+    def _adaption_attention(self, q: torch.Tensor) -> torch.Tensor:
+        """llama-adapter's zero-init attention: the prompt's keys and values
+        from the layer's own k/v projections (no norm, no rotation), a
+        separate fp32 softmax over its P positions scaled by gate * mask,
+        its context in q's layout (added before ``o_proj``)."""
+        b, s, nh, hd = q.shape
+        nkv = self.cfg.num_key_value_heads
+        prompt = self.adaption_prompt.to(q.dtype)
+        ak = self._proj("k_proj", prompt).view(-1, nkv, hd)
+        av = self._proj("v_proj", prompt).view(-1, nkv, hd)
+        qg = q.reshape(b, s, nkv, nh // nkv, hd)
+        scores = torch.einsum("bskrd,pkd->bskrp", qg, ak).float()
+        probs = torch.softmax(scores * hd ** -0.5, dim=-1)
+        gate = (self.adaption_gate * self.adaption_mask).float()
+        ctx = torch.einsum("bskrp,pkd->bskrd", (gate * probs).to(q.dtype), av.to(q.dtype))
+        return ctx.reshape(b, s, nh, hd)
 
     def forward(
         self, x: torch.Tensor, positions: torch.Tensor,
         attn_mask: Optional[torch.Tensor],
         cache_kv: Optional[Tuple[torch.Tensor, ...]] = None,
         cache_index: Optional[CacheIndex] = None,
+        lora_keep: Optional[Dict[str, torch.Tensor]] = None,
+        lora_rate: float = 0.0,
     ) -> torch.Tensor:
         """One block.  Without a cache: causal attention over x's own
         positions.  With a cache: k/v are written at ``cache_index`` (int8
@@ -233,19 +283,29 @@ class Qwen2Block(nn.Module):
         int8 cache: their dequantized values, as the JAX prefill reads them
         back), a one-token step over the cache (plain), and a chunk of more
         tokens after the prefill (speculative windows) over the cache,
-        causally from ``cache_index`` (plain, as the JAX package)."""
+        causally from ``cache_index`` (plain, as the JAX package).  With a
+        prefix every one of these attends through the plain
+        ``mha_reference`` over the prefix and the whole cache, as in JAX.
+        ``lora_keep`` holds the LoRA inputs' dropout masks (rate
+        ``lora_rate``), drawn by the caller."""
         cfg = self.cfg
         b, s, _ = x.shape
         nh, nkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+        proj = lambda name, t: self._proj(name, t, lora_keep, lora_rate)  # noqa: E731
         y = self.input_layernorm(x)
-        q = rope(self.q_proj(y).view(b, s, nh, hd), positions, cfg.rope_theta)
-        k = rope(self.k_proj(y).view(b, s, nkv, hd), positions, cfg.rope_theta)
-        v = self.v_proj(y).view(b, s, nkv, hd)
+        q = rope(proj("q_proj", y).view(b, s, nh, hd), positions, cfg.rope_theta)
+        k = rope(proj("k_proj", y).view(b, s, nkv, hd), positions, cfg.rope_theta)
+        v = proj("v_proj", y).view(b, s, nkv, hd)
+        has_prefix = self.prefix_k is not None
 
-        if cache_kv is None:
+        if cache_kv is None and has_prefix:
+            k_att, v_att, m_att, off = self._with_prefix(k, v, attn_mask, 0)
+            attn = mha_reference(q, k_att, v_att, kv_mask=m_att, causal=True, q_offset=off)
+        elif cache_kv is None:
             attn = attention(q, k, v, kv_mask=attn_mask, causal=True)
         else:
-            prefill = s > 1 and not torch.is_tensor(cache_index) and cache_index == 0
+            prefill = (s > 1 and not torch.is_tensor(cache_index) and cache_index == 0
+                       and not has_prefix)
             if len(cache_kv) == 4:
                 k8, kscale, v8, vscale = cache_kv
                 for leaf, value in zip(cache_kv, (*quantize_kv(k), *quantize_kv(v))):
@@ -259,7 +319,12 @@ class Qwen2Block(nn.Module):
                 _write_cells(v_cache, v, cache_index)
                 if prefill:
                     k_cache, v_cache = k, v
-            if s == 1:
+            if has_prefix:
+                k_att, v_att, m_att, off = self._with_prefix(k_cache, v_cache, attn_mask,
+                                                             cache_index)
+                attn = mha_reference(q, k_att, v_att, kv_mask=m_att, causal=True,
+                                     q_offset=off)
+            elif s == 1:
                 attn = decode_attention(q, k_cache, v_cache, attn_mask)
             elif prefill:
                 attn = attention(q, k_cache, v_cache, kv_mask=attn_mask[:, :s], causal=True)
@@ -267,9 +332,11 @@ class Qwen2Block(nn.Module):
                 attn = mha_reference(q, k_cache, v_cache, kv_mask=attn_mask, causal=True,
                                      q_offset=cache_index)
 
-        x = x + self.o_proj(attn.reshape(b, s, nh * hd))
+        if self.adaption_prompt is not None:
+            attn = attn + self._adaption_attention(q)
+        x = x + proj("o_proj", attn.reshape(b, s, nh * hd))
         y = self.post_attention_layernorm(x)
-        return x + self.down_proj(F.silu(self.gate_proj(y)) * self.up_proj(y))
+        return x + proj("down_proj", F.silu(proj("gate_proj", y)) * proj("up_proj", y))
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:
@@ -297,6 +364,8 @@ class Qwen2Model(nn.Module):
         )
         # activation checkpointing of each block while gradients are recorded
         self.remat = False
+        # LoRA's training dropout rate (peft_config.lora_dropout under PEFT)
+        self.lora_dropout = 0.0
 
     def embed(self, input_ids: torch.Tensor) -> torch.Tensor:
         return self.embed_tokens(input_ids)
@@ -312,6 +381,8 @@ class Qwen2Model(nn.Module):
         position_ids: torch.Tensor,
         cache: Optional[KVCache] = None,
         cache_index: Optional[CacheIndex] = None,
+        *, generator: Optional[torch.Generator] = None,
+        lora_masks: Optional[List[Dict[str, torch.Tensor]]] = None,
     ) -> Tuple[torch.Tensor, Optional[KVCache]]:
         """Run the decoder stack: (last hidden after the final norm, cache).
         With ``remat`` and no cache, while gradients are recorded, each block
@@ -319,12 +390,23 @@ class Qwen2Model(nn.Module):
 
         attention_mask: [B,S] without a cache, [B,capacity] with one.
         position_ids: [B,S] (the merge's, or the next positions in decode).
+        generator / lora_masks: LoRA dropout (``lora_dropout`` > 0, training
+        only, no cache): each layer's keep masks, ``lora_masks[i]`` when
+        given (tests feed the JAX step's), else drawn from ``generator``
+        layer by layer before the block runs, so remat recomputes with the
+        same masks.  Neither given: no dropout (eval).
         """
         x = inputs_embeds
         remat = self.remat and cache is None and torch.is_grad_enabled()
+        rate = self.lora_dropout if cache is None else 0.0
+        drop = rate > 0.0 and (generator is not None or lora_masks is not None)
         for i, layer in enumerate(self.layers):
+            keep = None
+            if drop:
+                keep = (lora_masks[i] if lora_masks is not None
+                        else lora_dropout_masks(layer, x.shape, rate, generator, x.device))
             x = run_block(layer, remat, x, position_ids, attention_mask,
-                          None if cache is None else cache[i], cache_index)
+                          None if cache is None else cache[i], cache_index, keep, rate)
         return self.norm(x), cache
 
     @torch.no_grad()
@@ -453,11 +535,14 @@ def hf_to_state_dict(
 def state_dict_to_hf(llm: "Qwen2Model") -> Dict[str, torch.Tensor]:
     """Inverse of :func:`hf_to_state_dict`: the HF names (``model.``
     prefixed, ``lm_head.weight`` when untied), tensors as they are; a
-    quantized projection gives its dequantized kernel in bf16, as the JAX
-    exporter's ``dequantize_llm``."""
+    quantized projection gives its dequantized kernel in bf16, and LoRA is
+    folded into its kernel, as the JAX exporter's
+    ``merge_lora(dequantize_llm(...))``.  Prefix tuning and llama-adapter
+    leaves have no HF name and stay out (``export_peft_adapters``)."""
+    from ps_slm_tpu_torch.models.lora import merge_lora
     from ps_slm_tpu_torch.models.quantization import dequantize_state_dict
 
-    sd = dequantize_state_dict(llm.state_dict())
+    sd = merge_lora(dequantize_state_dict(llm.state_dict()))
     out = {"model.embed_tokens.weight": sd["embed_tokens.weight"],
            "model.norm.weight": sd["norm.weight"]}
     for i in range(llm.cfg.num_hidden_layers):

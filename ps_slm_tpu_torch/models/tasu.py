@@ -47,6 +47,7 @@ from torch import nn
 from ps_slm_tpu_torch._build import resolve_device
 from ps_slm_tpu_torch.config import FbankConfig
 from ps_slm_tpu_torch.models import projector as proj
+from ps_slm_tpu_torch.models.lora import ADAPTER_LEAVES, add_peft
 from ps_slm_tpu_torch.models.quantization import quantize_llm
 from ps_slm_tpu_torch.models.qwen2 import Qwen2Config, Qwen2Model, load_hf_checkpoint
 from ps_slm_tpu_torch.models.sensevoice import SenseVoiceConfig, SenseVoiceEncoder
@@ -270,6 +271,7 @@ def prepare_merged(
 def forward(
     model: TasuModel, batch: Dict[str, torch.Tensor], *, train: bool = True,
     generator: Optional[torch.Generator] = None, draws: Optional[Draws] = None,
+    lora_masks: Optional[List[Dict[str, torch.Tensor]]] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Training forward: ``(loss, {"acc", "ntokens"})``.
 
@@ -288,14 +290,18 @@ def forward(
     the waveform front end: with ``input_features`` it changes nothing.
     The text-only noise stays on whatever ``train`` is, as in the JAX
     forward.  The branch's draws come from ``draws`` or ``generator``
-    (:func:`compute_audio_embeds`).
+    (:func:`compute_audio_embeds`).  LoRA dropout (``lora_dropout`` under
+    PEFT) acts when ``train``: each layer's masks from ``lora_masks`` or,
+    after the branch's draws, from ``generator``
+    (:meth:`~ps_slm_tpu_torch.models.qwen2.Qwen2Model.forward`).
     """
     if "labels" not in batch:
         raise ValueError("the training forward needs batch['labels']")
     merged = prepare_merged(model, batch, left_padding=False, generator=generator,
                             draws=draws, train=train)
     hidden, _ = model.llm(
-        merged.embeds, merged.attention_mask, merged.position_ids
+        merged.embeds, merged.attention_mask, merged.position_ids,
+        generator=generator if train else None, lora_masks=lora_masks if train else None,
     )
     labels = merged.labels
     if "batch_valid" in batch:
@@ -322,22 +328,30 @@ def trainable_mask(model: TasuModel, train_config) -> List[str]:
     return the names of the trainable ones.
 
     freeze_encoder, freeze_projector and freeze_llm freeze their module
-    whole, as the JAX ``trainable_mask`` does without PEFT; frozen
-    parameters get no gradient and no optimizer state.
+    whole, as the JAX ``trainable_mask`` does; frozen parameters get no
+    gradient and no optimizer state.  Under PEFT (``use_peft``) the LLM
+    trains only its adapters (``lora_a`` / ``lora_b``, ``prefix_k`` /
+    ``prefix_v``, every layer's ``adaption_prompt`` / ``adaption_gate``,
+    the masked layers' too, as in JAX), and ``embed_tokens`` with
+    ``use_emb``, whatever ``freeze_llm`` says.
     """
-    if train_config.use_peft:
-        raise NotImplementedError(
-            "PEFT (LoRA, prefix tuning, llama-adapter) is not ported yet "
-            "(ROADMAP.md queue 1, 'PEFT and quantization')"
-        )
     frozen = {
         "encoder": train_config.freeze_encoder,
         "projector": train_config.freeze_projector,
         "llm": train_config.freeze_llm,
     }
+
+    def trains(name: str) -> bool:
+        module = name.split(".")[0]
+        if module == "llm" and train_config.use_peft:
+            leaf = name.rpartition(".")[2]
+            return leaf in ADAPTER_LEAVES or (
+                train_config.use_emb and name.startswith("llm.embed_tokens."))
+        return not frozen[module]
+
     names = []
     for name, p in model.named_parameters():
-        train = not frozen[name.split(".")[0]]
+        train = trains(name)
         p.requires_grad_(train)
         if train:
             names.append(name)
@@ -363,18 +377,16 @@ def model_factory(
     the model.  ``model.load_seconds`` holds each loaded module's wall
     seconds (file read and copy to the device).  ``quantization`` makes the
     LLM's projections weight-only int8 (``quant_bits`` 8) or group-wise int4
-    (4, ``q4_group_size``) after loading.
+    (4, ``q4_group_size``) after loading.  ``use_peft`` then attaches
+    ``peft_config``'s adapter (LoRA, prefix tuning or llama-adapter,
+    :mod:`~ps_slm_tpu_torch.models.lora`) to the LLM, drawn from the same
+    generator, and sets its LoRA dropout rate.
     """
     dev = resolve_device(device)
     if model_config.ctc_linear:
         raise NotImplementedError(
             "the pretrained CTC head (ctc_linear) of the simple_linear projector "
             "is not ported yet (ROADMAP.md queue 1, 'Long tail')"
-        )
-    if train_config.use_peft:
-        raise NotImplementedError(
-            "PEFT (LoRA, prefix tuning, llama-adapter) is not ported yet "
-            "(ROADMAP.md queue 1, 'PEFT and quantization')"
         )
     t0 = time.perf_counter()
     loaded, seconds = {}, {}
@@ -409,5 +421,10 @@ def model_factory(
         # factory quantizes its loaded or random parameters
         quantize_llm(model.llm, bits=train_config.quant_bits,
                      group_size=train_config.q4_group_size)
+    if train_config.use_peft:
+        # the adapters on the (loaded, quantized) LLM, from the same
+        # generator, as the JAX factory attaches them last
+        add_peft(model.llm, train_config.peft_config, generator)
+        model.llm.lora_dropout = train_config.peft_config.lora_dropout
     model.load_seconds = seconds
     return model

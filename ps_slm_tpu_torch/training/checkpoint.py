@@ -14,7 +14,13 @@ and the exporter the tests and ``chip_smoke.py`` write files with:
     encoder each load whole or raise ``KeyError("partial ... checkpoint")``
     (the projector loads the keys it finds, as in the JAX package); a
     quantized LLM exports its dequantized kernels (bf16-rounded, as the
-    JAX exporter) and re-quantizes imported ones with its own scheme;
+    JAX exporter) and re-quantizes imported ones with its own scheme; LoRA
+    is folded into the exported kernels, and an import keeps the model's
+    adapters;
+  * :func:`export_peft_adapters` / :func:`import_peft_adapters`: the
+    adapters in the HF-PEFT layout (``adapter_model.bin`` and
+    ``adapter_config.json``), the finetune CLI's ``adapter/`` export and
+    its ``peft_ckpt``;
   * the linear-silu projector's reference key map
     (:func:`projector_to_reference`, :func:`reference_to_projector`);
   * :func:`save_train_state` / :func:`restore_train_state`: the whole
@@ -28,8 +34,7 @@ and the exporter the tests and ``chip_smoke.py`` write files with:
 Files are read with ``torch.load(weights_only=True)``: state dicts of
 tensors, never arbitrary pickles.  Not ported yet: the pretrained CTC
 head (``ctc_linear``, on which the factory raises) and the other
-projectors' key maps (ROADMAP.md queue 1, 'Long tail'); the PEFT
-adapters (ROADMAP.md queue 1, 'PEFT and quantization').
+projectors' key maps (ROADMAP.md queue 1, 'Long tail').
 """
 
 from __future__ import annotations
@@ -42,9 +47,12 @@ from typing import Dict, List, Tuple, Union
 import torch
 
 from ps_slm_tpu_torch.models import quantization, qwen2
+from ps_slm_tpu_torch.models.lora import BLOCK_LEAVES, LORA_LEAVES
 from ps_slm_tpu_torch.models.sensevoice import SenseVoiceConfig
 
 StateDict = Dict[str, torch.Tensor]
+# a Qwen2Model's PEFT entries (models/lora.py), parameters and buffers
+_ADAPTER_STATE = LORA_LEAVES + BLOCK_LEAVES
 
 
 # ----------------------------------------------------------------------------
@@ -285,7 +293,12 @@ def import_reference_checkpoint(model, path_or_tensors: Union[str, StateDict]) -
             # dtype, quantized as the JAX import re-quantizes them
             state = quantization.quantize_state_dict(
                 state, *spec, dtype=model.llm.embed_tokens.weight.dtype)
-        model.llm.load_state_dict(state)
+        # the base weights load; the PEFT adapters (no HF name) stay
+        missing, unexpected = model.llm.load_state_dict(state, strict=False)
+        kept = [k for k in missing if k.rpartition(".")[2] not in _ADAPTER_STATE]
+        if kept or unexpected:
+            raise KeyError(f"llm checkpoint does not fit the model: missing {kept}, "
+                           f"unexpected {unexpected}")
         loaded += [f"llm.{k}" for k in llm_tensors if k in consumed]
 
     enc_tensors = {k[len("encoder."):]: v for k, v in tensors.items()
@@ -302,6 +315,153 @@ def import_reference_checkpoint(model, path_or_tensors: Union[str, StateDict]) -
     state, proj_loaded = reference_to_projector(tensors, model.model_cfg.encoder_projector)
     model.projector.load_state_dict(state, strict=False)
     return loaded + proj_loaded
+
+
+# ----------------------------------------------------------------------------
+# HF-PEFT adapter interchange (adapter_model.bin layout)
+# ----------------------------------------------------------------------------
+
+# the port's projection name -> its HF module path inside a layer
+_PEFT_MODULES = {
+    "q_proj": "self_attn.q_proj", "k_proj": "self_attn.k_proj",
+    "v_proj": "self_attn.v_proj", "o_proj": "self_attn.o_proj",
+    "gate_proj": "mlp.gate_proj", "up_proj": "mlp.up_proj",
+    "down_proj": "mlp.down_proj",
+}
+
+
+def _peft_layer(i: int) -> str:
+    return f"base_model.model.model.layers.{i}"
+
+
+def _f32(t: torch.Tensor) -> torch.Tensor:
+    return t.detach().float().cpu().contiguous()
+
+
+def export_peft_adapters(model, path: str) -> StateDict:
+    """Write the LLM's adapters in the HF-PEFT layout into the directory
+    ``path`` (when given): ``adapter_model.bin`` and
+    ``adapter_config.json``, as the JAX ``export_peft_adapters``; returns
+    the fp32 tensors.
+
+    * LoRA: ``...layers.{i}.<module>.lora_{A,B}.weight`` [r, in] / [out, r],
+      the raw factors; the config's ``lora_alpha`` is layer 0's scale x r.
+    * prefix tuning: one ``prompt_embeddings`` [P, L * 2 * Hkv * D] in
+      peft's ``get_prompt`` order (layer l's keys at 2l, values at 2l + 1).
+    * llama-adapter: ``...layers.{l}.self_attn.adaption_prompt`` [1, P, H]
+      and ``adaption_gate`` [1] of the adapted layers only.
+    """
+    layers = model.llm.layers
+    tensors: StateDict = {}
+    config = None
+    targets, r, alpha = [], None, None
+    for name, hf_mod in _PEFT_MODULES.items():
+        if getattr(getattr(layers[0], name), "lora_a", None) is None:
+            continue
+        targets.append(name)
+        first = getattr(layers[0], name)
+        r = first.lora_a.shape[1]
+        alpha = float(first.lora_scale.float()) * r
+        for i, layer in enumerate(layers):
+            lin = getattr(layer, name)
+            tensors[f"{_peft_layer(i)}.{hf_mod}.lora_A.weight"] = _f32(lin.lora_a.T)
+            tensors[f"{_peft_layer(i)}.{hf_mod}.lora_B.weight"] = _f32(lin.lora_b.T)
+    if tensors:
+        config = {
+            "peft_type": "LORA", "task_type": "CAUSAL_LM", "r": int(r),
+            "lora_alpha": int(alpha) if float(alpha).is_integer() else float(alpha),
+            "lora_dropout": 0.0, "bias": "none", "target_modules": sorted(targets),
+            "inference_mode": True,
+        }
+    if layers[0].prefix_k is not None:
+        pk = torch.stack([_f32(layer.prefix_k) for layer in layers], dim=1)   # [P, L, Hkv, D]
+        pv = torch.stack([_f32(layer.prefix_v) for layer in layers], dim=1)
+        p, n, nkv, hd = pk.shape
+        tensors["prompt_embeddings"] = torch.stack([pk, pv], dim=2).reshape(p, n * 2 * nkv * hd)
+        config = {
+            "peft_type": "PREFIX_TUNING", "task_type": "CAUSAL_LM",
+            "num_virtual_tokens": int(p), "num_layers": int(n),
+            "num_attention_heads": int(nkv), "token_dim": int(nkv * hd),
+            "num_transformer_submodules": 1, "prefix_projection": False,
+            "inference_mode": True,
+        }
+    if layers[0].adaption_prompt is not None:
+        adapted = [i for i, layer in enumerate(layers) if float(layer.adaption_mask) != 0.0]
+        for i in adapted:
+            pre = f"{_peft_layer(i)}.self_attn"
+            tensors[f"{pre}.adaption_prompt"] = _f32(layers[i].adaption_prompt)[None]
+            tensors[f"{pre}.adaption_gate"] = _f32(layers[i].adaption_gate).reshape(1)
+        config = {
+            "peft_type": "ADAPTION_PROMPT", "task_type": "CAUSAL_LM",
+            "adapter_len": int(layers[0].adaption_prompt.shape[0]),
+            "adapter_layers": len(adapted), "target_modules": "self_attn",
+            "inference_mode": True,
+        }
+    if path:
+        os.makedirs(path, exist_ok=True)
+        torch.save(tensors, os.path.join(path, "adapter_model.bin"))
+        if config is not None:
+            with open(os.path.join(path, "adapter_config.json"), "w") as f:
+                json.dump(config, f, indent=2)
+    return tensors
+
+
+@torch.no_grad()
+def import_peft_adapters(model, path_or_tensors: Union[str, StateDict]) -> List[str]:
+    """Load an HF-PEFT adapter checkpoint (a directory holding
+    ``adapter_model.bin``, the file, or its tensors) into the LLM's
+    adapters, each tensor copied into its parameter's dtype; returns the
+    keys loaded.  An ``adapter_config.json`` beside the weights sets every
+    LoRA ``lora_scale`` to its ``lora_alpha / r``, as the JAX import does
+    (the factors carry no scale)."""
+    cfg_scale = None
+    if isinstance(path_or_tensors, str):
+        p = path_or_tensors
+        cfg_path = os.path.join(p if os.path.isdir(p) else os.path.dirname(p),
+                                "adapter_config.json")
+        if os.path.exists(cfg_path):
+            with open(cfg_path) as f:
+                acfg = json.load(f)
+            r, alpha = acfg.get("r"), acfg.get("lora_alpha")
+            if r and alpha is not None:
+                cfg_scale = float(alpha) / float(r)
+        if os.path.isdir(p):
+            p = os.path.join(p, "adapter_model.bin")
+        tensors = _torch_load_state(p)
+    else:
+        tensors = dict(path_or_tensors)
+
+    layers = model.llm.layers
+    loaded: List[str] = []
+
+    def put(param, key, transpose=False):
+        if key in tensors:
+            value = tensors[key].float()
+            param.copy_(value.T if transpose else value.reshape(param.shape))
+            loaded.append(key)
+
+    for name, hf_mod in _PEFT_MODULES.items():
+        for i, layer in enumerate(layers):
+            lin = getattr(layer, name)
+            if getattr(lin, "lora_a", None) is None:
+                continue
+            put(lin.lora_a, f"{_peft_layer(i)}.{hf_mod}.lora_A.weight", transpose=True)
+            put(lin.lora_b, f"{_peft_layer(i)}.{hf_mod}.lora_B.weight", transpose=True)
+            if cfg_scale is not None:
+                lin.lora_scale.fill_(cfg_scale)
+    if "prompt_embeddings" in tensors and layers[0].prefix_k is not None:
+        p, nkv, hd = layers[0].prefix_k.shape
+        emb = tensors["prompt_embeddings"].float().reshape(p, len(layers), 2, nkv, hd)
+        for i, layer in enumerate(layers):
+            layer.prefix_k.copy_(emb[:, i, 0])
+            layer.prefix_v.copy_(emb[:, i, 1])
+        loaded.append("prompt_embeddings")
+    if layers[0].adaption_prompt is not None:
+        for i, layer in enumerate(layers):
+            pre = f"{_peft_layer(i)}.self_attn"
+            put(layer.adaption_prompt, f"{pre}.adaption_prompt")
+            put(layer.adaption_gate, f"{pre}.adaption_gate")
+    return loaded
 
 
 TRAIN_STATE_FILE = "train_state.pt"

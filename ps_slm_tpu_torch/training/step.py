@@ -18,7 +18,7 @@ semantics (``training/train_state.py::MultiSteps``).  ``TrainStep.step``
 counts micro-steps, as the JAX ``TrainState.step`` does.
 
 Randomness (the text-only CPS noise, the front end's dither and
-SpecAugment) comes from one ``torch.Generator`` on the step's device,
+SpecAugment, LoRA dropout) comes from one ``torch.Generator`` on the step's device,
 seeded with ``train_config.seed`` and drawn from in sequence.  The JAX
 step folds the step count into a fixed key instead, so its resume needs no
 RNG state; here :meth:`TrainStep.state_dict` carries the generator's state
@@ -31,7 +31,7 @@ per call as the JAX eval's ``PRNGKey(0)``.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Union
+from typing import Dict, List, Optional, Union
 
 import torch
 
@@ -58,9 +58,9 @@ class TrainStep:
     Holds the optimizer (state for the trainable parameters only), the
     accumulation (``accum``, which sets the scheduled learning rate), the
     micro-step count and the generator; the metrics are the forward's,
-    before the update, as device tensors (no host sync).  ``draws``
-    replaces the generator's draws for one call (tests feed the JAX
-    step's).
+    before the update, as device tensors (no host sync).  ``draws`` and
+    ``lora_masks`` (LoRA dropout's keep masks, a dict per layer) replace
+    the generator's draws for one call (tests feed the JAX step's).
     """
 
     def __init__(self, model: tasu.TasuModel, train_config, device):
@@ -82,11 +82,13 @@ class TrainStep:
     def __call__(
         self, batch: Dict[str, torch.Tensor],
         draws: Optional[Union[NoiseDraws, FrontendDraws]] = None,
+        lora_masks: Optional[List[Dict[str, torch.Tensor]]] = None,
     ) -> Metrics:
         batch = {k: v.to(self.device) for k, v in batch.items()}
         self.optimizer.zero_grad(set_to_none=True)
         loss, aux = tasu.forward(
             self.model, batch, train=True, generator=self.generator, draws=draws,
+            lora_masks=lora_masks,
         )
         loss.backward()
         self.accum.step()

@@ -209,9 +209,9 @@ def test_train_entry_points_default_to_cuda_and_raise_without_it():
 
 
 def test_training_options_not_ported_name_their_roadmap_item(tmp_path, monkeypatch):
-    """remat and gradient accumulation are ported (they build a step); a
-    mesh, more than one process, PEFT and quantization raise, naming their
-    ROADMAP.md item, in the model, the step and the finetune CLI."""
+    """remat, gradient accumulation, PEFT and training over a quantized
+    LLM are ported (they build a model and a step); a mesh and more than
+    one process raise, naming their ROADMAP.md item, in the finetune CLI."""
     from ps_slm_tpu_torch.cli import finetune
 
     mc = ModelConfig(encoder_dim=11, llm_dim=64)
@@ -220,18 +220,18 @@ def test_training_options_not_ported_name_their_roadmap_item(tmp_path, monkeypat
     model = tasu.model_factory(options, mc, device="cpu")
     step = train_step.make_train_step(model, options, device="cpu")
     assert model.remat and step.accum.every_k == 2
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, 'PEFT and quantization'"):
-        tasu.trainable_mask(model, TrainConfig(**{**tc.__dict__, "use_peft": True}))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, 'PEFT and quantization'"):
-        tasu.model_factory(TrainConfig(ctc_posterior=True, use_peft=True), mc, device="cpu")
+    qlora = TrainConfig(**{**tc.__dict__, "use_peft": True, "quantization": True})
+    peft_model = tasu.model_factory(qlora, mc, device="cpu")
+    trained = tasu.trainable_mask(peft_model, qlora)
+    assert sorted({n.rpartition(".")[2] for n in trained if n.startswith("llm.")}) == [
+        "lora_a", "lora_b"]
     all_frozen = TrainConfig(**{**tc.__dict__, "freeze_projector": True})
     with pytest.raises(ValueError, match="no trainable"):
         train_state.build_optimizer([], all_frozen)
     base = [f"++train_config.output_dir={tmp_path}/out", f"++log_config.log_file={tmp_path}/log"]
-    for args, item in ((['++train_config.mesh_shape={"data": 2}'], "Parallelism"),
-                       (["++train_config.use_peft=true"], "PEFT and quantization"),
-                       (["++train_config.quantization=true"], "PEFT and quantization")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1, '{item}'"):
+    for args in (['++train_config.mesh_shape={"data": 2}', "++train_config.use_peft=true"],
+                 ['++train_config.mesh_shape={"data": 2}', "++train_config.quantization=true"]):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, 'Parallelism'"):
             finetune.main(base + args, device="cpu")
     for env, value in (("PS_NUM_HOSTS", "2"), ("PS_COORDINATOR", "localhost:1234")):
         with monkeypatch.context() as m:
@@ -329,6 +329,14 @@ def test_convert_splits_stacks_and_transposes():
         sd["layers.1.q_proj.weight"].numpy(),
         layers["q_proj"]["kernel"][1].T.astype(np.float32),
     )
-    layers["q_proj"]["lora_a"] = np.zeros((2, 8, 1))
-    with pytest.raises(NotImplementedError, match="PEFT"):
+    # PEFT leaves split per layer under their own names, LoRA in the JAX layout
+    layers["q_proj"].update(lora_a=rng.normal(size=(2, 8, 3)), lora_b=rng.normal(size=(2, 3, 8)),
+                            lora_scale=np.full((2,), 0.25))
+    layers["adaption_gate"] = rng.normal(size=(2,))
+    sd = convert.qwen2_state_dict(tree)
+    np.testing.assert_allclose(sd["layers.1.q_proj.lora_a"].numpy(),
+                               layers["q_proj"]["lora_a"][1].astype(np.float32))
+    assert sd["layers.0.q_proj.lora_scale"].shape == sd["layers.1.adaption_gate"].shape == ()
+    layers["unknown"] = np.zeros((2, 1))
+    with pytest.raises(ValueError, match="unknown"):
         convert.qwen2_state_dict(tree)
