@@ -698,6 +698,17 @@ def real_tokens(tokens, steps: int) -> int:
                for row in tokens)
 
 
+def mfu(flops: float, ms: float, dev) -> str:
+    """``flops`` a step of ``ms`` over the card's dense bf16 peak
+    (utils/flops.py::device_peak_tflops), with that peak."""
+    from ps_slm_tpu_torch.utils.flops import device_peak_tflops
+
+    peak = device_peak_tflops(dev)
+    if peak is None:
+        return "MFU not measured (the card is not in the peak table)"
+    return f"MFU {flops / (ms / 1e3) / (peak * 1e12):.4f} (bf16 dense peak {peak:.0f} TFLOP/s)"
+
+
 def profiled(torch, fn):
     """Run ``fn`` once under ``torch.profiler`` with device activity only
     (no host operators are recorded, which keeps the host slow-down small).
@@ -991,7 +1002,8 @@ def phase_kernels(torch, dev, results, flash_cases=FLASH_CASES, norm_cases=NORM_
                   f"causal={causal} {dt}: err {err:.3e} ms {ms:.4f} plain {plain:.4f} "
                   f"sdpa {lib:.4f} bound {bms:.4f} ({by})", flush=True)
 
-    for name, n, d, kind in norm_cases:
+    for name, n, d, kind, *eps in norm_cases:
+        eps = eps[0] if eps else 1e-5
         for dt, dtype in dtypes.items():
             x = (posterior_rows(torch, dev, dtype, kind, n, d) if kind else
                  (torch.randn(n, d, device=dev, generator=g) * 3 + 1).to(dtype))
@@ -999,9 +1011,9 @@ def phase_kernels(torch, dev, results, flash_cases=FLASH_CASES, norm_cases=NORM_
             bb = (0.1 * torch.randn(d, device=dev, generator=g)).to(dtype)
             esize = x.element_size()
             if name == "layer_norm_fwd":
-                run = lambda: norms.layer_norm_fwd(x, w, bb)          # noqa: E731
-                ref = lambda: norms.layer_norm_ref(x, w, bb)          # noqa: E731
-                lib = lambda: F.layer_norm(x, (d,), w, bb, 1e-5)     # noqa: E731
+                run = lambda: norms.layer_norm_fwd(x, w, bb, eps)     # noqa: E731
+                ref = lambda: norms.layer_norm_ref(x, w, bb, eps)     # noqa: E731
+                lib = lambda: F.layer_norm(x, (d,), w, bb, eps)      # noqa: E731
                 nbytes, flops = 2 * n * d * esize + 2 * d * esize + 8 * n, 8.0 * n * d
             else:
                 run = lambda: norms.rms_norm_fwd(x, w)                # noqa: E731
@@ -1020,10 +1032,12 @@ def phase_kernels(torch, dev, results, flash_cases=FLASH_CASES, norm_cases=NORM_
             bms, by = bound(nbytes, flops, dt)
             e = entry(name)
             e["max_abs_err"] = max(e["max_abs_err"], err)
-            label = f"{tag} " * bool(tag) + f"{n}x{d}" + (f" {kind}" if kind else "")
+            label = (f"{tag} " * bool(tag) + f"{n}x{d}" + (f" {kind}" if kind else "")
+                     + (f" eps{eps:g}" if eps != 1e-5 else ""))
             e["shapes"].append(dict(shape=label, dtype=dt, ms=ms, plain_ms=plain,
                                     library_ms=lib_ms, bound_ms=bms, bound_by=by, err=err))
-            print(f"kernel {name} {f'{tag} ' * bool(tag)}[{n},{d}]{f' {kind}' if kind else ''} "
+            print(f"kernel {name} {f'{tag} ' * bool(tag)}[{n},{d}]{f' {kind}' if kind else ''}"
+                  f"{f' eps {eps:g}' if eps != 1e-5 else ''} "
                   f"{dt}: err {err:.3e} ms {ms:.4f} plain {plain:.4f} "
                   f"library {lib_ms:.4f} bound {bms:.4f} ({by}); eager call {host_ms:.4f}, "
                   f"library eager {host_lib:.4f}{route}", flush=True)
@@ -1165,8 +1179,10 @@ def phase_kernels_bwd(torch, dev, results, flash_cases=FLASH_BWD_CASES,
             print(f"flash backward {label} {dt}: dq + dk/dv {ms_dq + ms_dkv:.4f} ms against "
                   f"SDPA's whole backward {lib:.4f} ms ({(ms_dq + ms_dkv) / lib:.2f}x)", flush=True)
 
-    for name, n, d, kind in norm_cases:
-        shape = f"{tag} " * bool(tag) + f"{n}x{d}" + (f" {kind}" if kind else "")
+    for name, n, d, kind, *eps in norm_cases:
+        eps = eps[0] if eps else 1e-5
+        shape = (f"{tag} " * bool(tag) + f"{n}x{d}" + (f" {kind}" if kind else "")
+                 + (f" eps{eps:g}" if eps != 1e-5 else ""))
         for dt, dtype in dtypes.items():
             x = (posterior_rows(torch, dev, dtype, kind, n, d) if kind else
                  (torch.randn(n, d, device=dev, generator=g) * 3 + 1).to(dtype))
@@ -1176,10 +1192,10 @@ def phase_kernels_bwd(torch, dev, results, flash_cases=FLASH_BWD_CASES,
             esize = x.element_size()
             xr, wr, br = (t.detach().requires_grad_(True) for t in (x, w, bb))
             if name == "layer_norm_bwd":
-                _, mu, rstd = norms.layer_norm_fwd(x, w, bb)
+                _, mu, rstd = norms.layer_norm_fwd(x, w, bb, eps)
                 bwd, bwd_ref, args = norms.layer_norm_bwd, norms.layer_norm_bwd_ref, (x, w, mu, rstd, gy)
                 lib, method = backward_ms(
-                    torch, lambda: F.layer_norm(xr, (d,), wr, br, 1e-5), (xr, wr, br), gy)
+                    torch, lambda: F.layer_norm(xr, (d,), wr, br, eps), (xr, wr, br), gy)
                 nbytes = 3 * n * d * esize + 3 * d * esize + 8 * n
                 flops = 13.0 * n * d
             else:
@@ -1718,7 +1734,7 @@ def phase_train_main(torch, dev, model, launches, text_only: bool = False):
     )
     from ps_slm_tpu_torch.models.tasu import TasuFlags
     from ps_slm_tpu_torch.training.step import make_train_step
-    from ps_slm_tpu_torch.utils.flops import H100_BF16_PEAK_FLOPS, tasu_step_flops
+    from ps_slm_tpu_torch.utils.flops import tasu_step_flops
 
     counters = kernel_counters()
     audio_flags = model.flags
@@ -1783,8 +1799,7 @@ def phase_train_main(torch, dev, model, launches, text_only: bool = False):
                              freeze_llm=tc.freeze_llm, freeze_encoder=tc.freeze_encoder)
         audio_s = sum(frames) * LFR_FRAME_SEC
         rates = (f"{audio_s / med * 1e3:.1f} audio-sec/s; {fl['total'] / 1e12:.3f} TFLOP/step, "
-                 f"MFU {fl['total'] / (med / 1e3) / H100_BF16_PEAK_FLOPS:.4f} (bf16 dense "
-                 f"peak {H100_BF16_PEAK_FLOPS / 1e12:.0f} TFLOP/s); ")
+                 f"{mfu(fl['total'], med, dev)}; ")
     print(f"{'text-only' if text_only else 'train'} main path (bf16, full width, {shape}): "
           f"{TRAIN_WARMUP} warm-up steps {warm_s:.1f} s; {TRAIN_STEPS} steps median "
           f"{med:.2f} ms (min {min(times):.2f}, max {max(times):.2f}; all "
@@ -1928,23 +1943,12 @@ def phase_finetune_chain(torch, dev, launches: dict, step_5b_prof, root: str) ->
     (:func:`finetune_cases`, by stage), and for phase 11 the assets, 7a's
     export, the widths and 7b's micro-steps."""
     from ps_slm_tpu_torch.cli import decode, finetune
-    from ps_slm_tpu_torch.config import half_audio_configs
-    from ps_slm_tpu_torch.models.tasu import model_factory
     from ps_slm_tpu_torch.tools import clean_marks, wer
 
     what = "finetune chain"
     counters = kernel_counters()
     t0 = time.perf_counter()
-    tc, mc = half_audio_configs()
-    src = model_factory(tc, mc)                  # fp32 on the card, seed 42
-    assets = write_assets(torch, root, src, llm_dtype=torch.bfloat16,
-                          utts=CHAIN_UTTS["test"])
-    del src
-    torch.cuda.empty_cache()
-    write_bpe_model(assets["encoder_path"])
-    audio = {split: write_manifest(os.path.join(root, split), CHAIN_UTTS[split],
-                                   DECODE_SECONDS, seed=seed)
-             for split, seed in (("train", 1), ("dev", 2))}
+    assets, audio, mc = write_chain_assets(torch, root)
     print(f"{what}: assets and manifests written in {time.perf_counter() - t0:.1f} s "
           f"(train {sum(CHAIN_UTTS['train'].values())} utterances, {audio['train']:.2f} s; "
           f"dev {sum(CHAIN_UTTS['dev'].values())}, {audio['dev']:.2f} s; test "
@@ -3702,6 +3706,700 @@ def phase_peft(torch, dev, launches: dict, chain: dict) -> dict:
     return per_step
 
 
+# ----------------------------------------------------------------------------
+# phase 12: SenseVoice encoder training, standalone ASR, the other projectors
+# and the voca_trans / raw-feature branches
+# ----------------------------------------------------------------------------
+
+ENC_UTTS = 8
+ENC_SECONDS = (2.0, 6.0)
+ENC_QUERIES = (4, 1, 2, 15)            # language en, event, emotion, textnorm woitn
+ENC_RICH = (24885, -1, 25004, 25017)   # their labels: en, the event ignored, neutral, woitn
+ENC_WARMUP, ENC_STEPS = 3, 10
+HEAD_SCALE = 10.0       # 12a's CTC head x10: its Viterbi paths are no near-ties
+ENC_FP32_STEPS = 2      # 12a's AdamW steps: the first at the warm-up's lr 0
+MOVE_TOL = 1e-3         # 12a: ||change card - change CPU|| / ||change CPU||, a tensor
+# 12a's projector moments, ||card - CPU|| / ||CPU|| a tensor: a ReLU input within
+# rounding of 0 (one in the raw-feature run's 204 800) flips on one device and
+# moves linear1's moments by ~1e-3 of their norm
+PROJ_MOMENT_TOL = 1e-2
+GRAD_FLOOR = 1e-3       # 12a: a gradient below this of its tensor's largest and off by
+                        # more than this of itself card vs CPU is rounding noise; the
+                        # projectors' moments are sized at least this of their largest
+ASR_BATCH = 16
+# a trained encoder's step: 70 SANM blocks, 2 LayerNorms each + after_norm + tp_norm
+LAUNCHES_PER_ENC_STEP = dict(flash_attention_fwd=70, flash_attention_dq=70,
+                             flash_attention_dkv=70, layer_norm_fwd=142, layer_norm_bwd=142,
+                             rms_norm_fwd=0, rms_norm_bwd=0)
+LN_ROUTES_ENC = {"vec": 142, "staged": 0, "held": 0, "general": 0}
+QF_NORMS = 22           # the default q-former's LayerNorms: 1 + 8 x 2 + 4 cross + out_norm
+PROJECTOR_FP32_FRAMES = (100, 76)   # 12a's ragged rows (the CPU side sets 12a's time)
+# phase 3 at the q-former's LayerNorms: 4 rows x 64 queries, its 768-wide
+# post-LN layers (eps 1e-12) and the 1536-wide output norm (eps 1e-5)
+QF_NORM_CASES = (("layer_norm_fwd", 256, 768, None, 1e-12),
+                 ("layer_norm_fwd", 256, 1536, None))
+QF_NORM_BWD_CASES = tuple(("layer_norm_bwd",) + c[1:] for c in QF_NORM_CASES)
+# (label, projector, model config, train flags) of 12a and 12d; the
+# posterior projectors read the 25 055-wide PSD posterior, cov1d-linear and
+# the raw-feature baseline the encoder's 512-wide output, voca_trans maps
+# it to the LLM's 151 936 classes
+PROJECTOR_RUNS = (
+    ("simple_linear", "simple_linear", dict(encoder_dim=25055, encoder_projector_ds_rate=2),
+     dict(ctc_posterior=True, do_psd=True)),
+    ("linear", "linear", dict(encoder_dim=25055, encoder_projector_ds_rate=2),
+     dict(ctc_posterior=True, do_psd=True)),
+    ("cov1d-linear", "cov1d-linear", dict(encoder_dim=512, encoder_projector_ds_rate=2),
+     dict(ctc_posterior=False)),
+    ("cross-attention", "cross-attention", dict(encoder_dim=25055),
+     dict(ctc_posterior=True, do_psd=True)),
+    ("q-former", "q-former", dict(encoder_dim=25055), dict(ctc_posterior=True, do_psd=True)),
+    ("voca_trans", "simple_linear", dict(encoder_dim=512, llm_dim=151936),
+     dict(ctc_posterior=True, voca_trans=True, do_psd=True)),
+    ("voca_trans top1", "simple_linear", dict(encoder_dim=512, llm_dim=151936),
+     dict(ctc_posterior=True, voca_trans=True, do_psd=True, top1_emb=True)),
+    ("raw features", "linear", dict(encoder_dim=512, encoder_projector_ds_rate=2),
+     dict(ctc_posterior=False, do_psd=True)),
+)
+
+
+def enc_batch(torch, dev, n: int, seconds, vocab: int, seed: int, infeasible: int = -1):
+    """Encoder training inputs: ``n`` seeded utterances of ``seconds``
+    through the eval front end (no CMVN) on ``dev``; ENC_RICH then encoder-
+    vocabulary targets, a third as many as the row's frames (row
+    ``infeasible``: 5 more targets than frames).  Returns (features fp32,
+    lengths, text, text lengths, audio seconds)."""
+    import numpy as np
+
+    from ps_slm_tpu_torch.config import FbankConfig
+    from ps_slm_tpu_torch.ops.fbank import frontend
+
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(int(seconds[0] * 16000), int(seconds[1] * 16000) + 1, size=n)
+    wave = np.zeros((n, int(lens.max())), np.float32)
+    for i, m in enumerate(lens):
+        wave[i, :m] = 0.1 * rng.normal(size=m)
+    feats, flens = frontend(torch.from_numpy(wave).to(dev), torch.from_numpy(lens).to(dev),
+                            cfg=FbankConfig(), cmvn=None, train=False)
+    n_tok = [max(int(f) // 3, 1) for f in flens.tolist()]
+    if infeasible >= 0:
+        n_tok[infeasible] = int(flens[infeasible]) + 5
+    text = np.zeros((n, 4 + max(n_tok)), np.int64)
+    text[:, :4] = ENC_RICH
+    for i, m in enumerate(n_tok):
+        text[i, 4:4 + m] = rng.integers(1, vocab, size=m)
+    return (feats, flens, torch.from_numpy(text).to(dev),
+            torch.tensor([4 + m for m in n_tok], device=dev), float(lens.sum()) / 16000)
+
+
+def encoder_step(torch, enc, tc, feats, flens, text, tlens):
+    """The encoder training step of benchmarks/tasu_transfer.py: the
+    queries prepended, ``encoder_train_loss``, AdamW with warmup-cosine
+    (the port's train_state).  Returns (step, its MultiSteps)."""
+    from ps_slm_tpu_torch.models import sensevoice_asr as asr
+    from ps_slm_tpu_torch.training.train_state import MultiSteps, build_optimizer, warmup_cosine
+
+    accum = MultiSteps(build_optimizer(enc.parameters(), tc),
+                       warmup_cosine(tc.lr, tc.warmup_steps, tc.total_steps))
+
+    def step():
+        accum.optimizer.zero_grad(set_to_none=True)
+        x, lens = asr.prepend_queries(enc, feats, flens, ENC_QUERIES)
+        out = asr.encoder_train_loss(enc, x, lens, text, tlens)
+        out["loss"].backward()
+        accum.step()
+        return {k: v.detach() for k, v in out.items()}
+
+    return step, accum
+
+
+class IdText:
+    """A tokenizer whose text is the ids themselves (12a compares ids)."""
+
+    @staticmethod
+    def decode(ids):
+        return ",".join(str(int(i)) for i in ids)
+
+
+def phase_encoder_fp32(torch, dev) -> None:
+    """12a, the encoder: full widths at 2+1 blocks, fp32, card against the
+    CPU from the same weights: ``inference`` with timestamps on 4
+    utterances (the same ids and timestamps); one backward on a ragged
+    4-row batch with rich labels and an infeasible row (losses within
+    PATH_TOL of the CPU's, relative to their size; each parameter's
+    gradient within 1e-2 of its largest element: the infeasible row's fp32
+    gradient is ill-conditioned, tests/test_torch_ctc.py); then
+    ENC_FP32_STEPS AdamW steps on the same rows, all feasible, the first
+    at the warm-up's learning rate 0, so both gradients are taken at the
+    start and one update is made, then the loss after that update (a
+    forward alone): every loss within PATH_TOL, each step's gradients and
+    AdamW's first moments within MOMENT_TOL of each tensor's largest, and
+    each parameter's change (trained minus start) within MOVE_TOL of its
+    size as ||change card - change CPU|| / ||change CPU||, tensor by tensor,
+    with the elements whose gradient is rounding noise left out and shown:
+    those whose CPU gradient is below GRAD_FLOOR of the tensor's largest
+    and differs on the card by more than GRAD_FLOOR of itself.  Adam's
+    update is about g / |g| a step, so an element whose gradient is 0 up
+    to rounding (the key third of each ``qkv`` bias: softmax ignores a
+    shift shared by every key) steps by its normalised rounding noise,
+    which differs between the devices.  So a second update, or a gradient
+    taken after the first, is no longer a like-for-like comparison: the
+    parameters already differ in those elements by up to 2 lr."""
+    from ps_slm_tpu_torch.config import SENSEVOICE_SMALL, TrainConfig
+    from ps_slm_tpu_torch.models import sensevoice_asr as asr
+    from ps_slm_tpu_torch.models.sensevoice import SenseVoiceConfig, SenseVoiceEncoder
+
+    what = "encoder fp32"
+    t0 = time.time()
+    cfg = SenseVoiceConfig(**dict(SENSEVOICE_SMALL, num_blocks=2, tp_blocks=1))
+    cpu_enc = SenseVoiceEncoder(cfg)
+    cpu_enc.init_weights(torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        cpu_enc.ctc_lo.weight.mul_(HEAD_SCALE)
+        cpu_enc.ctc_lo.bias.mul_(HEAD_SCALE)
+    gpu_enc = copy.deepcopy(cpu_enc).to(dev)
+    cpu = torch.device("cpu")
+    asr_in = enc_batch(torch, cpu, 4, (1.0, 3.0), cfg.vocab_size, seed=6)
+    results = {}
+    for name, enc, d in (("cpu", cpu_enc, cpu), ("cuda", gpu_enc, dev)):
+        results[name] = asr.inference(enc, IdText(), asr_in[0], asr_in[1], language="en",
+                                      ban_emo_unk=True, output_timestamp=True, device=d)
+    if results["cpu"] != results["cuda"]:
+        fail(f"{what}: inference differs card vs CPU: {results['cuda']} / {results['cpu']}")
+    n_ts = sum(len(r["timestamp"]) for r in results["cuda"])
+
+    tc = TrainConfig(lr=1e-3, warmup_steps=1, total_steps=100)
+    feasible = enc_batch(torch, cpu, 4, (1.0, 3.0), cfg.vocab_size, seed=5)[:4]
+    infeasible = enc_batch(torch, cpu, 4, (1.0, 3.0), cfg.vocab_size, seed=5, infeasible=3)[:4]
+    runs, grads = {}, {}
+    for name, enc, d in (("cpu", cpu_enc, cpu), ("cuda", gpu_enc, dev)):
+        start = {n: p.detach().clone() for n, p in enc.named_parameters()}
+        # the infeasible batch: one backward, its losses and gradients
+        step, accum = encoder_step(torch, enc, tc, *(x.to(d) for x in infeasible))
+        accum.step = lambda: True                 # the gradients stay, nothing moves
+        out = {k: float(v) for k, v in step().items()}
+        grads[name] = (out, {n: p.grad.detach().cpu() for n, p in enc.named_parameters()})
+        rows = [x.to(d) for x in feasible]
+        step, accum = encoder_step(torch, enc, tc, *rows)
+        losses, step_grads = [], []
+        for _ in range(ENC_FP32_STEPS):
+            losses.append({k: float(v) for k, v in step().items()})
+            step_grads.append({n: p.grad.detach().cpu() for n, p in enc.named_parameters()})
+        with torch.no_grad():                     # the loss after the update
+            x, lens = asr.prepend_queries(enc, rows[0], rows[1], ENC_QUERIES)
+            losses.append({k: float(v) for k, v in
+                           asr.encoder_train_loss(enc, x, lens, rows[2], rows[3]).items()})
+        state = accum.optimizer.state
+        runs[name] = (losses, {n: (p.detach() - start[n]).cpu()
+                               for n, p in enc.named_parameters()},
+                      {n: state[p]["exp_avg"].cpu() for n, p in enc.named_parameters()},
+                      step_grads)
+    (l_c, d_c, m_c, sg_c), (l_g, d_g, m_g, sg_g) = runs["cpu"], runs["cuda"]
+    (o_c, g_c), (o_g, g_g) = grads["cpu"], grads["cuda"]
+    loss_err = max(abs(a[k] - b[k]) / max(1.0, abs(b[k])) for a, b in zip(l_g + [o_g], l_c + [o_c])
+                   for k in ("loss_ctc", "loss_rich"))
+
+    def rel(a, b):
+        return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+    moment_err = max(rel(m_g[n], m_c[n]) for n in m_c)
+    step_grad_err = max(rel(sg_g[i][n], sg_c[i][n]) for i in range(ENC_FP32_STEPS) for n in m_c)
+    grad_err = max(rel(g_g[n], g_c[n]) for n in g_c)
+    # left out: the elements whose CPU gradient is below GRAD_FLOOR of the
+    # tensor's largest and off on the card by more than GRAD_FLOOR of itself
+    # at some step, which is a gradient that is rounding noise
+    kept = {n: torch.stack([(gc[n].abs() >= GRAD_FLOOR * gc[n].abs().max())
+                            | ((gg[n] - gc[n]).abs() <= GRAD_FLOOR * gc[n].abs())
+                            for gc, gg in zip(sg_c, sg_g)]).all(0) for n in d_c}
+    moves = sorted(((float((d_g[n] - d_c[n])[kept[n]].norm())
+                     / max(float(d_c[n][kept[n]].norm()), 1e-30), n) for n in d_c), reverse=True)
+    move_err = moves[0][0]
+    left_out = {n: 1.0 - float(kept[n].float().mean()) for n in d_c}
+    worst = sorted(left_out, key=left_out.get, reverse=True)[:3]
+    # what was left out: its largest CPU gradient over all steps, against the tensor's largest
+    left_grad = {n: max(float(torch.where(kept[n], 0.0, g[n].abs()).max())
+                        / max(float(g[n].abs().max()), 1e-30) for g in sg_c) for n in worst}
+    still = [n for n in d_c if not bool(d_c[n].any())]
+    print(f"{what} 12a (2+1 blocks, full width, 4 ragged rows of {feasible[1].tolist()} "
+          f"frames): losses card {l_g} cpu {l_c} (the last after an update); with row 3 "
+          f"infeasible ({infeasible[1].tolist()} frames) card {o_g} cpu {o_c}; loss err "
+          f"{loss_err:.3e} (relative, tol {PATH_TOL}); after {ENC_FP32_STEPS} AdamW steps the "
+          f"gradients within {step_grad_err:.3e} and the first moments within {moment_err:.3e} "
+          f"of their size (tol {MOMENT_TOL}); each parameter's change within {move_err:.3e} of "
+          f"its size (tol {MOVE_TOL}; the largest: {[(n, round(e, 6)) for e, n in moves[:3]]}) "
+          f"leaving out the elements whose gradient is below {GRAD_FLOOR} of the tensor's "
+          f"largest and off card vs CPU by more than {GRAD_FLOOR} of itself; left out the most: "
+          f"{[(n, round(left_out[n], 4)) for n in worst]}, their gradients at most "
+          f"{[(n, float('%.3e' % left_grad[n])) for n in worst]} of the tensor's largest; "
+          f"the infeasible batch's gradients within {grad_err:.3e} of each tensor's largest "
+          f"(tol 1e-2); unmoved {still}; inference: {n_ts} timestamps, ids and timestamps "
+          f"equal ({time.time() - t0:.1f} s)", flush=True)
+    if (loss_err > PATH_TOL or moment_err > MOMENT_TOL or step_grad_err > MOMENT_TOL
+            or move_err > MOVE_TOL or grad_err > 1e-2 or still or n_ts == 0):
+        fail(f"{what}: card and CPU disagree, or a parameter did not move ({still})")
+    if not o_g["loss_ctc"] > 1e4:
+        fail(f"{what}: the infeasible row's loss is not optax's finite ~1e5 / 4")
+
+
+def branch_configs(label: str, base_tc, base_mc):
+    """The (train, model) configs of PROJECTOR_RUNS' ``label`` over a base."""
+    import dataclasses
+
+    _, name, mcfg, flags = next(r for r in PROJECTOR_RUNS if r[0] == label)
+    return (dataclasses.replace(base_tc, **flags),
+            dataclasses.replace(base_mc, encoder_projector=name, **mcfg))
+
+
+def phase_projectors_fp32(torch, dev) -> None:
+    """12a, the projectors and branches: full widths at 2+1 encoder blocks
+    and 2 LLM layers, fp32, card against the CPU: one model built once
+    and copied to the card, then each of PROJECTOR_RUNS' projectors (drawn
+    on the CPU, copied to both) with its flags (projector trained, encoder
+    and LLM frozen) on a ragged 2-row batch (PROJECTOR_FP32_FRAMES):
+    ``prepare_merged`` within PATH_TOL (masks and positions equal), then
+    one training step: its loss within PATH_TOL and the trained
+    parameters' AdamW first moments (their gradients through the LLM)
+    within PROJ_MOMENT_TOL as ||card - CPU|| / ||CPU||, tensor by tensor,
+    that norm floored at GRAD_FLOOR of the projector's largest (a tensor
+    whose gradient is smaller is rounding-limited: the q-former's key
+    biases).  A norm, not the largest element: a ReLU input within
+    rounding of 0 takes one frame of one unit out of the gradient on one
+    device only."""
+    from ps_slm_tpu_torch.config import SENSEVOICE_SMALL, half_audio_configs
+    from ps_slm_tpu_torch.models import projector as proj
+    from ps_slm_tpu_torch.models.tasu import TasuFlags, model_factory, prepare_merged
+    from ps_slm_tpu_torch.training.step import make_train_step
+
+    base_tc, base_mc = half_audio_configs(dict(num_blocks=2, tp_blocks=1),
+                                          dict(num_hidden_layers=2), seed=0)
+    cpu = torch.device("cpu")
+    cpu_model = model_factory(base_tc, base_mc, device="cpu")
+    cpu_model.speech_token_id = SPEECH_TOKEN
+    gpu_model = copy.deepcopy(cpu_model).to(dev)
+    batch = train_batch(torch, SENSEVOICE_SMALL["input_size"], PROJECTOR_FP32_FRAMES, seed=5)
+    for label, *_ in PROJECTOR_RUNS:
+        t0 = time.time()
+        tc, mc = branch_configs(label, base_tc, base_mc)
+        projector = proj.build_projector(mc)
+        projector.init_weights(torch.Generator().manual_seed(7))
+        out = {}
+        for name, model, d in (("cpu", cpu_model, cpu), ("cuda", gpu_model, dev)):
+            model.projector = copy.deepcopy(projector).to(d)
+            model.model_cfg, model.flags = mc, TasuFlags.from_train_config(tc, mc)
+            bd = {k: v.to(d) for k, v in batch.items()}
+            with torch.no_grad():
+                merged = prepare_merged(model, bd)
+            step = make_train_step(model, tc, device=d)
+            loss = float(step(bd)["loss"])
+            params = dict(model.named_parameters())
+            out[name] = (merged, loss, {n: step.optimizer.state[params[n]]["exp_avg"].cpu()
+                                        for n in step.trainable})
+        (m_c, l_c, mom_c), (m_g, l_g, mom_g) = out["cpu"], out["cuda"]
+        # ||card - CPU|| / ||CPU|| a tensor, the norm floored at GRAD_FLOOR of
+        # the projector's largest: the q-former's key biases (0 up to rounding)
+        # and its cross-attention (which the near-uniform posterior frames
+        # barely steer) sit below it
+        floor = GRAD_FLOOR * max(float(m.norm()) for m in mom_c.values())
+        mom_err = max(float((mom_g[n] - mom_c[n]).norm()) / max(float(mom_c[n].norm()), floor,
+                                                               1e-30) for n in mom_c)
+        floored = [n for n in mom_c if float(mom_c[n].norm()) < floor]
+        same = (torch.equal(m_c.attention_mask, m_g.attention_mask.cpu())
+                and torch.equal(m_c.position_ids, m_g.position_ids.cpu()))
+        emb_err = float((m_c.embeds - m_g.embeds.cpu()).abs().max())
+        print(f"projectors fp32 12a {label}: embeds err {emb_err:.3e}, loss card {l_g:.6f} cpu "
+              f"{l_c:.6f} (tol {PATH_TOL}); the first moments of {len(mom_c)} trained tensors "
+              f"within {mom_err:.3e} of their norm (tol {PROJ_MOMENT_TOL}; {len(floored)} sized at "
+              f"the floor, {GRAD_FLOOR} of the largest: {floored[:3]}); merged length "
+              f"{m_g.embeds.shape[1]}, audio spans "
+              f"{(m_g.attention_mask.sum(1) - batch['attention_mask'].sum(1).to(dev) + 1).tolist()}"
+              f" ({time.time() - t0:.1f} s)", flush=True)
+        if (not same or emb_err > PATH_TOL or abs(l_g - l_c) > PATH_TOL
+                or mom_err > PROJ_MOMENT_TOL or not math.isfinite(l_g)):
+            fail(f"projectors fp32 {label}: card and CPU disagree (masks equal {same})")
+        del out, m_c, m_g, mom_c, mom_g
+    del cpu_model, gpu_model
+    torch.cuda.empty_cache()
+
+
+def phase_encoder_train(torch, dev, launches: dict) -> dict:
+    """12b: SenseVoiceSmall (50 + 20 blocks) trained alone at full width,
+    bf16, random weights from seed 42, on ENC_UTTS utterances of
+    ENC_SECONDS through the front end: ENC_WARMUP + ENC_STEPS timed steps
+    on the same batch (remat off) with exact launches a step by route,
+    then one profiled step, one step with remat, and a step repeated from
+    one saved state.  Returns phase 3's cases at its shapes."""
+    import statistics
+
+    from ps_slm_tpu_torch.config import SENSEVOICE_SMALL, TrainConfig
+    from ps_slm_tpu_torch.models.sensevoice import SenseVoiceConfig, SenseVoiceEncoder
+    from ps_slm_tpu_torch.utils.flops import sensevoice_matmul_flops
+
+    what = "encoder training"
+    counters = kernel_counters()
+    cfg = SenseVoiceConfig(**SENSEVOICE_SMALL)
+    with torch.device("meta"):
+        enc = SenseVoiceEncoder(cfg)
+    enc = enc.to(dtype=torch.bfloat16).to_empty(device=dev)
+    enc.init_weights(torch.Generator(device=dev).manual_seed(42))
+    feats, flens, text, tlens, audio_s = enc_batch(torch, dev, ENC_UTTS, ENC_SECONDS,
+                                                   cfg.vocab_size, seed=42)
+    feats = feats.to(torch.bfloat16)
+    tc = TrainConfig(lr=1e-3, warmup_steps=1, total_steps=1000)
+    step, accum = encoder_step(torch, enc, tc, feats, flens, text, tlens)
+    t_len = feats.shape[1] + len(ENC_QUERIES)
+    losses, times = [], []
+    for _ in range(ENC_WARMUP):
+        losses.append(float(step()["loss"]))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    want = with_routes(LAUNCHES_PER_ENC_STEP, LN_ROUTES_ENC)
+    for i in range(ENC_STEPS):
+        reset_counters(counters)
+        t0 = time.perf_counter()
+        out = step()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        got = launch_counts(counters)
+        if got != want:
+            fail(f"{what}: step {i + 1} launched {nonzero(got)}, not {nonzero(want)}")
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        losses.append(float(out["loss"]))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        fail(f"{what}: losses {losses} not finite or not falling")
+    ms = statistics.median(times)
+    flops = 3 * sensevoice_matmul_flops(cfg, t_len, ENC_UTTS)["total"]
+    prof = profiled(torch, step)
+    print(f"{what} 12b (SenseVoiceSmall, 50 + 20 blocks, bf16, {ENC_UTTS} utterances of "
+          f"{audio_s:.2f} s, {flens.tolist()} frames + 4 queries): step {ms:.2f} ms (min "
+          f"{min(times):.2f}, max {max(times):.2f}); {audio_s / ms * 1e3:.1f} audio-s/s; "
+          f"{mfu(flops, ms, dev)} ({flops / 1e12:.3f} TFLOP a step: "
+          f"forward + 2x backward); peak memory {peak:.2f} GB; losses "
+          f"{[round(x, 3) for x in losses]}; launches a step {nonzero(want)} [{CARD}]",
+          flush=True)
+    print_profiled(f"{what} step", prof)
+
+    # one step with remat: the 69 blocks after encoders0 run their forward again
+    again = cfg.num_blocks - 1 + cfg.tp_blocks
+    enc.remat = True
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters(counters)
+    t0 = time.perf_counter()
+    out = step()
+    torch.cuda.synchronize()
+    remat_ms = (time.perf_counter() - t0) * 1e3
+    want_remat = dict(LAUNCHES_PER_ENC_STEP, flash_attention_fwd=70 + again,
+                      layer_norm_fwd=142 + 2 * again)
+    want_remat = with_routes(want_remat, dict(LN_ROUTES_ENC, vec=142 + 2 * again))
+    got = launch_counts(counters)
+    if got != want_remat or not math.isfinite(float(out["loss"])):
+        fail(f"{what}: the remat step launched {nonzero(got)}, not {nonzero(want_remat)}")
+    print(f"{what} 12b remat: step {remat_ms:.2f} ms, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB (off: {peak:.2f}) [{CARD}]",
+          flush=True)
+    enc.remat = False
+
+    # the same step twice from one saved state
+    state = ({n: p.detach().clone() for n, p in enc.named_parameters()},
+             copy.deepcopy(accum.state_dict()))
+
+    def from_state():
+        with torch.no_grad():
+            for n, p in enc.named_parameters():
+                p.copy_(state[0][n])
+        accum.load_state_dict(copy.deepcopy(state[1]))
+        loss = float(step()["loss"])
+        return loss, {n: p.detach().clone() for n, p in enc.named_parameters()}
+
+    def spread(a, b):
+        return max(float((a[1][n].float() - b[1][n].float()).abs().max()) for n in a[1])
+
+    first, second = from_state(), from_state()
+    same = first[0] == second[0] and spread(first, second) == 0.0
+    note = "bit-identical"
+    if not same:
+        note = (f"differ: loss {first[0]} / {second[0]}, weights {spread(first, second):.3e} "
+                "apart")
+        torch.backends.cudnn.deterministic = True
+        third, fourth = from_state(), from_state()
+        torch.backends.cudnn.deterministic = False
+        note += (f"; with cudnn.deterministic {'bit-identical' if third[0] == fourth[0] and spread(third, fourth) == 0.0 else 'still %.3e apart' % spread(third, fourth)}"
+                 " (the FSMN's depthwise conv1d weight gradient is cuDNN's)")
+    print(f"{what} 12b: one step twice from a saved state: {note}", flush=True)
+    rows = ENC_UTTS * t_len
+    cases = {
+        "flash": [("encoder train", ENC_UTTS, t_len, cfg.attention_heads, cfg.attention_heads,
+                   False, [0] * ENC_UTTS, [int(x) + 4 for x in flens.tolist()])],
+        "norm": [("layer_norm_fwd", rows, cfg.input_size, None),
+                 ("layer_norm_fwd", rows, cfg.output_size, None)],
+        "norm_bwd": [("layer_norm_bwd", rows, cfg.input_size, None),
+                     ("layer_norm_bwd", rows, cfg.output_size, None)],
+    }
+    del enc, state, first, second, step, accum
+    torch.cuda.empty_cache()
+    return cases
+
+
+def phase_asr(torch, dev, launches: dict) -> None:
+    """12c: standalone rich-label ASR at full width, bf16: a funasr
+    SenseVoiceSmall directory written from seed 42 (CTC head as wide as its
+    BPE model) and loaded back, phase 6's 32 utterances (its manifest
+    writer and seed) read and put through the front end with the
+    directory's am.mvn, ``inference`` with timestamps in batches of
+    ASR_BATCH.  Exact launches a call (flash 70, LayerNorm 142 vec), the
+    second pass's ids bit-identical to the first's; wall, audio-s/s and
+    the Viterbi's share of the wall."""
+    import numpy as np
+
+    from ps_slm_tpu_torch.config import SENSEVOICE_SMALL, FbankConfig
+    from ps_slm_tpu_torch.data import audio_io
+    from ps_slm_tpu_torch.data.spm import SenseVoiceTokenizer
+    from ps_slm_tpu_torch.models import sensevoice_asr as asr
+    from ps_slm_tpu_torch.models.sensevoice import SenseVoiceConfig, SenseVoiceEncoder
+    from ps_slm_tpu_torch.ops.fbank import frontend, load_cmvn
+    from ps_slm_tpu_torch.training.checkpoint import load_funasr_encoder
+
+    what = "standalone ASR"
+    counters = kernel_counters()
+    root = tempfile.mkdtemp(prefix="asr_")
+    try:
+        with torch.device("meta"):
+            src = SenseVoiceEncoder(SenseVoiceConfig(**SENSEVOICE_SMALL))
+        src = src.to_empty(device=dev)
+        src.init_weights(torch.Generator(device=dev).manual_seed(42))
+        enc_dir = os.path.join(root, "SenseVoiceSmall")
+        write_encoder_dir(torch, enc_dir, src)
+        write_bpe_model(enc_dir, vocab=SENSEVOICE_SMALL["vocab_size"])
+        del src
+        audio_s = write_manifest(os.path.join(root, "test"), None, DECODE_SECONDS, seed=0)
+        state, cfg = load_funasr_encoder(enc_dir)
+        with torch.device("meta"):
+            enc = SenseVoiceEncoder(cfg)
+        enc = enc.to(dtype=torch.bfloat16).to_empty(device=dev)
+        enc.load_state_dict(state)
+        cmvn = tuple(torch.as_tensor(v, dtype=torch.float32, device=dev)
+                     for v in load_cmvn(os.path.join(enc_dir, "am.mvn")))
+        tok = SenseVoiceTokenizer(enc_dir)
+        with open(os.path.join(root, "test", "multitask.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+        waves = [audio_io.load_audio(r["path"]) for r in rows]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    batches = []
+    for i in range(0, len(waves), ASR_BATCH):
+        group = waves[i:i + ASR_BATCH]
+        lens = np.array([len(w) for w in group])
+        pad = np.zeros((len(group), lens.max()), np.float32)
+        for j, w in enumerate(group):
+            pad[j, :len(w)] = w
+        batches.append((torch.from_numpy(pad).to(dev), torch.from_numpy(lens).to(dev),
+                        [r["key"] for r in rows[i:i + ASR_BATCH]]))
+    align_s = []
+    real_align = asr.ctc_forced_align
+
+    def timed_align(*args, **kwargs):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = real_align(*args, **kwargs)
+        torch.cuda.synchronize()
+        align_s.append(time.perf_counter() - t)
+        return out
+
+    def run():
+        out = []
+        for wave, lens, keys in batches:
+            feats, flens = frontend(wave, lens, cfg=FbankConfig(), cmvn=cmvn, train=False)
+            reset_counters(counters)
+            out += asr.inference(enc, tok, feats.to(torch.bfloat16), flens, output_timestamp=True,
+                                 ban_emo_unk=True, keys=keys)
+            got = launch_counts(counters)
+            want = with_routes(dict(LAUNCHES_PER_ENC_STEP, flash_attention_dq=0,
+                                    flash_attention_dkv=0, layer_norm_bwd=0), LN_ROUTES_ENC)
+            if got != want:
+                fail(f"{what}: a call launched {nonzero(got)}, not {nonzero(want)}")
+            for k, v in got.items():
+                launches[k] = launches.get(k, 0) + v
+        return out
+
+    asr.ctc_forced_align = timed_align
+    try:
+        run()                                     # warm-up
+        torch.cuda.synchronize()
+        align_s.clear()
+        t0 = time.perf_counter()
+        first = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        align = sum(align_s)
+        second = run()
+    finally:
+        asr.ctc_forced_align = real_align
+    if [r["text"] for r in first] != [r["text"] for r in second] or first != second:
+        fail(f"{what}: two passes gave other texts or timestamps")
+    n_tok = sum(len(r["timestamp"]) for r in first)
+    print(f"{what} 12c ({len(first)} utterances, {audio_s:.2f} s, batches of {ASR_BATCH}, bf16, "
+          f"timestamps on): wall {wall:.3f} s, {audio_s / wall:.1f} audio-s/s, the Viterbi "
+          f"{align:.3f} s ({align / wall:.3f} of the wall), {n_tok} timestamped tokens; two "
+          f"passes identical; first text {first[0]['text'][:60]!r} [{CARD}]", flush=True)
+    del enc
+    torch.cuda.empty_cache()
+
+
+def projector_launches(label: str) -> dict:
+    """A projector-trained step's launches by route on phase 5's model."""
+    per = dict(LAUNCHES_PER_TRAIN_STEP, layer_norm_fwd=LN_PER_GENERATE - 1, layer_norm_bwd=0)
+    vec = LN_PER_GENERATE - 1
+    if label == "q-former":
+        per.update(layer_norm_fwd=vec + QF_NORMS, layer_norm_bwd=QF_NORMS)
+        vec += QF_NORMS
+    if label == "voca_trans top1":        # the argmax passes no gradient: no backward
+        per.update(flash_attention_dq=0, flash_attention_dkv=0, rms_norm_bwd=0)
+    return with_routes(per, {"vec": vec, "staged": 0, "held": 0, "general": 0})
+
+
+def phase_projectors(torch, dev, model, launches: dict) -> dict:
+    """12d: each of PROJECTOR_RUNS swapped into phase 5's bf16 model
+    (SenseVoiceSmall + Qwen2.5-1.5B, random weights): 3 training steps of
+    ``make_train_step`` (projector trained) with exact launches by route,
+    step ms and peak memory; one greedy ``generate`` of phase 5's batch,
+    bit-identical twice; the cross-attention projector's chunked softmax
+    over the 151 936 embedding rows timed alone.  Adds the launches to
+    ``launches`` by label; returns a step's launches by label."""
+    import statistics
+
+    from ps_slm_tpu_torch.config import SENSEVOICE_SMALL, half_audio_configs
+    from ps_slm_tpu_torch.inference.generate import generate
+    from ps_slm_tpu_torch.models import projector as proj
+    from ps_slm_tpu_torch.models.tasu import TasuFlags, encode_speech
+    from ps_slm_tpu_torch.ops.psd import psd
+    from ps_slm_tpu_torch.training.step import make_train_step
+
+    counters = kernel_counters()
+    base_tc, base_mc = half_audio_configs()
+    batch = train_batch(torch, SENSEVOICE_SMALL["input_size"], FRAMES, seed=2)
+    batch["input_features"] = batch["input_features"].to(torch.bfloat16)
+    serve = {k: v for k, v in batch.items() if k != "labels"}
+    saved = (model.projector, model.model_cfg, model.flags)
+    per_label = {}
+    try:
+        for label, *_ in PROJECTOR_RUNS:
+            tc, mc = branch_configs(label, base_tc, base_mc)
+            with torch.device("meta"):
+                p = proj.build_projector(mc)
+            model.projector = p.to(dtype=torch.bfloat16).to_empty(device=dev)
+            model.projector.init_weights(torch.Generator(device=dev).manual_seed(7))
+            model.model_cfg, model.flags = mc, TasuFlags.from_train_config(tc, mc)
+            step = make_train_step(model, tc)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            times, losses = [], []
+            want = projector_launches(label)
+            for i in range(3):
+                reset_counters(counters)
+                t0 = time.perf_counter()
+                losses.append(float(step(batch)["loss"]))
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+                got = launch_counts(counters)
+                if got != want:
+                    fail(f"projectors 12d {label}: step {i + 1} launched {nonzero(got)}, not "
+                         f"{nonzero(want)}")
+                for k, v in got.items():
+                    launches[k] = launches.get(k, 0) + v
+            per_label[label] = got
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            n_params = sum(x.numel() for x in model.projector.parameters())
+            del step
+            tokens = [generate(model, serve, eos_token_id=EOS, num_beams=1,
+                               max_new_tokens=MAX_NEW).cpu() for _ in range(2)]
+            if not torch.equal(tokens[0], tokens[1]) or not all(map(math.isfinite, losses)):
+                fail(f"projectors 12d {label}: generate not bit-identical, or losses {losses}")
+            extra = ""
+            if label == "cross-attention":
+                with torch.no_grad():
+                    bd = {k: v.to(dev) for k, v in serve.items()}
+                    _, post, lens = encode_speech(model.encoder, bd["input_features"],
+                                                  bd["input_feature_length"])
+                    feats, _ = psd(post, lens, post, blank_id=0)
+                    table = model.llm.embed_tokens.weight
+                    ca_ms = time_ms(torch, lambda: model.projector(feats, table), iters=3)
+                extra = (f"; the chunked softmax over {table.shape[0]} rows at "
+                         f"{tuple(feats.shape[:2])} frames: {ca_ms:.3f} ms device time")
+            print(f"projectors 12d {label}: {n_params} parameters; step "
+                  f"{statistics.median(times):.2f} ms ({[round(t, 1) for t in times]}); peak "
+                  f"memory {peak:.2f} GB; losses {[round(x, 4) for x in losses]}; launches a step "
+                  f"{nonzero(got)}; generate bit-identical twice{extra} [{CARD}]", flush=True)
+            model.projector = None
+            torch.cuda.empty_cache()
+    finally:
+        model.projector, model.model_cfg, model.flags = saved
+    return per_label
+
+
+def write_chain_assets(torch, root: str) -> tuple:
+    """Phase 7's assets under ``root``: phase 6's writers on a seed-42 fp32
+    model (bf16 LLM), a character BPE model beside the encoder, train and
+    dev manifests.  Returns (assets, audio seconds by split, model config)."""
+    from ps_slm_tpu_torch.config import half_audio_configs
+    from ps_slm_tpu_torch.models.tasu import model_factory
+
+    tc, mc = half_audio_configs()
+    src = model_factory(tc, mc)                  # fp32 on the card, seed 42
+    assets = write_assets(torch, root, src, llm_dtype=torch.bfloat16,
+                          utts=CHAIN_UTTS["test"])
+    del src
+    torch.cuda.empty_cache()
+    write_bpe_model(assets["encoder_path"])
+    audio = {split: write_manifest(os.path.join(root, split), CHAIN_UTTS[split],
+                                   DECODE_SECONDS, seed=seed)
+             for split, seed in (("train", 1), ("dev", 2))}
+    return assets, audio, mc
+
+
+def phase_qformer_cli(torch, dev, assets: dict, root: str, launches: dict,
+                      interval: int) -> None:
+    """12d through the CLI: scripts/finetune_half_audio.sh's overrides with
+    ``encoder_projector=q-former`` (its defaults: 8 layers, 12 heads, 64
+    queries) and no INIT checkpoint on phase 7's assets, one epoch validating every ``interval``
+    steps (step_N checkpoints); the reference export must hold exactly the
+    q-former's tensors under their HF names, and all of them load back."""
+    from ps_slm_tpu_torch.cli import finetune
+    from ps_slm_tpu_torch.training import checkpoint as ckpt
+
+    what = "q-former finetune CLI"
+    counters = kernel_counters()
+    out = os.path.join(root, "exp", "half_audio_qformer")
+    # no INIT: the recipe's linear-silu checkpoint names a "norm" the
+    # q-former's output norm shares, at the posterior's width
+    args = [a for a in finetune_args(assets, root, out) if not a.startswith("ckpt_path=")] + [
+        "++model_config.encoder_projector=q-former", "++train_config.num_epochs=1",
+        f"++train_config.validation_interval={interval}"]
+    reset_counters(counters)
+    with TrainProbe(torch, dev) as probe:
+        t0 = time.perf_counter()
+        if finetune.main(args) != 0:
+            fail(f"{what}: main returned nonzero")
+        wall = time.perf_counter() - t0
+    for k, v in launch_counts(counters).items():
+        launches[k] = launches.get(k, 0) + v
+    tags = sorted(p for p in os.listdir(out) if p.startswith("step_"))
+    if not tags or not all(math.isfinite(x) for x in probe.losses()):
+        fail(f"{what}: checkpoints {tags}, losses {probe.losses()}")
+    tensors = torch.load(os.path.join(out, tags[-1], "pytorch_model.bin"), weights_only=True)
+    model = probe.model
+    names = ckpt.projector_to_reference(model.projector, "q-former")
+    if sorted(tensors) != sorted(names):
+        fail(f"{what}: the export holds {len(tensors)} tensors, not the q-former's {len(names)}")
+    state, loaded = ckpt.reference_to_projector(tensors, "q-former", model.projector)
+    if len(loaded) != len(names):
+        fail(f"{what}: {len(loaded)} of {len(names)} reference names loaded back")
+    print(f"{what} 12d (scripts/finetune_half_audio.sh + encoder_projector=q-former, 1 epoch): "
+          f"{probe.summary()}; export {tags[-1]}: {len(tensors)} q-former tensors under HF "
+          f"names, all loaded back; main {wall:.1f} s [{CARD}]", flush=True)
+    probe.model = probe.largest = None
+    torch.cuda.empty_cache()
+
+
 def timed(label: str, fn, *args, **kwargs):
     """``fn(*args, **kwargs)``, its wall seconds printed and kept in
     PHASE_SECONDS under ``label``."""
@@ -3711,6 +4409,43 @@ def timed(label: str, fn, *args, **kwargs):
     finally:
         PHASE_SECONDS[label] = round(time.time() - t, 1)
         print(f"phase {label}: {PHASE_SECONDS[label]:.1f} s", flush=True)
+
+
+def phase_kernels_slice12(torch, dev, results, enc_cases: dict) -> None:
+    """Phase 3 at 12b's encoder step (flash non-causal 4/4 heads with the
+    ragged rows, the LayerNorms at 560 / 512 with dw/db) and at the
+    q-former's LayerNorms (768 at eps 1e-12, 1536 at 1e-5)."""
+    phase_kernels(torch, dev, results, enc_cases["flash"], enc_cases["norm"], "encoder train")
+    phase_kernels_bwd(torch, dev, results, enc_cases["flash"], enc_cases["norm_bwd"],
+                      "encoder train")
+    phase_kernels(torch, dev, results, (), QF_NORM_CASES, "q-former")
+    phase_kernels_bwd(torch, dev, results, (), QF_NORM_BWD_CASES, "q-former")
+
+
+def run_slice12(torch, dev) -> None:
+    """``--slice12``: phase 12 alone (12a, 12d on a phase 5 model, 12b, 12c,
+    the q-former CLI on phase 7's assets) and phase 3 at its shapes."""
+    from ps_slm_tpu_torch.config import half_audio_configs
+    from ps_slm_tpu_torch.models.tasu import model_factory
+
+    results: dict = {}
+    timed("12a encoder fp32", phase_encoder_fp32, torch, dev)
+    timed("12a projectors fp32", phase_projectors_fp32, torch, dev)
+    tc, mc = half_audio_configs()
+    model = model_factory(tc, mc, dtype=torch.bfloat16)
+    model.speech_token_id = SPEECH_TOKEN
+    timed("12d projectors", phase_projectors, torch, dev, model, {})
+    del model
+    torch.cuda.empty_cache()
+    enc_cases = timed("12b encoder training", phase_encoder_train, torch, dev, {})
+    timed("12c standalone ASR", phase_asr, torch, dev, {})
+    root = tempfile.mkdtemp(prefix="slice12_")
+    try:
+        assets, _, _ = write_chain_assets(torch, root)
+        timed("12d q-former CLI", phase_qformer_cli, torch, dev, assets, root, {}, 4)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    timed("3 at 12's shapes", phase_kernels_slice12, torch, dev, results, enc_cases)
 
 
 def run_decode_and_serving(torch, dev, results, cli_launches, serve_launches,
@@ -3777,6 +4512,11 @@ def main() -> None:
         phase_ln_variants(torch, dev)
         print(f"variants done, {time.time() - t_start:.1f} s", flush=True)
         return
+    if "--slice12" in sys.argv[1:]:
+        run_slice12(torch, dev)
+        print(f"phase seconds: {json.dumps(PHASE_SECONDS)}", flush=True)
+        print(f"slice 12 done, {time.time() - t_start:.1f} s", flush=True)
+        return
 
     print("kernel vs plain tolerance, |a - b| <= atol + rtol * |b|: "
           + ", ".join(f"{dt} atol {a} rtol {r}" for dt, (a, r) in KERNEL_TOL.items()),
@@ -3790,6 +4530,8 @@ def main() -> None:
     timed("4d decode CLI fp32", phase_decode_cli_fp32, torch, dev)
     timed("4e finetune CLI fp32", phase_finetune_cli_fp32, torch, dev)
     timed("11a PEFT fp32", phase_peft_fp32, torch, dev)
+    timed("12a encoder fp32", phase_encoder_fp32, torch, dev)
+    timed("12a projectors fp32", phase_projectors_fp32, torch, dev)
     gen_launches: dict = {}
     model = timed("5 main path", phase_main, torch, dev, gen_launches)
     train_launches: dict = {}
@@ -3799,8 +4541,13 @@ def main() -> None:
     text_launches: dict = {}
     timed("5d text-only train", phase_train_main, torch, dev, model, text_launches,
           text_only=True)
+    proj_launches: dict = {}
+    proj_per_step = timed("12d projectors", phase_projectors, torch, dev, model, proj_launches)
     del model
     torch.cuda.empty_cache()
+    enc_launches, asr_launches = {}, {}
+    enc_cases = timed("12b encoder training", phase_encoder_train, torch, dev, enc_launches)
+    timed("12c standalone ASR", phase_asr, torch, dev, asr_launches)
     cli_launches, serve_launches, serve_cli_launches = {}, {}, {}
     cli_per_batch, cli_flash, cli_norm, pools, serve_runs = run_decode_and_serving(
         torch, dev, results, cli_launches, serve_launches, serve_cli_launches)
@@ -3811,6 +4558,9 @@ def main() -> None:
                                chain_launches, step_5b_prof, chain_root)
         peft_per_step = timed("11b-c PEFT", phase_peft, torch, dev, peft_launches,
                               chain_per_step)
+        qf_launches: dict = {}
+        timed("12d q-former CLI", phase_qformer_cli, torch, dev, chain_per_step["assets"],
+              chain_root, qf_launches, chain_per_step["steps"] // 2 + 1)
     finally:
         shutil.rmtree(chain_root, ignore_errors=True)
     t3 = time.time()
@@ -3819,6 +4569,7 @@ def main() -> None:
         phase_kernels_bwd(torch, dev, results, cases["flash_bwd"], cases["norm_bwd"],
                           f"finetune {stage}")
     PHASE_SECONDS["3 at 7's shapes"] = round(time.time() - t3, 1)
+    timed("3 at 12's shapes", phase_kernels_slice12, torch, dev, results, enc_cases)
 
     # (name, its launch count, the CUDA kernel it launches at the main
     # paths' bf16 shapes, source, TPU kernel it replaces, the rows of phase
@@ -3860,6 +4611,15 @@ def main() -> None:
     for w, n, d, kind in pools["norm"]:
         name = f"{w} ({'staged' if d == 25055 else 'vec'})" if w == "layer_norm_fwd" else w
         path_rows[name].append(f"serving pool {n}x{d}")
+    # phase 12b's encoder step and the q-former's norms, as phase 3 labelled them
+    for name in ("flash_attention_fwd", "flash_attention_dq", "flash_attention_dkv"):
+        path_rows[name] = path_rows.get(name, []) + [c[0] for c in enc_cases["flash"]]
+    for tag, cases in (("encoder train", enc_cases["norm"] + enc_cases["norm_bwd"]),
+                       ("q-former", QF_NORM_CASES + QF_NORM_BWD_CASES)):
+        for w, n, d, _, *eps in cases:
+            name = "layer_norm_fwd (vec)" if w == "layer_norm_fwd" else w
+            label = f"{tag} {n}x{d}" + (f" eps{eps[0]:g}" if eps else "")
+            path_rows.setdefault(name, []).append(label)
     # phase 7's largest batches, as phases 3 labelled their rows
     for stage, cases in chain_per_step["cases"].items():
         tag = f"finetune {stage}"
@@ -3881,10 +4641,10 @@ def main() -> None:
         kernels.append({
             "name": name, "kernel": kernel, "route": "cuda", "source": source,
             "replaces": replaces,
-            "launches": sum(runs[count] for runs in (gen_launches, train_launches,
-                                                     beam_launches, text_launches, cli_launches,
-                                                     serve_launches, serve_cli_launches,
-                                                     peft_launches))
+            "launches": sum(runs.get(count, 0) for runs in (
+                gen_launches, train_launches, beam_launches, text_launches, cli_launches,
+                serve_launches, serve_cli_launches, peft_launches, proj_launches, enc_launches,
+                asr_launches, qf_launches))
             + sum(runs[count] for runs in chain_launches.values()),
             "launches_per_generate": gen_launches[count],
             "launches_per_train_step": train_launches[count] // TRAIN_STEPS,
@@ -3898,6 +4658,9 @@ def main() -> None:
             "launches_per_pool_refill": pools["refill"][count],
             "launches_per_serve_cli_run": {k: c[count] for k, c in serve_runs.items()},
             "launches_per_peft_step": peft_per_step[count],
+            "launches_per_encoder_step": enc_launches.get(count, 0) // ENC_STEPS,
+            "launches_per_asr_pass": asr_launches.get(count, 0) // 3,
+            "launches_per_projector_step": {k: c.get(count, 0) for k, c in proj_per_step.items()},
             "max_abs_err": max(r["err"] for r in rows),
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],

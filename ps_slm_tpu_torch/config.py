@@ -8,9 +8,9 @@ override parser (``parse_cli``) that the CLIs take, and :func:`dump`, which
 writes a run's resolved config.  Fields the JAX package itself never reads
 (``model_name``, ``llm_name``, ``gamma``, ...) are carried, inert, so the
 same overrides parse.  ``mesh_shape`` parses and raises where it would act,
-naming its ROADMAP.md item; the other fields of unported features (the
-sharding knobs, the long tail's projectors and branches) are absent, and
-an override that names one raises ``KeyError`` like any unknown key.
+naming its ROADMAP.md item; the other sharding knobs (``fsdp_min_size``,
+``pp_microbatches``) are absent, and an override that names one raises
+``KeyError`` like any unknown key.
 """
 
 from __future__ import annotations
@@ -82,7 +82,11 @@ class ModelConfig:
     encoder_dim: int = 512
     encoder_projector: str = "linear-silu"
     encoder_projector_ds_rate: int = 1
-    ctc_linear: Optional[str] = None
+    ctc_linear: Optional[str] = None      # a pretrained CTC head into simple_linear
+    qformer_layers: int = 8
+    qformer_heads: int = 12
+    query_len: int = 64
+    ca_heads: int = 8                     # the cross-attention projector's heads
     # encoder BPE model directory when it does not live next to the
     # encoder weights (default: encoder_path)
     encoder_bpe_path: Optional[str] = None
@@ -122,6 +126,7 @@ class TrainConfig:
     use_emb: bool = False                 # embed_tokens trains under PEFT
     gt_emb: bool = False
     gt_emb_noise: bool = False
+    top1_emb: bool = False                # voca_trans: the top-1 token's embedding
     cross_attn: bool = False
     gaussian_sim: bool = False            # inert
     # text-only noise knobs (the JAX package's CPS noise defaults)
@@ -129,6 +134,9 @@ class TrainConfig:
     insert_prob: float = 0.0
     smooth_low: float = 0.0
     smooth_high: float = 0.1
+    # the voca_trans PSD's blank id in training; generate takes the
+    # encoder's (the reference's two paths differ, mirrored)
+    voca_trans_blank_id: int = 151643
     # freezing
     freeze_llm: bool = False
     freeze_encoder: bool = False

@@ -8,7 +8,9 @@ so this module never imports JAX, and returns a state dict for
 * stacked layer axes (``encoders``, ``tp_encoders``, ``llm.layers``) split
   into one module per layer;
 * linear kernels [in, out] transposed to ``nn.Linear``'s [out, in];
-* the FSMN kernel [k, 1, C] transposed to conv1d's [C, 1, k];
+* the FSMN kernel [k, 1, C] transposed to conv1d's [C, 1, k], and the
+  cov1d projector's [k, in, out] to [out, in, k];
+* the q-former's list of layers one module a layer;
 * tied embeddings: no ``lm_head`` in the tree, none in the state dict;
 * quantized LLM projections (``q8``/``scale`` or ``q4``/``scale4``, JAX
   layout [in, out]) carried as they are, into the buffers of a model
@@ -105,16 +107,28 @@ def encoder_state_dict(tree: Dict[str, Any]) -> StateDict:
 
 
 def projector_state_dict(tree: Dict[str, Any]) -> StateDict:
-    """JAX linear-silu projector params -> ``LinearSiLUProjector`` state dict."""
-    if set(tree) != {"norm", "ffn1", "ffn2"}:
-        raise NotImplementedError(
-            "only the linear-silu projector is ported (ROADMAP.md queue 1, "
-            "'Long tail')"
-        )
+    """JAX projector params -> the port projector's state dict, for each of
+    the six: linears transposed, cov1d's conv kernel [k, in, out] to
+    conv1d's [out, in, k], the q-former's ``layers`` list one module a
+    layer (``ln_*`` its LayerNorms)."""
     out: StateDict = {}
-    _norm(tree["norm"], "norm", out)
-    _linear(tree["ffn1"], "ffn1", out)
-    _linear(tree["ffn2"], "ffn2", out)
+    if "layers" in tree:      # q-former
+        out["query"] = _t(tree["query"])
+        _norm(tree["ln_embed"], "ln_embed", out)
+        _linear(tree["out"], "out", out)
+        _norm(tree["out_norm"], "out_norm", out)
+        for i, layer in enumerate(tree["layers"]):
+            for name, node in layer.items():
+                (_norm if name.startswith("ln_") else _linear)(node, f"layers.{i}.{name}", out)
+        return out
+    for name, node in tree.items():
+        if name == "conv":
+            out["conv.weight"] = _t(node["kernel"]).permute(2, 1, 0).contiguous()
+            out["conv.bias"] = _t(node["bias"])
+        elif name == "norm":
+            _norm(node, name, out)
+        else:
+            _linear(node, name, out)
     return out
 
 

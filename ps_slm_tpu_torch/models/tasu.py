@@ -1,7 +1,7 @@
 """TASU composite model: SenseVoice encoder + projector + Qwen2 LLM.
 
-Counterpart of ``ps_slm_tpu/models/tasu.py`` for the two published
-recipes.  Audio TASU (``half_audio``: ``ctc_posterior=True``,
+Counterpart of ``ps_slm_tpu/models/tasu.py``, every branch of its
+forward.  Audio TASU (``half_audio``: ``ctc_posterior=True``,
 ``do_psd=True``, the ``linear-silu`` projector):
 
   1. query prepend + encoder + fp32 CTC softmax + drop the 4 query frames
@@ -27,12 +27,29 @@ encoder while gradients are recorded (``torch.utils.checkpoint``, no
 saved residuals, as the JAX ``jax.checkpoint`` of the block body): the
 backward recomputes each block's forward.
 
-The other branches of the JAX model (voca_trans, the cross-attention
-projector, the raw-feature baseline) raise ``NotImplementedError`` naming
-their ROADMAP.md item.  :func:`model_factory` loads an HF Qwen2 directory
-(``llm_path``) and a funasr SenseVoiceSmall directory (``encoder_path``)
-and random-initialises the rest from a seeded ``torch.Generator``
-(``convert.from_jax_params`` maps a JAX parameter tree).
+The other branches (:func:`compute_audio_embeds`):
+
+* the cross-attention projector (``cross_attn``, or the projector named
+  ``cross-attention``) over the posterior, at the encoder's frame rate;
+* voca_trans (LegoSLM): the projector maps the encoder's output to
+  LLM-vocabulary logits, PSD pools them (blank ``voca_trans_blank_id`` in
+  training, the encoder's blank id when generating, as the reference's
+  two paths differ), the last column drops, and the softmax mixes the
+  LLM's embeddings (``top1_emb``: the argmax token's embedding);
+* the raw-feature baseline (``ctc_posterior=False``): the projector over
+  the encoder's output, PSD-pooled by the posterior when ``do_psd``.
+
+The q-former gives ``query_len`` embeddings a row, and its span in the
+merge is ``query_len`` long, attending to the row's valid frames only; the
+JAX package takes the frame count as the span and attends to the padding
+too, which agrees only where every row has ``query_len`` frames (ROADMAP.md
+queue 3, faults of the reference).
+
+:func:`model_factory` loads an HF Qwen2 directory (``llm_path``), a funasr
+SenseVoiceSmall directory (``encoder_path``) and a pretrained CTC head
+into the simple_linear projector (``ctc_linear``), and random-initialises
+the rest from a seeded ``torch.Generator`` (``convert.from_jax_params``
+maps a JAX parameter tree).
 """
 
 from __future__ import annotations
@@ -59,7 +76,7 @@ from ps_slm_tpu_torch.ops.pseudo_posterior import (
 )
 from ps_slm_tpu_torch.ops.psd import psd
 from ps_slm_tpu_torch.registry import register_model
-from ps_slm_tpu_torch.training.checkpoint import load_funasr_encoder
+from ps_slm_tpu_torch.training.checkpoint import load_ctc_linear, load_funasr_encoder
 
 IGNORE_ID = -100
 QUERY_IDS = (0, 1, 2, 2)   # language, event, emotion, textnorm
@@ -69,19 +86,20 @@ CHUNKED_CE_BYTES = 3 * 2 ** 29   # 1.5 GB
 
 @dataclass(frozen=True)
 class TasuFlags:
-    """Static algorithm switches (the JAX ``TasuFlags`` fields the ported
-    branches read)."""
+    """Static algorithm switches (the JAX ``TasuFlags``)."""
 
     ctc_posterior: bool = False
     voca_trans: bool = False
     gt_emb: bool = False
     gt_emb_noise: bool = False
     do_psd: bool = False
+    top1_emb: bool = False
     cross_attn: bool = False
     drop_prob: float = 0.05
     insert_prob: float = 0.0
     smooth_low: float = 0.0
     smooth_high: float = 0.1
+    voca_trans_blank_id: int = 151643
     blank_threshold: float = 0.9
 
     @property
@@ -98,21 +116,10 @@ class TasuFlags:
         return TasuFlags(
             ctc_posterior=tc.ctc_posterior, voca_trans=tc.voca_trans,
             gt_emb=tc.gt_emb, gt_emb_noise=tc.gt_emb_noise, do_psd=tc.do_psd,
-            cross_attn=cross, drop_prob=tc.drop_prob, insert_prob=tc.insert_prob,
-            smooth_low=tc.smooth_low, smooth_high=tc.smooth_high,
+            top1_emb=tc.top1_emb, cross_attn=cross, drop_prob=tc.drop_prob,
+            insert_prob=tc.insert_prob, smooth_low=tc.smooth_low,
+            smooth_high=tc.smooth_high, voca_trans_blank_id=tc.voca_trans_blank_id,
         )
-
-    def check_ported(self) -> None:
-        if not self.ctc_posterior:
-            raise NotImplementedError(
-                "the raw-feature baseline (ctc_posterior=False) is not ported "
-                "yet (ROADMAP.md queue 1, 'Long tail')"
-            )
-        if self.voca_trans or self.cross_attn:
-            raise NotImplementedError(
-                "voca_trans and the cross-attention projector are not ported "
-                "yet (ROADMAP.md queue 1, 'Long tail')"
-            )
 
 
 class TasuModel(nn.Module):
@@ -121,7 +128,6 @@ class TasuModel(nn.Module):
         flags: TasuFlags, speech_token_id: int = 0, pad_token_id: int = 0,
     ):
         super().__init__()
-        flags.check_ported()
         self.enc_cfg, self.llm_cfg, self.model_cfg = enc_cfg, llm_cfg, model_cfg
         self.flags = flags
         self.speech_token_id = speech_token_id
@@ -190,13 +196,52 @@ def encode_speech(
 Draws = Union[NoiseDraws, FrontendDraws]
 
 
+def _project(model: TasuModel, feats: torch.Tensor, lens: torch.Tensor
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The projector over ``feats`` [B,T,D] and the embeds' lengths: the
+    cross-attention projector over the LLM's embedding matrix (lengths
+    unchanged); the q-former over the valid frames (``query_len`` a row);
+    the others at ``lens // k``."""
+    if model.flags.cross_attn:
+        return model.projector(feats, model.llm.embed_tokens.weight), lens
+    if model.model_cfg.encoder_projector == "q-former":
+        atts = torch.arange(feats.shape[1], device=feats.device)[None, :] < lens[:, None]
+        out = model.projector(feats, atts)
+        return out, torch.full_like(lens, out.shape[1])
+    return model.projector(feats), lens // proj.downsample_rate(model.model_cfg)
+
+
+def _voca_trans(model: TasuModel, encoder_out: torch.Tensor, lens: torch.Tensor,
+                generate_mode: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """LegoSLM: LLM-vocabulary logits from the projector, PSD-pooled, mixing
+    the LLM's embeddings by their softmax (or taking the top-1 token's)."""
+    f = model.flags
+    logits = model.projector(encoder_out)
+    lens = lens // proj.downsample_rate(model.model_cfg)
+    table = model.llm.embed_tokens.weight
+    v_real = logits.shape[-1]
+    if f.do_psd:
+        probs = torch.softmax(logits.float(), dim=-1)
+        blank = model.enc_cfg.blank_id if generate_mode else f.voca_trans_blank_id
+        logits, lens = psd(logits, lens, probs, blank_id=blank,
+                           blank_threshold=f.blank_threshold)
+        v_real -= 1      # the last column (the CTC head's extra class) drops
+        logits = logits[..., :v_real]
+    ctc_outs = torch.softmax(logits.float(), dim=-1)
+    if f.top1_emb:
+        return table[ctc_outs.argmax(dim=-1)], lens
+    return ctc_outs.to(table.dtype) @ table[:v_real], lens
+
+
 def compute_audio_embeds(
     model: TasuModel, batch: Dict[str, torch.Tensor], *, generate_mode: bool = False,
     generator: Optional[torch.Generator] = None, draws: Optional[Draws] = None,
     train: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(audio embeds [B,A,H], lens [B]) from the audio posterior or, for
-    text-only TASU, from the transcript ids.
+    """(audio embeds [B,A,H], lens [B]) by the model's branch: the audio
+    posterior (PSD-pooled when ``do_psd``) or, for text-only TASU, one
+    simulated from the transcript ids, through the projector; voca_trans;
+    or the encoder's output (the raw-feature baseline).
 
     Audio comes as ``input_features`` or, through the front end, as
     ``waveform``; the front end dithers and masks (as ``model.fbank_cfg``
@@ -210,43 +255,52 @@ def compute_audio_embeds(
     want = NoiseDraws if not f.needs_encoder else FrontendDraws
     if draws is not None and not isinstance(draws, want):
         raise TypeError(f"this branch takes {want.__name__}, not {type(draws).__name__}")
-    if not f.needs_encoder:     # text-only TASU (gt_emb)
-        ids, lens = batch["gt_ids"], batch["gt_lens"]
-        vocab = model.enc_cfg.vocab_size
-        if f.gt_emb_noise and not generate_mode:
-            if draws is None:
-                if generator is None:
-                    raise ValueError("text-only noise (gt_emb_noise) needs a generator or draws")
-                draws = noise_draws(
-                    ids.shape[0], ids.shape[1], generator, insert_prob=f.insert_prob,
-                    smooth_low=f.smooth_low, smooth_high=f.smooth_high,
-                )
-            post, lens = pseudo_posterior_noise(
-                ids, lens, draws, vocab_size=vocab, drop_prob=f.drop_prob,
-                insert_prob=f.insert_prob, blank_id=model.enc_cfg.blank_id,
-            )
+    if f.needs_encoder:
+        if "input_features" in batch:
+            feats, flens = batch["input_features"], batch["input_feature_length"]
         else:
-            post, lens = pseudo_posterior(ids, lens, vocab)
-        # the projector takes the compute dtype
-        post = post.to(model.llm.embed_tokens.weight.dtype)
-        return model.projector(post), lens // proj.downsample_rate(model.model_cfg)
-    if "input_features" in batch:
-        feats, flens = batch["input_features"], batch["input_feature_length"]
-    else:
-        feats, flens = frontend(
-            batch["waveform"], batch["waveform_length"], cfg=model.fbank_cfg,
-            cmvn=model.cmvn, train=train and not generate_mode, generator=generator,
-            draws=draws,
-        )
-        feats = feats.to(model.llm.embed_tokens.weight.dtype)
-    _, posterior, lens = encode_speech(model.encoder, feats, flens)
-    feats = posterior
-    if model.flags.do_psd:
-        feats, lens = psd(
-            posterior, lens, posterior, blank_id=model.enc_cfg.blank_id,
-            blank_threshold=model.flags.blank_threshold,
-        )
-    return model.projector(feats), lens // proj.downsample_rate(model.model_cfg)
+            feats, flens = frontend(
+                batch["waveform"], batch["waveform_length"], cfg=model.fbank_cfg,
+                cmvn=model.cmvn, train=train and not generate_mode, generator=generator,
+                draws=draws,
+            )
+            feats = feats.to(model.llm.embed_tokens.weight.dtype)
+        encoder_out, posterior, lens = encode_speech(model.encoder, feats, flens)
+    blank = model.enc_cfg.blank_id
+    if f.ctc_posterior and not f.voca_trans:
+        if f.gt_emb:     # text-only TASU
+            ids, lens = batch["gt_ids"], batch["gt_lens"]
+            vocab = model.enc_cfg.vocab_size
+            if f.gt_emb_noise and not generate_mode:
+                if draws is None:
+                    if generator is None:
+                        raise ValueError(
+                            "text-only noise (gt_emb_noise) needs a generator or draws")
+                    draws = noise_draws(
+                        ids.shape[0], ids.shape[1], generator, insert_prob=f.insert_prob,
+                        smooth_low=f.smooth_low, smooth_high=f.smooth_high,
+                    )
+                post, lens = pseudo_posterior_noise(
+                    ids, lens, draws, vocab_size=vocab, drop_prob=f.drop_prob,
+                    insert_prob=f.insert_prob, blank_id=blank,
+                )
+            else:
+                post, lens = pseudo_posterior(ids, lens, vocab)
+            # the projector takes the compute dtype
+            feats = post.to(model.llm.embed_tokens.weight.dtype)
+        elif f.do_psd:
+            feats, lens = psd(posterior, lens, posterior, blank_id=blank,
+                              blank_threshold=f.blank_threshold)
+        else:
+            feats = posterior
+        return _project(model, feats, lens)
+    if f.ctc_posterior:
+        return _voca_trans(model, encoder_out, lens, generate_mode)
+    feats = encoder_out   # the raw-feature baseline
+    if f.do_psd:
+        feats, lens = psd(encoder_out, lens, posterior, blank_id=blank,
+                          blank_threshold=f.blank_threshold)
+    return _project(model, feats, lens)
 
 
 def prepare_merged(
@@ -371,6 +425,8 @@ def model_factory(
     latter) load their module, each tensor cast once into the model's
     dtype; without a path the module is a random init, sized by the config
     overrides (the tiny test configs when absent, as in the JAX factory).
+    ``ctc_linear`` (a torch checkpoint with ``ctc_head.weight`` / ``.bias``)
+    loads into the simple_linear projector, as the JAX factory does.
     ``generator`` (default: seeded with ``train_config.seed`` on
     ``device``) draws every random weight; the same seed on another device
     type gives other weights, so to compare devices build once and move
@@ -383,11 +439,6 @@ def model_factory(
     generator, and sets its LoRA dropout rate.
     """
     dev = resolve_device(device)
-    if model_config.ctc_linear:
-        raise NotImplementedError(
-            "the pretrained CTC head (ctc_linear) of the simple_linear projector "
-            "is not ported yet (ROADMAP.md queue 1, 'Long tail')"
-        )
     t0 = time.perf_counter()
     loaded, seconds = {}, {}
     if model_config.llm_path:
@@ -416,6 +467,12 @@ def model_factory(
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         seconds[name] += time.perf_counter() - t1
+    if model_config.ctc_linear:
+        # a pretrained CTC head into simple_linear's ``map``
+        if model_config.encoder_projector != "simple_linear":
+            raise ValueError("ctc_linear loads into the simple_linear projector, not "
+                             f"{model_config.encoder_projector!r}")
+        model.projector.load_state_dict(load_ctc_linear(model_config.ctc_linear))
     if train_config.quantization:
         # weight-only LLM from the weights in the model's dtype, as the JAX
         # factory quantizes its loaded or random parameters

@@ -360,6 +360,9 @@ class LayerNormFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, weight, bias, eps: float):
+        # the kernels read rows in place: a strided view (an expanded
+        # q-former query) is copied once, on either device
+        x = x.contiguous()
         y, mu, rstd = layer_norm_fwd(x, weight, bias, eps)
         ctx.save_for_backward(x, weight, mu, rstd)
         return y
@@ -380,6 +383,7 @@ class RMSNormFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, weight, eps: float):
+        x = x.contiguous()
         y, rstd = rms_norm_fwd(x, weight, eps)
         ctx.save_for_backward(x, weight, rstd)
         return y

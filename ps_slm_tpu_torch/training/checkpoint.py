@@ -21,8 +21,10 @@ and the exporter the tests and ``chip_smoke.py`` write files with:
     adapters in the HF-PEFT layout (``adapter_model.bin`` and
     ``adapter_config.json``), the finetune CLI's ``adapter/`` export and
     its ``peft_ckpt``;
-  * the linear-silu projector's reference key map
-    (:func:`projector_to_reference`, :func:`reference_to_projector`);
+  * every projector's reference key map (:func:`projector_to_reference`,
+    :func:`reference_to_projector`), the q-former's in HF Blip2QFormer
+    names, and :func:`load_ctc_linear`, a pretrained CTC head for the
+    simple_linear projector;
   * :func:`save_train_state` / :func:`restore_train_state`: the whole
     state of a training run (every parameter, AdamW's state, the
     accumulated gradients, the micro-step count and the generator), as the
@@ -32,9 +34,7 @@ and the exporter the tests and ``chip_smoke.py`` write files with:
     reference ``pytorch_model.bin``.
 
 Files are read with ``torch.load(weights_only=True)``: state dicts of
-tensors, never arbitrary pickles.  Not ported yet: the pretrained CTC
-head (``ctc_linear``, on which the factory raises) and the other
-projectors' key maps (ROADMAP.md queue 1, 'Long tail').
+tensors, never arbitrary pickles.
 """
 
 from __future__ import annotations
@@ -210,23 +210,76 @@ def load_funasr_encoder(path: str, **overrides) -> Tuple[StateDict, SenseVoiceCo
 # reference-format interchange (pytorch_model.bin key layout)
 # ----------------------------------------------------------------------------
 
-# linear-silu: the port's LinearSiLUProjector names -> the reference's
+def load_ctc_linear(path: str) -> StateDict:
+    """A pretrained CTC head (``ctc_head.weight`` [V, D], ``ctc_head.bias``)
+    as the simple_linear projector's state dict (``map.*``)."""
+    state = _torch_load_state(path)
+    return {"map.weight": state["ctc_head.weight"], "map.bias": state["ctc_head.bias"]}
+
+
+# the port's projector names -> the reference module's (both torch layouts,
+# so no tensor is transposed)
 _PROJ_KEYMAPS = {
+    "simple_linear": {"map.weight": "map.weight", "map.bias": "map.bias"},
+    "linear": {
+        "linear1.weight": "linear1.weight", "linear1.bias": "linear1.bias",
+        "linear2.weight": "linear2.weight", "linear2.bias": "linear2.bias",
+    },
+    "cov1d-linear": {
+        "conv.weight": "conv1d.weight", "conv.bias": "conv1d.bias",
+        "linear1.weight": "linear1.weight", "linear1.bias": "linear1.bias",
+        "linear2.weight": "linear2.weight", "linear2.bias": "linear2.bias",
+    },
     "linear-silu": {
         "norm.weight": "norm.weight", "norm.bias": "norm.bias",
         "ffn1.weight": "ffn.0.weight", "ffn1.bias": "ffn.0.bias",
         "ffn2.weight": "ffn.2.weight", "ffn2.bias": "ffn.2.bias",
     },
+    "cross-attention": {"w_q.weight": "W_q.weight"},
+}
+
+# a QFormerLayer's names -> the HF Blip2QFormerLayer's, under
+# ``qformer.encoder.layer.{i}.``; the cross-attention entries on the
+# layers that have one
+_QF_SELF = {
+    "self_q": "attention.attention.query", "self_k": "attention.attention.key",
+    "self_v": "attention.attention.value", "self_o": "attention.output.dense",
+    "ln_self": "attention.output.LayerNorm",
+    "ffn1": "intermediate_query.dense", "ffn2": "output_query.dense",
+    "ln_ffn": "output_query.LayerNorm",
+}
+_QF_CROSS = {
+    "cross_q": "crossattention.attention.query", "cross_k": "crossattention.attention.key",
+    "cross_v": "crossattention.attention.value", "cross_o": "crossattention.output.dense",
+    "ln_cross": "crossattention.output.LayerNorm",
+}
+_QF_TOP = {
+    "query": "query",
+    "ln_embed.weight": "qformer.layernorm.weight", "ln_embed.bias": "qformer.layernorm.bias",
+    "out.weight": "linear.weight", "out.bias": "linear.bias",
+    "out_norm.weight": "norm.weight", "out_norm.bias": "norm.bias",
 }
 
 
-def _projector_keymap(projector_name: str) -> Dict[str, str]:
+def _qformer_keymap(projector) -> Dict[str, str]:
+    keymap = dict(_QF_TOP)
+    for i, layer in enumerate(projector.layers):
+        names = dict(_QF_SELF, **(_QF_CROSS if layer.cross else {}))
+        for ours, ref in names.items():
+            for leaf in ("weight", "bias"):
+                keymap[f"layers.{i}.{ours}.{leaf}"] = f"qformer.encoder.layer.{i}.{ref}.{leaf}"
+    return keymap
+
+
+def _projector_keymap(projector_name: str, projector=None) -> Dict[str, str]:
+    if projector_name == "q-former":
+        if projector is None:
+            raise ValueError("the q-former's key map needs the projector (its layers)")
+        return _qformer_keymap(projector)
     keymap = _PROJ_KEYMAPS.get(projector_name)
     if keymap is None:
-        raise NotImplementedError(
-            f"the reference key layout of projector {projector_name!r} is not "
-            "ported yet (ROADMAP.md queue 1, 'Long tail')"
-        )
+        raise KeyError(f"unknown projector {projector_name!r}; known: "
+                       f"{sorted(_PROJ_KEYMAPS) + ['q-former']}")
     return keymap
 
 
@@ -234,14 +287,16 @@ def projector_to_reference(projector, projector_name: str) -> StateDict:
     """The projector's weights under ``encoder_projector.*``, fp32 CPU."""
     sd = projector.state_dict()
     return {f"encoder_projector.{ref}": sd[ours].detach().float().cpu().contiguous()
-            for ours, ref in _projector_keymap(projector_name).items()}
+            for ours, ref in _projector_keymap(projector_name, projector).items()}
 
 
-def reference_to_projector(tensors: StateDict, projector_name: str) -> Tuple[StateDict, List[str]]:
+def reference_to_projector(tensors: StateDict, projector_name: str, projector=None
+                           ) -> Tuple[StateDict, List[str]]:
     """(the projector's state dict entries found under
-    ``encoder_projector.*``, the reference keys read)."""
+    ``encoder_projector.*``, the reference keys read); the q-former's map
+    needs ``projector``, whose layers say where the cross-attention is."""
     out, loaded = {}, []
-    for ours, ref in _projector_keymap(projector_name).items():
+    for ours, ref in _projector_keymap(projector_name, projector).items():
         key = f"encoder_projector.{ref}"
         if key in tensors:
             out[ours] = tensors[key]
@@ -312,7 +367,8 @@ def import_reference_checkpoint(model, path_or_tensors: Union[str, StateDict]) -
         model.encoder.load_state_dict(state)
         loaded += [f"encoder.{k}" for k in enc_tensors if k in consumed]
 
-    state, proj_loaded = reference_to_projector(tensors, model.model_cfg.encoder_projector)
+    state, proj_loaded = reference_to_projector(tensors, model.model_cfg.encoder_projector,
+                                                model.projector)
     model.projector.load_state_dict(state, strict=False)
     return loaded + proj_loaded
 

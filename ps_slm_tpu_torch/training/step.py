@@ -90,7 +90,14 @@ class TrainStep:
             self.model, batch, train=True, generator=self.generator, draws=draws,
             lora_masks=lora_masks,
         )
-        loss.backward()
+        if loss.requires_grad:
+            loss.backward()
+        for p in self.accum.params:
+            if p.grad is None:
+                # a trainable parameter the loss does not reach (voca_trans'
+                # top1_emb) gets a zero gradient, as under jax.grad: AdamW
+                # then still decays it
+                p.grad = torch.zeros_like(p)
         self.accum.step()
         self.step += 1
         return {"loss": loss.detach(), "acc": aux["acc"], "ntokens": aux["ntokens"]}

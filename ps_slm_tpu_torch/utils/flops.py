@@ -146,3 +146,26 @@ def tasu_step_flops(
         "bwd": bwd,
         "total": fwd + bwd,
     }
+
+
+# dense bf16 tensor-core peak TFLOP/s by device-name substring (NVIDIA data
+# sheets); the H100 SXM's is H100_BF16_PEAK_FLOPS, the PCIe card's 756
+_PEAK_TFLOPS = (
+    ("H100 PCIe", 756.0),
+    ("H100", H100_BF16_PEAK_FLOPS / 1e12),
+)
+
+
+def device_peak_tflops(device=None) -> Optional[float]:
+    """The dense bf16 peak of a CUDA device (default: the current one) in
+    TFLOP/s, or None for the CPU or a card not in the table."""
+    import torch
+
+    device = torch.device("cuda") if device is None else torch.device(device)
+    if device.type != "cuda" or not torch.cuda.is_available():
+        return None
+    name = torch.cuda.get_device_name(device)
+    for sub, peak in _PEAK_TFLOPS:
+        if sub in name:
+            return peak
+    return None

@@ -238,7 +238,18 @@ def test_factory_loads_the_asset_directories(tmp_path):
             assert torch.equal(got[k], v.to(torch.bfloat16)), k
 
 
-def test_factory_raises_on_what_is_not_ported():
-    mc = ModelConfig(encoder_dim=11, llm_dim=64, ctc_linear="ctc.pt")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, 'Long tail'"):
+def test_factory_raises_on_what_is_not_ported(tmp_path):
+    """ctc_linear, which raised until its ROADMAP.md item landed, loads a
+    pretrained CTC head into the simple_linear projector now, and refuses
+    any other projector."""
+    path = str(tmp_path / "ctc.pt")
+    head = {"ctc_head.weight": torch.randn(64, 22), "ctc_head.bias": torch.randn(64)}
+    torch.save(head, path)
+    mc = ModelConfig(encoder_dim=11, llm_dim=64, ctc_linear=path)
+    with pytest.raises(ValueError, match="simple_linear"):
         tasu.model_factory(TrainConfig(**FLAGS), mc, device="cpu")
+    mc = ModelConfig(encoder_dim=11, llm_dim=64, ctc_linear=path, encoder_projector="simple_linear",
+                     encoder_projector_ds_rate=2)
+    model = tasu.model_factory(TrainConfig(**FLAGS), mc, device="cpu")
+    assert torch.equal(model.projector.map.weight, head["ctc_head.weight"])
+    assert torch.equal(model.projector.map.bias, head["ctc_head.bias"])

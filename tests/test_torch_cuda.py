@@ -18,7 +18,11 @@ bounds, the same features as the CPU with those draws), the prefetcher's
 side-stream copy under a busy stream, remat bit-identical to no remat, and
 a train-state save/restore that continues bit-identically.  The serving
 slice: the int8 / int4 weight and int8 KV codes and scales bit-equal to the
-CPU's.
+CPU's.  Encoder training and the projectors: flash forward and backward at
+the encoder step's 4/4 non-causal ragged rows, the LayerNorm forward and
+backward at 560 / 512 with dw/db and at the q-former's 768 (eps 1e-12) and
+1536 (its output norm, eps 1e-5); the CTC loss, its gradient (twice bit-identical: no atomics) and the
+Viterbi on the card against the CPU (fp32 1e-5; the alignment equal).
 """
 
 import pytest
@@ -71,6 +75,8 @@ def test_norm_kernels_match_plain(dev, dtype, d):
 # mid-tile; a row with no valid key; causal with left padding; GQA 6/1)
 CASES = {
     "encoder": (4, 516, 4, 4, False, [0] * 4, [516, 404, 304, 260]),
+    # encoder training: 8 ragged rows of frames + 4 queries, windows [0, len)
+    "encoder_train": (8, 104, 4, 4, False, [0] * 8, [104, 90, 71, 60, 104, 45, 83, 38]),
     "prefill_left_padded": (4, 543, 12, 2, True, [0, 112, 212, 543], [543] * 4),
     "ragged": (2, 70, 2, 1, True, [0, 0], [70, 33]),
     "s1": (3, 1, 4, 4, False, [0, 0, 1], [1, 0, 1]),
@@ -146,6 +152,7 @@ BWD_CASES = {
     # a left-padded row, a right-padded row and a row with no valid key
     "ragged": (3, 70, 4, 2, True, [13, 0, 0], [70, 33, 0]),
     "encoder": (2, 130, 4, 4, False, [0, 0], [130, 77]),
+    "encoder_train": (8, 104, 4, 4, False, [0] * 8, [104, 90, 71, 60, 104, 45, 83, 38]),
     "s1": (2, 1, 4, 4, False, [0, 0], [1, 0]),
     "s17_gqa6_left_padded": (2, 17, 6, 1, True, [3, 0], [17, 17]),
     "s64": (2, 64, 12, 2, True, [0, 5], [64, 64]),
@@ -836,3 +843,78 @@ def test_quantization_on_card_equals_cpu(dev, what):
         got, want = [got[k] for k in sorted(got)], [want[k] for k in sorted(want)]
     for a, b in zip(got, want):
         assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,d,eps", [(832, 560, 1e-5), (832, 512, 1e-5), (256, 768, 1e-12),
+                                     (256, 1536, 1e-5)])
+def test_layer_norm_at_encoder_training_and_qformer_shapes(dev, dtype, n, d, eps):
+    g_ = torch.Generator(device=dev).manual_seed(n + d)
+    x = (torch.randn(n, d, device=dev, generator=g_) * 3 + 1).to(dtype)
+    w = (1 + 0.1 * torch.randn(d, device=dev, generator=g_)).to(dtype)
+    b = (0.1 * torch.randn(d, device=dev, generator=g_)).to(dtype)
+    g = torch.randn(n, d, device=dev, generator=g_).to(dtype)
+    tol = TOL[dtype]
+    for a, e in zip(norms.layer_norm_fwd(x, w, b, eps), norms.layer_norm_ref(x, w, b, eps)):
+        torch.testing.assert_close(a.float(), e.float(), **tol)
+    _, mu, rstd = norms.layer_norm_ref(x, w, b, eps)
+    wtol = dict(tol, atol=tol["atol"] * n ** 0.5)
+    got = norms.layer_norm_bwd(x, w, mu, rstd, g)
+    for i, (a, e) in enumerate(zip(got, norms.layer_norm_bwd_ref(x, w, mu, rstd, g))):
+        torch.testing.assert_close(a.float(), e.float(), **(tol if i == 0 else wtol))
+
+
+def test_ctc_on_card_matches_cpu_and_is_deterministic(dev):
+    from ps_slm_tpu_torch.ops import ctc
+
+    g = torch.Generator().manual_seed(0)
+    b, t, v, n = 6, 60, 25055, 20
+    logits = torch.randn(b, t, v, generator=g) * 3
+    lens = torch.tensor([60, 51, 40, 33, 60, 9])
+    labels = torch.randint(1, v, (b, n), generator=g)
+    labels[:, 5] = labels[:, 4]                     # repeats
+    label_lens = torch.tensor([20, 15, 12, 10, 20, 14])    # the last row infeasible
+    want = ctc._ctc_nll(logits, lens, labels, label_lens, 0)
+    grads = []
+    for _ in range(2):
+        x = logits.to(dev).requires_grad_(True)
+        got = ctc._ctc_nll(x, lens.to(dev), labels.to(dev), label_lens.to(dev), 0)
+        got.mean().backward()
+        grads.append(x.grad)
+    torch.testing.assert_close(got.detach().cpu(), want, atol=1e-5, rtol=1e-5)
+    assert torch.equal(grads[0], grads[1])
+    lp = torch.log_softmax(logits, -1)
+    tgt_lens = torch.minimum(label_lens, lens // 2)
+    a_cpu = ctc.ctc_forced_align(lp, labels, lens, tgt_lens)
+    a_gpu = ctc.ctc_forced_align(lp.to(dev), labels.to(dev), lens.to(dev), tgt_lens.to(dev))
+    assert torch.equal(a_gpu.cpu(), a_cpu)
+    ids_c, n_c = ctc.ctc_greedy_decode(lp, lens)
+    ids_g, n_g = ctc.ctc_greedy_decode(lp.to(dev), lens.to(dev))
+    assert torch.equal(ids_g.cpu(), ids_c) and torch.equal(n_g.cpu(), n_c)
+
+
+@pytest.mark.parametrize("name", ["q-former", "cross-attention", "cov1d-linear"])
+def test_projectors_on_card_match_cpu(dev, name):
+    """Each projector's forward and gradients through the card's kernels
+    (the q-former's LayerNorms take an expanded, strided query) equal the
+    CPU's at fp32 1e-4."""
+    from ps_slm_tpu_torch.config import ModelConfig
+    from ps_slm_tpu_torch.models import projector as proj
+
+    cfg = ModelConfig(encoder_projector=name, encoder_dim=40, llm_dim=256, qformer_layers=2,
+                      qformer_heads=4, query_len=8, ca_heads=2, encoder_projector_ds_rate=2)
+    g = torch.Generator().manual_seed(0)
+    cpu = proj.build_projector(cfg)
+    cpu.init_weights(g)
+    card = proj.build_projector(cfg).to(dev)
+    card.load_state_dict(cpu.state_dict())
+    x = torch.randn(2, 21, 40, generator=g)
+    extra = (torch.randn(500, 256, generator=g),) if name == "cross-attention" else ()
+    outs = []
+    for m, d in ((cpu, "cpu"), (card, dev)):
+        out = m(x.to(d), *(e.to(d) for e in extra), **({"chunk": 128} if extra else {}))
+        out.square().sum().backward()
+        outs.append((out.detach().cpu(), {n: p.grad.cpu() for n, p in m.named_parameters()}))
+    torch.testing.assert_close(outs[1][0], outs[0][0], atol=1e-4, rtol=1e-4)
+    for n, grad in outs[0][1].items():
+        torch.testing.assert_close(outs[1][1][n], grad, atol=1e-4, rtol=1e-4)

@@ -39,10 +39,12 @@ def _forbidden(name: str) -> bool:
 ABSENT_ON_CARD = ("safetensors", "transformers", "sentencepiece", "regex")
 
 
-# the serving recipe's modules (scripts/decode_serving.sh), imported too
+# the serving recipe's modules (scripts/decode_serving.sh), CTC, standalone
+# SenseVoice and the metric, imported too
 SERVING_MODULES = tuple(f"ps_slm_tpu_torch.{m}" for m in (
     "models.quantization", "inference.speculative", "inference.continuous",
     "inference.continuous_spec", "inference.continuous_beam",
+    "ops.ctc", "models.sensevoice_asr", "models.projector", "utils.metric",
 ))
 
 
@@ -162,15 +164,16 @@ def test_serving_entry_points_default_to_cuda_and_raise_without_it():
 
 
 def test_decode_slice_not_ported_names_its_roadmap_item(tmp_path):
-    """ctc_linear and whisper raise NotImplementedError naming their
-    ROADMAP.md item (the training front end is ported); HF transformers
-    tokenizers raise ImportError."""
+    """whisper raises NotImplementedError naming its ROADMAP.md item (the
+    training front end and ctc_linear are ported; ctc_linear refuses a
+    projector other than simple_linear); HF transformers tokenizers raise
+    ImportError."""
     from ps_slm_tpu_torch.config import DataConfig, FbankConfig
     from ps_slm_tpu_torch.data import dataset, tokenizer
     from ps_slm_tpu_torch.ops import fbank
 
     tc = TrainConfig(ctc_posterior=True, do_psd=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, 'Long tail'"):
+    with pytest.raises(ValueError, match="simple_linear"):
         tasu.model_factory(tc, ModelConfig(encoder_dim=11, llm_dim=64, ctc_linear="c.pt"),
                            device="cpu")
     samples = [dataset.Sample("k", np.zeros(3, np.int32), None, 3, np.zeros(1600, np.float32),
@@ -245,15 +248,31 @@ def test_training_options_not_ported_name_their_roadmap_item(tmp_path, monkeypat
     ("voca_trans", "Long tail"), ("cross_attn", "Long tail"), ("raw_features", "Long tail"),
 ])
 def test_generate_rejects_what_is_not_ported(what, item):
-    """Beam search, sampling, text-only TASU, the int8 KV cache and drafts
-    run now; what still raises names its ROADMAP.md item."""
-    mc = ModelConfig(encoder_dim=11, llm_dim=64)
-    match = f"ROADMAP.md queue 1, '{item}'"
-    flags = {"voca_trans": dict(ctc_posterior=True, voca_trans=True),
+    """voca_trans, the cross-attention projector and the raw-feature
+    baseline, which raised until their ROADMAP.md item landed, build and
+    generate now; the port's only raises left name 'Parallelism' and, for
+    the whisper front end, the rest of ``item``."""
+    mc = {"voca_trans": ModelConfig(encoder_projector="simple_linear", encoder_dim=16,
+                                    llm_dim=256, encoder_projector_ds_rate=2),
+          "cross_attn": ModelConfig(encoder_projector="cross-attention", encoder_dim=11,
+                                    llm_dim=64, ca_heads=4),
+          "raw_features": ModelConfig(encoder_projector="linear", encoder_dim=16, llm_dim=64)}
+    flags = {"voca_trans": dict(ctc_posterior=True, voca_trans=True, do_psd=True),
              "cross_attn": dict(ctc_posterior=True, cross_attn=True),
              "raw_features": dict(ctc_posterior=False)}
-    with pytest.raises(NotImplementedError, match=match):
-        tasu.model_factory(TrainConfig(**flags[what]), mc, device="cpu")
+    model = tasu.model_factory(TrainConfig(**flags[what]), mc[what], device="cpu")
+    g = torch.Generator().manual_seed(0)
+    batch = {"input_ids": torch.tensor([[5, 0, 7]]), "attention_mask": torch.ones(1, 3, dtype=torch.bool),
+             "input_features": torch.randn(1, 6, 24, generator=g),
+             "input_feature_length": torch.tensor([6])}
+    out = generate(model, batch, eos_token_id=1, num_beams=1, max_new_tokens=3, device="cpu")
+    assert out.shape == (1, 3)
+    raises = subprocess.run(["grep", "-rn", "ROADMAP.md queue 1", PACKAGE], capture_output=True,
+                            text=True).stdout.splitlines()
+    assert raises and all("'Parallelism'" in r or ("whisper" in r.lower() or
+                                                  f"'{item}'" in r) for r in raises), raises
+    assert {r.split(":")[0] for r in raises if f"'{item}'" in r} == {
+        os.path.join(PACKAGE, "data", "dataset.py")}
 
 
 def test_wrappers_raise_off_cpu_and_cuda():
