@@ -49,7 +49,7 @@ Phases, each of which fails the run:
    the noise drawn once on the CPU and fed to both, as in 4b;
 4d. decode CLI, fp32, full width at reduced depth: the phase 6 assets
    (8 of its 32 utterances) written from a 2+1-block encoder and a
-   2-layer LLM, then
+   1-layer LLM, then
    ``cli.decode.main`` with scripts/decode.sh's overrides (beam 4, 8 new
    tokens) on the card and on the CPU; byte-identical ``_pred`` files;
 5. serving main path, bf16, full width (SenseVoiceSmall + linear-silu +
@@ -142,7 +142,7 @@ Phases, each of which fails the run:
    once within its cap, exact launches per chunk and per refill, one
    chunk profiled, an oracle draft through ``generate(draft_ids=...)``
    against plain greedy; 8a fp32 at full width and reduced depth (2+1
-   encoder blocks, 2 LLM layers, 4 utterances, 3 slots, 8 new tokens):
+   encoder blocks, 1 LLM layer, 4 utterances, 3 slots, 8 new tokens):
    plain, speculative, int4 weights and the int8 KV cache on the card and
    the CPU, byte-identical ``_pred`` files; continuous, both and the
    beam-4 pool on the card only (phase 10a runs the pools card vs CPU
@@ -196,6 +196,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -244,14 +245,8 @@ TEXT_ONLY_INSERT = 0.1  # insertion on in the fp32 text-only phase
 # manifest of 32 utterances of 2-12 s at 16 kHz, 16-bit (24 in one Kaldi
 # wav.ark, 4 .wav and 4 .flac files), beam 4, DECODE_MAX_NEW new tokens
 # (random weights never emit EOS and the beam loop has no early exit)
-DECODE_UTTS = {"ark": 24, "wav": 4, "flac": 4}
 DECODE_FP32_UTTS = {"ark": 6, "wav": 1, "flac": 1}   # phase 4d, whose CPU run is at full width
-DECODE_SECONDS = (2.0, 12.0)
 DECODE_MAX_NEW = 32
-# Qwen2.5's special tokens at their ids; the tokenizer adds <speech> after
-QWEN_SPECIALS = {"<|endoftext|>": 151643, "<|im_start|>": 151644, "<|im_end|>": 151645}
-WORDS = ("the cat sat on a mat while rain fell over quiet hills and old ships "
-         "sailed past bright towers into the evening sea").split()
 FRONTEND_TOL = 1e-3     # the fp32 front end, card vs CPU, on log-mel
 # the finetune CLI (phases 4e, 11a and 7): utterances of 2-6 s (4e) and
 # 1-2 s (11a; both run on the CPU too, at full width) and 2-12 s (7);
@@ -311,10 +306,50 @@ MAIN_ROUTES = {
 LN_ROUTES_PER_PASS = {"vec": LN_PER_GENERATE - 1, "staged": 1, "held": 0, "general": 0}
 LN_ROUTES_TEXT_ONLY = {"vec": 0, "staged": 1, "held": 0, "general": 0}
 
+# phase 13: the meshes that run in 2 (4) processes sharing the card over
+# gloo (every gloo collective the port calls takes CUDA tensors: all_reduce,
+# broadcast, all_gather_into_tensor, reduce_scatter_tensor; DTensor's own
+# full_tensor, a functional all_gather, crashes on gloo's CUDA path, so the
+# port gathers with all_gather_into_tensor, and gloo's send / recv take no
+# CUDA tensor, so the pipeline's sends go through the host under gloo;
+# every mesh runs, so none is left to run at size 1), 13b's meshes at full
+# size, 13b's train manifest and the fp32 tolerances against one process
+PARALLEL_MESHES = ({"data": 2}, {"fsdp": 2}, {"pipe": 2}, {"tensor": 2})
+PARALLEL_MESHES_4 = ({"pipe": 2, "data": 2},)
+PARALLEL_RESUME = {"fsdp": 2}   # 13a's mesh that writes checkpoints and resumes
+# 13b's meshes and train manifests: 16 utterances (two micro-steps) on data,
+# 8 (one) on fsdp, whose every micro-step gathers the bf16 model over gloo
+PARALLEL_MESHES_BF16 = (({"data": 2}, {"ark": 12, "wav": 2, "flac": 2}),
+                        ({"fsdp": 2}, {"ark": 8, "wav": 0, "flac": 0}))
+PARALLEL_TOL = 1e-5
+# AdamW's first moments after micro-step MOMENT_STEP, several processes
+# against one, of each trained tensor's largest.  The first step runs at
+# the warm-up's lr 0, so both gradients in them are taken at the initial
+# weights.  The weights alone would pass a gradient scaled by a constant
+# (a sum divided twice): AdamW's m / (sqrt(v) + eps) does not change
+PARALLEL_MOMENT_TOL = 1e-5
+MOMENT_STEP = 2
+# the trained projector (4 AdamW steps at lr 1e-3) is held to
+# PARALLEL_TOL on every element whose one-process moment is at least
+# GRAD_FLOOR of its tensor's largest; the elements below it to a tenth of
+# one step.  The ranks' GEMMs have other row counts than one process's, so
+# cuBLAS sums in another order, and AdamW's g / (sqrt(v) + eps) scales
+# that rounding up where |g| is small (on the H100: data2 3.9e-6 above the
+# floor, 1.5e-5 below it, the moments 5.8e-6 and the losses 2.9e-6 apart)
+PARALLEL_PROJ_TOL = 1e-4
+PARALLEL_TIMEOUT = 600.0
+WHISPER_TOL = 1e-4      # whisper_log_mel card vs CPU, after the (x + 4) / 4 scaling
 # kernel vs plain version on the card: |a - b| <= atol + rtol * |b|
 KERNEL_TOL = {"f32": (2e-5, 2e-5), "bf16": (1e-2, 1e-2)}
 # fp32 whole path, card vs CPU (matmul and reduction order differ)
 PATH_TOL = 1e-3
+# the fp32 card-vs-CPU phases' depth: full widths, 2+1 encoder blocks, one
+# LLM layer; two where state is kept a layer (4c's beam KV cache, 8a's
+# int8 KV slots and pools, 10a's serve routes, 11a's per-layer adapters
+# and LoRA masks), so an index past 0 runs, and in 4e, which 13a's pipe=2
+# splits
+FP32_DEPTH = (dict(num_blocks=2, tp_blocks=1), dict(num_hidden_layers=1))
+FP32_DEPTH_LAYERED = (dict(num_blocks=2, tp_blocks=1), dict(num_hidden_layers=2))
 # 11a, card vs CPU: the exported adapters (one AdamW step at lr 1e-3 moves
 # an element by about 1e-3, so this is 2% of a step) and AdamW's first
 # moments (the gradients' average: each tensor's gap over its own largest
@@ -330,162 +365,9 @@ PHASE_SECONDS: dict = {}   # each phase's wall seconds, filled by timed()
 # the decode CLI's assets: scripts/decode.sh's layout, synthetic stand-ins
 # ----------------------------------------------------------------------------
 
-def write_safetensors(torch, path: str, tensors: dict) -> None:
-    """A ``.safetensors`` file: 8-byte little-endian header length, JSON
-    header (names sorted, data offsets from the end of the header, padded
-    with spaces to 8 bytes), raw little-endian data."""
-    names = {torch.float32: "F32", torch.bfloat16: "BF16", torch.float16: "F16",
-             torch.int64: "I64"}
-    header, offset = {}, 0
-    for k in sorted(tensors):
-        t = tensors[k]
-        n = t.numel() * t.element_size()
-        header[k] = {"dtype": names[t.dtype], "shape": list(t.shape),
-                     "data_offsets": [offset, offset + n]}
-        offset += n
-    blob = json.dumps(header).encode()
-    blob += b" " * (-len(blob) % 8)
-    with open(path, "wb") as f:
-        f.write(len(blob).to_bytes(8, "little"))
-        f.write(blob)
-        for k in sorted(tensors):
-            f.write(tensors[k].detach().cpu().contiguous().reshape(-1).view(torch.uint8).numpy())
-
-
-def write_llm_dir(torch, path: str, llm, dtype, specials=None) -> dict:
-    """An HF Qwen2 directory from the port's ``llm``: ``config.json``
-    (``tie_word_embeddings`` as the model has it), one ``model.safetensors``
-    in ``dtype`` under the HF names, and a byte-level tokenizer: the 256
-    byte tokens (ids 0-255), no merges, ``specials`` (default: Qwen2.5's at
-    their ids) and ``<|im_end|>`` as EOS.  Returns the written tensors."""
-    from ps_slm_tpu_torch.data.bbpe import bytes_to_unicode
-    from ps_slm_tpu_torch.models.qwen2 import state_dict_to_hf
-
-    specials = specials or QWEN_SPECIALS
-    cfg = llm.cfg
-    os.makedirs(path, exist_ok=True)
-    tensors = {k: v.detach().to(dtype).cpu() for k, v in state_dict_to_hf(llm).items()}
-    write_safetensors(torch, os.path.join(path, "model.safetensors"), tensors)
-    with open(os.path.join(path, "config.json"), "w") as f:
-        json.dump({
-            "architectures": ["Qwen2ForCausalLM"], "model_type": "qwen2",
-            "vocab_size": cfg.vocab_size, "hidden_size": cfg.hidden_size,
-            "intermediate_size": cfg.intermediate_size,
-            "num_hidden_layers": cfg.num_hidden_layers,
-            "num_attention_heads": cfg.num_attention_heads,
-            "num_key_value_heads": cfg.num_key_value_heads, "head_dim": cfg.head_dim,
-            "rope_theta": cfg.rope_theta, "rms_norm_eps": cfg.rms_norm_eps,
-            "max_position_embeddings": cfg.max_position_embeddings,
-            "tie_word_embeddings": cfg.tie_word_embeddings,
-            "torch_dtype": str(dtype).replace("torch.", ""),
-        }, f, indent=2)
-    with open(os.path.join(path, "vocab.json"), "w", encoding="utf-8") as f:
-        json.dump({c: b for b, c in sorted(bytes_to_unicode().items())}, f, ensure_ascii=False)
-    with open(os.path.join(path, "merges.txt"), "w", encoding="utf-8") as f:
-        f.write("#version: 0.2\n")
-    with open(os.path.join(path, "tokenizer_config.json"), "w") as f:
-        json.dump({
-            "tokenizer_class": "Qwen2Tokenizer", "eos_token": "<|im_end|>",
-            "pad_token": "<|endoftext|>",
-            "added_tokens_decoder": {str(i): {"content": t, "special": True}
-                                     for t, i in specials.items()},
-        }, f, indent=2)
-    return tensors
-
-
-def write_encoder_dir(torch, path: str, encoder, seed: int = 0) -> dict:
-    """A funasr SenseVoiceSmall directory from the port's ``encoder``:
-    ``model.pt`` (fp32, funasr names), ``config.yaml`` and a seeded
-    ``am.mvn`` as wide as the encoder's input.  Returns the written
-    tensors."""
-    import numpy as np
-
-    from ps_slm_tpu_torch.training.checkpoint import _encoder_to_reference
-
-    cfg = encoder.cfg
-    os.makedirs(path, exist_ok=True)
-    tensors = {k[len("encoder."):]: v for k, v in _encoder_to_reference(encoder).items()}
-    torch.save(tensors, os.path.join(path, "model.pt"))
-    with open(os.path.join(path, "config.yaml"), "w") as f:
-        f.write(f"input_size: {cfg.input_size}\nvocab_size: {cfg.vocab_size}\nencoder_conf:\n")
-        for k in ("output_size", "attention_heads", "linear_units", "num_blocks",
-                  "tp_blocks", "kernel_size"):
-            f.write(f"  {k}: {getattr(cfg, k)}\n")
-    rng = np.random.default_rng(seed)
-    d = cfg.input_size
-    shift = -(12.0 + rng.normal(size=d))                    # minus the log-mel means
-    scale = 0.25 + 0.05 * rng.random(size=d)                # inverse standard deviations
-    with open(os.path.join(path, "am.mvn"), "w") as f:
-        f.write(f"<Nnet>\n<Splice> {d} {d}\n[ 0 ]\n<AddShift> {d} {d}\n<LearnRateCoef> 0 [ ")
-        f.write(" ".join(f"{v:.6f}" for v in shift))
-        f.write(f" ]\n<Rescale> {d} {d}\n<LearnRateCoef> 0 [ ")
-        f.write(" ".join(f"{v:.6f}" for v in scale))
-        f.write(" ]\n</Nnet>\n")
-    return tensors
-
-
-def write_manifest(path: str, utts=None, seconds=DECODE_SECONDS, seed: int = 0) -> float:
-    """``path/multitask.jsonl`` over seeded 16 kHz 16-bit utterances of
-    ``seconds`` (lo, hi): ``utts["ark"]`` in one Kaldi ``wav.ark``, then
-    ``utts["wav"]`` .wav and ``utts["flac"]`` .flac files (the port's
-    writers); tasks drawn from ASR and the three translation prompts,
-    targets and GT of random words.  Returns the seconds of audio."""
-    import numpy as np
-
-    from ps_slm_tpu_torch.data import audio_io
-    from ps_slm_tpu_torch.data.flac import write_flac
-
-    utts = utts or DECODE_UTTS
-    rng = np.random.default_rng(seed)
-    rate = 16000
-    os.makedirs(path, exist_ok=True)
-    audio, rows, total = {}, [], 0.0
-    for kind, n in utts.items():
-        for i in range(n):
-            key = f"{kind}{i:02d}"
-            t = np.arange(int(rng.uniform(*seconds) * rate)) / rate
-            wave = (0.05 * rng.normal(size=t.size)
-                    + 0.1 * np.sin(2 * np.pi * rng.uniform(100, 400) * t)).astype(np.float32)
-            total += t.size / rate
-            audio[key] = (kind, wave)
-    ark = os.path.join(path, "wav.ark")
-    offsets = audio_io.write_kaldi_wav_ark(
-        ark, {k: (rate, w) for k, (kind, w) in audio.items() if kind == "ark"})
-    for key, (kind, wave) in audio.items():
-        if kind == "ark":
-            src = f"{ark}:{offsets[key]}"
-        else:
-            src = os.path.join(path, f"{key}.{kind}")
-            (audio_io.write_wav if kind == "wav" else write_flac)(src, rate, wave)
-        words = " ".join(rng.choice(WORDS, size=int(rng.integers(4, 16))))
-        task = str(rng.choice(["ASR", "ASR", "ZH2EN", "EN2ZH", "EN2DE"]))
-        rows.append({"key": key, "path": src, "target": words, "GT": words, "task": task})
-    with open(os.path.join(path, "multitask.jsonl"), "w") as f:
-        for r in rows:
-            f.write(json.dumps(r) + "\n")
-    return total
-
-
-def write_assets(torch, root: str, model, *, llm_dtype, specials=None, utts=None,
-                 seconds=DECODE_SECONDS, seed: int = 0) -> dict:
-    """scripts/decode.sh's inputs under ``root`` from the port's ``model``:
-    ``Qwen2.5-1.5B-Instruct/`` (:func:`write_llm_dir`), ``SenseVoiceSmall/``
-    (:func:`write_encoder_dir`), ``half_audio_finetuned/pytorch_model.bin``
-    (the projector under reference keys) and ``test/`` (:func:`write_manifest`).
-    Returns the paths, the written tensors by kind and the audio seconds."""
-    from ps_slm_tpu_torch.training.checkpoint import export_reference_checkpoint
-
-    out = {"llm_path": os.path.join(root, "Qwen2.5-1.5B-Instruct"),
-           "encoder_path": os.path.join(root, "SenseVoiceSmall"),
-           "ckpt_path": os.path.join(root, "half_audio_finetuned", "pytorch_model.bin"),
-           "data": os.path.join(root, "test")}
-    out["llm"] = write_llm_dir(torch, out["llm_path"], model.llm, llm_dtype, specials)
-    out["encoder"] = write_encoder_dir(torch, out["encoder_path"], model.encoder, seed)
-    os.makedirs(os.path.dirname(out["ckpt_path"]), exist_ok=True)
-    out["projector"] = export_reference_checkpoint(model, out["ckpt_path"],
-                                                   exclude=("llm", "encoder"))
-    out["audio_seconds"] = write_manifest(out["data"], utts, seconds, seed)
-    return out
+from ps_slm_tpu_torch.tools._assets import (  # noqa: E402  (the writers live in the package)
+    DECODE_SECONDS, DECODE_UTTS, write_assets, write_encoder_dir, write_llm_dir, write_manifest,
+)
 
 
 def decode_args(assets: dict, decode_log: str, max_new: int, llm_dim: int = 1536,
@@ -559,6 +441,54 @@ def finetune_args(assets: dict, data_root: str, output_dir: str, *, text_only: b
                    f"++dataset_config.multitask_prompt_path="
                    f"{os.path.join(HERE, 'conf', 'multiprompt.jsonl')}",
                    f"++log_config.log_file={output_dir}/train.log"]
+
+
+def tiny_finetune_args(data_root: str, output_dir: str, mesh: dict = None,
+                       resume: str = None) -> list:
+    """The finetune CLI on a tiny random model (linear-silu; an encoder of
+    2+1 blocks 256 wide over 560-wide input with 600 CTC ids, an LLM of 2
+    layers 256 wide, both at head dim 128, the flash kernel's) over
+    ``data_root``'s train and dev manifests, the half_audio flags, fp32,
+    batches of 2, validation and a checkpoint every 2 steps; on ``mesh``
+    (every leaf big enough to shard), resumed from ``resume``."""
+    enc = dict(input_size=560, output_size=256, attention_heads=2, linear_units=512,
+               num_blocks=2, tp_blocks=1, vocab_size=600)
+    llm = dict(hidden_size=256, intermediate_size=512, num_hidden_layers=2,
+               num_attention_heads=4, num_key_value_heads=2, head_dim=128)
+    args = ["++model_config.llm_path=", "++model_config.encoder_projector=linear-silu",
+            "++model_config.encoder_dim=600", "++model_config.llm_dim=256",
+            "++model_config.encoder_config_overrides=" + json.dumps(enc),
+            "++model_config.llm_config_overrides=" + json.dumps(llm),
+            "++train_config.ctc_posterior=true", "++train_config.do_psd=true",
+            "++train_config.freeze_llm=true", "++train_config.freeze_encoder=true",
+            "++train_config.mixed_precision=false", "++train_config.batching_strategy=padding",
+            "++train_config.batch_size_training=2", "++train_config.val_batch_size=4",
+            "++train_config.num_epochs=1", "++train_config.validation_interval=2",
+            "++train_config.lr=1e-2", "++train_config.warmup_steps=1",
+            "++train_config.total_steps=20", "++train_config.save_model=true",
+            "++train_config.fsdp_min_size=1", f"++train_config.output_dir={output_dir}",
+            "++dataset_config.fbank.dither=0.0",
+            f"++dataset_config.multitask_prompt_path={os.path.join(HERE, 'conf', 'multiprompt.jsonl')}",
+            f"++dataset_config.train_scp_file_path={data_root}/train",
+            f"++dataset_config.dev_scp_file_path={data_root}/dev",
+            f"++log_config.log_file={output_dir}/train.log", "++log_config.log_interval=1"]
+    if mesh is not None:
+        args += ["++train_config.mesh_shape=" + json.dumps(mesh)]
+    if resume:
+        args += [f"++train_config.resume_from={resume}"]
+    return args
+
+
+def state_bytes(torch, path: str) -> int:
+    """The bytes of the tensors of a train-state file's model, AdamW state
+    and accumulation (a tensor another rank's file holds counts 0)."""
+    blob = torch.load(path, map_location="cpu", weights_only=True)
+    accum = blob["train"]["accum"]
+    acc = accum["acc"] or []
+    tensors = (list(blob["model"].values()) + list(acc.values() if isinstance(acc, dict) else acc)
+               + [v for st in accum["optimizer"]["state"].values() for v in st.values()])
+    return sum(t.numel() * t.element_size() for t in tensors
+               if torch.is_tensor(t) and t.dim() > 0)
 
 
 def write_bpe_model(encoder_path: str, vocab: int = 0) -> None:
@@ -1237,9 +1167,7 @@ def phase_path_fp32(torch, dev):
     from ps_slm_tpu_torch.inference.generate import _prefill, generate
     from ps_slm_tpu_torch.models.tasu import model_factory, prepare_merged
 
-    tc, mc = half_audio_configs(
-        dict(num_blocks=2, tp_blocks=1), dict(num_hidden_layers=2), seed=0
-    )
+    tc, mc = half_audio_configs(*FP32_DEPTH, seed=0)
     t0 = time.time()
     cpu_model = model_factory(tc, mc, device="cpu")
     cpu_model.speech_token_id = SPEECH_TOKEN
@@ -1265,7 +1193,7 @@ def phase_path_fp32(torch, dev):
         fail("fp32 path: merged mask or positions differ between card and CPU")
     emb_err = float((m_c.embeds - m_g.embeds.cpu()).abs().max())
     logit_err = float((l_c - l_g).abs().max())
-    print(f"path fp32 (2+1 encoder blocks, 2 LLM layers, full width): embeds err "
+    print(f"path fp32 (2+1 encoder blocks, 1 LLM layer, full width): embeds err "
           f"{emb_err:.3e} prefill logits err {logit_err:.3e} (tol {PATH_TOL}); "
           f"tokens card {t_g.tolist()} cpu {t_c.tolist()} ({time.time() - t0:.1f} s)",
           flush=True)
@@ -1282,9 +1210,7 @@ def phase_train_fp32(torch, dev):
     from ps_slm_tpu_torch.models.tasu import model_factory
     from ps_slm_tpu_torch.training.step import make_train_step
 
-    tc, mc = half_audio_configs(
-        dict(num_blocks=2, tp_blocks=1), dict(num_hidden_layers=2), seed=0
-    )
+    tc, mc = half_audio_configs(*FP32_DEPTH, seed=0)
     tc.lr, tc.warmup_steps = 1e-3, 1
     t0 = time.time()
     cpu_model = model_factory(tc, mc, device="cpu")
@@ -1312,7 +1238,7 @@ def phase_train_fp32(torch, dev):
     (m_c, p_c), (m_g, p_g) = runs["cpu"], runs["cuda"]
     errs = {k: max(abs(a[k] - b[k]) for a, b in zip(m_c, m_g)) for k in ("loss", "acc", "ntokens")}
     w_err = max(float((p_c[n] - p_g[n]).abs().max()) for n in p_c)
-    print(f"train fp32 (2+1 encoder blocks, 2 LLM layers, full width, frames "
+    print(f"train fp32 (2+1 encoder blocks, 1 LLM layer, full width, frames "
           f"{list(TRAIN_RAGGED_FRAMES)}): losses card {[m['loss'] for m in m_g]} cpu "
           f"{[m['loss'] for m in m_c]}; acc card {[m['acc'] for m in m_g]}; ntokens "
           f"{[m['ntokens'] for m in m_g]}; max err loss {errs['loss']:.3e} acc "
@@ -1530,14 +1456,17 @@ def read_log(path: str) -> str:
         return f.read()
 
 
-def phase_finetune_cli_fp32(torch, dev) -> None:
+def phase_finetune_cli_fp32(torch, dev) -> dict:
     """Phase 4e: the finetune CLI (``cli.finetune.main``, the half_audio
     recipe's overrides, fp32, dither 0, lr 1e-3 from the first step) at full
     width and reduced depth on phase 4d's assets and a 8-utterance train
     and 4-utterance dev manifest: 4 steps of 2 rows, validation every 2, on
     the card and on the CPU; per-step losses, eval losses and the exported
     projectors within PATH_TOL; then a resume on the card from
-    ``step_2/state`` that reproduces the last two losses bit for bit."""
+    ``step_2/state`` that reproduces the last two losses bit for bit.
+    Returns the card run (its losses, evaluations, model, ``last/`` export
+    and AdamW's first moments after micro-step MOMENT_STEP) and its assets
+    for phase 13a, which deletes the directory."""
     import shutil
     import tempfile
 
@@ -1549,9 +1478,9 @@ def phase_finetune_cli_fp32(torch, dev) -> None:
     t0 = time.time()
     root = tempfile.mkdtemp(prefix="finetune_cli_fp32_")
     try:
-        tc, mc = half_audio_configs(dict(num_blocks=2, tp_blocks=1), dict(num_hidden_layers=2),
-                                    seed=0)
-        assets = write_assets(torch, root, model_factory(tc, mc, device="cpu"),
+        # two LLM layers (not FP32_DEPTH's one): phase 13a's pipe=2 splits them
+        tc, mc = half_audio_configs(*FP32_DEPTH_LAYERED, seed=0)
+        assets = write_assets(root, model_factory(tc, mc, device="cpu"),
                               llm_dtype=torch.bfloat16, utts={"ark": 1, "wav": 0, "flac": 0})
         write_manifest(os.path.join(root, "train"), {"ark": 6, "wav": 1, "flac": 1},
                        FINETUNE_SECONDS, seed=1)
@@ -1563,19 +1492,25 @@ def phase_finetune_cli_fp32(torch, dev) -> None:
                  "++train_config.batch_size_training=2", "++train_config.val_batch_size=4",
                  "++train_config.lr=1e-3", "++train_config.warmup_steps=1",
                  "++train_config.save_last=true", "++log_config.log_interval=1"]
-        runs = {}
+        runs, trained = {}, {}
         for name, device in (("cuda", dev), ("cpu", "cpu")):
             out = os.path.join(root, name)
-            with TrainProbe(torch, device) as probe:
-                t1 = time.time()
-                rc = finetune.main(finetune_args(assets, root, out, llm_dim=mc.llm_dim,
-                                                 encoder_dim=mc.encoder_dim) + extra,
-                                   device=device)
+            undo = capture_trained(torch, trained) if name == "cuda" else (lambda: None)
+            try:
+                with TrainProbe(torch, device) as probe:
+                    t1 = time.time()
+                    rc = finetune.main(finetune_args(assets, root, out, llm_dim=mc.llm_dim,
+                                                     encoder_dim=mc.encoder_dim) + extra,
+                                       device=device)
+            finally:
+                undo()
             if rc != 0:
                 fail(f"{what} on {name}: main returned {rc}")
             runs[name] = dict(losses=probe.losses(), evals=[e["loss"] for e in probe.evals],
-                              wall=time.time() - t1, out=out,
+                              wall=time.time() - t1, out=out, model=probe.model,
                               steps=sorted(p for p in os.listdir(out) if p.startswith("step_")))
+            probe.model = probe.largest = None
+        runs["cpu"].pop("model")
         card, cpu = runs["cuda"], runs["cpu"]
         if len(card["losses"]) != 4 or card["steps"] != cpu["steps"] or "step_2" not in card["steps"]:
             fail(f"{what}: {len(card['losses'])} steps, checkpoints {card['steps']} on the card "
@@ -1590,16 +1525,19 @@ def phase_finetune_cli_fp32(torch, dev) -> None:
                 fail(f"{what}: {tag}'s exports hold other keys than the projector's")
             proj_err = max([proj_err] + [float((a[k] - b[k]).abs().max()) for k in a])
 
-        # resume on the card from step_2: the last two losses, bit for bit
+        # resume on the card from step_2: the last two losses, bit for bit (no
+        # checkpoint written: the card machine's disk takes a bounded amount of writes)
         out = os.path.join(root, "resumed")
         with TrainProbe(torch, dev) as probe:
             rc = finetune.main(finetune_args(assets, root, out, llm_dim=mc.llm_dim,
                                              encoder_dim=mc.encoder_dim) + extra + [
-                f"++train_config.resume_from={card['out']}/step_2/state"], device=dev)
+                f"++train_config.resume_from={card['out']}/step_2/state",
+                "++train_config.save_model=false", "++train_config.save_last=false"], device=dev)
         skipped = "skipping 2 trained batches" in read_log(os.path.join(out, "train.log"))
         same = probe.losses() == card["losses"][2:]
-    finally:
+    except BaseException:
         shutil.rmtree(root, ignore_errors=True)
+        raise
     print(f"{what} (2+1 encoder blocks, 2 LLM layers, full width, 4 steps of 2 rows, "
           f"validation every 2, dither 0): losses card {card['losses']} cpu {cpu['losses']}; "
           f"eval card {card['evals']} cpu {cpu['evals']}; max err {loss_err:.3e}, exported "
@@ -1611,6 +1549,9 @@ def phase_finetune_cli_fp32(torch, dev) -> None:
         fail(f"{what}: card and CPU disagree beyond the tolerance")
     if not (skipped and same):
         fail(f"{what}: the resumed run did not skip 2 batches and reproduce the last two losses")
+    return {"root": root, "assets": assets, "mc": mc, "extra": extra, "losses": card["losses"],
+            "evals": card["evals"], "model": card["model"], "moments": trained["moments"],
+            "export": os.path.join(card["out"], "last", "pytorch_model.bin")}
 
 
 def phase_beam_text_only_fp32(torch, dev):
@@ -1624,8 +1565,7 @@ def phase_beam_text_only_fp32(torch, dev):
     from ps_slm_tpu_torch.ops.pseudo_posterior import noise_draws
     from ps_slm_tpu_torch.training.step import make_train_step
 
-    depth = (dict(num_blocks=2, tp_blocks=1), dict(num_hidden_layers=2))
-    tc, mc = half_audio_configs(*depth, seed=0)
+    tc, mc = half_audio_configs(*FP32_DEPTH_LAYERED, seed=0)
     t0 = time.time()
     cpu_model = model_factory(tc, mc, device="cpu")
     cpu_model.speech_token_id = SPEECH_TOKEN
@@ -1641,7 +1581,7 @@ def phase_beam_text_only_fp32(torch, dev):
         fail("fp32 beam search: tokens differ between card and CPU")
 
     t0 = time.time()
-    tc, _ = text_only_configs(*depth, seed=0)
+    tc, _ = text_only_configs(*FP32_DEPTH_LAYERED, seed=0)
     tc.lr, tc.warmup_steps, tc.insert_prob = 1e-3, 1, TEXT_ONLY_INSERT
     batch = gt_batch(torch, SENSEVOICE_SMALL["vocab_size"], seed=3)
     gen = torch.Generator().manual_seed(5)
@@ -1690,9 +1630,8 @@ def phase_decode_cli_fp32(torch, dev) -> None:
     t0 = time.time()
     root = tempfile.mkdtemp(prefix="decode_cli_fp32_")
     try:
-        tc, mc = half_audio_configs(dict(num_blocks=2, tp_blocks=1), dict(num_hidden_layers=2),
-                                    seed=0)
-        assets = write_assets(torch, root, model_factory(tc, mc, device="cpu"),
+        tc, mc = half_audio_configs(*FP32_DEPTH, seed=0)
+        assets = write_assets(root, model_factory(tc, mc, device="cpu"),
                               llm_dtype=torch.bfloat16, utts=DECODE_FP32_UTTS)
         preds, walls = {}, {}
         for name, device in (("cuda", dev), ("cpu", "cpu")):
@@ -1708,7 +1647,7 @@ def phase_decode_cli_fp32(torch, dev) -> None:
     finally:
         shutil.rmtree(root, ignore_errors=True)
     same = preds["cuda"] == preds["cpu"]
-    print(f"decode CLI fp32 (2+1 encoder blocks, 2 LLM layers, full width, beam 4, "
+    print(f"decode CLI fp32 (2+1 encoder blocks, 1 LLM layer, full width, beam 4, "
           f"{FP32_NEW} new tokens, {sum(DECODE_FP32_UTTS.values())} utterances): _pred files "
           f"{'byte-identical' if same else 'different'} on card and CPU ({len(preds['cpu'])} "
           f"bytes); main {walls['cuda']:.1f} s card, {walls['cpu']:.1f} s CPU "
@@ -1942,6 +1881,8 @@ def phase_finetune_chain(torch, dev, launches: dict, step_5b_prof, root: str) ->
     phase 3's cases at 7a's and 7b's largest batches
     (:func:`finetune_cases`, by stage), and for phase 11 the assets, 7a's
     export, the widths and 7b's micro-steps."""
+    import statistics
+
     from ps_slm_tpu_torch.cli import decode, finetune
     from ps_slm_tpu_torch.tools import clean_marks, wer
 
@@ -2104,7 +2045,8 @@ def phase_finetune_chain(torch, dev, launches: dict, step_5b_prof, root: str) ->
     return {"step": probe_b.steps[0]["launches"], "remat": probe_c.steps[0]["launches"],
             "eval": {k: v // ev[0]["batches"] for k, v in ev[0]["launches"].items()},
             "cases": cases, "assets": assets, "root": root, "init": init, "dims": dims,
-            "steps": n_b}
+            "steps": n_b, "median_ms": statistics.median(
+                s["ms"] for s in probe_b.steps if not s["profiled"])}
 
 
 def reset_counters(counters) -> None:
@@ -2320,7 +2262,7 @@ def phase_decode_cli(torch, dev, launches, root=None) -> tuple:
         t0 = time.perf_counter()
         tc, mc = half_audio_configs()
         src = model_factory(tc, mc)                  # fp32 on the card, seed 42
-        assets = write_assets(torch, root, src, llm_dtype=torch.bfloat16)
+        assets = write_assets(root, src, llm_dtype=torch.bfloat16)
         del src
         torch.cuda.empty_cache()
         sizes = {k: sum(os.path.getsize(os.path.join(assets[f"{k}_path"], f))
@@ -2626,9 +2568,8 @@ def phase_serving_fp32(torch, dev) -> None:
     t0 = time.time()
     root = tempfile.mkdtemp(prefix="serving_fp32_")
     try:
-        tc, mc = half_audio_configs(dict(num_blocks=2, tp_blocks=1), dict(num_hidden_layers=2),
-                                    seed=0)
-        assets = write_assets(torch, root, model_factory(tc, mc, device="cpu"),
+        tc, mc = half_audio_configs(*FP32_DEPTH_LAYERED, seed=0)
+        assets = write_assets(root, model_factory(tc, mc, device="cpu"),
                               llm_dtype=torch.bfloat16, utts=SERVE_FP32_UTTS)
         write_bpe_model(assets["encoder_path"], vocab=mc.encoder_dim)
         preds, walls, toks = {}, {}, {}
@@ -2664,7 +2605,7 @@ def phase_serving_fp32(torch, dev) -> None:
             f"{ref}'s on the card")
         cpu_wall = f", {walls[label, 'cpu']:.1f} s CPU" if on_cpu else ""
         n_tok = sum(map(len, toks[label, "cuda"].values()))
-        print(f"serving fp32 {label} (2+1 encoder blocks, 2 LLM layers, full width, quantized, "
+        print(f"serving fp32 {label} (2+1 encoder blocks, 1 LLM layer, full width, quantized, "
               f"{FP32_NEW} new tokens, {n} utterances): _pred bytes and token ids {same_cpu}"
               f"{same_ref} ({len(preds[label, 'cuda'])} bytes, {n_tok} tokens); main "
               f"{walls[label, 'cuda']:.1f} s card{cpu_wall}", flush=True)
@@ -3246,7 +3187,7 @@ def serve_requests(serve_main, args: list, req_path: str, gap) -> tuple:
 
 def phase_serve_cli_fp32(torch, dev) -> None:
     """Phase 10a: ``cli.serve.main`` in fp32 at full width and reduced depth
-    (8a's 2+1 encoder blocks, 2 LLM layers, assets and knobs: int8 weights,
+    (8a's 2+1 encoder blocks, 1 LLM layer, assets and knobs: int8 weights,
     3 slots, 8 new tokens) on 4 utterances and two bad lines, through the
     pool, static batches, streamed partials, CTC drafts and the beam-4 pool,
     on the card and on the CPU.  Each route's final and error lines must be
@@ -3261,9 +3202,8 @@ def phase_serve_cli_fp32(torch, dev) -> None:
     t0 = time.time()
     root = tempfile.mkdtemp(prefix="serve_fp32_")
     try:
-        tc, mc = half_audio_configs(dict(num_blocks=2, tp_blocks=1), dict(num_hidden_layers=2),
-                                    seed=0)
-        assets = write_assets(torch, root, model_factory(tc, mc, device="cpu"),
+        tc, mc = half_audio_configs(*FP32_DEPTH_LAYERED, seed=0)
+        assets = write_assets(root, model_factory(tc, mc, device="cpu"),
                               llm_dtype=torch.bfloat16, utts=SERVE_FP32_UTTS)
         write_bpe_model(assets["encoder_path"], vocab=mc.encoder_dim)
         req = os.path.join(root, "requests.jsonl")
@@ -3306,7 +3246,7 @@ def phase_serve_cli_fp32(torch, dev) -> None:
             same_greedy = toks[label, "cuda"] == {k: greedy[k] for k in good}
         if not same_cpu or (label in SERVE_GREEDY and not same_greedy):
             bad.append(label)
-        print(f"{what} {label} (2+1 encoder blocks, 2 LLM layers, full width, quantized, "
+        print(f"{what} {label} (2+1 encoder blocks, 1 LLM layer, full width, quantized, "
               f"{FP32_NEW} new tokens, {len(good)} requests + 2 bad lines): final and error lines "
               f"{'identical to' if same_cpu else 'DIFFERENT from'} the CPU's; texts "
               f"{'equal' if same_greedy else 'unequal'} to plain greedy decode's on the card"
@@ -3488,7 +3428,7 @@ def adapters_only(torch):
 
 def phase_peft_fp32(torch, dev) -> None:
     """Phase 11a: ``cli.finetune.main`` with ``use_peft`` in fp32 at full
-    width and reduced depth (2+1 encoder blocks, 2 LLM layers; phase 4e's
+    width and reduced depth (2+1 encoder blocks, 1 LLM layer; phase 4e's
     kind of assets, 4 training utterances of 1-2 s, 2 steps of 2 rows, lr
     1e-3 after the warm-up's first step at 0; dither 0; the projector
     frozen, so only the adapters train; one initial adapter, drawn on the
@@ -3511,9 +3451,8 @@ def phase_peft_fp32(torch, dev) -> None:
     root = tempfile.mkdtemp(prefix="peft_fp32_")
     bad = []
     try:
-        tc, mc = half_audio_configs(dict(num_blocks=2, tp_blocks=1), dict(num_hidden_layers=2),
-                                    seed=0)
-        assets = write_assets(torch, root, model_factory(tc, mc, device="cpu"),
+        tc, mc = half_audio_configs(*FP32_DEPTH_LAYERED, seed=0)
+        assets = write_assets(root, model_factory(tc, mc, device="cpu"),
                               llm_dtype=torch.bfloat16, utts={"ark": 1, "wav": 0, "flac": 0})
         write_manifest(os.path.join(root, "train"), {"ark": 2, "wav": 1, "flac": 1},
                        PEFT_SECONDS, seed=1)
@@ -3585,7 +3524,7 @@ def phase_peft_fp32(torch, dev) -> None:
                   and logit_err <= KERNEL_TOL["f32"][0])
             if not ok:
                 bad.append(label)
-            print(f"{what} {label} (2+1 encoder blocks, 2 LLM layers, full width, 2 steps of 2 "
+            print(f"{what} {label} (2+1 encoder blocks, 1 LLM layer, full width, 2 steps of 2 "
                   f"rows): losses card {card['losses']} cpu {cpu['losses']}, max err "
                   f"{loss_err:.3e} (tol {PATH_TOL}); {len(card['adapter'])} exported adapter "
                   f"tensors, max err {ad_err:.3e} (tol {ADAPTER_TOL}); AdamW first moments of "
@@ -3951,7 +3890,7 @@ def branch_configs(label: str, base_tc, base_mc):
 
 def phase_projectors_fp32(torch, dev) -> None:
     """12a, the projectors and branches: full widths at 2+1 encoder blocks
-    and 2 LLM layers, fp32, card against the CPU: one model built once
+    and 1 LLM layer, fp32, card against the CPU: one model built once
     and copied to the card, then each of PROJECTOR_RUNS' projectors (drawn
     on the CPU, copied to both) with its flags (projector trained, encoder
     and LLM frozen) on a ragged 2-row batch (PROJECTOR_FP32_FRAMES):
@@ -3969,8 +3908,7 @@ def phase_projectors_fp32(torch, dev) -> None:
     from ps_slm_tpu_torch.models.tasu import TasuFlags, model_factory, prepare_merged
     from ps_slm_tpu_torch.training.step import make_train_step
 
-    base_tc, base_mc = half_audio_configs(dict(num_blocks=2, tp_blocks=1),
-                                          dict(num_hidden_layers=2), seed=0)
+    base_tc, base_mc = half_audio_configs(*FP32_DEPTH, seed=0)
     cpu = torch.device("cpu")
     cpu_model = model_factory(base_tc, base_mc, device="cpu")
     cpu_model.speech_token_id = SPEECH_TOKEN
@@ -4168,7 +4106,7 @@ def phase_asr(torch, dev, launches: dict) -> None:
         src = src.to_empty(device=dev)
         src.init_weights(torch.Generator(device=dev).manual_seed(42))
         enc_dir = os.path.join(root, "SenseVoiceSmall")
-        write_encoder_dir(torch, enc_dir, src)
+        write_encoder_dir(enc_dir, src)
         write_bpe_model(enc_dir, vocab=SENSEVOICE_SMALL["vocab_size"])
         del src
         audio_s = write_manifest(os.path.join(root, "test"), None, DECODE_SECONDS, seed=0)
@@ -4345,7 +4283,7 @@ def write_chain_assets(torch, root: str) -> tuple:
 
     tc, mc = half_audio_configs()
     src = model_factory(tc, mc)                  # fp32 on the card, seed 42
-    assets = write_assets(torch, root, src, llm_dtype=torch.bfloat16,
+    assets = write_assets(root, src, llm_dtype=torch.bfloat16,
                           utts=CHAIN_UTTS["test"])
     del src
     torch.cuda.empty_cache()
@@ -4398,6 +4336,609 @@ def phase_qformer_cli(torch, dev, assets: dict, root: str, launches: dict,
           f"names, all loaded back; main {wall:.1f} s [{CARD}]", flush=True)
     probe.model = probe.largest = None
     torch.cuda.empty_cache()
+
+
+# ----------------------------------------------------------------------------
+# phase 13: the finetune CLI over several processes sharing the card (gloo)
+# ----------------------------------------------------------------------------
+
+def trained_moments(step) -> dict:
+    """AdamW's first moment of each trained tensor of ``step`` (a
+    ``TrainStep``), whole (a collective under FSDP2 / TP), on the CPU."""
+    from ps_slm_tpu_torch.parallel import mesh as meshlib
+
+    params = dict(step.model.named_parameters())
+    out = {}
+    for n in step.trainable:
+        m = step.optimizer.state[params[n]]["exp_avg"]
+        out[n] = (meshlib.full_tensor(m) if hasattr(m, "to_local") else m.detach()).cpu().clone()
+    return out
+
+
+def capture_trained(torch, store: dict):
+    """Wraps ``training.loop.train`` so that, when a run's loop ends (its
+    process group still up), the trained projector is gathered whole on
+    every rank (a collective) and kept in ``store["projector"]`` on the
+    CPU, and ``TrainStep.__call__`` so that AdamW's first moments after
+    micro-step MOMENT_STEP are kept in ``store["moments"]``, by projector
+    parameter name (:func:`trained_moments`); returns the undo.  Lets
+    phase 13 compare what a run trained without writing checkpoints."""
+    from ps_slm_tpu_torch.parallel import mesh as meshlib
+    from ps_slm_tpu_torch.training import loop
+    from ps_slm_tpu_torch.training import step as step_mod
+
+    real, real_call = loop.train, step_mod.TrainStep.__call__
+
+    def train(model, *args, **kwargs):
+        out = real(model, *args, **kwargs)
+        with meshlib.gathered(model) if model.mesh is not None else contextlib.nullcontext():
+            store["projector"] = {k: v.detach().cpu().clone()
+                                  for k, v in model.projector.state_dict().items()}
+        return out
+
+    def call(self, *args, **kwargs):
+        out = real_call(self, *args, **kwargs)
+        if self.step == MOMENT_STEP:
+            store["moments"] = {n[len("projector."):]: m for n, m in
+                                trained_moments(self).items() if n.startswith("projector.")}
+        return out
+
+    loop.train, step_mod.TrainStep.__call__ = train, call
+
+    def undo():
+        loop.train, step_mod.TrainStep.__call__ = real, real_call
+
+    return undo
+
+
+def projector_errs(got: dict, want: dict, moments: dict) -> dict:
+    """The trained projector ``got`` against ``want`` (the one-process run's):
+    the largest gap over the elements whose one-process first moment
+    (``moments``) is at least GRAD_FLOOR of its tensor's largest
+    (``kept``), over the rest (``floored``) and their count; and the
+    moments' largest gap over each tensor's largest (``moments``, when
+    the run's own are given as ``got["moments"]``)."""
+    kept = floored = 0.0
+    n_floored = 0
+    for k, w in want.items():
+        d = (got[k] - w).abs()
+        d[~d.isfinite()] = float("inf")
+        m = moments.get(k)
+        big = (m.abs() >= GRAD_FLOOR * m.abs().max()) if m is not None \
+            else d.new_ones(d.shape).bool()
+        kept = max(kept, float(d[big].max()) if bool(big.any()) else 0.0)
+        if not bool(big.all()):
+            floored = max(floored, float(d[~big].max()))
+            n_floored += int((~big).sum())
+    return {"kept": kept, "floored": floored, "n_floored": n_floored}
+
+
+def moment_err(got: dict, want: dict) -> float:
+    """The largest gap of each tensor's first moments over that tensor's
+    largest magnitude, over the tensors of ``want``."""
+    if sorted(got) != sorted(want):
+        return float("inf")
+    errs = [float((got[k] - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+            for k, w in want.items()]
+    return float("inf") if any(e != e for e in errs) else max(errs)
+
+
+def rank13_worker(spec_path: str) -> None:
+    """One rank of phases 13a / 13b (``python3 chip_smoke.py --rank13
+    spec.json``, started by :func:`launch_ranks`): each run of the spec
+    through ``cli.finetune.main`` on card ``rank % count``, each in a
+    process group of its own (its port in ``PS_COORDINATOR``), under
+    :class:`TrainProbe`.  Prints one ``RANK13`` JSON line: each run's
+    global losses, evaluations, micro-steps (wall, launches, peak memory),
+    the gradient sums' synchronised ms a micro-step, the parameter bytes
+    this rank holds and the whole model's, the trained projector's largest
+    gap to the spec's ``projector`` file (when given), whether the frozen
+    weights kept their bits (when the run asks) and the launch mismatches
+    against phase 7b's micro-step (when it asks)."""
+    import torch
+
+    sys.path.insert(0, HERE)
+    from torch.distributed.tensor import DTensor
+
+    from ps_slm_tpu_torch.cli import finetune
+    from ps_slm_tpu_torch.parallel import mesh as meshlib
+    from ps_slm_tpu_torch.training import step as step_mod
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    rank = int(os.environ["PS_HOST_ID"])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", rank % torch.cuda.device_count())
+    real_sync, real_make = meshlib.Parallel.sync_grads, step_mod.make_train_step
+    sync_ms: list = []
+    want = torch.load(spec["projector"], weights_only=True) if spec.get("projector") else None
+
+    def timed_sync(self, model):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        real_sync(self, model)
+        torch.cuda.synchronize()
+        sync_ms.append((time.perf_counter() - t) * 1e3)
+
+    def local(p):
+        return (p.to_local() if isinstance(p, DTensor) else p).detach()
+
+    meshlib.Parallel.sync_grads = timed_sync
+    runs = []
+    for run in spec["runs"]:
+        os.environ["PS_COORDINATOR"] = f"localhost:{run['port']}"
+        info: dict = {}
+
+        def make(model, tc, device="cuda"):
+            st = real_make(model, tc, device=device)
+            params = list(model.named_parameters())
+            info["bytes"] = sum(local(p).numel() * p.element_size() for _, p in params)
+            info["full_bytes"] = sum(p.numel() * p.element_size() for _, p in params)
+            if run.get("frozen"):
+                info["frozen"] = {n: local(p).cpu().clone() for n, p in params
+                                  if n not in st.trainable}
+            info["step"] = st
+            return st
+
+        step_mod.make_train_step = make
+        undo = capture_trained(torch, info)
+        sync_ms.clear()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            with TrainProbe(torch, dev) as probe:
+                rc = finetune.main(run["args"])
+        finally:
+            step_mod.make_train_step = real_make
+            undo()
+        model = info["step"].model
+        out = dict(tag=run["tag"], rc=rc, losses=probe.losses(),
+                   evals=[e["loss"] for e in probe.evals], ms=[s["ms"] for s in probe.steps],
+                   launches=[s["launches"] for s in probe.steps],
+                   peak=torch.cuda.max_memory_allocated() / 1e9, sync_ms=list(sync_ms),
+                   bytes=info["bytes"], full_bytes=info["full_bytes"],
+                   mesh=None if model.mesh is None else model.mesh.shape)
+        if want is not None and run.get("compare"):
+            out["proj"] = projector_errs(info["projector"], want["projector"], want["moments"])
+            out["moment_err"] = moment_err(info.get("moments", {}), want["moments"])
+        if run.get("frozen"):
+            params = dict(model.named_parameters())
+            out["frozen_same"] = all(torch.equal(local(params[n]).cpu(), v)
+                                     for n, v in info.pop("frozen").items())
+        if run.get("check"):
+            want = with_routes(LAUNCHES_PER_TRAIN_STEP, LN_ROUTES_PER_PASS)
+            out["launch_mismatch"] = [i for i, s in enumerate(probe.steps)
+                                      if s["launches"] != want]
+        if run.get("cases") and rank == 0:
+            out["cases"] = finetune_cases(torch, dev, model, probe.largest[1],
+                                          f"13b {run['tag']}")
+        if run.get("save_batch") and rank == 0 and probe.largest is not None:
+            torch.save({k: v.detach().cpu() for k, v in probe.largest[1].items()},
+                       run["save_batch"])
+        runs.append(out)
+        probe.model = probe.largest = None
+        del model, info
+        torch.cuda.empty_cache()
+    print("RANK13 " + json.dumps({"rank": rank, "runs": runs}), flush=True)
+
+
+def launch_ranks(torch, n: int, runs: list, root: str, timeout: float,
+                 projector: str = None) -> list:
+    """``runs`` (dicts of ``tag``, ``args`` and the worker's flags) in ``n``
+    processes sharing the card over gloo, one launch for all of them (each
+    run its own process group on a free port); every rank's RANK13 record,
+    by rank.  A rank that fails fails the phase."""
+    from ps_slm_tpu_torch.parallel.launch import launch
+    from ps_slm_tpu_torch.parallel.launch import free_port
+
+    ports = {run["port"] for run in runs if "port" in run}
+    for run in runs:
+        while "port" not in run:
+            port = free_port()
+            if port not in ports:
+                run["port"] = port
+                ports.add(port)
+    spec = os.path.join(root, f"ranks{n}_{len(os.listdir(root))}.json")
+    with open(spec, "w") as f:
+        json.dump({"runs": runs, "projector": projector}, f)
+    done = launch([sys.executable, os.path.join(HERE, "chip_smoke.py"), "--rank13", spec], n,
+                  env={"PS_DIST_BACKEND": "gloo", "PYTHONPATH": HERE}, timeout=timeout, cwd=HERE)
+    records = []
+    for f in done:
+        line = next((x for x in f.stdout.splitlines() if x.startswith("RANK13 ")), None)
+        if f.returncode != 0 or line is None:
+            fail(f"rank {f.rank} of {n} exited {f.returncode}:\n{f.stdout[-3000:]}\n"
+                 f"{f.stderr[-6000:]}")
+        records.append(json.loads(line[len("RANK13 "):]))
+    return [r["runs"] for r in sorted(records, key=lambda r: r["rank"])]
+
+
+def _mesh_tag(mesh: dict) -> str:
+    return "+".join(f"{k}{v}" for k, v in mesh.items())
+
+
+def phase_parallel_fp32(torch, dev, fp32: dict) -> dict:
+    """Phase 13a: phase 4e's finetune CLI run (full width and reduced
+    depth, its assets, recipe and 4 steps of 2 rows with validation every
+    2, fp32, dither 0; ``fp32`` is what 4e returns: its card run is the
+    one-process run) on each mesh of PARALLEL_MESHES in 2 processes (and
+    PARALLEL_MESHES_4 in 4) sharing the card over gloo: every rank's
+    losses the same bit for bit, the losses and evaluations within
+    PARALLEL_TOL, AdamW's first moments after micro-step MOMENT_STEP
+    within PARALLEL_MOMENT_TOL of each tensor's largest, and the trained
+    projector (gathered when the loop ends) within PARALLEL_TOL where its
+    moment is at least GRAD_FLOOR of the tensor's largest and
+    PARALLEL_PROJ_TOL elsewhere, of the one-process run; the frozen
+    weights bit-identical.  The full-width runs write no checkpoint but
+    PARALLEL_RESUME's (the card machine's disk takes a bounded amount of
+    writes: a state is 1.6 GB), which writes ``step_2`` / ``step_4`` and is
+    resumed from ``step_2``: its last two losses bit for bit, rank 0's
+    ``step_4`` export as the trained projector.  Every mesh also trains a
+    tiny model (:func:`tiny_finetune_args`) on 4e's manifests with
+    checkpoints and resumes it from ``step_2``: the last losses bit for
+    bit, and the rank files' tensors (each shard and replicated tensor
+    written once) as many bytes as the one-process state's.  Deletes 4e's
+    directory.  Returns the one-process model and the ranks' largest
+    batches for phase 3's shard and microbatch rows."""
+    from ps_slm_tpu_torch.cli import finetune
+    from ps_slm_tpu_torch.parallel.launch import free_port
+    from ps_slm_tpu_torch.training.checkpoint import _projector_keymap
+
+    what = "parallel fp32"
+    root, assets, mc = fp32["root"], fp32["assets"], fp32["mc"]
+    extra = [a for a in fp32["extra"] if not a.startswith("++train_config.save_last=")]
+
+    def args(out, mesh=None, save=False, resume=None):
+        a = finetune_args(assets, root, out, llm_dim=mc.llm_dim,
+                          encoder_dim=mc.encoder_dim) + extra
+        a += [f"++train_config.save_model={str(save).lower()}"]
+        if mesh is not None:
+            a += ["++train_config.mesh_shape=" + json.dumps(mesh)]
+        if resume:
+            a += [f"++train_config.resume_from={resume}"]
+        return a
+
+    # the one-process projector (4e's card run, after its 4 steps) in the port's names
+    keymap = _projector_keymap("linear-silu")
+    export = torch.load(fp32["export"], weights_only=True)
+    one_proj = {ours: export[f"encoder_projector.{ref}"] for ours, ref in keymap.items()}
+    one_mom = fp32["moments"]
+    proj_file = os.path.join(root, "one_projector.pt")
+    torch.save({"projector": one_proj, "moments": one_mom}, proj_file)
+    one = dict(losses=fp32["losses"], evals=fp32["evals"])
+    # the tiny model's one-process run on the card (its checkpoints' bytes)
+    tiny_one = os.path.join(root, "tiny_one")
+    with TrainProbe(torch, dev) as probe:
+        if finetune.main(tiny_finetune_args(root, tiny_one), device=dev) != 0:
+            fail(f"{what}: the tiny one-process run failed")
+    tiny = dict(losses=probe.losses(), bytes=state_bytes(
+        torch, os.path.join(tiny_one, "step_2", "state", "train_state.pt")))
+    batches, report, groups = {}, {}, {}
+    for n, meshes in ((2, PARALLEL_MESHES), (4, PARALLEL_MESHES_4)):
+        runs = []
+        for mesh in meshes:
+            tag = _mesh_tag(mesh)
+            out = os.path.join(root, tag)
+            save = mesh == PARALLEL_RESUME
+            runs.append(dict(tag=tag, args=args(out, mesh, save=save), frozen=True, compare=True,
+                             save_batch=os.path.join(root, f"batch_{tag}.pt")))
+            if save:
+                runs.append(dict(tag=tag + " resumed", args=args(
+                    out + "_resumed", mesh, resume=os.path.join(out, "step_2", "state"))))
+            out = os.path.join(root, f"tiny_{tag}")
+            runs.append(dict(tag=tag + " tiny", args=tiny_finetune_args(root, out, mesh)))
+            runs.append(dict(tag=tag + " tiny resumed", args=tiny_finetune_args(
+                root, out + "_resumed", mesh, os.path.join(out, "step_2", "state"))))
+        if runs:
+            groups[n] = (meshes, runs)
+    # the 2- and 4-process groups run at once (6 processes on the card; their
+    # walls are not what 13a checks), each run on a port of its own
+    taken: set = set()
+    for _, runs in groups.values():
+        for run in runs:
+            while "port" not in run:
+                port = free_port()
+                if port not in taken:
+                    run["port"] = port
+                    taken.add(port)
+    t1 = time.time()
+    done: dict = {}
+
+    def start(n, runs):
+        try:
+            done[n] = launch_ranks(torch, n, runs, root, PARALLEL_TIMEOUT, proj_file)
+        except BaseException as e:          # fail() exits; keep it for this thread's caller
+            done[n] = e
+
+    threads = [threading.Thread(target=start, args=(n, runs)) for n, (_, runs) in groups.items()]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    for n, (meshes, runs) in groups.items():
+        if isinstance(done[n], BaseException):
+            raise done[n]
+        ranks = done[n]
+        for mesh in meshes:
+            tag = _mesh_tag(mesh)
+            i = next(k for k, r in enumerate(runs) if r["tag"] == tag)
+            straight = [r[i] for r in ranks]
+            same = all(r["losses"] == straight[0]["losses"] and r["evals"] == straight[0]["evals"]
+                       for r in straight)
+            got = straight[0]
+            if len(got["losses"]) != 4 or len(got["evals"]) != 2:
+                fail(f"{what} {tag}: {len(got['losses'])} steps, {len(got['evals'])} evaluations")
+            loss_err = max(abs(a - b) for a, b in zip(got["losses"] + got["evals"],
+                                                      one["losses"] + one["evals"]))
+            proj, mom_err = got["proj"], got["moment_err"]
+            frozen = all(r["frozen_same"] for r in straight)
+            resumed = ""
+            ok = same and frozen
+            files = [f"train_state.rank{r}.pt" for r in range(n)]
+            if mesh == PARALLEL_RESUME:
+                res = next(r for r in runs if r["tag"] == tag + " resumed")
+                res = [r[runs.index(res)] for r in ranks]
+                res_same = all(r["losses"] == got["losses"][2:] for r in res)
+                out = os.path.join(root, tag)
+                export = torch.load(os.path.join(out, "step_4", "pytorch_model.bin"),
+                                    weights_only=True)
+                exp = projector_errs({ours: export[f"encoder_projector.{ref}"]
+                                      for ours, ref in keymap.items()}, one_proj, one_mom)
+                states = sorted(os.listdir(os.path.join(out, "step_2", "state")))
+                resumed = (f"; resumed from step_2: {res[0]['losses']} "
+                           f"{'bit-identical' if res_same else 'DIFFERENT'}, train state "
+                           f"{states}, rank 0's step_4 export off the one-process projector "
+                           f"{exp['kept']:.3e} / {exp['floored']:.3e}")
+                ok = (ok and res_same and exp["kept"] <= PARALLEL_TOL
+                      and exp["floored"] <= PARALLEL_PROJ_TOL and states == files)
+            k = next(j for j, r in enumerate(runs) if r["tag"] == tag + " tiny")
+            t_straight, t_res = [r[k] for r in ranks], [r[k + 1] for r in ranks]
+            t_state = os.path.join(root, f"tiny_{tag}", "step_2", "state")
+            t_files = sorted(os.listdir(t_state))
+            t_bytes = sum(state_bytes(torch, os.path.join(t_state, f)) for f in t_files)
+            t_loss = max(abs(a - b) for a, b in zip(t_straight[0]["losses"], tiny["losses"]))
+            t_same = (all(r["losses"] == t_straight[0]["losses"] for r in t_straight)
+                      and all(r["losses"] == t_straight[0]["losses"][2:] for r in t_res))
+            ok = (ok and t_same and t_files == files and t_bytes == tiny["bytes"]
+                  and len(t_straight[0]["losses"]) == len(tiny["losses"]) and t_loss <= PARALLEL_TOL)
+            report[tag] = dict(loss_err=loss_err, proj_err=proj["kept"],
+                               proj_floored=proj["floored"], moment_err=mom_err)
+            print(f"{what} {tag} ({n} processes on one card, gloo): losses {got['losses']}, "
+                  f"evals {got['evals']}; every rank's the same bit for bit {same}; against "
+                  f"one process: losses and evals {loss_err:.3e} (tol {PARALLEL_TOL}), AdamW's "
+                  f"first moments after micro-step {MOMENT_STEP} {mom_err:.3e} of each tensor's "
+                  f"largest (tol {PARALLEL_MOMENT_TOL}), trained projector {proj['kept']:.3e} "
+                  f"(tol {PARALLEL_TOL}) where its moment is at least {GRAD_FLOOR} of the "
+                  f"tensor's largest, {proj['floored']:.3e} on the {proj['n_floored']} elements "
+                  f"below (tol {PARALLEL_PROJ_TOL}); frozen weights bit-identical "
+                  f"{frozen}{resumed}; tiny model: losses {t_loss:.3e} off one process, resumed "
+                  f"from step_2 {'bit-identical' if t_same else 'DIFFERENT'}, train state "
+                  f"{t_files} {t_bytes} bytes of tensors (one process: {tiny['bytes']}); "
+                  f"micro-step ms rank 0 "
+                  f"{[round(x, 1) for x in got['ms']]}, gradient sums "
+                  f"{[round(x, 2) for x in got['sync_ms']]} ms; parameter bytes a rank "
+                  f"{[r['bytes'] for r in straight]} of {got['full_bytes']}; peak "
+                  f"{[round(r['peak'], 2) for r in straight]} GB [{CARD}]", flush=True)
+            if (not ok or loss_err > PARALLEL_TOL or mom_err > PARALLEL_MOMENT_TOL
+                    or proj["kept"] > PARALLEL_TOL or proj["floored"] > PARALLEL_PROJ_TOL):
+                fail(f"{what} {tag}: ranks differ, a frozen weight changed, a resume differs, "
+                     f"a train state holds a tensor twice or the run is off the one-process "
+                     f"run beyond its tolerance")
+            batches[tag] = torch.load(os.path.join(root, f"batch_{tag}.pt"), weights_only=True)
+    print(f"{what}: meshes {[_mesh_tag(x) for meshes, _ in groups.values() for x in meshes]} "
+          f"in {time.time() - t1:.1f} s (the 2- and 4-process groups at once)", flush=True)
+    shutil.rmtree(root, ignore_errors=True)
+    return {"model": fp32["model"], "batches": batches, "report": report}
+
+
+def parallel_cases(torch, dev, model, batches: dict) -> dict:
+    """Phase 3's cases at 13a's shards and microbatches, from each mesh's
+    rank-0 batch through the one-process model (:func:`finetune_cases`):
+    ``tensor`` halves the LLM's heads (6/1), ``pipe`` cuts the rows into
+    its microbatches (the LLM's attention and RMSNorm at one microbatch's
+    rows), ``data`` / ``fsdp`` keep the rank's own rows."""
+    from ps_slm_tpu_torch.parallel.pipeline import microbatch_count
+
+    cases = {"flash": [], "norm": [], "flash_bwd": [], "norm_bwd": []}
+    for tag, batch in batches.items():
+        batch = {k: v.to(dev) for k, v in batch.items()}
+        c = finetune_cases(torch, dev, model, batch, f"13a {tag}")
+        mesh = dict((k[:-1], int(k[-1])) for k in tag.split("+"))
+        llm = [x for x in c["flash"] if x[0].endswith("llm")]
+        if "tensor" in mesh:
+            llm = [(x[0], x[1], x[2], x[3] // mesh["tensor"], x[4] // mesh["tensor"], *x[5:])
+                   for x in llm]
+            rms = []
+        elif "pipe" in mesh:
+            rows = llm[0][1]
+            mb = rows // microbatch_count(rows, 0, mesh["pipe"])
+            llm = [(x[0] + f" microbatch {mb}", mb, x[2], x[3], x[4], x[5], x[6][:mb], x[7][:mb])
+                   for x in llm]
+            rms = [(w, mb * llm[0][2], d, k) for w, n, d, k in c["norm"] if w == "rms_norm_fwd"]
+        else:
+            rms = [x for x in c["norm"] if x[0] == "rms_norm_fwd"]
+        seen = {x[1:5] for x in cases["flash"]}
+        llm = [x for x in llm if x[1:5] not in seen]       # a shape once
+        rms = [x for x in rms if x not in cases["norm"]]
+        cases["flash"] += llm
+        cases["flash_bwd"] += llm
+        cases["norm"] += rms
+        cases["norm_bwd"] += [("rms_norm_bwd", n, d, k) for _, n, d, k in rms]
+    return cases
+
+
+def phase_parallel(torch, dev, chain: dict) -> dict:
+    """Phase 13b: phase 7b's recipe (bf16, SenseVoiceSmall + linear-silu +
+    Qwen2.5-1.5B) on phase 7's assets and 7a's export, in 2 processes
+    sharing the card over gloo, on each mesh of PARALLEL_MESHES_BF16, for a
+    step or two (its train manifest, no validation): each rank's launches a
+    micro-step exactly 7b's, by route; the micro-step wall, the gradient
+    sums' time, each rank's peak memory and parameter bytes against the
+    whole model's.  Two processes share one card: no scaling number.
+    Returns each mesh's rank-0 launches a micro-step, the launches of every
+    rank's micro-steps and phase 3's cases at a rank's largest batch."""
+    root = os.path.join(chain["root"], "parallel")
+    runs = []
+    for mesh, utts in PARALLEL_MESHES_BF16:
+        tag = _mesh_tag(mesh)
+        data = os.path.join(root, f"data_{tag}")
+        for split, seed in (("train", 3), ("dev", 4)):
+            write_manifest(os.path.join(data, split), utts, DECODE_SECONDS, seed=seed)
+        args = [a if not a.startswith("ckpt_path=") else f"ckpt_path={chain['init']}"
+                for a in finetune_args(chain["assets"], data, os.path.join(root, tag),
+                                       **chain["dims"])]
+        # the per-rank shapes (phase 3's rows) from a run whose model is whole
+        runs.append(dict(tag=tag, check=True, cases="fsdp" not in mesh, args=args + [
+            "++train_config.num_epochs=1", "++train_config.run_validation=false",
+            "++train_config.save_model=false", "++train_config.mesh_shape=" + json.dumps(mesh)]))
+    t0 = time.time()
+    ranks = launch_ranks(torch, 2, runs, root, timeout=PARALLEL_TIMEOUT)
+    out: dict = {"per_step": {}, "total": {}, "cases": None}
+    for i, (mesh, _) in enumerate(PARALLEL_MESHES_BF16):
+        tag = _mesh_tag(mesh)
+        recs = [r[i] for r in ranks]
+        bad = {r_i: rec["launch_mismatch"] for r_i, rec in enumerate(recs) if rec["launch_mismatch"]}
+        same = all(rec["losses"] == recs[0]["losses"] for rec in recs)
+        finite = all(math.isfinite(x) for x in recs[0]["losses"])
+        import statistics
+
+        ms = [statistics.median(rec["ms"]) for rec in recs]
+        sync = [statistics.median(rec["sync_ms"]) for rec in recs]
+        print(f"parallel bf16 {tag} (phase 7b's recipe, 2 processes sharing the card over gloo, "
+              f"{len(recs[0]['losses'])} micro-steps): losses {[round(x, 4) for x in recs[0]['losses']]} "
+              f"the same on both ranks {same}; micro-step wall median by rank "
+              f"{[round(x, 1) for x in ms]} ms (phase 7b, one process: "
+              f"{chain['median_ms']:.1f} ms); gradient sums (the trainable "
+              f"projector's fp32 gradients over gloo) median {[round(x, 2) for x in sync]} ms a "
+              f"micro-step; peak {[round(rec['peak'], 2) for rec in recs]} GB a rank; parameter "
+              f"bytes a rank {[rec['bytes'] for rec in recs]} of the whole model's "
+              f"{recs[0]['full_bytes']}; launches a micro-step 7b's on every rank "
+              f"{not bad} [{CARD}]", flush=True)
+        if bad or not same or not finite:
+            fail(f"parallel bf16 {tag}: launches off 7b's {bad}, ranks differ or a loss is "
+                 f"not finite")
+        out["per_step"][tag] = recs[0]["launches"][0]
+        for rec in recs:
+            for launches in rec["launches"]:
+                for k, v in launches.items():
+                    out["total"][k] = out["total"].get(k, 0) + v
+        out["cases"] = out["cases"] or recs[0].get("cases")
+    print(f"parallel bf16: {time.time() - t0:.1f} s", flush=True)
+    return out
+
+
+def phase_parallel_tools(torch, dev) -> None:
+    """Phase 13c: ``whisper_log_mel`` on the card against the CPU on two
+    30 s windows (WHISPER_TOL after the (x + 4) / 4 scaling), then
+    ``tools/goldens.py``'s ``verify`` on the card against goldens written
+    by the port's own modules on the CPU (fp32; the encoder at 2+1 blocks
+    and the LLM at 1 layer, full widths): PASS, then FAIL once an encoder
+    weight is corrupted."""
+    import numpy as np
+
+    from ps_slm_tpu_torch.config import half_audio_configs
+    from ps_slm_tpu_torch.models.tasu import model_factory
+    from ps_slm_tpu_torch.ops.fbank import pad_or_trim, whisper_log_mel
+    from ps_slm_tpu_torch.tools import goldens
+
+    rng = np.random.default_rng(0)
+    wav = torch.stack([pad_or_trim(torch.from_numpy(
+        (0.1 * rng.normal(size=16000 * s)).astype(np.float32))) for s in (7, 30)])
+    want = whisper_log_mel(wav)
+    got = whisper_log_mel(wav.to(dev))
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(3):
+        whisper_log_mel(wav.to(dev))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) / 3 * 1e3
+    err = float((got.cpu() - want).abs().max())
+    print(f"whisper_log_mel [2, 128, 3000] card vs CPU: max err {err:.3e} (tol {WHISPER_TOL}); "
+          f"{ms:.2f} ms a call on the card (host clock, the copy in) [{CARD}]", flush=True)
+    if got.shape != (2, 128, 3000) or err > WHISPER_TOL:
+        fail(f"whisper_log_mel: card vs CPU {err}")
+
+    root = tempfile.mkdtemp(prefix="goldens_")
+    try:
+        tc, mc = half_audio_configs(*FP32_DEPTH, seed=0)
+        src = model_factory(tc, mc, device="cpu")
+        enc_dir, llm_dir = os.path.join(root, "SenseVoiceSmall"), os.path.join(root, "llm")
+        write_encoder_dir(enc_dir, src.encoder)
+        write_llm_dir(llm_dir, src.llm, torch.float32)
+        feats, lens = goldens._fixture()
+        with torch.no_grad():
+            hid, _ = src.encoder(torch.from_numpy(feats), torch.from_numpy(lens))
+            ids = torch.from_numpy(np.random.default_rng(1).integers(0, 151000, size=(2, 16)))
+            pos = torch.arange(16)[None].expand(2, -1)
+            lh, _ = src.llm(src.llm.embed(ids), torch.ones(2, 16, dtype=torch.bool), pos)
+            npz = os.path.join(root, "goldens.npz")
+            np.savez(npz, enc_hidden=hid.numpy(), ctc_logits=src.encoder.ctc_logits(hid).numpy(),
+                     llm_ids=ids.numpy(), llm_logits=src.llm.unembed(lh).numpy())
+        del src
+        lines: list = []
+        ok = goldens.verify(npz, encoder_dir=enc_dir, llm_dir=llm_dir, device=dev,
+                            log=lines.append)
+        state = torch.load(os.path.join(enc_dir, "model.pt"), weights_only=True)
+        key = next(k for k in state if k.endswith("feed_forward.w_1.weight"))
+        state[key] = state[key] + 0.05 * torch.randn(
+            state[key].shape, generator=torch.Generator().manual_seed(0))
+        torch.save(state, os.path.join(enc_dir, "model.pt"))
+        bad_lines: list = []
+        bad = goldens.verify(npz, encoder_dir=enc_dir, device=dev, log=bad_lines.append)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"goldens verify on the card against the port's CPU goldens: {'; '.join(lines)}; "
+          f"after corrupting {key}: {'; '.join(bad_lines)} [{CARD}]", flush=True)
+    if ok != 0 or bad != 1:
+        fail("goldens verify: not PASS on the port's goldens, or not FAIL on a corrupted weight")
+
+
+def phase_kernels_parallel(torch, dev, results, par: dict, tag: str) -> dict:
+    """Phase 3 at 13a's shard and microbatch shapes (``par`` holds 13a's
+    one-process model and ranks' batches) or at 13b's per-rank batch
+    (``par["cases"]``); returns the cases, labelled ``tag``."""
+    cases = par.get("cases") or parallel_cases(torch, dev, par["model"], par["batches"])
+    phase_kernels(torch, dev, results, cases["flash"], cases["norm"], tag)
+    phase_kernels_bwd(torch, dev, results, cases["flash_bwd"], cases["norm_bwd"], tag)
+    return cases
+
+
+def add_case_rows(path_rows: dict, cases: dict, tag: str) -> None:
+    """The labels phase 3 gave ``cases`` (run with ``tag``), by the kernels
+    line's names."""
+    for name in ("flash_attention_fwd", "flash_attention_dq", "flash_attention_dkv"):
+        path_rows.setdefault(name, []).extend(
+            c[0] for c in cases["flash" if name.endswith("fwd") else "flash_bwd"])
+    for w, n, d, kind in cases["norm"] + cases["norm_bwd"]:
+        label = f"{tag} {n}x{d}" + (f" {kind}" if kind else "")
+        name = f"{w} ({'staged' if d == 25055 else 'vec'})" if w == "layer_norm_fwd" else w
+        path_rows.setdefault(name, []).append(label)
+        if w == "rms_norm_bwd":
+            path_rows[name].append(f"{label} frozen w")
+
+
+def run_slice13(torch, dev) -> None:
+    """``--slice13``: phase 13 alone (4e, whose run 13a takes as the
+    one-process run, 13a, 13c, and 13b on phase 7's assets with their
+    projector checkpoint as the initial one) and phase 3 at its shapes."""
+    results: dict = {}
+    fp32 = timed("4e finetune CLI fp32", phase_finetune_cli_fp32, torch, dev)
+    par = timed("13a parallel fp32", phase_parallel_fp32, torch, dev, fp32)
+    del fp32
+    timed("3 at 13a's shapes", phase_kernels_parallel, torch, dev, results, par, "13a")
+    del par
+    torch.cuda.empty_cache()
+    timed("13c whisper and goldens", phase_parallel_tools, torch, dev)
+    root = tempfile.mkdtemp(prefix="slice13_")
+    try:
+        assets, _, mc = write_chain_assets(torch, root)
+        chain = {"assets": assets, "root": root, "init": assets["ckpt_path"],
+                 "dims": dict(llm_dim=mc.llm_dim, encoder_dim=mc.encoder_dim),
+                 "median_ms": float("nan")}
+        par_b = timed("13b parallel bf16", phase_parallel, torch, dev, chain)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    timed("3 at 13b's shapes", phase_kernels_parallel, torch, dev, results, par_b, "13b")
 
 
 def timed(label: str, fn, *args, **kwargs):
@@ -4517,6 +5058,11 @@ def main() -> None:
         print(f"phase seconds: {json.dumps(PHASE_SECONDS)}", flush=True)
         print(f"slice 12 done, {time.time() - t_start:.1f} s", flush=True)
         return
+    if "--slice13" in sys.argv[1:]:
+        run_slice13(torch, dev)
+        print(f"phase seconds: {json.dumps(PHASE_SECONDS)}", flush=True)
+        print(f"slice 13 done, {time.time() - t_start:.1f} s", flush=True)
+        return
 
     print("kernel vs plain tolerance, |a - b| <= atol + rtol * |b|: "
           + ", ".join(f"{dt} atol {a} rtol {r}" for dt, (a, r) in KERNEL_TOL.items()),
@@ -4528,7 +5074,14 @@ def main() -> None:
     timed("4b train fp32", phase_train_fp32, torch, dev)
     timed("4c beam and text-only fp32", phase_beam_text_only_fp32, torch, dev)
     timed("4d decode CLI fp32", phase_decode_cli_fp32, torch, dev)
-    timed("4e finetune CLI fp32", phase_finetune_cli_fp32, torch, dev)
+    fp32 = timed("4e finetune CLI fp32", phase_finetune_cli_fp32, torch, dev)
+    par = timed("13a parallel fp32", phase_parallel_fp32, torch, dev, fp32)
+    del fp32
+    cases13 = {"13a": timed("3 at 13a's shapes", phase_kernels_parallel, torch, dev, results,
+                            par, "13a")}
+    del par
+    torch.cuda.empty_cache()
+    timed("13c whisper and goldens", phase_parallel_tools, torch, dev)
     timed("11a PEFT fp32", phase_peft_fp32, torch, dev)
     timed("12a encoder fp32", phase_encoder_fp32, torch, dev)
     timed("12a projectors fp32", phase_projectors_fp32, torch, dev)
@@ -4556,6 +5109,7 @@ def main() -> None:
     try:
         chain_per_step = timed("7 finetune chain", phase_finetune_chain, torch, dev,
                                chain_launches, step_5b_prof, chain_root)
+        par_b = timed("13b parallel bf16", phase_parallel, torch, dev, chain_per_step)
         peft_per_step = timed("11b-c PEFT", phase_peft, torch, dev, peft_launches,
                               chain_per_step)
         qf_launches: dict = {}
@@ -4570,6 +5124,8 @@ def main() -> None:
                           f"finetune {stage}")
     PHASE_SECONDS["3 at 7's shapes"] = round(time.time() - t3, 1)
     timed("3 at 12's shapes", phase_kernels_slice12, torch, dev, results, enc_cases)
+    cases13["13b"] = timed("3 at 13b's shapes", phase_kernels_parallel, torch, dev, results,
+                           par_b, "13b")
 
     # (name, its launch count, the CUDA kernel it launches at the main
     # paths' bf16 shapes, source, TPU kernel it replaces, the rows of phase
@@ -4620,19 +5176,11 @@ def main() -> None:
             name = "layer_norm_fwd (vec)" if w == "layer_norm_fwd" else w
             label = f"{tag} {n}x{d}" + (f" eps{eps[0]:g}" if eps else "")
             path_rows.setdefault(name, []).append(label)
-    # phase 7's largest batches, as phases 3 labelled their rows
+    # phase 7's largest batches and phase 13's shards, as phase 3 labelled their rows
     for stage, cases in chain_per_step["cases"].items():
-        tag = f"finetune {stage}"
-        flash = [c[0] for c in cases["flash"]]
-        for name in ("flash_attention_fwd", "flash_attention_dq", "flash_attention_dkv"):
-            path_rows.setdefault(name, []).extend(flash if name.endswith("fwd") else
-                                                 [c[0] for c in cases["flash_bwd"]])
-        for w, n, d, kind in cases["norm"] + cases["norm_bwd"]:
-            label = f"{tag} {n}x{d}" + (f" {kind}" if kind else "")
-            name = (f"{w} ({'staged' if d == 25055 else 'vec'})" if w == "layer_norm_fwd" else w)
-            path_rows.setdefault(name, []).append(label)
-            if w == "rms_norm_bwd":
-                path_rows[name].append(f"{label} frozen w")
+        add_case_rows(path_rows, cases, f"finetune {stage}")
+    for tag, cases in cases13.items():
+        add_case_rows(path_rows, cases, tag)
     kernels = []
     for name, count, kernel, source, replaces, shapes in table:
         shapes = shapes + tuple(path_rows.get(name, ()))
@@ -4644,7 +5192,7 @@ def main() -> None:
             "launches": sum(runs.get(count, 0) for runs in (
                 gen_launches, train_launches, beam_launches, text_launches, cli_launches,
                 serve_launches, serve_cli_launches, peft_launches, proj_launches, enc_launches,
-                asr_launches, qf_launches))
+                asr_launches, qf_launches, par_b["total"]))
             + sum(runs[count] for runs in chain_launches.values()),
             "launches_per_generate": gen_launches[count],
             "launches_per_train_step": train_launches[count] // TRAIN_STEPS,
@@ -4661,6 +5209,8 @@ def main() -> None:
             "launches_per_encoder_step": enc_launches.get(count, 0) // ENC_STEPS,
             "launches_per_asr_pass": asr_launches.get(count, 0) // 3,
             "launches_per_projector_step": {k: c.get(count, 0) for k, c in proj_per_step.items()},
+            "launches_per_parallel_step": {k: c.get(count, 0)
+                                           for k, c in par_b["per_step"].items()},
             "max_abs_err": max(r["err"] for r in rows),
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
@@ -4676,4 +5226,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--rank13"]:
+        rank13_worker(sys.argv[2])
+    else:
+        main()

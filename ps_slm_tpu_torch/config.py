@@ -2,15 +2,12 @@
 
 A copy of ``ps_slm_tpu/config.py`` with the same names and defaults:
 ``FbankConfig``, ``DataConfig``, ``LogConfig`` and ``RunConfig`` whole;
-``PeftConfig`` whole; ``ModelConfig`` and ``TrainConfig`` with every field
-but those of features not ported yet; and the ``[++]section.key=value``
+``PeftConfig``, ``ModelConfig`` and ``TrainConfig`` whole; and the ``[++]section.key=value``
 override parser (``parse_cli``) that the CLIs take, and :func:`dump`, which
 writes a run's resolved config.  Fields the JAX package itself never reads
 (``model_name``, ``llm_name``, ``gamma``, ...) are carried, inert, so the
-same overrides parse.  ``mesh_shape`` parses and raises where it would act,
-naming its ROADMAP.md item; the other sharding knobs (``fsdp_min_size``,
-``pp_microbatches``) are absent, and an override that names one raises
-``KeyError`` like any unknown key.
+same overrides parse; an override that names an unknown key raises
+``KeyError``.
 """
 
 from __future__ import annotations
@@ -153,7 +150,9 @@ class TrainConfig:
     save_last: bool = False               # last/ at the end of training
     resume_from: Optional[str] = None     # a train-state directory (step_N/state)
     device: Optional[int] = 0             # inert
-    mesh_shape: Optional[dict] = None     # not ported: the finetune CLI raises on it
+    mesh_shape: Optional[dict] = None     # e.g. {"data": 4, "fsdp": 2} (+ "tensor"/"pipe"); None = all "data"
+    fsdp_min_size: int = 2 ** 16          # only shard params at least this big
+    pp_microbatches: int = 0              # GPipe microbatches when mesh has pipe>1 (0 = 2 x stages)
     remat: bool = False                   # activation checkpointing of the blocks
     # decode
     max_new_tokens: int = 200

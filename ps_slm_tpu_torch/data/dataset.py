@@ -23,8 +23,9 @@ the device:
     in the decode CLI);
   * the GT text is tokenized with the encoder's BPE into ``gt_ids``.
 
-The whisper front end (``DataConfig.encoder == "whisper"``) raises when a
-batch is collated (ROADMAP.md queue 1, 'Long tail').
+The whisper front end (``DataConfig.encoder == "whisper"``) computes the
+128-mel log spectrogram of each 30 s window on the host
+(``ops/fbank.py::whisper_log_mel``) into ``input_features``.
 """
 
 from __future__ import annotations
@@ -355,26 +356,38 @@ class Collator:
 
         if samples[0].waveform is not None:
             if self.cfg.encoder == "whisper":
-                raise NotImplementedError(
-                    "the whisper front end (whisper mel) is not ported yet "
-                    "(ROADMAP.md queue 1, 'Long tail')"
+                # whisper path: pad_or_trim to 30 s, 128-mel log spectrogram
+                # on the host, fixed 3000 frames, time-major [B, 3000, 128]
+                import torch
+
+                from ps_slm_tpu_torch.ops.fbank import pad_or_trim, whisper_log_mel
+
+                wav = torch.stack([
+                    pad_or_trim(torch.from_numpy(s.waveform.astype(np.float64)))
+                    for s in samples
+                ])
+                mel = whisper_log_mel(wav, n_mels=128).numpy()
+                batch["input_features"] = np.swapaxes(mel, 1, 2)
+                batch["input_feature_length"] = np.full(
+                    (len(samples),), mel.shape[-1], np.int32
                 )
-            # waveform bucket = feature_bucket LFR frames worth of samples
-            n_len = hints["n_len"]
-            wav = np.stack([
-                _pad_to(s.waveform.astype(np.float32), n_len, 0.0)
-                for s in samples
-            ])
-            if self.cfg.waveform_dtype == "int16":
-                # halve host->device bytes; exact round trip for 16-bit
-                # PCM sources (ops/fbank.frontend rescales on device)
-                wav = np.clip(
-                    np.rint(wav * 32768.0), -32768, 32767
-                ).astype(np.int16)
-            batch["waveform"] = wav
-            batch["waveform_length"] = np.asarray(
-                [len(s.waveform) for s in samples], np.int32
-            )
+            else:
+                # waveform bucket = feature_bucket LFR frames worth of samples
+                n_len = hints["n_len"]
+                wav = np.stack([
+                    _pad_to(s.waveform.astype(np.float32), n_len, 0.0)
+                    for s in samples
+                ])
+                if self.cfg.waveform_dtype == "int16":
+                    # halve host->device bytes; exact round trip for 16-bit
+                    # PCM sources (ops/fbank.frontend rescales on device)
+                    wav = np.clip(
+                        np.rint(wav * 32768.0), -32768, 32767
+                    ).astype(np.int16)
+                batch["waveform"] = wav
+                batch["waveform_length"] = np.asarray(
+                    [len(s.waveform) for s in samples], np.int32
+                )
             # true per-row audio duration, before padding (a host metric)
             batch["audio_seconds"] = np.asarray(
                 [len(s.waveform) / 16000.0 for s in samples], np.float32

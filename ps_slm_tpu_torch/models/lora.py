@@ -34,6 +34,7 @@ import torch
 from torch import nn
 
 from ps_slm_tpu_torch.models.layers import normal_, uniform_
+from ps_slm_tpu_torch.ops import RowBlock, draw_rows
 
 # the JAX package's per-projection dropout index (``qwen2._block``'s ctx(i))
 LORA_TARGETS = ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj", "down_proj")
@@ -64,14 +65,18 @@ def lora_delta(lin: nn.Module, x: torch.Tensor, keep: Optional[torch.Tensor] = N
 
 
 def lora_dropout_masks(block: nn.Module, x_shape, rate: float, generator: torch.Generator,
-                       device) -> Dict[str, torch.Tensor]:
+                       device, rows: Optional[RowBlock] = None) -> Dict[str, torch.Tensor]:
     """Bernoulli(1 - rate) keep masks for one block's LoRA inputs, one per
     adapted projection in ``LORA_TARGETS`` order, each the shape of that
-    projection's input (``x_shape[:-1] + (in_features,)``)."""
+    projection's input (``x_shape[:-1] + (in_features,)``); with ``rows``,
+    its rows of the masks for the global batch."""
     lead = tuple(x_shape[:-1])
+
+    def draw(shape):
+        return torch.rand(shape, generator=generator, device=device)
+
     return {
-        n: torch.rand(lead + (getattr(block, n).in_features,), generator=generator,
-                      device=device) < 1.0 - rate
+        n: draw_rows(draw, lead + (getattr(block, n).in_features,), rows) < 1.0 - rate
         for n in lora_targets(block)
     }
 

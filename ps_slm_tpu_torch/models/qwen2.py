@@ -290,12 +290,16 @@ class Qwen2Block(nn.Module):
         ``lora_rate``), drawn by the caller."""
         cfg = self.cfg
         b, s, _ = x.shape
-        nh, nkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+        hd = cfg.head_dim
         proj = lambda name, t: self._proj(name, t, lora_keep, lora_rate)  # noqa: E731
         y = self.input_layernorm(x)
-        q = rope(proj("q_proj", y).view(b, s, nh, hd), positions, cfg.rope_theta)
-        k = rope(proj("k_proj", y).view(b, s, nkv, hd), positions, cfg.rope_theta)
-        v = proj("v_proj", y).view(b, s, nkv, hd)
+        # the heads this process holds: all of them, or its share under
+        # tensor parallelism (column-parallel q/k/v give local heads)
+        q, k, v = proj("q_proj", y), proj("k_proj", y), proj("v_proj", y)
+        nh, nkv = q.shape[-1] // hd, k.shape[-1] // hd
+        q = rope(q.view(b, s, nh, hd), positions, cfg.rope_theta)
+        k = rope(k.view(b, s, nkv, hd), positions, cfg.rope_theta)
+        v = v.view(b, s, nkv, hd)
         has_prefix = self.prefix_k is not None
 
         if cache_kv is None and has_prefix:
@@ -366,6 +370,10 @@ class Qwen2Model(nn.Module):
         self.remat = False
         # LoRA's training dropout rate (peft_config.lora_dropout under PEFT)
         self.lora_dropout = 0.0
+        # the process's place on a mesh (parallel/mesh.py) and the GPipe
+        # microbatch count of a pipe axis (0: twice the stages)
+        self.mesh = None
+        self.pp_microbatches = 0
 
     def embed(self, input_ids: torch.Tensor) -> torch.Tensor:
         return self.embed_tokens(input_ids)
@@ -395,16 +403,29 @@ class Qwen2Model(nn.Module):
         given (tests feed the JAX step's), else drawn from ``generator``
         layer by layer before the block runs, so remat recomputes with the
         same masks.  Neither given: no dropout (eval).
+
+        Under a mesh (``self.mesh``) the masks are this process's rows of
+        the global batch's, and with a ``pipe`` axis and no cache the stack
+        runs as a GPipe pipeline (:func:`~ps_slm_tpu_torch.parallel.pipeline.pipeline_apply`,
+        ``pp_microbatches`` microbatches).
         """
         x = inputs_embeds
         remat = self.remat and cache is None and torch.is_grad_enabled()
         rate = self.lora_dropout if cache is None else 0.0
         drop = rate > 0.0 and (generator is not None or lora_masks is not None)
+        rows = None if self.mesh is None else self.mesh.row_block
+        if cache is None and self.mesh is not None and self.mesh.shape["pipe"] > 1:
+            from ps_slm_tpu_torch.parallel.pipeline import pipeline_apply
+
+            x = pipeline_apply(self, x, position_ids, attention_mask,
+                               generator=generator if drop else None,
+                               lora_masks=lora_masks if drop else None, rate=rate if drop else 0.0)
+            return self.norm(x), cache
         for i, layer in enumerate(self.layers):
             keep = None
             if drop:
                 keep = (lora_masks[i] if lora_masks is not None
-                        else lora_dropout_masks(layer, x.shape, rate, generator, x.device))
+                        else lora_dropout_masks(layer, x.shape, rate, generator, x.device, rows))
             x = run_block(layer, remat, x, position_ids, attention_mask,
                           None if cache is None else cache[i], cache_index, keep, rate)
         return self.norm(x), cache

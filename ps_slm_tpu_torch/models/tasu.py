@@ -160,6 +160,30 @@ class TasuModel(nn.Module):
             torch.as_tensor(v, dtype=torch.float32).to(dev) for v in value)
 
     @property
+    def mesh(self):
+        """The process's place on the mesh (``parallel.mesh.Parallel``, set
+        by ``shard_params``) or None: one process."""
+        return self.llm.mesh
+
+    @mesh.setter
+    def mesh(self, value) -> None:
+        self.llm.mesh = value
+
+    @property
+    def pp_microbatches(self) -> int:
+        return self.llm.pp_microbatches
+
+    @pp_microbatches.setter
+    def pp_microbatches(self, value: int) -> None:
+        self.llm.pp_microbatches = int(value)
+
+    def forward(self, batch: Dict[str, torch.Tensor], **kw):
+        """The training forward (module-level :func:`forward`) as the
+        model's call, so that FSDP2 gathers the leaves it keeps at the
+        model's level (the embedding table, the CTC head) around it."""
+        return forward(self, batch, **kw)
+
+    @property
     def remat(self) -> bool:
         return self.llm.remat
 
@@ -249,9 +273,11 @@ def compute_audio_embeds(
     (``gt_emb_noise``, off when ``generate_mode``) acts whatever ``train``
     is.  Either takes ``draws`` (a ``NoiseDraws`` for the text-only noise, a
     ``FrontendDraws`` for the front end) when given, else draws from
-    ``generator``.
+    ``generator``.  Under a mesh (``model.mesh``) the generator's draws are
+    made at the global batch's shape and cut to this process's rows.
     """
     f = model.flags
+    block = None if model.mesh is None else model.mesh.row_block
     want = NoiseDraws if not f.needs_encoder else FrontendDraws
     if draws is not None and not isinstance(draws, want):
         raise TypeError(f"this branch takes {want.__name__}, not {type(draws).__name__}")
@@ -262,7 +288,7 @@ def compute_audio_embeds(
             feats, flens = frontend(
                 batch["waveform"], batch["waveform_length"], cfg=model.fbank_cfg,
                 cmvn=model.cmvn, train=train and not generate_mode, generator=generator,
-                draws=draws,
+                draws=draws, block=block,
             )
             feats = feats.to(model.llm.embed_tokens.weight.dtype)
         encoder_out, posterior, lens = encode_speech(model.encoder, feats, flens)
@@ -278,7 +304,7 @@ def compute_audio_embeds(
                             "text-only noise (gt_emb_noise) needs a generator or draws")
                     draws = noise_draws(
                         ids.shape[0], ids.shape[1], generator, insert_prob=f.insert_prob,
-                        smooth_low=f.smooth_low, smooth_high=f.smooth_high,
+                        smooth_low=f.smooth_low, smooth_high=f.smooth_high, block=block,
                     )
                 post, lens = pseudo_posterior_noise(
                     ids, lens, draws, vocab_size=vocab, drop_prob=f.drop_prob,
@@ -348,6 +374,10 @@ def forward(
     PEFT) acts when ``train``: each layer's masks from ``lora_masks`` or,
     after the branch's draws, from ``generator``
     (:meth:`~ps_slm_tpu_torch.models.qwen2.Qwen2Model.forward`).
+
+    Under a mesh the batch is this process's block of the global batch:
+    the token count is summed over the batch axes, so the loss and the
+    accuracy are this block's shares of the global means.
     """
     if "labels" not in batch:
         raise ValueError("the training forward needs batch['labels']")
@@ -365,15 +395,16 @@ def forward(
     w = llm.embed_tokens.weight if llm.lm_head is None else llm.lm_head.weight
     b, t = labels.shape
     text_len = batch["input_ids"].shape[1]
+    reduce = None if model.mesh is None else model.mesh.batch_sum
     if text_len <= (t - 1) // 2:
         max_valid = min(-(-text_len // 8) * 8, t - 1)
         loss, acc, ntok = gathered_ce_loss(
-            hidden, w, labels, max_valid=max_valid, ignore_id=IGNORE_ID
+            hidden, w, labels, max_valid=max_valid, ignore_id=IGNORE_ID, reduce=reduce
         )
     elif b * t * w.shape[0] * 4 > CHUNKED_CE_BYTES:
-        loss, acc, ntok = chunked_ce_loss(hidden, w, labels, ignore_id=IGNORE_ID)
+        loss, acc, ntok = chunked_ce_loss(hidden, w, labels, ignore_id=IGNORE_ID, reduce=reduce)
     else:
-        loss, acc, ntok = full_ce_loss(hidden, w, labels, ignore_id=IGNORE_ID)
+        loss, acc, ntok = full_ce_loss(hidden, w, labels, ignore_id=IGNORE_ID, reduce=reduce)
     return loss, {"acc": acc, "ntokens": ntok}
 
 

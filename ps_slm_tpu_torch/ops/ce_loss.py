@@ -6,7 +6,10 @@ layout: the tied embedding table or ``lm_head.weight``) and the pre-shift
 labels [B, T] (``ignore_id`` = no label); hidden[:, t] predicts
 labels[:, t + 1].  Logits are fp32 after a matmul in the weight's dtype.
 Both return ``(loss, acc, ntokens)``: the mean NLL and the argmax accuracy
-over the valid positions, and their count.
+over the valid positions, and their count.  With ``reduce`` (a function
+that sums a count over the processes that split the batch), the count is
+the global batch's and the sums are divided by it: each process's loss is
+then its share of the global mean, and the shares sum to it.
 
 * :func:`gathered_ce_loss`: in a merged audio+text batch only the text
   targets carry labels, so each row's valid positions are moved to the
@@ -41,17 +44,20 @@ def _ce_sums(
 
 
 def _mean(
-    nll: torch.Tensor, correct: torch.Tensor, valid: torch.Tensor
+    nll: torch.Tensor, correct: torch.Tensor, valid: torch.Tensor, reduce=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(mean NLL, accuracy, count) from the sums over the valid positions."""
+    """(mean NLL, accuracy, count) from the sums over the valid positions;
+    the count summed by ``reduce`` when given."""
     ntok = valid.sum()
+    if reduce is not None:
+        ntok = reduce(ntok)
     denom = ntok.clamp(min=1)
     return nll / denom, correct / denom, ntok
 
 
 def gathered_ce_loss(
     hidden: torch.Tensor, weight: torch.Tensor, labels: torch.Tensor,
-    *, max_valid: int, ignore_id: int = -100,
+    *, max_valid: int, ignore_id: int = -100, reduce=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """CE over at most ``max_valid`` valid positions per row (after the
     shift); positions beyond that bound are dropped silently, so callers
@@ -65,12 +71,12 @@ def gathered_ce_loss(
     xs = x.gather(1, order[..., None].expand(b, m, h))
     ys = y.gather(1, order)
     vs = valid.gather(1, order)
-    return _mean(*_ce_sums(xs, weight, ys, vs), vs)
+    return _mean(*_ce_sums(xs, weight, ys, vs), vs, reduce)
 
 
 def chunked_ce_loss(
     hidden: torch.Tensor, weight: torch.Tensor, labels: torch.Tensor,
-    *, ignore_id: int = -100, chunk: int = 128,
+    *, ignore_id: int = -100, chunk: int = 128, reduce=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """CE over every position, ``chunk`` positions' logits at a time."""
     x = hidden[:, :-1]
@@ -85,14 +91,14 @@ def chunked_ce_loss(
         )
         nll = nll + s
         correct = correct + c
-    return _mean(nll, correct, valid)
+    return _mean(nll, correct, valid, reduce)
 
 
 def full_ce_loss(
     hidden: torch.Tensor, weight: torch.Tensor, labels: torch.Tensor,
-    *, ignore_id: int = -100,
+    *, ignore_id: int = -100, reduce=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """CE over every position, all logits at once."""
     y = labels[:, 1:].long()
     valid = y != ignore_id
-    return _mean(*_ce_sums(hidden[:, :-1], weight, y, valid), valid)
+    return _mean(*_ce_sums(hidden[:, :-1], weight, y, valid), valid, reduce)

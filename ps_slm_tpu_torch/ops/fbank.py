@@ -53,6 +53,8 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from ps_slm_tpu_torch.ops import RowBlock, draw_rows
+
 EPS = 1.1920928955078125e-07  # torch float32 eps, the Kaldi log-energy floor
 
 
@@ -240,14 +242,17 @@ def lfr_lengths(lens: torch.Tensor, n: int) -> torch.Tensor:
     return torch.div(lens.long() + n - 1, n, rounding_mode="floor").to(torch.int32)
 
 
-def _randint(shape, high: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
-    """Integers uniform in [0, high) (``high`` >= 1, broadcast to ``shape``)."""
-    u = torch.rand(shape, generator=generator, device=generator.device, dtype=torch.float64)
+def _randint(shape, high: torch.Tensor, generator: torch.Generator,
+             block: Optional[RowBlock] = None) -> torch.Tensor:
+    """Integers uniform in [0, high) (``high`` >= 1, broadcast to ``shape``);
+    the uniforms of ``block``'s rows of the global batch (``draw_rows``)."""
+    u = draw_rows(lambda s: torch.rand(s, generator=generator, device=generator.device,
+                                       dtype=torch.float64), shape, block)
     return torch.minimum((u * high).floor().long(), high - 1)
 
 
-def mask_draws(lfr_lens: torch.Tensor, feat_dim: int, generator: torch.Generator, cfg
-               ) -> Tuple[torch.Tensor, ...]:
+def mask_draws(lfr_lens: torch.Tensor, feat_dim: int, generator: torch.Generator, cfg,
+               block: Optional[RowBlock] = None) -> Tuple[torch.Tensor, ...]:
     """SpecAugment's (t_starts, t_widths, f_starts, f_widths) for rows of
     ``lfr_lens`` valid LFR frames: starts uniform inside each row's valid
     frames (at least [0, 1)) and over the ``feat_dim`` bins, widths uniform
@@ -255,31 +260,34 @@ def mask_draws(lfr_lens: torch.Tensor, feat_dim: int, generator: torch.Generator
     dev = generator.device
     b = lfr_lens.shape[0]
     t_lim = lfr_lens.to(dev).long().clamp(min=1)[:, None]
-    t_starts = _randint((b, cfg.specaug_t_masks), t_lim, generator)
+    t_starts = _randint((b, cfg.specaug_t_masks), t_lim, generator, block)
     t_widths = _randint((b, cfg.specaug_t_masks), torch.tensor(cfg.specaug_t_width + 1, device=dev),
-                        generator)
-    f_starts = _randint((b, cfg.specaug_f_masks), torch.tensor(feat_dim, device=dev), generator)
+                        generator, block)
+    f_starts = _randint((b, cfg.specaug_f_masks), torch.tensor(feat_dim, device=dev), generator,
+                        block)
     f_widths = _randint((b, cfg.specaug_f_masks), torch.tensor(cfg.specaug_f_width + 1, device=dev),
-                        generator)
+                        generator, block)
     return t_starts, t_widths, f_starts, f_widths
 
 
 def frontend_draws(waveform: torch.Tensor, lengths: torch.Tensor, generator: torch.Generator,
-                   cfg) -> FrontendDraws:
+                   cfg, block: Optional[RowBlock] = None) -> FrontendDraws:
     """Every draw of one ``frontend(train=True)`` call under ``cfg``, from
     ``generator`` (on the waveform's device): the dither noise when
-    ``cfg.dither`` > 0, the masks when ``cfg.specaug``."""
+    ``cfg.dither`` > 0, the masks when ``cfg.specaug``; with ``block``,
+    ``block``'s rows of the draws for the global batch."""
     b, n = waveform.shape
     frame_len = cfg.sample_rate * cfg.frame_length // 1000
     t, flens = framing(n, lengths.to(generator.device), frame_len,
                        cfg.sample_rate * cfg.frame_shift // 1000)
     dither = None
     if cfg.dither > 0.0:
-        dither = torch.randn((b, t, frame_len), generator=generator, device=generator.device)
+        dither = draw_rows(lambda s: torch.randn(s, generator=generator, device=generator.device),
+                           (b, t, frame_len), block)
     if not cfg.specaug:
         return FrontendDraws(dither)
     return FrontendDraws(dither, *mask_draws(lfr_lengths(flens, cfg.lfr_n),
-                                             cfg.num_mel_bins * cfg.lfr_m, generator, cfg))
+                                             cfg.num_mel_bins * cfg.lfr_m, generator, cfg, block))
 
 
 def spec_augment(feats: torch.Tensor, lens: torch.Tensor, draws: FrontendDraws) -> torch.Tensor:
@@ -310,6 +318,7 @@ def frontend(
     train: bool = False,
     generator: Optional[torch.Generator] = None,
     draws: Optional[FrontendDraws] = None,
+    block: Optional[RowBlock] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """funasr WavFrontend's pipeline: fbank -> LFR -> CMVN, on the
     waveform's device, fp32 out.  int16 waveforms (the wire format) are rescaled to
@@ -318,7 +327,8 @@ def frontend(
 
     ``train`` adds dither (``cfg.dither`` > 0) and SpecAugment
     (``cfg.specaug``), from ``draws`` when given, else drawn from
-    ``generator``; without ``train`` neither acts."""
+    ``generator`` (``block``'s rows of the global batch's draws, when
+    given); without ``train`` neither acts."""
     from ps_slm_tpu_torch.config import FbankConfig
 
     cfg = cfg or FbankConfig()
@@ -327,7 +337,7 @@ def frontend(
         if generator is None:
             raise ValueError("the training front end (dither, SpecAugment) needs a generator "
                              "or draws")
-        draws = frontend_draws(waveform, lengths, generator, cfg)
+        draws = frontend_draws(waveform, lengths, generator, cfg, block)
     if augment and ((cfg.dither > 0.0 and draws.dither is None)
                     or (cfg.specaug and draws.t_starts is None)):
         raise ValueError("the draws lack the dither noise or the masks that cfg asks for")
@@ -351,3 +361,75 @@ def frontend(
     if augment and cfg.specaug:
         feats = spec_augment(feats, flens, draws)
     return feats, flens
+
+
+# ----------------------------------------------------------------------------
+# Whisper-style log-mel (the collator's encoder == "whisper" path)
+# ----------------------------------------------------------------------------
+
+def _mel_slaney(num_mels: int, n_fft: int, sr: int) -> np.ndarray:
+    """librosa-convention mel filters (slaney scale + slaney norm) used by
+    whisper's precomputed mel_filters; [n_fft // 2 + 1, num_mels] fp32."""
+    fmax = sr / 2
+
+    def hz_to_mel(f):
+        f = np.asarray(f, np.float64)
+        mel = f / (200.0 / 3)
+        log_region = f >= 1000.0
+        return np.where(
+            log_region,
+            15.0 + np.log(np.maximum(f, 1e-10) / 1000.0) / (np.log(6.4) / 27.0),
+            mel,
+        )
+
+    def mel_to_hz(m):
+        m = np.asarray(m, np.float64)
+        f = m * (200.0 / 3)
+        log_region = m >= 15.0
+        return np.where(log_region, 1000.0 * np.exp((np.log(6.4) / 27.0) * (m - 15.0)), f)
+
+    mels = np.linspace(hz_to_mel(0.0), hz_to_mel(fmax), num_mels + 2)
+    hz = mel_to_hz(mels)
+    bins = np.fft.rfftfreq(n_fft, 1.0 / sr)
+    weights = np.zeros((num_mels, len(bins)), np.float32)
+    for i in range(num_mels):
+        lower = (bins - hz[i]) / (hz[i + 1] - hz[i])
+        upper = (hz[i + 2] - bins) / (hz[i + 2] - hz[i + 1])
+        weights[i] = np.maximum(0.0, np.minimum(lower, upper))
+    enorm = 2.0 / (hz[2: num_mels + 2] - hz[:num_mels])   # slaney normalization
+    weights *= enorm[:, None]
+    return weights.T.astype(np.float32)
+
+
+def pad_or_trim(waveform: torch.Tensor, length: int = 480000) -> torch.Tensor:
+    """whisper.pad_or_trim: fix the last axis to ``length`` samples (30 s)."""
+    n = waveform.shape[-1]
+    if n >= length:
+        return waveform[..., :length]
+    return torch.nn.functional.pad(waveform, (0, length - n))
+
+
+def whisper_log_mel(waveform: torch.Tensor, *, n_mels: int = 128, n_fft: int = 400,
+                    hop: int = 160) -> torch.Tensor:
+    """whisper.log_mel_spectrogram of ``waveform`` [B, N] (use
+    :func:`pad_or_trim` first) on its device: centered (reflect-padded)
+    periodic-hann STFT -> slaney mel -> log10 -> dynamic-range clamp
+    (max - 8) -> (x + 4) / 4.  Returns [B, n_mels, T] fp32, the last STFT
+    frame dropped as whisper drops it.  Computed in float64 when the
+    waveform is float64 (the collator's host path, as the fbank front end),
+    else in fp32."""
+    dtype = torch.float64 if waveform.dtype == torch.float64 else torch.float32
+    x = waveform.to(dtype)
+    half = n_fft // 2
+    x = torch.nn.functional.pad(x[:, None], (half, half), mode="reflect")[:, 0]
+    frames = x.unfold(1, n_fft, hop)                            # [B, T, n_fft]
+    window = torch.from_numpy(
+        (0.5 - 0.5 * np.cos(2 * np.pi * np.arange(n_fft) / n_fft)).astype(np.float32)
+    ).to(device=x.device, dtype=dtype)
+    spec = torch.fft.rfft(frames * window, dim=-1)
+    power = (spec.real.square() + spec.imag.square())[:, :-1, :]
+    mel = torch.from_numpy(_mel_slaney(n_mels, n_fft, 16000)).to(device=x.device, dtype=dtype)
+    logspec = torch.log10(torch.clamp(power @ mel, min=1e-10))
+    peak = logspec.amax(dim=(1, 2), keepdim=True)
+    logspec = torch.maximum(logspec, peak - 8.0)
+    return ((logspec + 4.0) / 4.0).transpose(1, 2).float()

@@ -27,7 +27,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from ps_slm_tpu_torch.ops import fp32_reciprocal
+from ps_slm_tpu_torch.ops import RowBlock, draw_rows, fp32_reciprocal
 
 
 class NoiseDraws(NamedTuple):
@@ -61,14 +61,16 @@ def insert_budget(length: int, insert_prob: float) -> int:
 
 def noise_draws(
     b: int, length: int, generator: torch.Generator, *, insert_prob: float = 0.0,
-    smooth_low: float = 0.0, smooth_high: float = 0.1,
+    smooth_low: float = 0.0, smooth_high: float = 0.1, block: Optional[RowBlock] = None,
 ) -> NoiseDraws:
     """Every draw of one :func:`pseudo_posterior_noise` call, on the
-    generator's device."""
+    generator's device; with ``block``, its rows of the draws for the
+    global batch."""
     dev = generator.device
 
     def uniform(shape, lo=0.0, hi=1.0):
-        return torch.rand(shape, generator=generator, device=dev) * (hi - lo) + lo
+        u = draw_rows(lambda s: torch.rand(s, generator=generator, device=dev), shape, block)
+        return u * (hi - lo) + lo
 
     alpha = uniform((b, 1, 1), smooth_low, smooth_high)
     u_drop = uniform((b, length))

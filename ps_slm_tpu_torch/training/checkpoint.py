@@ -523,26 +523,151 @@ def import_peft_adapters(model, path_or_tensors: Union[str, StateDict]) -> List[
 TRAIN_STATE_FILE = "train_state.pt"
 
 
+def _state_file(state) -> str:
+    """``train_state.pt``, or under a mesh this process's
+    ``train_state.rank<r>.pt``."""
+    if state.model.mesh is None:
+        return TRAIN_STATE_FILE
+    import torch.distributed as dist
+
+    return f"train_state.rank{dist.get_rank()}.pt"
+
+
+# a tensor another process's file holds: this marker and that rank
+HELD_BY = "held by rank "
+
+
+def _param_names(state) -> List[str]:
+    """The names of ``state``'s optimizer parameters, in its index order."""
+    ids = {id(p): n for n, p in state.model.named_parameters()}
+    return [ids[id(p)] for p in state.accum.params]
+
+
+def _write_once(blob: Dict, state) -> Dict:
+    """``blob`` with every tensor this process does not write (another
+    holds the same shard or replicated tensor: ``Parallel.owner``)
+    replaced by :data:`HELD_BY` and the rank that writes it, and every
+    DTensor by a copy of its local shard.  The optimizer's state and the
+    accumulated gradients are keyed by parameter name (a pipeline stage
+    indexes only its own parameters).  Scalars and the generator's state
+    stay in every file."""
+    import torch.distributed as dist
+
+    mesh, rank = state.model.mesh, dist.get_rank()
+    names = _param_names(state)
+
+    def keep(name, t):
+        if not torch.is_tensor(t) or t.dim() == 0:
+            return t
+        owner = mesh.owner(name, t)
+        if owner != rank:
+            return f"{HELD_BY}{owner}"
+        return t.to_local().clone() if hasattr(t, "to_local") else t
+
+    accum = dict(blob["train"]["accum"])
+    opt = accum["optimizer"]
+    accum["optimizer"] = {
+        "state": {names[i]: {k: keep(names[i], v) for k, v in st.items()}
+                  for i, st in opt["state"].items()},
+        "param_groups": [dict(g, params=[names[i] for i in g["params"]])
+                         for g in opt["param_groups"]]}
+    if accum["acc"] is not None:
+        accum["acc"] = {names[i]: keep(names[i], a) for i, a in enumerate(accum["acc"])}
+    return {"model": {n: keep(n, t) for n, t in blob["model"].items()},
+            "train": dict(blob["train"], accum=accum), "mesh": dict(mesh.shape)}
+
+
+def _by_index(train: Dict, names: List[str]) -> Dict:
+    """:func:`_write_once`'s name-keyed optimizer state and accumulation
+    back in this process's index order."""
+    index = {n: i for i, n in enumerate(names)}
+    accum = dict(train["accum"])
+    opt = accum["optimizer"]
+    accum["optimizer"] = {
+        "state": {index[n]: st for n, st in opt["state"].items()},
+        "param_groups": [dict(g, params=[index[n] for n in g["params"]])
+                         for g in opt["param_groups"]]}
+    if accum["acc"] is not None:
+        accum["acc"] = [accum["acc"][n] for n in names]
+    return dict(train, accum=accum)
+
+
 def save_train_state(path: str, state) -> int:
     """Write the train state of ``state`` (a ``training.step.TrainStep``)
     into the directory ``path`` (``train_state.pt``: the model's state dict
     and ``state.state_dict()``), through a temporary file renamed into
-    place.  Returns the bytes written."""
+    place.  Returns the bytes written.
+
+    Under a mesh (``state.model.mesh``) each process writes its own file,
+    ``train_state.rank<r>.pt``, and each tensor is written once, as Orbax
+    writes each array once: a shard (FSDP2's, TP's local tensors, a
+    pipeline stage's layers) by the process at coordinate 0 on the axes
+    that replicate it, a replicated tensor by rank 0, AdamW's moments with
+    their parameter; the file names the rank that holds each tensor it
+    leaves out (:func:`_write_once`).  No collective runs.  Chosen over
+    ``torch.distributed.checkpoint`` (whose planning runs collectives) and
+    over a whole state gathered on rank 0 (every shard through one
+    process): the price is that a restore needs the mesh it was written
+    on, which it checks, and reads the other ranks' files, so every host
+    must see the directory."""
     os.makedirs(path, exist_ok=True)
-    out = os.path.join(path, TRAIN_STATE_FILE)
+    out = os.path.join(path, _state_file(state))
     tmp = f"{out}.{os.getpid()}.tmp"
-    torch.save({"model": state.model.state_dict(), "train": state.state_dict()}, tmp)
+    blob = {"model": state.model.state_dict(), "train": state.state_dict()}
+    if state.model.mesh is not None:
+        blob = _write_once(blob, state)
+    torch.save(blob, tmp)
     os.replace(tmp, out)
     return os.path.getsize(out)
 
 
 def restore_train_state(path: str, state):
     """Load a :func:`save_train_state` directory into ``state`` (a
-    ``TrainStep`` over a model of the same shapes) and its model, in
-    place; each tensor is copied into its parameter's dtype and device.
-    Returns ``state``."""
-    blob = torch.load(os.path.join(path, TRAIN_STATE_FILE), map_location="cpu",
-                      weights_only=True, mmap=True)
-    state.model.load_state_dict(blob["model"])
-    state.load_state_dict(blob["train"])
+    ``TrainStep`` over a model of the same shapes, on the same mesh when
+    it was written under one) and its model, in place; each tensor is
+    copied into its parameter's dtype and device, a tensor another rank
+    wrote read from that rank's file.  Returns ``state``."""
+    files: Dict[str, Dict] = {}
+
+    def load(name):
+        if name not in files:
+            files[name] = torch.load(os.path.join(path, name), map_location="cpu",
+                                     weights_only=True, mmap=True)
+        return files[name]
+
+    blob = load(_state_file(state))
+    mesh = state.model.mesh
+    if mesh is None:
+        state.model.load_state_dict(blob["model"])
+        state.load_state_dict(blob["train"])
+        return state
+    if blob.get("mesh") != mesh.shape:
+        raise ValueError(f"{path} was written on the mesh {blob.get('mesh')}; this run's "
+                         f"is {mesh.shape}")
+
+    def fetch(value, keys):
+        if isinstance(value, str) and value.startswith(HELD_BY):
+            value = load(f"train_state.rank{int(value[len(HELD_BY):])}.pt")
+            for k in keys:
+                value = value[k]
+        return value
+
+    def fill(obj, keys):
+        if isinstance(obj, dict):
+            return {k: fill(v, keys + (k,)) for k, v in obj.items()}
+        if isinstance(obj, (list, tuple)):
+            return type(obj)(fill(v, keys + (i,)) for i, v in enumerate(obj))
+        return fetch(obj, keys)
+
+    own = state.model.state_dict()
+    if set(own) != set(blob["model"]):
+        raise KeyError(f"{path}: the state's keys differ from the model's: "
+                       f"{sorted(set(own) ^ set(blob['model']))[:8]}")
+    with torch.no_grad():
+        for name, target in own.items():
+            if name in mesh.freed:
+                continue                  # another pipeline stage's layer
+            local = target.to_local() if hasattr(target, "to_local") else target
+            local.copy_(fetch(blob["model"][name], ("model", name)))
+    state.load_state_dict(_by_index(fill(blob["train"], ("train",)), _param_names(state)))
     return state

@@ -1,7 +1,8 @@
 """Epoch training and evaluation loops.
 
-Counterpart of ``ps_slm_tpu/training/loop.py`` on one device, with the
-same behaviours:
+Counterpart of ``ps_slm_tpu/training/loop.py``, with the same behaviours
+on one device or as one process of a mesh (the step's metrics are then
+the global batch's on every process):
 
   * gradient accumulation inside the step (``TrainStep``, optax.MultiSteps
     semantics);

@@ -1,10 +1,16 @@
-"""The training and eval steps of the TASU model on one device.
+"""The training and eval steps of the TASU model.
 
 Counterpart of ``ps_slm_tpu/training/step.py``: forward (the model's
 dtype) -> backward into the trainable parameters -> AdamW with the
 warmup-cosine learning rate.  The JAX step is one jitted program with mesh
-shardings; here it runs eagerly on one device, and the mesh shardings wait
-for ROADMAP.md queue 1 ('Parallelism').
+shardings; here it runs eagerly, on one device or, once
+``parallel.mesh.shard_params`` has set ``model.mesh``, as this process's
+part of a mesh: the batch is its block of the global batch, the loss its
+share of the global mean (``models/tasu.py::forward``), the gradients are
+summed over the mesh (``Parallel.sync_grads``) before AdamW steps on the
+local shards, and the metrics come back as the global batch's on every
+process.  Draws given to a call (``draws``, ``lora_masks``) are the global
+batch's, cut to the process's rows.
 
 On CUDA tensors every norm and attention of the path runs through the
 port's kernels, forward and backward (``ops/norms.py``,
@@ -44,6 +50,15 @@ from ps_slm_tpu_torch.training.train_state import MultiSteps, build_optimizer, w
 Metrics = Dict[str, torch.Tensor]
 
 
+def _metrics(model: tasu.TasuModel, loss: torch.Tensor, aux) -> Metrics:
+    """The step's metrics; under a mesh each process's shares of the loss
+    and the accuracy summed into the global batch's."""
+    acc = aux["acc"]
+    if model.mesh is not None:
+        loss, acc = model.mesh.batch_sum(loss), model.mesh.batch_sum(acc)
+    return {"loss": loss, "acc": acc, "ntokens": aux["ntokens"]}
+
+
 def _on_device(model: tasu.TasuModel, device) -> torch.device:
     dev = resolve_device(device)
     model_dev = next(model.parameters()).device
@@ -67,6 +82,8 @@ class TrainStep:
         self.model = model
         self.device = device
         self.trainable = tasu.trainable_mask(model, train_config)
+        if model.mesh is not None:
+            self.trainable = model.mesh.held(model, self.trainable)
         params = dict(model.named_parameters())
         self.optimizer = build_optimizer(
             (params[n] for n in self.trainable), train_config
@@ -85,13 +102,17 @@ class TrainStep:
         lora_masks: Optional[List[Dict[str, torch.Tensor]]] = None,
     ) -> Metrics:
         batch = {k: v.to(self.device) for k, v in batch.items()}
+        mesh = self.model.mesh
+        if mesh is not None:
+            draws, lora_masks = mesh.local_rows(draws), mesh.local_rows(lora_masks)
         self.optimizer.zero_grad(set_to_none=True)
-        loss, aux = tasu.forward(
-            self.model, batch, train=True, generator=self.generator, draws=draws,
-            lora_masks=lora_masks,
+        loss, aux = self.model(
+            batch, train=True, generator=self.generator, draws=draws, lora_masks=lora_masks,
         )
         if loss.requires_grad:
             loss.backward()
+        if mesh is not None:
+            mesh.sync_grads(self.model)
         for p in self.accum.params:
             if p.grad is None:
                 # a trainable parameter the loss does not reach (voca_trans'
@@ -100,7 +121,7 @@ class TrainStep:
                 p.grad = torch.zeros_like(p)
         self.accum.step()
         self.step += 1
-        return {"loss": loss.detach(), "acc": aux["acc"], "ntokens": aux["ntokens"]}
+        return _metrics(self.model, loss.detach(), aux)
 
     def state_dict(self) -> Dict:
         """What an exact resume needs besides the parameters: the
@@ -113,6 +134,18 @@ class TrainStep:
         self.step = state["step"]
         self.accum.load_state_dict(state["accum"])
         self.generator.set_state(state["generator"])
+        mesh = self.model.mesh
+        if mesh is not None:
+            # AdamW's moments and the accumulation back in their
+            # parameters' layouts (the saved state holds local shards)
+            for p in self.accum.params:
+                st = self.optimizer.state.get(p, {})
+                for k, v in st.items():
+                    if torch.is_tensor(v) and v.dim() > 0:
+                        st[k] = mesh.to_param_layout(v, p)
+            if self.accum.acc is not None:
+                self.accum.acc = [mesh.to_param_layout(a, p)
+                                  for a, p in zip(self.accum.acc, self.accum.params)]
 
 
 def make_train_step(model: tasu.TasuModel, train_config, *, device="cuda") -> TrainStep:
@@ -132,7 +165,7 @@ def make_eval_step(model: tasu.TasuModel, *, device="cuda"):
     def eval_step(batch: Dict[str, torch.Tensor]) -> Metrics:
         batch = {k: v.to(dev) for k, v in batch.items()}
         generator = torch.Generator(device=dev).manual_seed(0)
-        loss, aux = tasu.forward(model, batch, train=False, generator=generator)
-        return {"loss": loss, "acc": aux["acc"], "ntokens": aux["ntokens"]}
+        loss, aux = model(batch, train=False, generator=generator)
+        return _metrics(model, loss, aux)
 
     return eval_step

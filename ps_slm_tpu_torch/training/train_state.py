@@ -60,6 +60,14 @@ def build_optimizer(params: Iterable[torch.nn.Parameter], train_config) -> torch
     params = list(params)
     if not params:
         raise ValueError("no trainable parameters: every module is frozen")
+    # under a mesh, sharded (DTensor) and whole parameters in groups of
+    # their own: AdamW's foreach update takes one kind a list
+    from torch.distributed.tensor import DTensor
+
+    kinds = ([p for p in params if isinstance(p, DTensor)],
+             [p for p in params if not isinstance(p, DTensor)])
+    if all(kinds):
+        params = [{"params": kind} for kind in kinds]
     return torch.optim.AdamW(
         params, lr=0.0,
         betas=(train_config.adam_beta1, train_config.adam_beta2),

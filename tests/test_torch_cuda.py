@@ -679,7 +679,7 @@ def test_decode_cli_on_card_matches_cpu(dev, tmp_path):
         llm_dim=256, encoder_dim=600, llm_config_overrides=llm, encoder_config_overrides=enc),
         device="cpu")
     assets = chip_smoke.write_assets(
-        torch, str(tmp_path), model, llm_dtype=torch.float32,
+        str(tmp_path), model, llm_dtype=torch.float32,
         specials={"<|endoftext|>": 900, "<|im_start|>": 901, "<|im_end|>": 902},
         utts={"ark": 3, "wav": 1, "flac": 1}, seconds=(0.5, 1.5))
     files = {}
@@ -716,7 +716,7 @@ def _waveform_batch(n=3, samples=16000, seed=0):
     ids[:, 3] = 998
     labels = ids.clone()
     labels[:, :4] = -100
-    lens = torch.tensor([samples, samples - 3000, samples // 3][:n])
+    lens = torch.tensor([samples, samples - 3000, samples // 3, samples - 7000][:n])
     w = (torch.randn(n, samples, generator=g_) * 3000).round().clamp(-32768, 32767)
     w = torch.where(torch.arange(samples)[None] < lens[:, None], w, 0).to(torch.int16)
     return {"input_ids": ids, "attention_mask": torch.ones(n, 12, dtype=torch.bool),
@@ -918,3 +918,132 @@ def test_projectors_on_card_match_cpu(dev, name):
     torch.testing.assert_close(outs[1][0], outs[0][0], atol=1e-4, rtol=1e-4)
     for n, grad in outs[0][1].items():
         torch.testing.assert_close(outs[1][1][n], grad, atol=1e-4, rtol=1e-4)
+
+
+def _parallel_steps(dev, mesh_shape=None):
+    """Two dithered training steps of the small audio model, its projector
+    and its LLM trained (the encoder frozen), on a 4-row batch, on
+    ``mesh_shape`` (this process's block of the rows) or in one process;
+    the losses, the trained parameters and AdamW's first moments after the
+    second step, gathered."""
+    from ps_slm_tpu_torch.config import FbankConfig
+    from ps_slm_tpu_torch.models import tasu
+    from ps_slm_tpu_torch.parallel import mesh as meshlib
+    from ps_slm_tpu_torch.training.step import make_train_step
+
+    tc, model = _small_audio_model(dev, lr=PARALLEL_LR, warmup_steps=1, freeze_llm=False)
+    model.fbank_cfg = FbankConfig(dither=1.0)
+    batch = _waveform_batch(n=4)
+    if mesh_shape:
+        tasu.trainable_mask(model, tc)
+        meshlib.shard_params(model, meshlib.build_mesh(mesh_shape, "cuda"), mesh_shape, 1)
+        block = model.mesh.row_block
+        n = 4 // block.count
+        batch = {k: v[block.index * n:(block.index + 1) * n] for k, v in batch.items()}
+    step = make_train_step(model, tc, device=dev)
+    losses = [float(step(batch)["loss"]) for _ in range(2)]
+    params = dict(model.named_parameters())
+    moments = {}
+    for n in step.trainable:
+        m = step.optimizer.state[params[n]]["exp_avg"]
+        moments[n] = (meshlib.full_tensor(m) if hasattr(m, "to_local") else m).detach().cpu()
+    with meshlib.gathered(model) if mesh_shape else _nullcontext():
+        trained = {n: p.detach().cpu().clone() for n, p in model.named_parameters()
+                   if n in step.trainable}
+    return losses, trained, moments
+
+
+class _nullcontext:
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc):
+        return False
+
+
+PARALLEL_LR = 1e-3
+PARALLEL_MOMENT_TOL = 1e-5   # of each trained tensor's largest first moment
+GRAD_FLOOR = 1e-3            # of a tensor's largest moment: below it, AdamW's direction is rounding
+
+
+def test_two_processes_on_one_card_equal_one(dev, tmp_path):
+    """Two processes share cuda:0 over gloo on a ``{"data": 2}`` mesh and
+    train the projector and the LLM: both report the same global losses
+    bit for bit, and against one process on the card the losses are
+    within 1e-5 and AdamW's first moments after the second step (the
+    first at the warm-up's lr 0, so both gradients are taken at the
+    initial weights) within 1e-5 of each tensor's largest, which a
+    gradient scaled by a constant fails.  The trained weights are
+    within 1e-5 wherever the one-process moment is at least GRAD_FLOOR of
+    its tensor's largest; below it AdamW's m / (sqrt(v) + eps) takes its
+    direction from rounding (the ranks' GEMMs sum in another order), so
+    those elements are held to the one update's reach, 2.1 lr.  The dither
+    is drawn at the global batch's shape from the same generator."""
+    import json
+    import os
+    import sys
+
+    from ps_slm_tpu_torch.parallel.launch import launch
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    done = launch([sys.executable, os.path.abspath(__file__), str(tmp_path)], 2,
+                  env={"PS_DIST_BACKEND": "gloo", "PYTHONPATH": root}, timeout=300, cwd=root)
+    for f in done:
+        assert f.returncode == 0, f"rank {f.rank}\n{f.stdout[-2000:]}\n{f.stderr[-4000:]}"
+    ranks = [torch.load(tmp_path / f"rank{r}.pt", weights_only=True) for r in range(2)]
+    want_losses, want, want_mom = _parallel_steps(dev)
+    assert ranks[0]["losses"] == ranks[1]["losses"], json.dumps([r["losses"] for r in ranks])
+    torch.testing.assert_close(torch.tensor(ranks[0]["losses"]), torch.tensor(want_losses),
+                               atol=1e-5, rtol=1e-5)
+    assert any(n.startswith("projector.") for n in want) and any(
+        n.startswith("llm.layers.") for n in want)
+    got, got_mom = ranks[0]["params"], ranks[0]["moments"]
+    assert sorted(got_mom) == sorted(want_mom)
+    mom_err = {n: float((got_mom[n] - m).abs().max()) / float(m.abs().max())
+               for n, m in want_mom.items()}
+    kept_err, floored_err = {}, {}
+    for n, w in want.items():
+        d = (got[n] - w).abs()
+        m = want_mom[n].abs()
+        big = m >= GRAD_FLOOR * m.max()
+        kept_err[n] = float(d[big].max())
+        floored_err[n] = float(d[~big].max()) if not bool(big.all()) else 0.0
+    worst = {what: sorted(errs.items(), key=lambda x: -x[1])[:4] for what, errs in (
+        ("moments", mom_err), ("kept", kept_err), ("floored", floored_err))}
+    assert max(mom_err.values()) <= PARALLEL_MOMENT_TOL, worst
+    assert max(kept_err.values()) <= 1e-5, worst
+    # the rest: two updates of opposite sign, each at most lr (and AdamW's
+    # bias-corrected m / sqrt(v) after two steps at most 1.0015)
+    assert max(floored_err.values()) <= 2.1 * PARALLEL_LR, worst
+
+
+def test_whisper_log_mel_on_card_equals_cpu(dev):
+    """The whisper front end on the card against the CPU, fp32 both: within
+    1e-4 after the (x + 4) / 4 scaling."""
+    from ps_slm_tpu_torch.ops.fbank import pad_or_trim, whisper_log_mel
+
+    g_ = torch.Generator().manual_seed(0)
+    wav = torch.stack([pad_or_trim(0.1 * torch.randn(16000 * s, generator=g_)) for s in (3, 30)])
+    want = whisper_log_mel(wav)
+    got = whisper_log_mel(wav.to(dev))
+    assert got.device.type == "cuda" and got.shape == want.shape == (2, 128, 3000)
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=0)
+
+
+if __name__ == "__main__":
+    # one rank of test_two_processes_on_one_card_equal_one
+    import os
+    import sys
+
+    from ps_slm_tpu_torch.parallel.mesh import init_distributed
+
+    world, rank = init_distributed("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        losses, params, moments = _parallel_steps(
+            torch.device("cuda", torch.cuda.current_device()), {"data": 2})
+        torch.save({"losses": losses, "params": params, "moments": moments},
+                   os.path.join(sys.argv[1], f"rank{rank}.pt"))
+    finally:
+        torch.distributed.destroy_process_group()

@@ -94,10 +94,9 @@ def test_config_defaults_equal_jax():
 
 
 # the JAX configs' fields that belong to a ROADMAP.md queue 1 item not
-# ported yet (the port has no such field; an override of one is refused)
-LATER_FIELDS = {
-    "train_config.fsdp_min_size": "Parallelism", "train_config.pp_microbatches": "Parallelism",
-}
+# ported yet (the port has no such field; an override of one is refused):
+# none since the parallelism slice brought fsdp_min_size and pp_microbatches
+LATER_FIELDS = {}
 
 
 def _config_fields(cfg, prefix=""):
@@ -490,9 +489,18 @@ def test_dynamic_batches_and_lazy_audio_equal_jax(manifest):
 
 
 def test_whisper_front_end_names_its_roadmap_item(manifest):
-    pc, _ = _cfgs(manifest, encoder="whisper")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, 'Long tail'"):
-        next(iter(dataset.get_speech_dataset(pc, tokenizer.StubTokenizer(), "test")))
+    """The whisper front end, which raised until the parallelism slice,
+    collates the JAX package's batch: the mel features within
+    tests/test_torch_whisper.py's 5e-5 (the STFT in float64 against fp32),
+    every other field exactly."""
+    pc, jc = _cfgs(manifest, encoder="whisper")
+    got = next(iter(dataset.get_speech_dataset(pc, tokenizer.StubTokenizer(), "test")))
+    want = next(iter(jdataset.get_speech_dataset(jc, jtok.StubTokenizer(), "test")))
+    assert sorted(got) == sorted(want) and got["input_features"].shape[1:] == (3000, 128)
+    np.testing.assert_allclose(got["input_features"], want["input_features"], rtol=0, atol=5e-5)
+    for k in want:
+        if k != "input_features":
+            assert np.array_equal(np.asarray(got[k]), np.asarray(want[k])), k
 
 
 def test_registry_builtins():

@@ -99,7 +99,7 @@ def assets(tmp_path_factory):
         ModelConfig(llm_dim=64, encoder_dim=11, llm_config_overrides=dict(vocab_size=300),
                     encoder_config_overrides=dict(input_size=560)), device="cpu")
     out = chip_smoke.write_assets(
-        torch, root, model, llm_dtype=torch.bfloat16,
+        root, model, llm_dtype=torch.bfloat16,
         specials={"<|endoftext|>": 256, "<|im_start|>": 257, "<|im_end|>": 258},
         utts={"ark": 4, "wav": 1, "flac": 1}, seconds=(0.5, 1.0))
     pieces = [("<blank>", 0.0, jspm.TYPE_CONTROL), ("<unk>", 0.0, jspm.TYPE_UNKNOWN),

@@ -544,7 +544,7 @@ def test_closed_loop_train_decode_both_clis(tmp_path):
                                          encoder_config_overrides=dict(input_size=560)),
                              device="cpu")
     specials = {"<|endoftext|>": 256, "<|im_start|>": 257, "<|im_end|>": 258}
-    assets = chip_smoke.write_assets(torch, root, src, llm_dtype=torch.float32,
+    assets = chip_smoke.write_assets(root, src, llm_dtype=torch.float32,
                                      specials=specials, utts={"ark": 3, "wav": 1, "flac": 0},
                                      seconds=(0.5, 1.0))
     for split, seed in (("train", 1), ("dev", 2)):

@@ -164,9 +164,9 @@ def test_serving_entry_points_default_to_cuda_and_raise_without_it():
 
 
 def test_decode_slice_not_ported_names_its_roadmap_item(tmp_path):
-    """whisper raises NotImplementedError naming its ROADMAP.md item (the
-    training front end and ctc_linear are ported; ctc_linear refuses a
-    projector other than simple_linear); HF transformers tokenizers raise
+    """The whisper front end, which raised until the parallelism slice,
+    collates a [B, 3000, 128] mel batch; ctc_linear refuses a projector
+    other than simple_linear; HF transformers tokenizers raise
     ImportError."""
     from ps_slm_tpu_torch.config import DataConfig, FbankConfig
     from ps_slm_tpu_torch.data import dataset, tokenizer
@@ -179,8 +179,9 @@ def test_decode_slice_not_ported_names_its_roadmap_item(tmp_path):
     samples = [dataset.Sample("k", np.zeros(3, np.int32), None, 3, np.zeros(1600, np.float32),
                               3000, np.zeros(0, np.int32), "t", "t", "ASR", 1600)]
     coll = dataset.Collator(tokenizer.StubTokenizer(), DataConfig(encoder="whisper"), True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, 'Long tail'"):
-        coll(samples)
+    batch = coll(samples)
+    assert batch["input_features"].shape == (1, 3000, 128) and "waveform" not in batch
+    assert list(batch["input_feature_length"]) == [3000]
     out, _ = fbank.frontend(torch.zeros(1, 800), torch.tensor([800]), cfg=FbankConfig(),
                             train=True, generator=torch.Generator().manual_seed(0))
     assert torch.isfinite(out).all()
@@ -213,9 +214,15 @@ def test_train_entry_points_default_to_cuda_and_raise_without_it():
 
 def test_training_options_not_ported_name_their_roadmap_item(tmp_path, monkeypatch):
     """remat, gradient accumulation, PEFT and training over a quantized
-    LLM are ported (they build a model and a step); a mesh and more than
-    one process raise, naming their ROADMAP.md item, in the finetune CLI."""
+    LLM build a model and a step; the mesh options, which raised until the
+    parallelism slice, parse, and the finetune CLI joins a process group
+    from PS_COORDINATOR / PS_NUM_HOSTS / PS_HOST_ID (here a group of one)
+    instead of raising."""
+    import torch.distributed as dist
+
     from ps_slm_tpu_torch.cli import finetune
+    from ps_slm_tpu_torch.config import RunConfig, parse_cli
+    from ps_slm_tpu_torch.parallel import launch, mesh
 
     mc = ModelConfig(encoder_dim=11, llm_dim=64)
     tc = TrainConfig(ctc_posterior=True, do_psd=True, freeze_llm=True, freeze_encoder=True)
@@ -231,17 +238,25 @@ def test_training_options_not_ported_name_their_roadmap_item(tmp_path, monkeypat
     all_frozen = TrainConfig(**{**tc.__dict__, "freeze_projector": True})
     with pytest.raises(ValueError, match="no trainable"):
         train_state.build_optimizer([], all_frozen)
-    base = [f"++train_config.output_dir={tmp_path}/out", f"++log_config.log_file={tmp_path}/log"]
-    for args in (['++train_config.mesh_shape={"data": 2}', "++train_config.use_peft=true"],
-                 ['++train_config.mesh_shape={"data": 2}', "++train_config.quantization=true"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, 'Parallelism'"):
-            finetune.main(base + args, device="cpu")
-    for env, value in (("PS_NUM_HOSTS", "2"), ("PS_COORDINATOR", "localhost:1234")):
-        with monkeypatch.context() as m:
-            m.setenv(env, value)
-            with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, 'Parallelism'"):
-                finetune.main(base, device="cpu")
-    assert not os.path.exists(f"{tmp_path}/out")   # raised before writing anything
+    cfg = parse_cli(['++train_config.mesh_shape={"data": 2}', "++train_config.fsdp_min_size=1",
+                     "++train_config.pp_microbatches=4"], RunConfig())
+    assert (cfg.train_config.mesh_shape, cfg.train_config.fsdp_min_size,
+            cfg.train_config.pp_microbatches) == ({"data": 2}, 1, 4)
+    assert not hasattr(finetune, "check_ported")
+    assert mesh.init_distributed("cpu") == (1, 0) and not dist.is_initialized()
+    with monkeypatch.context() as m:
+        m.setenv("PS_NUM_HOSTS", "2")
+        with pytest.raises(ValueError, match="PS_COORDINATOR"):
+            mesh.init_distributed("cpu")
+    with monkeypatch.context() as m:
+        m.setenv("PS_COORDINATOR", f"localhost:{launch.free_port()}")
+        m.setenv("PS_NUM_HOSTS", "1")
+        m.setenv("PS_HOST_ID", "0")
+        try:
+            assert mesh.init_distributed("cpu") == (1, 0)
+            assert dist.get_backend() == "gloo" and dist.get_world_size() == 1
+        finally:
+            dist.destroy_process_group()
 
 
 @pytest.mark.parametrize("what,item", [
@@ -250,8 +265,8 @@ def test_training_options_not_ported_name_their_roadmap_item(tmp_path, monkeypat
 def test_generate_rejects_what_is_not_ported(what, item):
     """voca_trans, the cross-attention projector and the raw-feature
     baseline, which raised until their ROADMAP.md item landed, build and
-    generate now; the port's only raises left name 'Parallelism' and, for
-    the whisper front end, the rest of ``item``."""
+    generate now; the port's only raise left that names ROADMAP.md queue 1
+    is ``tools/goldens.py``'s ``capture``, under ``item``."""
     mc = {"voca_trans": ModelConfig(encoder_projector="simple_linear", encoder_dim=16,
                                     llm_dim=256, encoder_projector_ds_rate=2),
           "cross_attn": ModelConfig(encoder_projector="cross-attention", encoder_dim=11,
@@ -269,10 +284,8 @@ def test_generate_rejects_what_is_not_ported(what, item):
     assert out.shape == (1, 3)
     raises = subprocess.run(["grep", "-rn", "ROADMAP.md queue 1", PACKAGE], capture_output=True,
                             text=True).stdout.splitlines()
-    assert raises and all("'Parallelism'" in r or ("whisper" in r.lower() or
-                                                  f"'{item}'" in r) for r in raises), raises
-    assert {r.split(":")[0] for r in raises if f"'{item}'" in r} == {
-        os.path.join(PACKAGE, "data", "dataset.py")}
+    assert raises and all(f"'{item}'" in r for r in raises), raises
+    assert {r.split(":")[0] for r in raises} == {os.path.join(PACKAGE, "tools", "goldens.py")}
 
 
 def test_wrappers_raise_off_cpu_and_cuda():
