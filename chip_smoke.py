@@ -4,6 +4,8 @@
     python3 chip_smoke.py              # every phase below
     python3 chip_smoke.py --variants   # phases 1-2, then the LayerNorm
                                        # forward's designs side by side
+    python3 chip_smoke.py --slice12    # phase 12 alone (and its phase 3 rows)
+    python3 chip_smoke.py --slice13    # phase 13 alone (and its phase 3 rows)
 
 Phases, each of which fails the run:
 
@@ -176,8 +178,19 @@ Phases, each of which fails the run:
    micro-step walls, peak memory, the exports' seconds and bytes; then
    QLoRA over int8 for the same epoch without checkpoints (peak memory);
    11c ``cli.serve.main`` on the merged export, 8 requests answered;
+12. encoder training and ASR, the projectors and branches (12a fp32 on
+   card and CPU; 12b-12d at full size): see their functions;
+13. training over several processes sharing the card over gloo: 13a the
+   finetune CLI in fp32 at reduced depth on every mesh (PARALLEL_RUNS,
+   pipe with fsdp and tensor and tensor with LoRA included, the tiny
+   model alone in 8 processes), 13b phase 7b's recipe at full size on
+   data, fsdp and tensor, 13c whisper mel and goldens verify;
 9. one JSON line listing every kernel, then the contract line
    ``{"ok": true, "device": {...}}`` last.
+
+The fp32 phases' CPU sides (4-4e, 8a, 10a, 11a, 12a, 13c) run in REFS, a
+worker process beside the card's work (4-4e's from the start, the rest
+once 13a's ranks are done); phase 3 times each shape once a call.
 
 Exits non-zero without a result when CUDA is absent or when the
 ``ps_slm_tpu_torch`` package is not beside this file.
@@ -314,13 +327,23 @@ LN_ROUTES_TEXT_ONLY = {"vec": 0, "staged": 1, "held": 0, "general": 0}
 # CUDA tensor, so the pipeline's sends go through the host under gloo;
 # every mesh runs, so none is left to run at size 1), 13b's meshes at full
 # size, 13b's train manifest and the fp32 tolerances against one process
-PARALLEL_MESHES = ({"data": 2}, {"fsdp": 2}, {"pipe": 2}, {"tensor": 2})
-PARALLEL_MESHES_4 = ({"pipe": 2, "data": 2},)
-PARALLEL_RESUME = {"fsdp": 2}   # 13a's mesh that writes checkpoints and resumes
+# 13a's meshes by process count, each with its variant (PARALLEL_VARIANTS'
+# overrides; "": 4e's recipe), the meshes that train the tiny model only,
+# and the mesh that writes full-width checkpoints and resumes
+PARALLEL_RUNS = {
+    2: (({"data": 2}, ""), ({"fsdp": 2}, ""), ({"pipe": 2}, ""), ({"tensor": 2}, ""),
+        ({"tensor": 2}, "lora")),
+    4: (({"pipe": 2, "data": 2}, ""), ({"pipe": 2, "fsdp": 2}, ""), ({"pipe": 2, "tensor": 2}, "")),
+}
+PARALLEL_TINY_ONLY = {8: ({"pipe": 2, "data": 2, "fsdp": 2},)}
+PARALLEL_VARIANTS = {"": [], "lora": ["++train_config.use_peft=true"]}
+PARALLEL_RESUME = {"fsdp": 2}
 # 13b's meshes and train manifests: 16 utterances (two micro-steps) on data,
-# 8 (one) on fsdp, whose every micro-step gathers the bf16 model over gloo
+# 8 (one) on fsdp, whose every micro-step gathers the bf16 model over gloo,
+# and 8 (one) on tensor
 PARALLEL_MESHES_BF16 = (({"data": 2}, {"ark": 12, "wav": 2, "flac": 2}),
-                        ({"fsdp": 2}, {"ark": 8, "wav": 0, "flac": 0}))
+                        ({"fsdp": 2}, {"ark": 8, "wav": 0, "flac": 0}),
+                        ({"tensor": 2}, {"ark": 8, "wav": 0, "flac": 0}))
 PARALLEL_TOL = 1e-5
 # AdamW's first moments after micro-step MOMENT_STEP, several processes
 # against one, of each trained tensor's largest.  The first step runs at
@@ -359,6 +382,10 @@ MOMENT_TOL = 1e-3
 PSD_CALLS = 3   # PSD calls a profiled run
 CARD = "card not read"   # nvidia-smi's name and power limit, set by main()
 PHASE_SECONDS: dict = {}   # each phase's wall seconds, filled by timed()
+REFS = None   # the fp32 phases' CPU references' worker process, started by main()
+# phase 3's times by kernel, shape and dtype: a shape timed once in a call
+# is not timed again (its inputs are still drawn and checked anew)
+TIMES: dict = {}
 
 
 # ----------------------------------------------------------------------------
@@ -702,6 +729,14 @@ def time_ms(torch, fn, iters: int = 20) -> float:
     return ms
 
 
+def timed_once(key: tuple, measure):
+    """``measure()``'s times for the case ``key`` (kernel, shape, dtype),
+    measured the first time a call meets it and kept in TIMES."""
+    if key not in TIMES:
+        TIMES[key] = measure()
+    return TIMES[key]
+
+
 def eager_ms(torch, fn, iters: int = 200) -> float:
     """Time of one call issued back to back from Python: for a small
     kernel this is the host's cost of the call, not the device's (200
@@ -914,13 +949,15 @@ def phase_kernels(torch, dev, results, flash_cases=FLASH_CASES, norm_cases=NORM_
             r_out, r_lse = fa.flash_attention_ref(q, k, v, start, end, causal=causal, scale=scale)
             err = max(compare(torch, out, r_out, dt, f"flash {label} {dt} out"),
                       compare(torch, lse, r_lse, "f32", f"flash {label} {dt} lse"))
-            ms = time_ms(torch, lambda: fa.flash_attention_fwd(
-                q, k, v, start, end, causal=causal, scale=scale))
-            plain = time_ms(torch, lambda: fa.flash_attention_ref(
-                q, k, v, start, end, causal=causal, scale=scale), iters=4)
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-            lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, attn_mask=mask, scale=scale, enable_gqa=True))
+            ms, plain, lib = timed_once(("flash fwd", b, s, hq, hkv, causal, tuple(starts),
+                                         tuple(ends), dt), lambda: (
+                time_ms(torch, lambda: fa.flash_attention_fwd(
+                    q, k, v, start, end, causal=causal, scale=scale)),
+                time_ms(torch, lambda: fa.flash_attention_ref(
+                    q, k, v, start, end, causal=causal, scale=scale), iters=4),
+                time_ms(torch, lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=mask, scale=scale, enable_gqa=True))))
             esize = q.element_size()
             nbytes = (q.numel() * 2 + k.numel() * 2) * esize + lse.numel() * 4
             bms, by = bound(nbytes, 4.0 * d * pairs, dt)
@@ -957,8 +994,10 @@ def phase_kernels(torch, dev, results, flash_cases=FLASH_CASES, norm_cases=NORM_
             route = route_taken(name, routes, before, n, d, dt)
             err = max(compare(torch, a, r, dt if i == 0 else "f32", f"{name} [{n},{d}] {dt}")
                       for i, (a, r) in enumerate(zip(got, ref())))
-            ms, plain, lib_ms = time_ms(torch, run), time_ms(torch, ref), time_ms(torch, lib)
-            host_ms, host_lib = eager_ms(torch, run), eager_ms(torch, lib)
+            ms, plain, lib_ms, host_ms, host_lib = timed_once(
+                (name, n, d, kind, eps, dt), lambda: (
+                    time_ms(torch, run), time_ms(torch, ref), time_ms(torch, lib),
+                    eager_ms(torch, run), eager_ms(torch, lib)))
             bms, by = bound(nbytes, flops, dt)
             e = entry(name)
             e["max_abs_err"] = max(e["max_abs_err"], err)
@@ -1088,17 +1127,20 @@ def phase_kernels_bwd(torch, dev, results, flash_cases=FLASH_BWD_CASES,
             empty = (lse == fa.NEG_INF).transpose(1, 2)
             if label == "ragged" and (not bool(empty.any()) or bool(dq[empty].any())):
                 fail(f"flash dq {label} {dt}: a query row with no valid key has a gradient")
-            ms_dq = time_ms(torch, lambda: fa.flash_attention_dq(*args, **kw))
-            ms_dkv = time_ms(torch, lambda: fa.flash_attention_dkv(*args, **kw))
-            plain = time_ms(torch, lambda: fa.flash_attention_bwd_ref(
-                q, k, v, start, end, out, lse, do, **kw), iters=4)
             # SDPA takes the ragged windows as a boolean mask (its values on
             # the empty row are NaN: only its time is used)
             mask = None if label == "training" else fa._pair_mask(start, end, s, s, causal)
             qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
-            lib, method = backward_ms(torch, lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, attn_mask=mask, is_causal=mask is None, scale=scale,
-                enable_gqa=True), (qt, kt, vt), do.transpose(1, 2))
+            ms_dq, ms_dkv, plain, (lib, method) = timed_once(
+                ("flash bwd", b, s, hq, hkv, causal, tuple(starts), tuple(ends), mask is None, dt),
+                lambda: (
+                    time_ms(torch, lambda: fa.flash_attention_dq(*args, **kw)),
+                    time_ms(torch, lambda: fa.flash_attention_dkv(*args, **kw)),
+                    time_ms(torch, lambda: fa.flash_attention_bwd_ref(
+                        q, k, v, start, end, out, lse, do, **kw), iters=4),
+                    backward_ms(torch, lambda: F.scaled_dot_product_attention(
+                        qt, kt, vt, attn_mask=mask, is_causal=mask is None, scale=scale,
+                        enable_gqa=True), (qt, kt, vt), do.transpose(1, 2))))
             esize = q.element_size()
             stats = 2 * lse.numel() * 4
             record("flash_attention_dq", label, dt, ms_dq, plain, lib, method,
@@ -1124,14 +1166,14 @@ def phase_kernels_bwd(torch, dev, results, flash_cases=FLASH_BWD_CASES,
             if name == "layer_norm_bwd":
                 _, mu, rstd = norms.layer_norm_fwd(x, w, bb, eps)
                 bwd, bwd_ref, args = norms.layer_norm_bwd, norms.layer_norm_bwd_ref, (x, w, mu, rstd, gy)
-                lib, method = backward_ms(
+                library = lambda: backward_ms(                          # noqa: E731
                     torch, lambda: F.layer_norm(xr, (d,), wr, br, eps), (xr, wr, br), gy)
                 nbytes = 3 * n * d * esize + 3 * d * esize + 8 * n
                 flops = 13.0 * n * d
             else:
                 _, rstd = norms.rms_norm_fwd(x, w)
                 bwd, bwd_ref, args = norms.rms_norm_bwd, norms.rms_norm_bwd_ref, (x, w, rstd, gy)
-                lib, method = backward_ms(
+                library = lambda: backward_ms(                          # noqa: E731
                     torch, lambda: F.rms_norm(xr, (d,), wr, 1e-6), (xr, wr), gy)
                 nbytes = 3 * n * d * esize + 2 * d * esize + 4 * n
                 flops = 9.0 * n * d
@@ -1143,9 +1185,10 @@ def phase_kernels_bwd(torch, dev, results, flash_cases=FLASH_BWD_CASES,
             want = bwd_ref(*args)
             err = max(compare(torch, a, r, dt, f"{name} [{n},{d}] {dt}", 1.0 if i == 0 else n ** 0.5)
                       for i, (a, r) in enumerate(zip(got, want)))
-            ms, plain = time_ms(torch, lambda: bwd(*args)), time_ms(torch, lambda: bwd_ref(*args))
+            ms, plain, (lib, method), kernel_ms = timed_once((name, n, d, kind, eps, dt), lambda: (
+                time_ms(torch, lambda: bwd(*args)), time_ms(torch, lambda: bwd_ref(*args)),
+                library(), time_ms(torch, lambda: bwd(*args, weight_grad=False))))
             record(name, shape, dt, ms, plain, lib, method, nbytes, flops, err)
-            kernel_ms = time_ms(torch, lambda: bwd(*args, weight_grad=False))
             if name == "layer_norm_bwd":
                 print(f"kernel {name} {shape} {dt}: {kernel_ms:.4f} ms without the partials' "
                       f"sum", flush=True)
@@ -1156,42 +1199,50 @@ def phase_kernels_bwd(torch, dev, results, flash_cases=FLASH_BWD_CASES,
             dx = bwd(*args, weight_grad=False)[0]
             torch.cuda.synchronize()
             err = compare(torch, dx, want[0], dt, f"{name} [{n},{d}] {dt} frozen w")
-            lib, method = backward_ms(torch, lambda: F.rms_norm(xr, (d,), w, 1e-6), (xr,), gy)
+            lib, method = timed_once((name, n, d, kind, eps, dt, "frozen w"), lambda: backward_ms(
+                torch, lambda: F.rms_norm(xr, (d,), w, 1e-6), (xr,), gy))
             record(name, f"{shape} frozen w", dt, kernel_ms, plain, lib, method,
                    nbytes - d * esize, flops - 2.0 * n * d, err)
             print(f"kernel {name} {shape} {dt}{route}", flush=True)
 
 
-def phase_path_fp32(torch, dev):
+def path_fp32_run(device) -> tuple:
+    """Phase 4 on ``device`` (the model built on the CPU from its seed and
+    moved): the serving batch's merged embeddings, mask and positions,
+    prefill logits and 8 greedy tokens, on the CPU."""
+    import torch
+
     from ps_slm_tpu_torch.config import SENSEVOICE_SMALL, half_audio_configs
     from ps_slm_tpu_torch.inference.generate import _prefill, generate
     from ps_slm_tpu_torch.models.tasu import model_factory, prepare_merged
 
     tc, mc = half_audio_configs(*FP32_DEPTH, seed=0)
-    t0 = time.time()
-    cpu_model = model_factory(tc, mc, device="cpu")
-    cpu_model.speech_token_id = SPEECH_TOKEN
-    gpu_model = copy.deepcopy(cpu_model).to(dev)
+    model = model_factory(tc, mc, device="cpu").to(device)
+    model.speech_token_id = SPEECH_TOKEN
     # the main path's lengths: multi-tile flash calls, skipped and fully
     # masked tiles, left-padded rows
     batch = serving_batch(torch, SENSEVOICE_SMALL["input_size"], seed=1)
+    bd = {k: v.to(device) for k, v in batch.items()}
+    with torch.inference_mode():
+        merged = prepare_merged(model, bd, left_padding=True)
+        logits, _, _ = _prefill(
+            model.llm, merged.embeds, merged.attention_mask, merged.position_ids,
+            merged.embeds.shape[1] + 8,
+        )
+    tokens = generate(model, bd, eos_token_id=EOS, num_beams=1, max_new_tokens=8, device=device)
+    return (merged.embeds.cpu(), merged.attention_mask.cpu(), merged.position_ids.cpu(),
+            logits.cpu(), tokens.cpu())
 
-    outs = {}
-    for name, model, d in (("cpu", cpu_model, torch.device("cpu")), ("cuda", gpu_model, dev)):
-        bd = {k: v.to(d) for k, v in batch.items()}
-        with torch.inference_mode():
-            merged = prepare_merged(model, bd, left_padding=True)
-            logits, _, _ = _prefill(
-                model.llm, merged.embeds, merged.attention_mask, merged.position_ids,
-                merged.embeds.shape[1] + 8,
-            )
-        tokens = generate(model, bd, eos_token_id=EOS, num_beams=1, max_new_tokens=8, device=d)
-        outs[name] = (merged, logits.cpu(), tokens.cpu())
-    (m_c, l_c, t_c), (m_g, l_g, t_g) = outs["cpu"], outs["cuda"]
-    if not (torch.equal(m_c.attention_mask, m_g.attention_mask.cpu())
-            and torch.equal(m_c.position_ids, m_g.position_ids.cpu())):
+
+def phase_path_fp32(torch, dev, ref):
+    """Phase 4: :func:`path_fp32_run` on the card against ``ref``, its CPU
+    run (a future of the reference worker)."""
+    t0 = time.time()
+    e_g, a_g, p_g, l_g, t_g = path_fp32_run(dev)
+    e_c, a_c, p_c, l_c, t_c = ref.result()
+    if not (torch.equal(a_c, a_g) and torch.equal(p_c, p_g)):
         fail("fp32 path: merged mask or positions differ between card and CPU")
-    emb_err = float((m_c.embeds - m_g.embeds.cpu()).abs().max())
+    emb_err = float((e_c - e_g).abs().max())
     logit_err = float((l_c - l_g).abs().max())
     print(f"path fp32 (2+1 encoder blocks, 1 LLM layer, full width): embeds err "
           f"{emb_err:.3e} prefill logits err {logit_err:.3e} (tol {PATH_TOL}); "
@@ -1203,39 +1254,45 @@ def phase_path_fp32(torch, dev):
         fail("fp32 path: greedy tokens differ between card and CPU")
 
 
-def phase_train_fp32(torch, dev):
-    """Two training steps of the half_audio recipe at full width and
-    reduced depth, fp32, on the card and on the CPU from the same weights."""
+def train_fp32_run(device) -> tuple:
+    """Phase 4b on ``device``: two training steps' metrics and the trained
+    projector, on the CPU; fails on a frozen weight that changed, a
+    projector that did not move or optimizer state off the projector's."""
+    import torch
+
     from ps_slm_tpu_torch.config import SENSEVOICE_SMALL, half_audio_configs
     from ps_slm_tpu_torch.models.tasu import model_factory
     from ps_slm_tpu_torch.training.step import make_train_step
 
     tc, mc = half_audio_configs(*FP32_DEPTH, seed=0)
     tc.lr, tc.warmup_steps = 1e-3, 1
-    t0 = time.time()
-    cpu_model = model_factory(tc, mc, device="cpu")
-    cpu_model.speech_token_id = SPEECH_TOKEN
-    gpu_model = copy.deepcopy(cpu_model).to(dev)
+    model = model_factory(tc, mc, device="cpu").to(device)
+    model.speech_token_id = SPEECH_TOKEN
     batch = train_batch(torch, SENSEVOICE_SMALL["input_size"], TRAIN_RAGGED_FRAMES, seed=3)
+    start = {n: p.detach().clone() for n, p in model.named_parameters()}
+    step = make_train_step(model, tc, device=device)
+    metrics = []
+    for _ in range(2):
+        m = step(batch)
+        metrics.append({k: float(v) for k, v in m.items()})
+    params = dict(model.named_parameters())
+    frozen_same = all(torch.equal(params[n], p) for n, p in start.items()
+                      if n not in step.trainable)
+    moved = any(not torch.equal(params[n], start[n]) for n in step.trainable)
+    if not (frozen_same and moved and len(step.optimizer.state) == 6):
+        fail(f"fp32 training on {torch.device(device).type}: frozen weights changed "
+             f"({not frozen_same}), projector did not move ({not moved}), or optimizer state "
+             f"for {len(step.optimizer.state)} tensors, not the projector's 6")
+    return metrics, {n: params[n].detach().cpu() for n in step.trainable}
 
-    runs = {}
-    for name, model, d in (("cpu", cpu_model, "cpu"), ("cuda", gpu_model, dev)):
-        start = {n: p.detach().clone() for n, p in model.named_parameters()}
-        step = make_train_step(model, tc, device=d)
-        metrics = []
-        for _ in range(2):
-            m = step(batch)
-            metrics.append({k: float(v) for k, v in m.items()})
-        params = dict(model.named_parameters())
-        frozen_same = all(torch.equal(params[n], p) for n, p in start.items()
-                          if n not in step.trainable)
-        moved = any(not torch.equal(params[n], start[n]) for n in step.trainable)
-        if not (frozen_same and moved and len(step.optimizer.state) == 6):
-            fail(f"fp32 training on {name}: frozen weights changed ({not frozen_same}), "
-                 f"projector did not move ({not moved}), or optimizer state for "
-                 f"{len(step.optimizer.state)} tensors, not the projector's 6")
-        runs[name] = (metrics, {n: params[n].detach().cpu() for n in step.trainable})
-    (m_c, p_c), (m_g, p_g) = runs["cpu"], runs["cuda"]
+
+def phase_train_fp32(torch, dev, ref):
+    """Phase 4b: two training steps of the half_audio recipe at full width
+    and reduced depth, fp32, on the card (:func:`train_fp32_run`) against
+    ``ref``, the CPU's from the same weights."""
+    t0 = time.time()
+    m_g, p_g = train_fp32_run(dev)
+    m_c, p_c = ref.result()
     errs = {k: max(abs(a[k] - b[k]) for a, b in zip(m_c, m_g)) for k in ("loss", "acc", "ntokens")}
     w_err = max(float((p_c[n] - p_g[n]).abs().max()) for n in p_c)
     print(f"train fp32 (2+1 encoder blocks, 1 LLM layer, full width, frames "
@@ -1456,62 +1513,99 @@ def read_log(path: str) -> str:
         return f.read()
 
 
-def phase_finetune_cli_fp32(torch, dev) -> dict:
-    """Phase 4e: the finetune CLI (``cli.finetune.main``, the half_audio
-    recipe's overrides, fp32, dither 0, lr 1e-3 from the first step) at full
-    width and reduced depth on phase 4d's assets and a 8-utterance train
-    and 4-utterance dev manifest: 4 steps of 2 rows, validation every 2, on
-    the card and on the CPU; per-step losses, eval losses and the exported
-    projectors within PATH_TOL; then a resume on the card from
-    ``step_2/state`` that reproduces the last two losses bit for bit.
-    Returns the card run (its losses, evaluations, model, ``last/`` export
-    and AdamW's first moments after micro-step MOMENT_STEP) and its assets
-    for phase 13a, which deletes the directory."""
-    import shutil
-    import tempfile
+# 4e's overrides after the half_audio recipe's
+FINETUNE_FP32_EXTRA = [
+    "++train_config.mixed_precision=false", "++dataset_config.fbank.dither=0.0",
+    "++train_config.num_epochs=1", "++train_config.validation_interval=2",
+    "++train_config.batching_strategy=padding", "++train_config.batch_size_training=2",
+    "++train_config.val_batch_size=4", "++train_config.lr=1e-3", "++train_config.warmup_steps=1",
+    "++train_config.save_last=true", "++log_config.log_interval=1"]
 
-    from ps_slm_tpu_torch.cli import finetune
+
+def finetune_fp32_assets(root: str) -> tuple:
+    """4e's assets (phase 4d's kind, two LLM layers: phase 13a's pipe=2
+    splits them) and its 8-utterance train and 4-utterance dev manifests,
+    written into ``root``: (assets, model config)."""
+    import torch
+
     from ps_slm_tpu_torch.config import half_audio_configs
     from ps_slm_tpu_torch.models.tasu import model_factory
+
+    tc, mc = half_audio_configs(*FP32_DEPTH_LAYERED, seed=0)
+    assets = write_assets(root, model_factory(tc, mc, device="cpu"),
+                          llm_dtype=torch.bfloat16, utts={"ark": 1, "wav": 0, "flac": 0})
+    write_manifest(os.path.join(root, "train"), {"ark": 6, "wav": 1, "flac": 1},
+                   FINETUNE_SECONDS, seed=1)
+    write_manifest(os.path.join(root, "dev"), {"ark": 4, "wav": 0, "flac": 0},
+                   FINETUNE_SECONDS, seed=2)
+    return assets, mc
+
+
+def finetune_cli_fp32_run(device, root: str = None, assets: dict = None, mc=None,
+                          trained: dict = None) -> dict:
+    """Phase 4e's finetune CLI run on ``device`` over ``root``'s assets
+    (none given: its own copy in a temporary directory, deleted after):
+    its losses, evaluations, wall seconds, checkpoints and their exports;
+    on the card also its output directory and model, and ``trained``
+    filled by :func:`capture_trained`."""
+    import torch
+
+    from ps_slm_tpu_torch.cli import finetune
+
+    own = root is None
+    if own:
+        root = tempfile.mkdtemp(prefix="finetune_cli_fp32_")
+        assets, mc = finetune_fp32_assets(root)
+    name = torch.device(device).type
+    try:
+        out = os.path.join(root, name)
+        undo = capture_trained(torch, trained) if trained is not None else (lambda: None)
+        try:
+            with TrainProbe(torch, device) as probe:
+                t1 = time.time()
+                rc = finetune.main(finetune_args(assets, root, out, llm_dim=mc.llm_dim,
+                                                 encoder_dim=mc.encoder_dim)
+                                   + FINETUNE_FP32_EXTRA, device=device)
+        finally:
+            undo()
+        if rc != 0:
+            fail(f"finetune CLI fp32 on {name}: main returned {rc}")
+        steps = sorted(p for p in os.listdir(out) if p.startswith("step_"))
+        run = dict(losses=probe.losses(), evals=[e["loss"] for e in probe.evals],
+                   wall=time.time() - t1, steps=steps, exports={
+                       tag: torch.load(os.path.join(out, tag, "pytorch_model.bin"),
+                                       weights_only=True) for tag in steps + ["last"]})
+        if not own:
+            run.update(out=out, model=probe.model)
+        probe.model = probe.largest = None
+        return run
+    finally:
+        if own:
+            shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_finetune_cli_fp32(torch, dev, ref) -> dict:
+    """Phase 4e: the finetune CLI (``cli.finetune.main``, the half_audio
+    recipe's overrides, fp32, dither 0, lr 1e-3 from the first step) at full
+    width and reduced depth on phase 4d's kind of assets and a 8-utterance
+    train and 4-utterance dev manifest: 4 steps of 2 rows, validation every
+    2, on the card (:func:`finetune_cli_fp32_run`) against ``ref``, the
+    CPU's run; per-step losses, eval losses and the exported projectors
+    within PATH_TOL; then a resume on the card from ``step_2/state`` that
+    reproduces the last two losses bit for bit.  Returns the card run (its
+    losses, evaluations, model, ``last/`` export and AdamW's first moments
+    after micro-step MOMENT_STEP) and its assets for phase 13a, which
+    deletes the directory."""
+    from ps_slm_tpu_torch.cli import finetune
 
     what = "finetune CLI fp32"
     t0 = time.time()
     root = tempfile.mkdtemp(prefix="finetune_cli_fp32_")
     try:
-        # two LLM layers (not FP32_DEPTH's one): phase 13a's pipe=2 splits them
-        tc, mc = half_audio_configs(*FP32_DEPTH_LAYERED, seed=0)
-        assets = write_assets(root, model_factory(tc, mc, device="cpu"),
-                              llm_dtype=torch.bfloat16, utts={"ark": 1, "wav": 0, "flac": 0})
-        write_manifest(os.path.join(root, "train"), {"ark": 6, "wav": 1, "flac": 1},
-                       FINETUNE_SECONDS, seed=1)
-        write_manifest(os.path.join(root, "dev"), {"ark": 4, "wav": 0, "flac": 0},
-                       FINETUNE_SECONDS, seed=2)
-        extra = ["++train_config.mixed_precision=false", "++dataset_config.fbank.dither=0.0",
-                 "++train_config.num_epochs=1", "++train_config.validation_interval=2",
-                 "++train_config.batching_strategy=padding",
-                 "++train_config.batch_size_training=2", "++train_config.val_batch_size=4",
-                 "++train_config.lr=1e-3", "++train_config.warmup_steps=1",
-                 "++train_config.save_last=true", "++log_config.log_interval=1"]
-        runs, trained = {}, {}
-        for name, device in (("cuda", dev), ("cpu", "cpu")):
-            out = os.path.join(root, name)
-            undo = capture_trained(torch, trained) if name == "cuda" else (lambda: None)
-            try:
-                with TrainProbe(torch, device) as probe:
-                    t1 = time.time()
-                    rc = finetune.main(finetune_args(assets, root, out, llm_dim=mc.llm_dim,
-                                                     encoder_dim=mc.encoder_dim) + extra,
-                                       device=device)
-            finally:
-                undo()
-            if rc != 0:
-                fail(f"{what} on {name}: main returned {rc}")
-            runs[name] = dict(losses=probe.losses(), evals=[e["loss"] for e in probe.evals],
-                              wall=time.time() - t1, out=out, model=probe.model,
-                              steps=sorted(p for p in os.listdir(out) if p.startswith("step_")))
-            probe.model = probe.largest = None
-        runs["cpu"].pop("model")
-        card, cpu = runs["cuda"], runs["cpu"]
+        assets, mc = finetune_fp32_assets(root)
+        trained: dict = {}
+        card = finetune_cli_fp32_run(dev, root, assets, mc, trained)
+        cpu = ref.result()
         if len(card["losses"]) != 4 or card["steps"] != cpu["steps"] or "step_2" not in card["steps"]:
             fail(f"{what}: {len(card['losses'])} steps, checkpoints {card['steps']} on the card "
                  f"and {cpu['steps']} on the CPU; want 4 steps and step_2 on both")
@@ -1519,8 +1613,7 @@ def phase_finetune_cli_fp32(torch, dev) -> dict:
                                                   cpu["losses"] + cpu["evals"]))
         proj_err = 0.0
         for tag in card["steps"] + ["last"]:
-            a = torch.load(os.path.join(card["out"], tag, "pytorch_model.bin"), weights_only=True)
-            b = torch.load(os.path.join(cpu["out"], tag, "pytorch_model.bin"), weights_only=True)
+            a, b = card["exports"][tag], cpu["exports"][tag]
             if sorted(a) != sorted(b) or not all(k.startswith("encoder_projector.") for k in a):
                 fail(f"{what}: {tag}'s exports hold other keys than the projector's")
             proj_err = max([proj_err] + [float((a[k] - b[k]).abs().max()) for k in a])
@@ -1530,7 +1623,7 @@ def phase_finetune_cli_fp32(torch, dev) -> dict:
         out = os.path.join(root, "resumed")
         with TrainProbe(torch, dev) as probe:
             rc = finetune.main(finetune_args(assets, root, out, llm_dim=mc.llm_dim,
-                                             encoder_dim=mc.encoder_dim) + extra + [
+                                             encoder_dim=mc.encoder_dim) + FINETUNE_FP32_EXTRA + [
                 f"++train_config.resume_from={card['out']}/step_2/state",
                 "++train_config.save_model=false", "++train_config.save_last=false"], device=dev)
         skipped = "skipping 2 trained batches" in read_log(os.path.join(out, "train.log"))
@@ -1549,16 +1642,20 @@ def phase_finetune_cli_fp32(torch, dev) -> dict:
         fail(f"{what}: card and CPU disagree beyond the tolerance")
     if not (skipped and same):
         fail(f"{what}: the resumed run did not skip 2 batches and reproduce the last two losses")
-    return {"root": root, "assets": assets, "mc": mc, "extra": extra, "losses": card["losses"],
-            "evals": card["evals"], "model": card["model"], "moments": trained["moments"],
+    return {"root": root, "assets": assets, "mc": mc, "extra": FINETUNE_FP32_EXTRA,
+            "losses": card["losses"], "evals": card["evals"], "model": card["model"],
+            "moments": trained["moments"],
             "export": os.path.join(card["out"], "last", "pytorch_model.bin")}
 
 
-def phase_beam_text_only_fp32(torch, dev):
-    """Phase 4c: beam search and text-only training at full width and
-    reduced depth, fp32, on the card and on the CPU from the same weights
-    (phase 4's model; for text-only its flags swapped to the paper's
-    recipe, with insertion on)."""
+def beam_text_only_fp32_run(device) -> tuple:
+    """Phase 4c on ``device`` (phase 4's model, two LLM layers): the beam
+    tokens, then two text-only steps' metrics and the trained projector
+    (the flags swapped to the paper's recipe, insertion on, the noise drawn
+    on the CPU from a seed), on the CPU; fails on a frozen weight that
+    changed or a projector that did not move."""
+    import torch
+
     from ps_slm_tpu_torch.config import SENSEVOICE_SMALL, half_audio_configs, text_only_configs
     from ps_slm_tpu_torch.inference.generate import generate
     from ps_slm_tpu_torch.models.tasu import TasuFlags, model_factory
@@ -1566,46 +1663,46 @@ def phase_beam_text_only_fp32(torch, dev):
     from ps_slm_tpu_torch.training.step import make_train_step
 
     tc, mc = half_audio_configs(*FP32_DEPTH_LAYERED, seed=0)
-    t0 = time.time()
-    cpu_model = model_factory(tc, mc, device="cpu")
-    cpu_model.speech_token_id = SPEECH_TOKEN
-    gpu_model = copy.deepcopy(cpu_model).to(dev)
+    model = model_factory(tc, mc, device="cpu").to(device)
+    model.speech_token_id = SPEECH_TOKEN
     batch = serving_batch(torch, SENSEVOICE_SMALL["input_size"], seed=1)
-    toks = {name: generate(model, batch, eos_token_id=EOS, max_new_tokens=FP32_NEW,
-                           device=d).cpu()
-            for name, model, d in (("cpu", cpu_model, "cpu"), ("cuda", gpu_model, dev))}
-    print(f"beam fp32 (num_beams 4, the default, {FP32_NEW} new tokens): tokens card "
-          f"{toks['cuda'].tolist()} cpu {toks['cpu'].tolist()} ({time.time() - t0:.1f} s)",
-          flush=True)
-    if not torch.equal(toks["cpu"], toks["cuda"]):
-        fail("fp32 beam search: tokens differ between card and CPU")
-
-    t0 = time.time()
+    toks = generate(model, batch, eos_token_id=EOS, max_new_tokens=FP32_NEW,
+                    device=device).cpu()
     tc, _ = text_only_configs(*FP32_DEPTH_LAYERED, seed=0)
     tc.lr, tc.warmup_steps, tc.insert_prob = 1e-3, 1, TEXT_ONLY_INSERT
     batch = gt_batch(torch, SENSEVOICE_SMALL["vocab_size"], seed=3)
     gen = torch.Generator().manual_seed(5)
     draws = [noise_draws(len(TEXT_ONLY_GT_LENS), max(TEXT_ONLY_GT_LENS), gen,
                          insert_prob=tc.insert_prob) for _ in range(2)]
-    runs = {}
-    for name, model, d in (("cpu", cpu_model, "cpu"), ("cuda", gpu_model, dev)):
-        model.flags = TasuFlags.from_train_config(tc)
-        start = {n: p.detach().clone() for n, p in model.named_parameters()}
-        step = make_train_step(model, tc, device=d)
-        metrics = [{k: float(v) for k, v in step(batch, draws=dr).items()} for dr in draws]
-        params = dict(model.named_parameters())
-        frozen_same = all(torch.equal(params[n], p) for n, p in start.items()
-                          if n not in step.trainable)
-        moved = any(not torch.equal(params[n], start[n]) for n in step.trainable)
-        if not (frozen_same and moved):
-            fail(f"fp32 text-only training on {name}: frozen weights changed "
-                 f"({not frozen_same}) or the projector did not move ({not moved})")
-        runs[name] = (metrics, {n: params[n].detach().cpu() for n in step.trainable})
-    (m_c, p_c), (m_g, p_g) = runs["cpu"], runs["cuda"]
+    model.flags = TasuFlags.from_train_config(tc)
+    start = {n: p.detach().clone() for n, p in model.named_parameters()}
+    step = make_train_step(model, tc, device=device)
+    metrics = [{k: float(v) for k, v in step(batch, draws=dr).items()} for dr in draws]
+    params = dict(model.named_parameters())
+    frozen_same = all(torch.equal(params[n], p) for n, p in start.items()
+                      if n not in step.trainable)
+    moved = any(not torch.equal(params[n], start[n]) for n in step.trainable)
+    if not (frozen_same and moved):
+        fail(f"fp32 text-only training on {torch.device(device).type}: frozen weights changed "
+             f"({not frozen_same}) or the projector did not move ({not moved})")
+    return toks, metrics, {n: params[n].detach().cpu() for n in step.trainable}
+
+
+def phase_beam_text_only_fp32(torch, dev, ref):
+    """Phase 4c: beam search and text-only training at full width and
+    reduced depth, fp32, on the card (:func:`beam_text_only_fp32_run`)
+    against ``ref``, the CPU's from the same weights."""
+    t0 = time.time()
+    t_g, m_g, p_g = beam_text_only_fp32_run(dev)
+    t_c, m_c, p_c = ref.result()
+    print(f"beam fp32 (num_beams 4, the default, {FP32_NEW} new tokens): tokens card "
+          f"{t_g.tolist()} cpu {t_c.tolist()}", flush=True)
+    if not torch.equal(t_c, t_g):
+        fail("fp32 beam search: tokens differ between card and CPU")
     errs = {k: max(abs(a[k] - b[k]) for a, b in zip(m_c, m_g)) for k in ("loss", "acc", "ntokens")}
     w_err = max(float((p_c[n] - p_g[n]).abs().max()) for n in p_c)
     print(f"text-only fp32 (gt lengths {list(TEXT_ONLY_GT_LENS)}, insert_prob "
-          f"{tc.insert_prob}): losses card {[m['loss'] for m in m_g]} cpu "
+          f"{TEXT_ONLY_INSERT}): losses card {[m['loss'] for m in m_g]} cpu "
           f"{[m['loss'] for m in m_c]}; acc card {[m['acc'] for m in m_g]}; ntokens "
           f"{[m['ntokens'] for m in m_g]}; max err loss {errs['loss']:.3e} acc "
           f"{errs['acc']:.3e} ntokens {errs['ntokens']:.0f}, projector after step 2 "
@@ -1615,37 +1712,44 @@ def phase_beam_text_only_fp32(torch, dev):
         fail("fp32 text-only training: card and CPU disagree beyond the tolerance")
 
 
-def phase_decode_cli_fp32(torch, dev) -> None:
-    """Phase 4d: the decode CLI (``cli.decode.main``, scripts/decode.sh's
-    overrides, fp32, FP32_NEW new tokens) on the card and on the CPU, on
-    the same assets at full width and reduced depth; the ``_pred`` files
-    must be byte-identical."""
-    import shutil
-    import tempfile
+def decode_cli_fp32_run(device) -> tuple:
+    """Phase 4d on ``device``: the decode CLI on its own copy of the assets
+    (written from the seeded model into a temporary directory, deleted
+    after): the ``_pred`` file's bytes and ``main``'s wall seconds."""
+    import torch
 
     from ps_slm_tpu_torch.cli import decode
     from ps_slm_tpu_torch.config import half_audio_configs
     from ps_slm_tpu_torch.models.tasu import model_factory
 
-    t0 = time.time()
     root = tempfile.mkdtemp(prefix="decode_cli_fp32_")
     try:
         tc, mc = half_audio_configs(*FP32_DEPTH, seed=0)
         assets = write_assets(root, model_factory(tc, mc, device="cpu"),
                               llm_dtype=torch.bfloat16, utts=DECODE_FP32_UTTS)
-        preds, walls = {}, {}
-        for name, device in (("cuda", dev), ("cpu", "cpu")):
-            log = os.path.join(root, name, "test")
-            t1 = time.time()
-            rc = decode.main(decode_args(assets, log, FP32_NEW, mc.llm_dim, mc.encoder_dim)
-                             + ["++train_config.mixed_precision=false"], device=device)
-            walls[name] = time.time() - t1
-            if rc != 0:
-                fail(f"decode CLI fp32 on {name}: main returned {rc}")
-            with open(log + "_pred", "rb") as f:
-                preds[name] = f.read()
+        log = os.path.join(root, "out", "test")
+        t1 = time.time()
+        rc = decode.main(decode_args(assets, log, FP32_NEW, mc.llm_dim, mc.encoder_dim)
+                         + ["++train_config.mixed_precision=false"], device=device)
+        wall = time.time() - t1
+        if rc != 0:
+            fail(f"decode CLI fp32 on {torch.device(device).type}: main returned {rc}")
+        with open(log + "_pred", "rb") as f:
+            return f.read(), wall
     finally:
         shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_decode_cli_fp32(torch, dev, ref) -> None:
+    """Phase 4d: the decode CLI (``cli.decode.main``, scripts/decode.sh's
+    overrides, fp32, FP32_NEW new tokens) on the card
+    (:func:`decode_cli_fp32_run`) against ``ref``, the CPU's run, each on
+    the same assets at full width and reduced depth; the ``_pred`` files
+    must be byte-identical."""
+    t0 = time.time()
+    preds, walls = {}, {}
+    preds["cuda"], walls["cuda"] = decode_cli_fp32_run(dev)
+    preds["cpu"], walls["cpu"] = ref.result()
     same = preds["cuda"] == preds["cpu"]
     print(f"decode CLI fp32 (2+1 encoder blocks, 1 LLM layer, full width, beam 4, "
           f"{FP32_NEW} new tokens, {sum(DECODE_FP32_UTTS.values())} utterances): _pred files "
@@ -2549,47 +2653,62 @@ def tokens_by_key(pred_path: str, calls: list, what: str) -> dict:
     return dict(zip(keys, map(tuple, calls)))
 
 
-def phase_serving_fp32(torch, dev) -> None:
-    """Phase 8a: scripts/decode_serving.sh's modes through ``cli.decode.main``
-    in fp32 at full width and reduced depth (2+1 encoder blocks, 2 LLM
-    layers), on the card and (the modes without a pool; phase 10a runs the
-    pools card vs CPU) on the CPU, each with the script's
-    ``quantization=true``.  The card's ``_pred`` must be byte-identical to
-    the CPU's in every mode run on both, and on the card the pool and
-    speculative modes' to plain greedy's (the beam pool's to static
-    beam-4's), its lines sorted (the pools write in completion order)."""
-    import shutil
-    import tempfile
+def serving_fp32_run(device) -> tuple:
+    """Phase 8a's decode CLI runs on ``device`` (every mode on the card,
+    those marked for it on the CPU), on its own copy of the assets in a
+    temporary directory (deleted after): by mode label the ``_pred`` lines
+    sorted, the token ids by key and ``main``'s wall seconds."""
+    import torch
 
     from ps_slm_tpu_torch.cli import decode
     from ps_slm_tpu_torch.config import half_audio_configs
     from ps_slm_tpu_torch.models.tasu import model_factory
 
-    t0 = time.time()
+    name = torch.device(device).type
+    preds, walls, toks = {}, {}, {}
     root = tempfile.mkdtemp(prefix="serving_fp32_")
     try:
         tc, mc = half_audio_configs(*FP32_DEPTH_LAYERED, seed=0)
         assets = write_assets(root, model_factory(tc, mc, device="cpu"),
                               llm_dtype=torch.bfloat16, utts=SERVE_FP32_UTTS)
         write_bpe_model(assets["encoder_path"], vocab=mc.encoder_dim)
-        preds, walls, toks = {}, {}, {}
         for label, mode, extra, on_cpu in SERVE_FP32_MODES:
-            for name, device in (("cuda", dev), ("cpu", "cpu"))[:1 + on_cpu]:
-                log = os.path.join(root, name, label.replace(" ", "_"), "test")
-                args = serving_args(assets, mode, log, FP32_NEW, mc.llm_dim, mc.encoder_dim)
-                t1 = time.time()
-                with recorded_tokens() as calls:
-                    if decode.main(args + SERVE_FP32_ARGS + extra, device=device) != 0:
-                        fail(f"serving fp32 {label} on {name}: main returned nonzero")
-                walls[label, name] = time.time() - t1
-                with open(log + "_pred", "rb") as f:
-                    # the pools write in completion order: compare the lines sorted
-                    preds[label, name] = b"\n".join(sorted(f.read().split(b"\n")))
-                toks[label, name] = tokens_by_key(log + "_pred", calls, f"serving fp32 {label}")
-                if sorted(read_pred(log + "_pred")) != sorted(read_pred(log + "_gt")):
-                    fail(f"serving fp32 {label} on {name}: _pred and _gt hold other keys")
+            if name == "cpu" and not on_cpu:
+                continue
+            log = os.path.join(root, name, label.replace(" ", "_"), "test")
+            args = serving_args(assets, mode, log, FP32_NEW, mc.llm_dim, mc.encoder_dim)
+            t1 = time.time()
+            with recorded_tokens() as calls:
+                if decode.main(args + SERVE_FP32_ARGS + extra, device=device) != 0:
+                    fail(f"serving fp32 {label} on {name}: main returned nonzero")
+            walls[label] = time.time() - t1
+            with open(log + "_pred", "rb") as f:
+                # the pools write in completion order: compare the lines sorted
+                preds[label] = b"\n".join(sorted(f.read().split(b"\n")))
+            toks[label] = tokens_by_key(log + "_pred", calls, f"serving fp32 {label}")
+            if sorted(read_pred(log + "_pred")) != sorted(read_pred(log + "_gt")):
+                fail(f"serving fp32 {label} on {name}: _pred and _gt hold other keys")
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    return preds, toks, walls
+
+
+def phase_serving_fp32(torch, dev, cpu_ref) -> None:
+    """Phase 8a: scripts/decode_serving.sh's modes through ``cli.decode.main``
+    in fp32 at full width and reduced depth (2+1 encoder blocks, 2 LLM
+    layers), on the card (:func:`serving_fp32_run`) against ``cpu_ref``,
+    the CPU's run of the modes without a pool (phase 10a runs the pools card
+    vs CPU), each with the script's ``quantization=true``.  The card's
+    ``_pred`` must be byte-identical to the CPU's in every mode run on
+    both, and on the card the pool and speculative modes' to plain
+    greedy's (the beam pool's to static beam-4's), its lines sorted (the
+    pools write in completion order)."""
+    t0 = time.time()
+    preds, walls, toks = {}, {}, {}
+    for name, run in (("cuda", lambda: serving_fp32_run(dev)), ("cpu", cpu_ref.result)):
+        p, t, w = run()
+        for label in p:
+            preds[label, name], toks[label, name], walls[label, name] = p[label], t[label], w[label]
     n = sum(SERVE_FP32_UTTS.values())
 
     def same(a, b) -> bool:
@@ -3185,21 +3304,20 @@ def serve_requests(serve_main, args: list, req_path: str, gap) -> tuple:
     return clock.lines, src.t, wrote[-1]
 
 
-def phase_serve_cli_fp32(torch, dev) -> None:
-    """Phase 10a: ``cli.serve.main`` in fp32 at full width and reduced depth
-    (8a's 2+1 encoder blocks, 1 LLM layer, assets and knobs: int8 weights,
-    3 slots, 8 new tokens) on 4 utterances and two bad lines, through the
-    pool, static batches, streamed partials, CTC drafts and the beam-4 pool,
-    on the card and on the CPU.  Each route's final and error lines must be
-    identical card against CPU (as sets: lines come in completion order),
-    and on the card the greedy routes' token ids equal plain greedy decode's
-    (the decode CLI, MODE=plain; streamed partials: the pool's texts)."""
+def serve_cli_fp32_run(device) -> dict:
+    """Phase 10a's runs on ``device``, on its own copy of the assets and
+    requests file in a temporary directory (deleted after): through every
+    route of SERVE_FP32_ROUTES, by label the output lines (the directory's
+    path in an error line written ``<root>``), ``main``'s wall seconds and
+    the token ids by key; the good keys; on the card also plain greedy
+    decode's token ids (the decode CLI, MODE=plain)."""
+    import torch
+
     from ps_slm_tpu_torch.cli import decode, serve
     from ps_slm_tpu_torch.config import half_audio_configs
     from ps_slm_tpu_torch.models.tasu import model_factory
 
-    what = "serve CLI fp32"
-    t0 = time.time()
+    what, name = "serve CLI fp32", torch.device(device).type
     root = tempfile.mkdtemp(prefix="serve_fp32_")
     try:
         tc, mc = half_audio_configs(*FP32_DEPTH_LAYERED, seed=0)
@@ -3207,31 +3325,55 @@ def phase_serve_cli_fp32(torch, dev) -> None:
                               llm_dtype=torch.bfloat16, utts=SERVE_FP32_UTTS)
         write_bpe_model(assets["encoder_path"], vocab=mc.encoder_dim)
         req = os.path.join(root, "requests.jsonl")
-        good = write_requests(assets["data"], req)
-        log = os.path.join(root, "decode", "test")
-        with recorded_tokens() as calls:
-            if decode.main(serving_args(assets, "plain", log, FP32_NEW, mc.llm_dim,
-                                        mc.encoder_dim) + SERVE_FP32_ARGS, device=dev) != 0:
-                fail(f"{what}: the plain decode returned nonzero")
-        greedy = tokens_by_key(log + "_pred", calls, f"{what} plain decode")
+        run = {"good": write_requests(assets["data"], req), "lines": {}, "walls": {},
+               "toks": {}}
+        if name == "cuda":
+            log = os.path.join(root, "decode", "test")
+            with recorded_tokens() as calls:
+                if decode.main(serving_args(assets, "plain", log, FP32_NEW, mc.llm_dim,
+                                            mc.encoder_dim) + SERVE_FP32_ARGS, device=device) != 0:
+                    fail(f"{what}: the plain decode returned nonzero")
+            run["greedy"] = tokens_by_key(log + "_pred", calls, f"{what} plain decode")
         base = [a for a in serving_args(assets, "plain", os.path.join(root, "serve"), FP32_NEW,
                                         mc.llm_dim, mc.encoder_dim)
                 if not a.startswith("decode_log=")] + SERVE_FP32_ARGS
-        out, walls, toks = {}, {}, {}
         for label, extra in SERVE_FP32_ROUTES:
-            for name, device in (("cuda", dev), ("cpu", "cpu")):
-                clock = LineClock()
-                t1 = time.time()
-                with recorded_tokens() as calls:
-                    if serve.main(base + extra + [req], stdout=clock, device=device) != 0:
-                        fail(f"{what} {label} on {name}: main returned nonzero")
-                walls[label, name] = time.time() - t1
-                out[label, name] = clock.lines
-                # without partials, the decodes are the final lines', in order
-                keys = [r["key"] for _, r in clock.lines if "text" in r]
-                toks[label, name] = dict(zip(keys, map(tuple, calls)))
+            clock = LineClock()
+            t1 = time.time()
+            with recorded_tokens() as calls:
+                if serve.main(base + extra + [req], stdout=clock, device=device) != 0:
+                    fail(f"{what} {label} on {name}: main returned nonzero")
+            run["walls"][label] = time.time() - t1
+            run["lines"][label] = [(t, {k: v.replace(root, "<root>") if isinstance(v, str) else v
+                                        for k, v in r.items()}) for t, r in clock.lines]
+            # without partials, the decodes are the final lines', in order
+            keys = [r["key"] for _, r in clock.lines if "text" in r]
+            run["toks"][label] = dict(zip(keys, map(tuple, calls)))
+        return run
     finally:
         shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_serve_cli_fp32(torch, dev, ref) -> None:
+    """Phase 10a: ``cli.serve.main`` in fp32 at full width and reduced depth
+    (8a's 2+1 encoder blocks, 1 LLM layer, assets and knobs: int8 weights,
+    3 slots, 8 new tokens) on 4 utterances and two bad lines, through the
+    pool, static batches, streamed partials, CTC drafts and the beam-4 pool,
+    on the card (:func:`serve_cli_fp32_run`) and on the CPU (``ref``, its
+    run in the reference worker).  Each route's final and error lines must be
+    identical card against CPU (as sets: lines come in completion order),
+    and on the card the greedy routes' token ids equal plain greedy decode's
+    (the decode CLI, MODE=plain; streamed partials: the pool's texts)."""
+    what = "serve CLI fp32"
+    t0 = time.time()
+    card = serve_cli_fp32_run(dev)
+    cpu = ref.result()
+    good, greedy = card["good"], card["greedy"]
+    out, walls, toks = {}, {}, {}
+    for name, run in (("cuda", card), ("cpu", cpu)):
+        for label in run["lines"]:
+            out[label, name] = run["lines"][label]
+            walls[label, name], toks[label, name] = run["walls"][label], run["toks"][label]
     bad = []
     for label, _ in SERVE_FP32_ROUTES:
         finals = {n: serve_finals(f"{what} {label} on {n}", out[label, n], good)
@@ -3426,23 +3568,98 @@ def adapters_only(torch):
         ckpt.save_train_state, ckpt.export_reference_checkpoint = saved
 
 
-def phase_peft_fp32(torch, dev) -> None:
+# 11a's overrides after the half_audio recipe's
+PEFT_FP32_EXTRA = [
+    "++train_config.mixed_precision=false", "++dataset_config.fbank.dither=0.0",
+    "++train_config.num_epochs=1", "++train_config.run_validation=false",
+    "++train_config.batching_strategy=padding", "++train_config.batch_size_training=2",
+    "++train_config.lr=1e-3", "++train_config.warmup_steps=1", "++train_config.save_last=true",
+    "++log_config.log_interval=1", "++train_config.use_peft=true",
+    "++train_config.freeze_projector=true"]
+
+
+def peft_fp32_runs(device, root: str = None) -> dict:
+    """Phase 11a's runs on ``device`` over ``root``'s assets (written there
+    first; none given: a temporary directory, deleted after): for each of
+    PEFT_FP32_SETUPS, its initial adapter drawn on the CPU from the seeded
+    config and handed over as ``peft_ckpt`` (QLoRA takes LoRA's), then
+    ``cli.finetune.main``: by label the losses, the exported adapters,
+    ``main``'s wall seconds, whether the base LLM kept its bits and AdamW's
+    first moments; on the card also the model, its args and output
+    directory."""
+    import torch
+
+    from ps_slm_tpu_torch.cli import finetune
+    from ps_slm_tpu_torch.config import RunConfig, half_audio_configs, parse_cli
+    from ps_slm_tpu_torch.models.tasu import model_factory
+    from ps_slm_tpu_torch.training import checkpoint as ckpt
+
+    what, name = "PEFT finetune fp32", torch.device(device).type
+    own = root is None
+    root = tempfile.mkdtemp(prefix="peft_fp32_") if own else root
+    try:
+        tc, mc = half_audio_configs(*FP32_DEPTH_LAYERED, seed=0)
+        assets = write_assets(root, model_factory(tc, mc, device="cpu"),
+                              llm_dtype=torch.bfloat16, utts={"ark": 1, "wav": 0, "flac": 0})
+        write_manifest(os.path.join(root, "train"), {"ark": 2, "wav": 1, "flac": 1},
+                       PEFT_SECONDS, seed=1)
+        inits, runs = {}, {}
+        for label, peft in PEFT_FP32_SETUPS:
+            # one initial adapter for both devices (each device's generator
+            # draws its own), handed over as peft_ckpt; QLoRA takes LoRA's
+            method = next((a for a in peft if "peft_method" in a), "lora")
+            if method not in inits:
+                inits[method] = os.path.join(root, label.replace(" ", "_"), "init_adapter")
+                cfg = parse_cli(finetune_args(assets, root, inits[method], llm_dim=mc.llm_dim,
+                                              encoder_dim=mc.encoder_dim) + PEFT_FP32_EXTRA
+                                + peft, RunConfig())
+                ckpt.export_peft_adapters(
+                    model_factory(cfg.train_config, cfg.model_config, device="cpu"),
+                    inits[method])
+            out = os.path.join(root, label.replace(" ", "_"), name)
+            args = finetune_args(assets, root, out, llm_dim=mc.llm_dim,
+                                 encoder_dim=mc.encoder_dim) + PEFT_FP32_EXTRA + peft + [
+                f"peft_ckpt={inits[method]}"]
+            with TrainProbe(torch, device) as probe, base_snapshot(torch) as seen, \
+                    adapters_only(torch):
+                t1 = time.time()
+                if finetune.main(args, device=device) != 0:
+                    fail(f"{what} {label} on {name}: main returned nonzero")
+            adapter = torch.load(os.path.join(out, "last", "adapter", "adapter_model.bin"),
+                                 weights_only=True)
+            step = seen["step"]
+            params = dict(step.model.named_parameters())
+            moments = {n: step.optimizer.state[params[n]]["exp_avg"].detach().cpu()
+                       for n in step.trainable}
+            runs[label] = dict(losses=probe.losses(), adapter=adapter, wall=time.time() - t1,
+                               same_base=base_unchanged(seen), moments=moments)
+            if not own:
+                runs[label].update(model=probe.model, args=args, out=out)
+            probe.model = probe.largest = None
+            del step, params, seen
+        return {"runs": runs, "mc": mc}
+    finally:
+        if own:
+            shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_peft_fp32(torch, dev, ref) -> None:
     """Phase 11a: ``cli.finetune.main`` with ``use_peft`` in fp32 at full
     width and reduced depth (2+1 encoder blocks, 1 LLM layer; phase 4e's
     kind of assets, 4 training utterances of 1-2 s, 2 steps of 2 rows, lr
     1e-3 after the warm-up's first step at 0; dither 0; the projector
     frozen, so only the adapters train; one initial adapter, drawn on the
-    CPU, given to both as ``peft_ckpt``; ``last/`` writes the adapters
-    alone, 11b writes the whole checkpoint), on the card and on the CPU: LoRA
-    (dropout 0), QLoRA over int8, prefix tuning and llama-adapter.  Losses
+    CPU, given as ``peft_ckpt``; ``last/`` writes the adapters alone, 11b
+    writes the whole checkpoint), on the card (:func:`peft_fp32_runs`)
+    against ``ref``, the CPU's runs: LoRA (dropout 0), QLoRA over int8,
+    prefix tuning and llama-adapter.  Losses
     within PATH_TOL, the exported adapters (``last/adapter``) within
     ADAPTER_TOL and AdamW's first moments of every trained tensor within
     MOMENT_TOL of the tensor's largest, card against CPU; the base LLM
     bit-identical after training; the exported
     adapters, imported into a fresh model by ``peft_ckpt``'s
     ``import_peft_adapters``, reproduce the trained LLM's logits."""
-    from ps_slm_tpu_torch.cli import finetune
-    from ps_slm_tpu_torch.config import RunConfig, half_audio_configs, parse_cli
+    from ps_slm_tpu_torch.config import RunConfig, parse_cli
     from ps_slm_tpu_torch.models.tasu import model_factory
     from ps_slm_tpu_torch.training import checkpoint as ckpt
 
@@ -3451,52 +3668,11 @@ def phase_peft_fp32(torch, dev) -> None:
     root = tempfile.mkdtemp(prefix="peft_fp32_")
     bad = []
     try:
-        tc, mc = half_audio_configs(*FP32_DEPTH_LAYERED, seed=0)
-        assets = write_assets(root, model_factory(tc, mc, device="cpu"),
-                              llm_dtype=torch.bfloat16, utts={"ark": 1, "wav": 0, "flac": 0})
-        write_manifest(os.path.join(root, "train"), {"ark": 2, "wav": 1, "flac": 1},
-                       PEFT_SECONDS, seed=1)
-        extra = ["++train_config.mixed_precision=false", "++dataset_config.fbank.dither=0.0",
-                 "++train_config.num_epochs=1", "++train_config.run_validation=false",
-                 "++train_config.batching_strategy=padding",
-                 "++train_config.batch_size_training=2", "++train_config.lr=1e-3",
-                 "++train_config.warmup_steps=1", "++train_config.save_last=true",
-                 "++log_config.log_interval=1", "++train_config.use_peft=true",
-                 "++train_config.freeze_projector=true"]
-        inits = {}
-        for label, peft in PEFT_FP32_SETUPS:
-            # one initial adapter for both devices (each device's generator
-            # draws its own), handed over as peft_ckpt; QLoRA takes LoRA's
-            method = next((a for a in peft if "peft_method" in a), "lora")
-            if method not in inits:
-                inits[method] = os.path.join(root, label.replace(" ", "_"), "init_adapter")
-                cfg = parse_cli(finetune_args(assets, root, inits[method], llm_dim=mc.llm_dim,
-                                              encoder_dim=mc.encoder_dim) + extra + peft,
-                                RunConfig())
-                ckpt.export_peft_adapters(
-                    model_factory(cfg.train_config, cfg.model_config, device="cpu"),
-                    inits[method])
-            init = inits[method]
-            runs = {}
-            for name, device in (("cuda", dev), ("cpu", "cpu")):
-                out = os.path.join(root, label.replace(" ", "_"), name)
-                args = finetune_args(assets, root, out, llm_dim=mc.llm_dim,
-                                     encoder_dim=mc.encoder_dim) + extra + peft + [
-                    f"peft_ckpt={init}"]
-                with TrainProbe(torch, device) as probe, base_snapshot(torch) as seen, \
-                        adapters_only(torch):
-                    t1 = time.time()
-                    if finetune.main(args, device=device) != 0:
-                        fail(f"{what} {label} on {name}: main returned nonzero")
-                adapter = torch.load(os.path.join(out, "last", "adapter", "adapter_model.bin"),
-                                     weights_only=True)
-                step = seen["step"]
-                params = dict(step.model.named_parameters())
-                moments = {n: step.optimizer.state[params[n]]["exp_avg"].detach().cpu()
-                           for n in step.trainable}
-                runs[name] = dict(losses=probe.losses(), adapter=adapter, wall=time.time() - t1,
-                                  same_base=base_unchanged(seen), model=probe.model, args=args,
-                                  out=out, moments=moments)
+        card_runs = peft_fp32_runs(dev, root)
+        mc = card_runs["mc"]
+        cpu_runs = ref.result()["runs"]
+        for label, _ in PEFT_FP32_SETUPS:
+            runs = {"cuda": card_runs["runs"].pop(label), "cpu": cpu_runs[label]}
             card, cpu = runs["cuda"], runs["cpu"]
             loss_err = max(abs(a - b) for a, b in zip(card["losses"], cpu["losses"]))
             ad_err = max(float((card["adapter"][k] - cpu["adapter"][k]).abs().max())
@@ -3759,9 +3935,57 @@ class IdText:
         return ",".join(str(int(i)) for i in ids)
 
 
-def phase_encoder_fp32(torch, dev) -> None:
-    """12a, the encoder: full widths at 2+1 blocks, fp32, card against the
-    CPU from the same weights: ``inference`` with timestamps on 4
+def encoder_fp32_run(device) -> tuple:
+    """12a's encoder on ``device`` (built on the CPU from its seed, its CTC
+    head x HEAD_SCALE): the inference results, the infeasible batch's
+    losses and gradients, the feasible steps' losses, changes, first
+    moments and gradients (on the CPU), and the two batches' lengths."""
+    import torch
+
+    from ps_slm_tpu_torch.config import SENSEVOICE_SMALL, TrainConfig
+    from ps_slm_tpu_torch.models import sensevoice_asr as asr
+    from ps_slm_tpu_torch.models.sensevoice import SenseVoiceConfig, SenseVoiceEncoder
+
+    cfg = SenseVoiceConfig(**dict(SENSEVOICE_SMALL, num_blocks=2, tp_blocks=1))
+    enc = SenseVoiceEncoder(cfg)
+    enc.init_weights(torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        enc.ctc_lo.weight.mul_(HEAD_SCALE)
+        enc.ctc_lo.bias.mul_(HEAD_SCALE)
+    enc = enc.to(device)
+    cpu = torch.device("cpu")
+    asr_in = enc_batch(torch, cpu, 4, (1.0, 3.0), cfg.vocab_size, seed=6)
+    results = asr.inference(enc, IdText(), asr_in[0], asr_in[1], language="en",
+                            ban_emo_unk=True, output_timestamp=True, device=device)
+    tc = TrainConfig(lr=1e-3, warmup_steps=1, total_steps=100)
+    feasible = enc_batch(torch, cpu, 4, (1.0, 3.0), cfg.vocab_size, seed=5)[:4]
+    infeasible = enc_batch(torch, cpu, 4, (1.0, 3.0), cfg.vocab_size, seed=5, infeasible=3)[:4]
+    start = {n: p.detach().clone() for n, p in enc.named_parameters()}
+    # the infeasible batch: one backward, its losses and gradients
+    step, accum = encoder_step(torch, enc, tc, *(x.to(device) for x in infeasible))
+    accum.step = lambda: True                 # the gradients stay, nothing moves
+    out = {k: float(v) for k, v in step().items()}
+    grads = (out, {n: p.grad.detach().cpu() for n, p in enc.named_parameters()})
+    rows = [x.to(device) for x in feasible]
+    step, accum = encoder_step(torch, enc, tc, *rows)
+    losses, step_grads = [], []
+    for _ in range(ENC_FP32_STEPS):
+        losses.append({k: float(v) for k, v in step().items()})
+        step_grads.append({n: p.grad.detach().cpu() for n, p in enc.named_parameters()})
+    with torch.no_grad():                     # the loss after the update
+        x, lens = asr.prepend_queries(enc, rows[0], rows[1], ENC_QUERIES)
+        losses.append({k: float(v) for k, v in
+                       asr.encoder_train_loss(enc, x, lens, rows[2], rows[3]).items()})
+    state = accum.optimizer.state
+    run = (losses, {n: (p.detach() - start[n]).cpu() for n, p in enc.named_parameters()},
+           {n: state[p]["exp_avg"].cpu() for n, p in enc.named_parameters()}, step_grads)
+    return results, grads, run, feasible[1], infeasible[1]
+
+
+def phase_encoder_fp32(torch, dev, ref) -> None:
+    """12a, the encoder: full widths at 2+1 blocks, fp32, card
+    (:func:`encoder_fp32_run`) against ``ref``, the CPU's run from the same
+    weights: ``inference`` with timestamps on 4
     utterances (the same ids and timestamps); one backward on a ragged
     4-row batch with rich labels and an infeasible row (losses within
     PATH_TOL of the CPU's, relative to their size; each parameter's
@@ -3783,55 +4007,14 @@ def phase_encoder_fp32(torch, dev) -> None:
     which differs between the devices.  So a second update, or a gradient
     taken after the first, is no longer a like-for-like comparison: the
     parameters already differ in those elements by up to 2 lr."""
-    from ps_slm_tpu_torch.config import SENSEVOICE_SMALL, TrainConfig
-    from ps_slm_tpu_torch.models import sensevoice_asr as asr
-    from ps_slm_tpu_torch.models.sensevoice import SenseVoiceConfig, SenseVoiceEncoder
-
     what = "encoder fp32"
     t0 = time.time()
-    cfg = SenseVoiceConfig(**dict(SENSEVOICE_SMALL, num_blocks=2, tp_blocks=1))
-    cpu_enc = SenseVoiceEncoder(cfg)
-    cpu_enc.init_weights(torch.Generator().manual_seed(0))
-    with torch.no_grad():
-        cpu_enc.ctc_lo.weight.mul_(HEAD_SCALE)
-        cpu_enc.ctc_lo.bias.mul_(HEAD_SCALE)
-    gpu_enc = copy.deepcopy(cpu_enc).to(dev)
-    cpu = torch.device("cpu")
-    asr_in = enc_batch(torch, cpu, 4, (1.0, 3.0), cfg.vocab_size, seed=6)
-    results = {}
-    for name, enc, d in (("cpu", cpu_enc, cpu), ("cuda", gpu_enc, dev)):
-        results[name] = asr.inference(enc, IdText(), asr_in[0], asr_in[1], language="en",
-                                      ban_emo_unk=True, output_timestamp=True, device=d)
+    results, grads, runs = {}, {}, {}
+    results["cuda"], grads["cuda"], runs["cuda"], feasible, infeasible = encoder_fp32_run(dev)
+    results["cpu"], grads["cpu"], runs["cpu"], _, _ = ref.result()
     if results["cpu"] != results["cuda"]:
         fail(f"{what}: inference differs card vs CPU: {results['cuda']} / {results['cpu']}")
     n_ts = sum(len(r["timestamp"]) for r in results["cuda"])
-
-    tc = TrainConfig(lr=1e-3, warmup_steps=1, total_steps=100)
-    feasible = enc_batch(torch, cpu, 4, (1.0, 3.0), cfg.vocab_size, seed=5)[:4]
-    infeasible = enc_batch(torch, cpu, 4, (1.0, 3.0), cfg.vocab_size, seed=5, infeasible=3)[:4]
-    runs, grads = {}, {}
-    for name, enc, d in (("cpu", cpu_enc, cpu), ("cuda", gpu_enc, dev)):
-        start = {n: p.detach().clone() for n, p in enc.named_parameters()}
-        # the infeasible batch: one backward, its losses and gradients
-        step, accum = encoder_step(torch, enc, tc, *(x.to(d) for x in infeasible))
-        accum.step = lambda: True                 # the gradients stay, nothing moves
-        out = {k: float(v) for k, v in step().items()}
-        grads[name] = (out, {n: p.grad.detach().cpu() for n, p in enc.named_parameters()})
-        rows = [x.to(d) for x in feasible]
-        step, accum = encoder_step(torch, enc, tc, *rows)
-        losses, step_grads = [], []
-        for _ in range(ENC_FP32_STEPS):
-            losses.append({k: float(v) for k, v in step().items()})
-            step_grads.append({n: p.grad.detach().cpu() for n, p in enc.named_parameters()})
-        with torch.no_grad():                     # the loss after the update
-            x, lens = asr.prepend_queries(enc, rows[0], rows[1], ENC_QUERIES)
-            losses.append({k: float(v) for k, v in
-                           asr.encoder_train_loss(enc, x, lens, rows[2], rows[3]).items()})
-        state = accum.optimizer.state
-        runs[name] = (losses, {n: (p.detach() - start[n]).cpu()
-                               for n, p in enc.named_parameters()},
-                      {n: state[p]["exp_avg"].cpu() for n, p in enc.named_parameters()},
-                      step_grads)
     (l_c, d_c, m_c, sg_c), (l_g, d_g, m_g, sg_g) = runs["cpu"], runs["cuda"]
     (o_c, g_c), (o_g, g_g) = grads["cpu"], grads["cuda"]
     loss_err = max(abs(a[k] - b[k]) / max(1.0, abs(b[k])) for a, b in zip(l_g + [o_g], l_c + [o_c])
@@ -3858,9 +4041,9 @@ def phase_encoder_fp32(torch, dev) -> None:
     left_grad = {n: max(float(torch.where(kept[n], 0.0, g[n].abs()).max())
                         / max(float(g[n].abs().max()), 1e-30) for g in sg_c) for n in worst}
     still = [n for n in d_c if not bool(d_c[n].any())]
-    print(f"{what} 12a (2+1 blocks, full width, 4 ragged rows of {feasible[1].tolist()} "
+    print(f"{what} 12a (2+1 blocks, full width, 4 ragged rows of {feasible.tolist()} "
           f"frames): losses card {l_g} cpu {l_c} (the last after an update); with row 3 "
-          f"infeasible ({infeasible[1].tolist()} frames) card {o_g} cpu {o_c}; loss err "
+          f"infeasible ({infeasible.tolist()} frames) card {o_g} cpu {o_c}; loss err "
           f"{loss_err:.3e} (relative, tol {PATH_TOL}); after {ENC_FP32_STEPS} AdamW steps the "
           f"gradients within {step_grad_err:.3e} and the first moments within {moment_err:.3e} "
           f"of their size (tol {MOMENT_TOL}); each parameter's change within {move_err:.3e} of "
@@ -3888,11 +4071,47 @@ def branch_configs(label: str, base_tc, base_mc):
             dataclasses.replace(base_mc, encoder_projector=name, **mcfg))
 
 
-def phase_projectors_fp32(torch, dev) -> None:
+def projectors_fp32_run(device) -> dict:
+    """12a's projectors on ``device``: by PROJECTOR_RUNS' label, the merged
+    embeddings, mask and positions, the step's loss and the trained
+    parameters' AdamW first moments, on the CPU."""
+    import torch
+
+    from ps_slm_tpu_torch.config import SENSEVOICE_SMALL, half_audio_configs
+    from ps_slm_tpu_torch.models import projector as proj
+    from ps_slm_tpu_torch.models.tasu import TasuFlags, model_factory, prepare_merged
+    from ps_slm_tpu_torch.training.step import make_train_step
+
+    base_tc, base_mc = half_audio_configs(*FP32_DEPTH, seed=0)
+    model = model_factory(base_tc, base_mc, device="cpu").to(device)
+    model.speech_token_id = SPEECH_TOKEN
+    batch = train_batch(torch, SENSEVOICE_SMALL["input_size"], PROJECTOR_FP32_FRAMES, seed=5)
+    out = {}
+    for label, *_ in PROJECTOR_RUNS:
+        tc, mc = branch_configs(label, base_tc, base_mc)
+        projector = proj.build_projector(mc)
+        projector.init_weights(torch.Generator().manual_seed(7))
+        model.projector = projector.to(device)
+        model.model_cfg, model.flags = mc, TasuFlags.from_train_config(tc, mc)
+        bd = {k: v.to(device) for k, v in batch.items()}
+        with torch.no_grad():
+            merged = prepare_merged(model, bd)
+        step = make_train_step(model, tc, device=device)
+        loss = float(step(bd)["loss"])
+        params = dict(model.named_parameters())
+        out[label] = (merged.embeds.cpu(), merged.attention_mask.cpu(),
+                      merged.position_ids.cpu(), loss,
+                      {n: step.optimizer.state[params[n]]["exp_avg"].cpu()
+                       for n in step.trainable})
+        del step, merged
+    return out
+
+
+def phase_projectors_fp32(torch, dev, ref) -> None:
     """12a, the projectors and branches: full widths at 2+1 encoder blocks
-    and 1 LLM layer, fp32, card against the CPU: one model built once
-    and copied to the card, then each of PROJECTOR_RUNS' projectors (drawn
-    on the CPU, copied to both) with its flags (projector trained, encoder
+    and 1 LLM layer, fp32, card (:func:`projectors_fp32_run`) against
+    ``ref``, the CPU's run: one model built from its seed on each, then
+    each of PROJECTOR_RUNS' projectors (drawn on the CPU) with its flags (projector trained, encoder
     and LLM frozen) on a ragged 2-row batch (PROJECTOR_FP32_FRAMES):
     ``prepare_merged`` within PATH_TOL (masks and positions equal), then
     one training step: its loss within PATH_TOL and the trained
@@ -3903,35 +4122,14 @@ def phase_projectors_fp32(torch, dev) -> None:
     biases).  A norm, not the largest element: a ReLU input within
     rounding of 0 takes one frame of one unit out of the gradient on one
     device only."""
-    from ps_slm_tpu_torch.config import SENSEVOICE_SMALL, half_audio_configs
-    from ps_slm_tpu_torch.models import projector as proj
-    from ps_slm_tpu_torch.models.tasu import TasuFlags, model_factory, prepare_merged
-    from ps_slm_tpu_torch.training.step import make_train_step
+    from ps_slm_tpu_torch.config import SENSEVOICE_SMALL
 
-    base_tc, base_mc = half_audio_configs(*FP32_DEPTH, seed=0)
-    cpu = torch.device("cpu")
-    cpu_model = model_factory(base_tc, base_mc, device="cpu")
-    cpu_model.speech_token_id = SPEECH_TOKEN
-    gpu_model = copy.deepcopy(cpu_model).to(dev)
+    t0 = time.time()
+    runs = projectors_fp32_run(dev)
+    ref_runs = ref.result()
     batch = train_batch(torch, SENSEVOICE_SMALL["input_size"], PROJECTOR_FP32_FRAMES, seed=5)
     for label, *_ in PROJECTOR_RUNS:
-        t0 = time.time()
-        tc, mc = branch_configs(label, base_tc, base_mc)
-        projector = proj.build_projector(mc)
-        projector.init_weights(torch.Generator().manual_seed(7))
-        out = {}
-        for name, model, d in (("cpu", cpu_model, cpu), ("cuda", gpu_model, dev)):
-            model.projector = copy.deepcopy(projector).to(d)
-            model.model_cfg, model.flags = mc, TasuFlags.from_train_config(tc, mc)
-            bd = {k: v.to(d) for k, v in batch.items()}
-            with torch.no_grad():
-                merged = prepare_merged(model, bd)
-            step = make_train_step(model, tc, device=d)
-            loss = float(step(bd)["loss"])
-            params = dict(model.named_parameters())
-            out[name] = (merged, loss, {n: step.optimizer.state[params[n]]["exp_avg"].cpu()
-                                        for n in step.trainable})
-        (m_c, l_c, mom_c), (m_g, l_g, mom_g) = out["cpu"], out["cuda"]
+        (e_c, a_c, p_c, l_c, mom_c), (e_g, a_g, p_g, l_g, mom_g) = ref_runs[label], runs[label]
         # ||card - CPU|| / ||CPU|| a tensor, the norm floored at GRAD_FLOOR of
         # the projector's largest: the q-former's key biases (0 up to rounding)
         # and its cross-attention (which the near-uniform posterior frames
@@ -3940,21 +4138,18 @@ def phase_projectors_fp32(torch, dev) -> None:
         mom_err = max(float((mom_g[n] - mom_c[n]).norm()) / max(float(mom_c[n].norm()), floor,
                                                                1e-30) for n in mom_c)
         floored = [n for n in mom_c if float(mom_c[n].norm()) < floor]
-        same = (torch.equal(m_c.attention_mask, m_g.attention_mask.cpu())
-                and torch.equal(m_c.position_ids, m_g.position_ids.cpu()))
-        emb_err = float((m_c.embeds - m_g.embeds.cpu()).abs().max())
+        same = torch.equal(a_c, a_g) and torch.equal(p_c, p_g)
+        emb_err = float((e_c - e_g).abs().max())
         print(f"projectors fp32 12a {label}: embeds err {emb_err:.3e}, loss card {l_g:.6f} cpu "
               f"{l_c:.6f} (tol {PATH_TOL}); the first moments of {len(mom_c)} trained tensors "
               f"within {mom_err:.3e} of their norm (tol {PROJ_MOMENT_TOL}; {len(floored)} sized at "
               f"the floor, {GRAD_FLOOR} of the largest: {floored[:3]}); merged length "
-              f"{m_g.embeds.shape[1]}, audio spans "
-              f"{(m_g.attention_mask.sum(1) - batch['attention_mask'].sum(1).to(dev) + 1).tolist()}"
-              f" ({time.time() - t0:.1f} s)", flush=True)
+              f"{e_g.shape[1]}, audio spans "
+              f"{(a_g.sum(1) - batch['attention_mask'].sum(1) + 1).tolist()}", flush=True)
         if (not same or emb_err > PATH_TOL or abs(l_g - l_c) > PATH_TOL
                 or mom_err > PROJ_MOMENT_TOL or not math.isfinite(l_g)):
             fail(f"projectors fp32 {label}: card and CPU disagree (masks equal {same})")
-        del out, m_c, m_g, mom_c, mom_g
-    del cpu_model, gpu_model
+    print(f"projectors fp32 12a: {time.time() - t0:.1f} s", flush=True)
     torch.cuda.empty_cache()
 
 
@@ -4345,13 +4540,12 @@ def phase_qformer_cli(torch, dev, assets: dict, root: str, launches: dict,
 def trained_moments(step) -> dict:
     """AdamW's first moment of each trained tensor of ``step`` (a
     ``TrainStep``), whole (a collective under FSDP2 / TP), on the CPU."""
-    from ps_slm_tpu_torch.parallel import mesh as meshlib
-
+    mesh = step.model.mesh
     params = dict(step.model.named_parameters())
     out = {}
     for n in step.trainable:
         m = step.optimizer.state[params[n]]["exp_avg"]
-        out[n] = (meshlib.full_tensor(m) if hasattr(m, "to_local") else m.detach()).cpu().clone()
+        out[n] = (m.detach() if mesh is None else mesh.whole(n, m)).cpu().clone()
     return out
 
 
@@ -4452,7 +4646,6 @@ def rank13_worker(spec_path: str) -> None:
     dev = torch.device("cuda", rank % torch.cuda.device_count())
     real_sync, real_make = meshlib.Parallel.sync_grads, step_mod.make_train_step
     sync_ms: list = []
-    want = torch.load(spec["projector"], weights_only=True) if spec.get("projector") else None
 
     def timed_sync(self, model):
         torch.cuda.synchronize()
@@ -4464,6 +4657,24 @@ def rank13_worker(spec_path: str) -> None:
     def local(p):
         return (p.to_local() if isinstance(p, DTensor) else p).detach()
 
+    def whole_bytes(model, name, p):
+        """The bytes of parameter ``name`` in the one-process model."""
+        mesh = model.mesh
+        if mesh is not None and name in mesh.freed:
+            return math.prod(mesh.freed[name]) * p.element_size()
+        if mesh is not None and name in mesh.tp:
+            return p.numel() * mesh.shape["tensor"] * p.element_size()
+        return p.numel() * p.element_size()
+
+    def resharded(model):
+        """FSDP2's units back on their shards (a forward without a backward,
+        the validation's, leaves the root's parameters gathered)."""
+        from torch.distributed.fsdp import FSDPModule
+
+        for m in model.modules():
+            if isinstance(m, FSDPModule):
+                m.reshard()
+
     meshlib.Parallel.sync_grads = timed_sync
     runs = []
     for run in spec["runs"]:
@@ -4474,7 +4685,7 @@ def rank13_worker(spec_path: str) -> None:
             st = real_make(model, tc, device=device)
             params = list(model.named_parameters())
             info["bytes"] = sum(local(p).numel() * p.element_size() for _, p in params)
-            info["full_bytes"] = sum(p.numel() * p.element_size() for _, p in params)
+            info["full_bytes"] = sum(whole_bytes(model, n, p) for n, p in params)
             if run.get("frozen"):
                 info["frozen"] = {n: local(p).cpu().clone() for n, p in params
                                   if n not in st.trainable}
@@ -4498,13 +4709,23 @@ def rank13_worker(spec_path: str) -> None:
                    peak=torch.cuda.max_memory_allocated() / 1e9, sync_ms=list(sync_ms),
                    bytes=info["bytes"], full_bytes=info["full_bytes"],
                    mesh=None if model.mesh is None else model.mesh.shape)
-        if want is not None and run.get("compare"):
+        if run.get("save_projector"):
+            torch.save({"projector": info["projector"], "moments": info["moments"]},
+                       run["save_projector"])
+        if run.get("compare"):
+            for _ in range(600):            # a variant's: its one-process run's, in another launch
+                if os.path.exists(run["projector"]):
+                    break
+                time.sleep(1.0)
+            want = torch.load(run["projector"], weights_only=True)
             out["proj"] = projector_errs(info["projector"], want["projector"], want["moments"])
             out["moment_err"] = moment_err(info.get("moments", {}), want["moments"])
         if run.get("frozen"):
+            resharded(model)
             params = dict(model.named_parameters())
-            out["frozen_same"] = all(torch.equal(local(params[n]).cpu(), v)
-                                     for n, v in info.pop("frozen").items())
+            changed = [n for n, v in info.pop("frozen").items()
+                       if not torch.equal(local(params[n]).cpu(), v)]
+            out["frozen_same"], out["frozen_changed"] = not changed, changed[:4]
         if run.get("check"):
             want = with_routes(LAUNCHES_PER_TRAIN_STEP, LN_ROUTES_PER_PASS)
             out["launch_mismatch"] = [i for i, s in enumerate(probe.steps)
@@ -4522,25 +4743,40 @@ def rank13_worker(spec_path: str) -> None:
     print("RANK13 " + json.dumps({"rank": rank, "runs": runs}), flush=True)
 
 
-def launch_ranks(torch, n: int, runs: list, root: str, timeout: float,
-                 projector: str = None) -> list:
-    """``runs`` (dicts of ``tag``, ``args`` and the worker's flags) in ``n``
-    processes sharing the card over gloo, one launch for all of them (each
-    run its own process group on a free port); every rank's RANK13 record,
-    by rank.  A rank that fails fails the phase."""
-    from ps_slm_tpu_torch.parallel.launch import launch
-    from ps_slm_tpu_torch.parallel.launch import free_port
+def run_ports(runs: list, taken: set) -> None:
+    """A port of its own for each run of ``runs`` that has none, free now
+    and not in ``taken`` (which it joins): below the kernel's ephemeral
+    range (32768 up), so that no connection takes it while the run waits
+    its turn."""
+    import socket
 
-    ports = {run["port"] for run in runs if "port" in run}
+    port = 20000
     for run in runs:
         while "port" not in run:
-            port = free_port()
-            if port not in ports:
-                run["port"] = port
-                ports.add(port)
-    spec = os.path.join(root, f"ranks{n}_{len(os.listdir(root))}.json")
+            port += 1
+            if port in taken:
+                continue
+            with socket.socket() as sock:
+                try:
+                    sock.bind(("localhost", port))
+                except OSError:
+                    continue
+            run["port"] = port
+            taken.add(port)
+
+
+def launch_ranks(torch, n: int, runs: list, root: str, timeout: float, name: str) -> list:
+    """``runs`` (dicts of ``tag``, ``args`` and the worker's flags) in ``n``
+    processes sharing the card over gloo, one launch for all of them (each
+    run its own process group on a port of its own: :func:`run_ports`),
+    its spec ``ranks<n>_<name>.json`` in ``root``; every rank's RANK13
+    record, by rank.  A rank that fails fails the phase."""
+    from ps_slm_tpu_torch.parallel.launch import launch
+
+    run_ports(runs, {run["port"] for run in runs if "port" in run})
+    spec = os.path.join(root, f"ranks{n}_{name}.json")
     with open(spec, "w") as f:
-        json.dump({"runs": runs, "projector": projector}, f)
+        json.dump({"runs": runs}, f)
     done = launch([sys.executable, os.path.join(HERE, "chip_smoke.py"), "--rank13", spec], n,
                   env={"PS_DIST_BACKEND": "gloo", "PYTHONPATH": HERE}, timeout=timeout, cwd=HERE)
     records = []
@@ -4561,36 +4797,38 @@ def phase_parallel_fp32(torch, dev, fp32: dict) -> dict:
     """Phase 13a: phase 4e's finetune CLI run (full width and reduced
     depth, its assets, recipe and 4 steps of 2 rows with validation every
     2, fp32, dither 0; ``fp32`` is what 4e returns: its card run is the
-    one-process run) on each mesh of PARALLEL_MESHES in 2 processes (and
-    PARALLEL_MESHES_4 in 4) sharing the card over gloo: every rank's
-    losses the same bit for bit, the losses and evaluations within
-    PARALLEL_TOL, AdamW's first moments after micro-step MOMENT_STEP
-    within PARALLEL_MOMENT_TOL of each tensor's largest, and the trained
-    projector (gathered when the loop ends) within PARALLEL_TOL where its
-    moment is at least GRAD_FLOOR of the tensor's largest and
-    PARALLEL_PROJ_TOL elsewhere, of the one-process run; the frozen
-    weights bit-identical.  The full-width runs write no checkpoint but
+    one-process run) on each mesh of PARALLEL_RUNS, the processes of each
+    launch (2, 4) running their meshes one after another and every launch
+    at once, sharing the card over gloo: every rank's losses the same bit
+    for bit, the losses and evaluations within PARALLEL_TOL, AdamW's first
+    moments after micro-step MOMENT_STEP within PARALLEL_MOMENT_TOL of each
+    tensor's largest, and the trained projector (gathered when the loop
+    ends) within PARALLEL_TOL where its moment is at least GRAD_FLOOR of
+    the tensor's largest and PARALLEL_PROJ_TOL elsewhere, of the
+    one-process run (a variant's, PARALLEL_VARIANTS: LoRA's, run in a
+    launch of one process beside the others); the frozen weights
+    bit-identical.  The full-width runs write no checkpoint but
     PARALLEL_RESUME's (the card machine's disk takes a bounded amount of
     writes: a state is 1.6 GB), which writes ``step_2`` / ``step_4`` and is
     resumed from ``step_2``: its last two losses bit for bit, rank 0's
-    ``step_4`` export as the trained projector.  Every mesh also trains a
-    tiny model (:func:`tiny_finetune_args`) on 4e's manifests with
-    checkpoints and resumes it from ``step_2``: the last losses bit for
-    bit, and the rank files' tensors (each shard and replicated tensor
-    written once) as many bytes as the one-process state's.  Deletes 4e's
-    directory.  Returns the one-process model and the ranks' largest
-    batches for phase 3's shard and microbatch rows."""
-    from ps_slm_tpu_torch.cli import finetune
-    from ps_slm_tpu_torch.parallel.launch import free_port
+    ``step_4`` export as the trained projector.  Every mesh (and
+    PARALLEL_TINY_ONLY's) also trains a tiny model, in a launch of its
+    process count's own (:func:`tiny_finetune_args`, with the variant's
+    overrides; its one-process run in the launch of one process) on 4e's
+    manifests with checkpoints and resumes it from ``step_2``: the last
+    losses bit for bit, and the rank files' tensors (each shard and
+    replicated tensor written once) as many bytes as the one-process
+    state's.  Deletes 4e's directory.  Returns the one-process model and
+    the ranks' largest batches for phase 3's shard and microbatch rows."""
     from ps_slm_tpu_torch.training.checkpoint import _projector_keymap
 
     what = "parallel fp32"
     root, assets, mc = fp32["root"], fp32["assets"], fp32["mc"]
     extra = [a for a in fp32["extra"] if not a.startswith("++train_config.save_last=")]
 
-    def args(out, mesh=None, save=False, resume=None):
+    def args(out, mesh=None, save=False, resume=None, variant=""):
         a = finetune_args(assets, root, out, llm_dim=mc.llm_dim,
-                          encoder_dim=mc.encoder_dim) + extra
+                          encoder_dim=mc.encoder_dim) + extra + PARALLEL_VARIANTS[variant]
         a += [f"++train_config.save_model={str(save).lower()}"]
         if mesh is not None:
             a += ["++train_config.mesh_shape=" + json.dumps(mesh)]
@@ -4598,84 +4836,132 @@ def phase_parallel_fp32(torch, dev, fp32: dict) -> dict:
             a += [f"++train_config.resume_from={resume}"]
         return a
 
-    # the one-process projector (4e's card run, after its 4 steps) in the port's names
+    def tiny_args(out, mesh=None, resume=None, variant=""):
+        return tiny_finetune_args(root, out, mesh, resume) + PARALLEL_VARIANTS[variant]
+
+    # the one-process runs on the card: 4e's (its projector after its 4
+    # steps, in the port's names); each other variant's and the tiny
+    # model's in a launch of one process beside the meshes' (a variant's
+    # writes the projector file its meshes' runs compare with)
     keymap = _projector_keymap("linear-silu")
     export = torch.load(fp32["export"], weights_only=True)
-    one_proj = {ours: export[f"encoder_projector.{ref}"] for ours, ref in keymap.items()}
-    one_mom = fp32["moments"]
-    proj_file = os.path.join(root, "one_projector.pt")
-    torch.save({"projector": one_proj, "moments": one_mom}, proj_file)
-    one = dict(losses=fp32["losses"], evals=fp32["evals"])
-    # the tiny model's one-process run on the card (its checkpoints' bytes)
-    tiny_one = os.path.join(root, "tiny_one")
-    with TrainProbe(torch, dev) as probe:
-        if finetune.main(tiny_finetune_args(root, tiny_one), device=dev) != 0:
-            fail(f"{what}: the tiny one-process run failed")
-    tiny = dict(losses=probe.losses(), bytes=state_bytes(
-        torch, os.path.join(tiny_one, "step_2", "state", "train_state.pt")))
-    batches, report, groups = {}, {}, {}
-    for n, meshes in ((2, PARALLEL_MESHES), (4, PARALLEL_MESHES_4)):
-        runs = []
-        for mesh in meshes:
-            tag = _mesh_tag(mesh)
-            out = os.path.join(root, tag)
-            save = mesh == PARALLEL_RESUME
-            runs.append(dict(tag=tag, args=args(out, mesh, save=save), frozen=True, compare=True,
-                             save_batch=os.path.join(root, f"batch_{tag}.pt")))
-            if save:
-                runs.append(dict(tag=tag + " resumed", args=args(
-                    out + "_resumed", mesh, resume=os.path.join(out, "step_2", "state"))))
+    one = {"": dict(losses=fp32["losses"], evals=fp32["evals"], moments=fp32["moments"],
+                    projector={ours: export[f"encoder_projector.{ref}"]
+                               for ours, ref in keymap.items()},
+                    file=os.path.join(root, "one_projector.pt"))}
+    torch.save({"projector": one[""]["projector"], "moments": one[""]["moments"]},
+               one[""]["file"])
+    single = []
+    for variant in PARALLEL_VARIANTS:
+        if variant:
+            one[variant] = dict(file=os.path.join(root, f"one_projector{variant}.pt"))
+            single.append(dict(tag=f"one {variant}", save_projector=one[variant]["file"],
+                               args=args(os.path.join(root, f"one_{variant}"), variant=variant)))
+        single.append(dict(tag=f"tiny one {variant}", args=tiny_args(
+            os.path.join(root, f"tiny_one{variant}"), variant=variant)))
+    batches, report, groups, launches = {}, {}, {}, {}
+    for n in sorted(set(PARALLEL_RUNS) | set(PARALLEL_TINY_ONLY)):
+        entries = [(m, v, True) for m, v in PARALLEL_RUNS.get(n, ())]
+        entries += [(m, "", False) for m in PARALLEL_TINY_ONLY.get(n, ())]
+        full_runs, tiny_runs = [], []
+        for mesh, variant, full in entries:
+            tag = _mesh_tag(mesh) + (f"+{variant}" if variant else "")
+            if full:
+                out = os.path.join(root, tag)
+                save = mesh == PARALLEL_RESUME and not variant
+                full_runs.append(dict(tag=tag, args=args(out, mesh, save=save, variant=variant),
+                                      frozen=True, compare=True, projector=one[variant]["file"],
+                                      save_batch=None if variant else os.path.join(
+                                          root, f"batch_{tag}.pt")))
+                if save:
+                    full_runs.append(dict(tag=tag + " resumed", args=args(
+                        out + "_resumed", mesh, resume=os.path.join(out, "step_2", "state"))))
             out = os.path.join(root, f"tiny_{tag}")
-            runs.append(dict(tag=tag + " tiny", args=tiny_finetune_args(root, out, mesh)))
-            runs.append(dict(tag=tag + " tiny resumed", args=tiny_finetune_args(
-                root, out + "_resumed", mesh, os.path.join(out, "step_2", "state"))))
-        if runs:
-            groups[n] = (meshes, runs)
-    # the 2- and 4-process groups run at once (6 processes on the card; their
-    # walls are not what 13a checks), each run on a port of its own
+            tiny_runs.append(dict(tag=tag + " tiny", args=tiny_args(out, mesh, variant=variant)))
+            tiny_runs.append(dict(tag=tag + " tiny resumed", args=tiny_args(
+                out + "_resumed", mesh, os.path.join(out, "step_2", "state"), variant)))
+        groups[n] = entries
+        launches.update({(n, "full"): full_runs} if full_runs else {})
+        launches[n, "tiny"] = tiny_runs
+    launches[1, "one"] = single
+    # every launch at once, the full-width and the tiny model's runs of a
+    # process count in launches of their own (20 processes on the card;
+    # their walls are not what 13a checks), each run on a port of its own
     taken: set = set()
-    for _, runs in groups.values():
-        for run in runs:
-            while "port" not in run:
-                port = free_port()
-                if port not in taken:
-                    run["port"] = port
-                    taken.add(port)
+    for runs in launches.values():
+        run_ports(runs, taken)
     t1 = time.time()
-    done: dict = {}
+    done, walls = {}, {}
 
-    def start(n, runs):
+    def start(key, runs):
         try:
-            done[n] = launch_ranks(torch, n, runs, root, PARALLEL_TIMEOUT, proj_file)
+            done[key] = launch_ranks(torch, key[0], runs, root, PARALLEL_TIMEOUT,
+                                     f"13a_{key[1]}")
         except BaseException as e:          # fail() exits; keep it for this thread's caller
-            done[n] = e
+            done[key] = e
+        walls[f"{key[0]} {key[1]}"] = round(time.time() - t1, 1)
 
-    threads = [threading.Thread(target=start, args=(n, runs)) for n, (_, runs) in groups.items()]
+    threads = [threading.Thread(target=start, args=(key, runs)) for key, runs in launches.items()]
     for th in threads:
         th.start()
     for th in threads:
         th.join()
-    for n, (meshes, runs) in groups.items():
-        if isinstance(done[n], BaseException):
-            raise done[n]
-        ranks = done[n]
-        for mesh in meshes:
-            tag = _mesh_tag(mesh)
-            i = next(k for k, r in enumerate(runs) if r["tag"] == tag)
+    for key, got in done.items():
+        if isinstance(got, BaseException):
+            raise got
+    tiny = {}
+    for variant in PARALLEL_VARIANTS:
+        rec = {r["tag"]: r for r in done[1, "one"][0]}
+        if variant:
+            one[variant].update(losses=rec[f"one {variant}"]["losses"],
+                                evals=rec[f"one {variant}"]["evals"])
+        out = os.path.join(root, f"tiny_one{variant}")
+        tiny[variant] = dict(losses=rec[f"tiny one {variant}"]["losses"], bytes=state_bytes(
+            torch, os.path.join(out, "step_2", "state", "train_state.pt")))
+    for n, entries in groups.items():
+        files = [f"train_state.rank{r}.pt" for r in range(n)]
+        for mesh, variant, full in entries:
+            tag = _mesh_tag(mesh) + (f"+{variant}" if variant else "")
+            runs, ranks = launches[n, "tiny"], done[n, "tiny"]
+            k = next(j for j, r in enumerate(runs) if r["tag"] == tag + " tiny")
+            t_straight, t_res = [r[k] for r in ranks], [r[k + 1] for r in ranks]
+            t_state = os.path.join(root, f"tiny_{tag}", "step_2", "state")
+            t_files = sorted(os.listdir(t_state))
+            t_bytes = sum(state_bytes(torch, os.path.join(t_state, f)) for f in t_files)
+            t_one = tiny[variant]
+            t_loss = max(abs(a - b) for a, b in zip(t_straight[0]["losses"], t_one["losses"]))
+            t_same = (all(r["losses"] == t_straight[0]["losses"] for r in t_straight)
+                      and all(r["losses"] == t_straight[0]["losses"][2:] for r in t_res))
+            ok = (t_same and t_files == files and t_bytes == t_one["bytes"]
+                  and len(t_straight[0]["losses"]) == len(t_one["losses"])
+                  and t_loss <= PARALLEL_TOL)
+            tiny_line = (f"tiny model: losses {t_loss:.3e} off one process, resumed from step_2 "
+                         f"{'bit-identical' if t_same else 'DIFFERENT'}, train state {t_files} "
+                         f"{t_bytes} bytes of tensors (one process: {t_one['bytes']}); "
+                         f"parameter bytes a rank {[r['bytes'] for r in t_straight]} of "
+                         f"{t_straight[0]['full_bytes']}")
+            if not full:
+                print(f"{what} {tag} ({n} processes on one card, gloo): {tiny_line} [{CARD}]",
+                      flush=True)
+                if not ok:
+                    fail(f"{what} {tag}: the tiny model's ranks or resume differ, its train "
+                         f"state holds a tensor twice or it is off the one-process run")
+                continue
+            runs, ranks = launches[n, "full"], done[n, "full"]
+            i = next(j for j, r in enumerate(runs) if r["tag"] == tag)
             straight = [r[i] for r in ranks]
             same = all(r["losses"] == straight[0]["losses"] and r["evals"] == straight[0]["evals"]
                        for r in straight)
-            got = straight[0]
+            got, want = straight[0], one[variant]
             if len(got["losses"]) != 4 or len(got["evals"]) != 2:
                 fail(f"{what} {tag}: {len(got['losses'])} steps, {len(got['evals'])} evaluations")
             loss_err = max(abs(a - b) for a, b in zip(got["losses"] + got["evals"],
-                                                      one["losses"] + one["evals"]))
+                                                      want["losses"] + want["evals"]))
             proj, mom_err = got["proj"], got["moment_err"]
             frozen = all(r["frozen_same"] for r in straight)
             resumed = ""
-            ok = same and frozen
-            files = [f"train_state.rank{r}.pt" for r in range(n)]
-            if mesh == PARALLEL_RESUME:
+            ok = ok and same and frozen
+            if mesh == PARALLEL_RESUME and not variant:
                 res = next(r for r in runs if r["tag"] == tag + " resumed")
                 res = [r[runs.index(res)] for r in ranks]
                 res_same = all(r["losses"] == got["losses"][2:] for r in res)
@@ -4683,7 +4969,8 @@ def phase_parallel_fp32(torch, dev, fp32: dict) -> dict:
                 export = torch.load(os.path.join(out, "step_4", "pytorch_model.bin"),
                                     weights_only=True)
                 exp = projector_errs({ours: export[f"encoder_projector.{ref}"]
-                                      for ours, ref in keymap.items()}, one_proj, one_mom)
+                                      for ours, ref in keymap.items()}, want["projector"],
+                                     want["moments"])
                 states = sorted(os.listdir(os.path.join(out, "step_2", "state")))
                 resumed = (f"; resumed from step_2: {res[0]['losses']} "
                            f"{'bit-identical' if res_same else 'DIFFERENT'}, train state "
@@ -4691,18 +4978,9 @@ def phase_parallel_fp32(torch, dev, fp32: dict) -> dict:
                            f"{exp['kept']:.3e} / {exp['floored']:.3e}")
                 ok = (ok and res_same and exp["kept"] <= PARALLEL_TOL
                       and exp["floored"] <= PARALLEL_PROJ_TOL and states == files)
-            k = next(j for j, r in enumerate(runs) if r["tag"] == tag + " tiny")
-            t_straight, t_res = [r[k] for r in ranks], [r[k + 1] for r in ranks]
-            t_state = os.path.join(root, f"tiny_{tag}", "step_2", "state")
-            t_files = sorted(os.listdir(t_state))
-            t_bytes = sum(state_bytes(torch, os.path.join(t_state, f)) for f in t_files)
-            t_loss = max(abs(a - b) for a, b in zip(t_straight[0]["losses"], tiny["losses"]))
-            t_same = (all(r["losses"] == t_straight[0]["losses"] for r in t_straight)
-                      and all(r["losses"] == t_straight[0]["losses"][2:] for r in t_res))
-            ok = (ok and t_same and t_files == files and t_bytes == tiny["bytes"]
-                  and len(t_straight[0]["losses"]) == len(tiny["losses"]) and t_loss <= PARALLEL_TOL)
             report[tag] = dict(loss_err=loss_err, proj_err=proj["kept"],
-                               proj_floored=proj["floored"], moment_err=mom_err)
+                               proj_floored=proj["floored"], moment_err=mom_err,
+                               bytes=got["bytes"])
             print(f"{what} {tag} ({n} processes on one card, gloo): losses {got['losses']}, "
                   f"evals {got['evals']}; every rank's the same bit for bit {same}; against "
                   f"one process: losses and evals {loss_err:.3e} (tol {PARALLEL_TOL}), AdamW's "
@@ -4711,10 +4989,8 @@ def phase_parallel_fp32(torch, dev, fp32: dict) -> dict:
                   f"(tol {PARALLEL_TOL}) where its moment is at least {GRAD_FLOOR} of the "
                   f"tensor's largest, {proj['floored']:.3e} on the {proj['n_floored']} elements "
                   f"below (tol {PARALLEL_PROJ_TOL}); frozen weights bit-identical "
-                  f"{frozen}{resumed}; tiny model: losses {t_loss:.3e} off one process, resumed "
-                  f"from step_2 {'bit-identical' if t_same else 'DIFFERENT'}, train state "
-                  f"{t_files} {t_bytes} bytes of tensors (one process: {tiny['bytes']}); "
-                  f"micro-step ms rank 0 "
+                  f"{frozen}{'' if frozen else [r['frozen_changed'] for r in straight]}"
+                  f"{resumed}; {tiny_line}; micro-step ms rank 0 "
                   f"{[round(x, 1) for x in got['ms']]}, gradient sums "
                   f"{[round(x, 2) for x in got['sync_ms']]} ms; parameter bytes a rank "
                   f"{[r['bytes'] for r in straight]} of {got['full_bytes']}; peak "
@@ -4724,9 +5000,12 @@ def phase_parallel_fp32(torch, dev, fp32: dict) -> dict:
                 fail(f"{what} {tag}: ranks differ, a frozen weight changed, a resume differs, "
                      f"a train state holds a tensor twice or the run is off the one-process "
                      f"run beyond its tolerance")
-            batches[tag] = torch.load(os.path.join(root, f"batch_{tag}.pt"), weights_only=True)
-    print(f"{what}: meshes {[_mesh_tag(x) for meshes, _ in groups.values() for x in meshes]} "
-          f"in {time.time() - t1:.1f} s (the 2- and 4-process groups at once)", flush=True)
+            if not variant:
+                batches[tag] = torch.load(os.path.join(root, f"batch_{tag}.pt"),
+                                          weights_only=True)
+    print(f"{what}: meshes {[_mesh_tag(m) + (f'+{v}' if v else '') for entries in groups.values() for m, v, _ in entries]} "
+          f"in {time.time() - t1:.1f} s (every launch at once; each done after {walls} s)",
+          flush=True)
     shutil.rmtree(root, ignore_errors=True)
     return {"model": fp32["model"], "batches": batches, "report": report}
 
@@ -4734,8 +5013,9 @@ def phase_parallel_fp32(torch, dev, fp32: dict) -> dict:
 def parallel_cases(torch, dev, model, batches: dict) -> dict:
     """Phase 3's cases at 13a's shards and microbatches, from each mesh's
     rank-0 batch through the one-process model (:func:`finetune_cases`):
-    ``tensor`` halves the LLM's heads (6/1), ``pipe`` cuts the rows into
-    its microbatches (the LLM's attention and RMSNorm at one microbatch's
+    ``tensor`` divides the LLM's heads (6/1) and the encoder's (2/2, its
+    forward: 4e's encoder is frozen), ``pipe`` cuts the rows into its
+    microbatches (the LLM's attention and RMSNorm at one microbatch's
     rows), ``data`` / ``fsdp`` keep the rank's own rows."""
     from ps_slm_tpu_torch.parallel.pipeline import microbatch_count
 
@@ -4744,23 +5024,23 @@ def parallel_cases(torch, dev, model, batches: dict) -> dict:
         batch = {k: v.to(dev) for k, v in batch.items()}
         c = finetune_cases(torch, dev, model, batch, f"13a {tag}")
         mesh = dict((k[:-1], int(k[-1])) for k in tag.split("+"))
+        t = mesh.get("tensor", 1)
         llm = [x for x in c["flash"] if x[0].endswith("llm")]
-        if "tensor" in mesh:
-            llm = [(x[0], x[1], x[2], x[3] // mesh["tensor"], x[4] // mesh["tensor"], *x[5:])
-                   for x in llm]
-            rms = []
-        elif "pipe" in mesh:
+        enc = [(x[0], x[1], x[2], x[3] // t, x[4] // t, *x[5:]) for x in c["flash"]
+               if x[0].endswith("encoder") and t > 1]
+        llm = [(x[0], x[1], x[2], x[3] // t, x[4] // t, *x[5:]) for x in llm]
+        rms = [x for x in c["norm"] if x[0] == "rms_norm_fwd"] if t == 1 else []
+        if "pipe" in mesh:
             rows = llm[0][1]
             mb = rows // microbatch_count(rows, 0, mesh["pipe"])
             llm = [(x[0] + f" microbatch {mb}", mb, x[2], x[3], x[4], x[5], x[6][:mb], x[7][:mb])
                    for x in llm]
             rms = [(w, mb * llm[0][2], d, k) for w, n, d, k in c["norm"] if w == "rms_norm_fwd"]
-        else:
-            rms = [x for x in c["norm"] if x[0] == "rms_norm_fwd"]
         seen = {x[1:5] for x in cases["flash"]}
         llm = [x for x in llm if x[1:5] not in seen]       # a shape once
+        enc = [x for x in enc if x[1:5] not in seen]
         rms = [x for x in rms if x not in cases["norm"]]
-        cases["flash"] += llm
+        cases["flash"] += enc + llm
         cases["flash_bwd"] += llm
         cases["norm"] += rms
         cases["norm_bwd"] += [("rms_norm_bwd", n, d, k) for _, n, d, k in rms]
@@ -4788,11 +5068,12 @@ def phase_parallel(torch, dev, chain: dict) -> dict:
                 for a in finetune_args(chain["assets"], data, os.path.join(root, tag),
                                        **chain["dims"])]
         # the per-rank shapes (phase 3's rows) from a run whose model is whole
-        runs.append(dict(tag=tag, check=True, cases="fsdp" not in mesh, args=args + [
+        # (a sharded model's forward runs its collectives: data's alone is whole)
+        runs.append(dict(tag=tag, check=True, cases=set(mesh) == {"data"}, args=args + [
             "++train_config.num_epochs=1", "++train_config.run_validation=false",
             "++train_config.save_model=false", "++train_config.mesh_shape=" + json.dumps(mesh)]))
     t0 = time.time()
-    ranks = launch_ranks(torch, 2, runs, root, timeout=PARALLEL_TIMEOUT)
+    ranks = launch_ranks(torch, 2, runs, root, PARALLEL_TIMEOUT, "13b")
     out: dict = {"per_step": {}, "total": {}, "cases": None}
     for i, (mesh, _) in enumerate(PARALLEL_MESHES_BF16):
         tag = _mesh_tag(mesh)
@@ -4827,17 +5108,45 @@ def phase_parallel(torch, dev, chain: dict) -> dict:
     return out
 
 
-def phase_parallel_tools(torch, dev) -> None:
-    """Phase 13c: ``whisper_log_mel`` on the card against the CPU on two
-    30 s windows (WHISPER_TOL after the (x + 4) / 4 scaling), then
-    ``tools/goldens.py``'s ``verify`` on the card against goldens written
-    by the port's own modules on the CPU (fp32; the encoder at 2+1 blocks
-    and the LLM at 1 layer, full widths): PASS, then FAIL once an encoder
-    weight is corrupted."""
+def goldens_fp32_ref() -> str:
+    """Phase 13c's CPU side: a temporary directory holding a SenseVoiceSmall
+    and an LLM directory written from the seeded fp32 model (the encoder at
+    2+1 blocks, the LLM at 1 layer, full widths) and ``goldens.npz``, their
+    outputs on fixed inputs by the port's own modules on the CPU; the
+    caller deletes it."""
     import numpy as np
+    import torch
 
     from ps_slm_tpu_torch.config import half_audio_configs
     from ps_slm_tpu_torch.models.tasu import model_factory
+    from ps_slm_tpu_torch.tools import goldens
+
+    root = tempfile.mkdtemp(prefix="goldens_")
+    tc, mc = half_audio_configs(*FP32_DEPTH, seed=0)
+    src = model_factory(tc, mc, device="cpu")
+    write_encoder_dir(os.path.join(root, "SenseVoiceSmall"), src.encoder)
+    write_llm_dir(os.path.join(root, "llm"), src.llm, torch.float32)
+    feats, lens = goldens._fixture()
+    with torch.no_grad():
+        hid, _ = src.encoder(torch.from_numpy(feats), torch.from_numpy(lens))
+        ids = torch.from_numpy(np.random.default_rng(1).integers(0, 151000, size=(2, 16)))
+        pos = torch.arange(16)[None].expand(2, -1)
+        lh, _ = src.llm(src.llm.embed(ids), torch.ones(2, 16, dtype=torch.bool), pos)
+        np.savez(os.path.join(root, "goldens.npz"), enc_hidden=hid.numpy(),
+                 ctc_logits=src.encoder.ctc_logits(hid).numpy(), llm_ids=ids.numpy(),
+                 llm_logits=src.llm.unembed(lh).numpy())
+    return root
+
+
+def phase_parallel_tools(torch, dev, ref) -> None:
+    """Phase 13c: ``whisper_log_mel`` on the card against the CPU on two
+    30 s windows (WHISPER_TOL after the (x + 4) / 4 scaling), then
+    ``tools/goldens.py``'s ``verify`` on the card against goldens written
+    by the port's own modules on the CPU (``ref``: :func:`goldens_fp32_ref`
+    in the reference worker): PASS, then FAIL once an encoder weight is
+    corrupted."""
+    import numpy as np
+
     from ps_slm_tpu_torch.ops.fbank import pad_or_trim, whisper_log_mel
     from ps_slm_tpu_torch.tools import goldens
 
@@ -4858,23 +5167,10 @@ def phase_parallel_tools(torch, dev) -> None:
     if got.shape != (2, 128, 3000) or err > WHISPER_TOL:
         fail(f"whisper_log_mel: card vs CPU {err}")
 
-    root = tempfile.mkdtemp(prefix="goldens_")
+    root = ref.result()
     try:
-        tc, mc = half_audio_configs(*FP32_DEPTH, seed=0)
-        src = model_factory(tc, mc, device="cpu")
         enc_dir, llm_dir = os.path.join(root, "SenseVoiceSmall"), os.path.join(root, "llm")
-        write_encoder_dir(enc_dir, src.encoder)
-        write_llm_dir(llm_dir, src.llm, torch.float32)
-        feats, lens = goldens._fixture()
-        with torch.no_grad():
-            hid, _ = src.encoder(torch.from_numpy(feats), torch.from_numpy(lens))
-            ids = torch.from_numpy(np.random.default_rng(1).integers(0, 151000, size=(2, 16)))
-            pos = torch.arange(16)[None].expand(2, -1)
-            lh, _ = src.llm(src.llm.embed(ids), torch.ones(2, 16, dtype=torch.bool), pos)
-            npz = os.path.join(root, "goldens.npz")
-            np.savez(npz, enc_hidden=hid.numpy(), ctc_logits=src.encoder.ctc_logits(hid).numpy(),
-                     llm_ids=ids.numpy(), llm_logits=src.llm.unembed(lh).numpy())
-        del src
+        npz = os.path.join(root, "goldens.npz")
         lines: list = []
         ok = goldens.verify(npz, encoder_dir=enc_dir, llm_dir=llm_dir, device=dev,
                             log=lines.append)
@@ -4917,18 +5213,50 @@ def add_case_rows(path_rows: dict, cases: dict, tag: str) -> None:
             path_rows[name].append(f"{label} frozen w")
 
 
+def start_refs() -> None:
+    """Start REFS: one worker process (spawned, so the card's context is not
+    forked; the card hidden from it) with every core but two, which
+    computes the fp32 phases' CPU references beside the card's work; each
+    phase collects its result where it compares it."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    global REFS
+    visible = os.environ.get("CUDA_VISIBLE_DEVICES")
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""      # the references see no card
+    try:
+        REFS = ProcessPoolExecutor(max_workers=1, mp_context=multiprocessing.get_context("spawn"),
+                                   initializer=_refs_init,
+                                   initargs=(max(1, (os.cpu_count() or 3) - 2),))
+        REFS.submit(os.getpid).result()          # the worker starts now, in that environment
+    finally:
+        if visible is None:
+            del os.environ["CUDA_VISIBLE_DEVICES"]
+        else:
+            os.environ["CUDA_VISIBLE_DEVICES"] = visible
+
+
+def _refs_init(threads: int) -> None:
+    import torch
+
+    torch.set_num_threads(threads)
+    os.nice(10)     # the card's work, 13a's ranks included, comes first
+
+
 def run_slice13(torch, dev) -> None:
     """``--slice13``: phase 13 alone (4e, whose run 13a takes as the
     one-process run, 13a, 13c, and 13b on phase 7's assets with their
     projector checkpoint as the initial one) and phase 3 at its shapes."""
     results: dict = {}
-    fp32 = timed("4e finetune CLI fp32", phase_finetune_cli_fp32, torch, dev)
+    ref_4e = REFS.submit(finetune_cli_fp32_run, "cpu")
+    ref_13c = REFS.submit(goldens_fp32_ref)
+    fp32 = timed("4e finetune CLI fp32", phase_finetune_cli_fp32, torch, dev, ref_4e)
     par = timed("13a parallel fp32", phase_parallel_fp32, torch, dev, fp32)
     del fp32
     timed("3 at 13a's shapes", phase_kernels_parallel, torch, dev, results, par, "13a")
     del par
     torch.cuda.empty_cache()
-    timed("13c whisper and goldens", phase_parallel_tools, torch, dev)
+    timed("13c whisper and goldens", phase_parallel_tools, torch, dev, ref_13c)
     root = tempfile.mkdtemp(prefix="slice13_")
     try:
         assets, _, mc = write_chain_assets(torch, root)
@@ -4970,8 +5298,10 @@ def run_slice12(torch, dev) -> None:
     from ps_slm_tpu_torch.models.tasu import model_factory
 
     results: dict = {}
-    timed("12a encoder fp32", phase_encoder_fp32, torch, dev)
-    timed("12a projectors fp32", phase_projectors_fp32, torch, dev)
+    ref_enc = REFS.submit(encoder_fp32_run, "cpu")
+    ref_proj = REFS.submit(projectors_fp32_run, "cpu")
+    timed("12a encoder fp32", phase_encoder_fp32, torch, dev, ref_enc)
+    timed("12a projectors fp32", phase_projectors_fp32, torch, dev, ref_proj)
     tc, mc = half_audio_configs()
     model = model_factory(tc, mc, dtype=torch.bfloat16)
     model.speech_token_id = SPEECH_TOKEN
@@ -4990,7 +5320,7 @@ def run_slice12(torch, dev) -> None:
 
 
 def run_decode_and_serving(torch, dev, results, cli_launches, serve_launches,
-                           serve_cli_launches) -> tuple:
+                           serve_cli_launches, refs: dict) -> tuple:
     """Phase 6, phase 3 at its largest batch, then phase 8 on phase 6's
     assets (8b, 8c; 8a after the assets are deleted), phase 10 (10b on the
     same assets, 10a after 8a) and phase 3 at the pools' shapes.  Returns
@@ -5010,10 +5340,10 @@ def run_decode_and_serving(torch, dev, results, cli_launches, serve_launches,
                            assets)
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    timed("8a serving fp32", phase_serving_fp32, torch, dev)
+    timed("8a serving fp32", phase_serving_fp32, torch, dev, refs["8a"])
     timed("3 at 8c's shapes", phase_kernels, torch, dev, results, pools["flash"],
           pools["norm"], "serving pool")
-    timed("10a serve CLI fp32", phase_serve_cli_fp32, torch, dev)
+    timed("10a serve CLI fp32", phase_serve_cli_fp32, torch, dev, refs["10a"])
     return cli_per_batch, cli_flash, cli_norm, pools, serve_runs
 
 
@@ -5028,6 +5358,7 @@ def main() -> None:
     from ps_slm_tpu_torch import _build
 
     t_start = time.time()
+    start_refs()
     dev = torch.device("cuda", 0)
     try:
         card = card_line()
@@ -5067,24 +5398,31 @@ def main() -> None:
     print("kernel vs plain tolerance, |a - b| <= atol + rtol * |b|: "
           + ", ".join(f"{dt} atol {a} rtol {r}" for dt, (a, r) in KERNEL_TOL.items()),
           flush=True)
+    # the fp32 phases' CPU references, in the order the phases collect them:
+    # 4-4e's now, the rest once 13a (whose ranks take every core) is done
+    refs = {key: REFS.submit(fn, *args) for key, fn, args in (
+        ("4", path_fp32_run, ("cpu",)), ("4b", train_fp32_run, ("cpu",)),
+        ("4c", beam_text_only_fp32_run, ("cpu",)), ("4d", decode_cli_fp32_run, ("cpu",)),
+        ("4e", finetune_cli_fp32_run, ("cpu",)))}
     results: dict = {}
     timed("3 kernels", phase_kernels, torch, dev, results)
     timed("3 kernels backward", phase_kernels_bwd, torch, dev, results)
-    timed("4 serving path fp32", phase_path_fp32, torch, dev)
-    timed("4b train fp32", phase_train_fp32, torch, dev)
-    timed("4c beam and text-only fp32", phase_beam_text_only_fp32, torch, dev)
-    timed("4d decode CLI fp32", phase_decode_cli_fp32, torch, dev)
-    fp32 = timed("4e finetune CLI fp32", phase_finetune_cli_fp32, torch, dev)
+    timed("4 serving path fp32", phase_path_fp32, torch, dev, refs["4"])
+    timed("4b train fp32", phase_train_fp32, torch, dev, refs["4b"])
+    timed("4c beam and text-only fp32", phase_beam_text_only_fp32, torch, dev, refs["4c"])
+    timed("4d decode CLI fp32", phase_decode_cli_fp32, torch, dev, refs["4d"])
+    fp32 = timed("4e finetune CLI fp32", phase_finetune_cli_fp32, torch, dev, refs["4e"])
     par = timed("13a parallel fp32", phase_parallel_fp32, torch, dev, fp32)
     del fp32
+    refs.update({key: REFS.submit(fn, *args) for key, fn, args in (
+        ("13c", goldens_fp32_ref, ()), ("11a", peft_fp32_runs, ("cpu",)),
+        ("12a encoder", encoder_fp32_run, ("cpu",)),
+        ("12a projectors", projectors_fp32_run, ("cpu",)), ("8a", serving_fp32_run, ("cpu",)),
+        ("10a", serve_cli_fp32_run, ("cpu",)))})
     cases13 = {"13a": timed("3 at 13a's shapes", phase_kernels_parallel, torch, dev, results,
                             par, "13a")}
     del par
     torch.cuda.empty_cache()
-    timed("13c whisper and goldens", phase_parallel_tools, torch, dev)
-    timed("11a PEFT fp32", phase_peft_fp32, torch, dev)
-    timed("12a encoder fp32", phase_encoder_fp32, torch, dev)
-    timed("12a projectors fp32", phase_projectors_fp32, torch, dev)
     gen_launches: dict = {}
     model = timed("5 main path", phase_main, torch, dev, gen_launches)
     train_launches: dict = {}
@@ -5101,9 +5439,13 @@ def main() -> None:
     enc_launches, asr_launches = {}, {}
     enc_cases = timed("12b encoder training", phase_encoder_train, torch, dev, enc_launches)
     timed("12c standalone ASR", phase_asr, torch, dev, asr_launches)
+    timed("13c whisper and goldens", phase_parallel_tools, torch, dev, refs["13c"])
+    timed("11a PEFT fp32", phase_peft_fp32, torch, dev, refs["11a"])
+    timed("12a encoder fp32", phase_encoder_fp32, torch, dev, refs["12a encoder"])
+    timed("12a projectors fp32", phase_projectors_fp32, torch, dev, refs["12a projectors"])
     cli_launches, serve_launches, serve_cli_launches = {}, {}, {}
     cli_per_batch, cli_flash, cli_norm, pools, serve_runs = run_decode_and_serving(
-        torch, dev, results, cli_launches, serve_launches, serve_cli_launches)
+        torch, dev, results, cli_launches, serve_launches, serve_cli_launches, refs)
     chain_launches, peft_launches = {}, {}
     chain_root = tempfile.mkdtemp(prefix="finetune_chain_")
     try:
@@ -5216,6 +5558,7 @@ def main() -> None:
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "shape": f"{shapes[0]} bf16",
         })
+    REFS.shutdown()
     print(f"phase seconds: {json.dumps(PHASE_SECONDS)}", flush=True)
     print(f"total {time.time() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -33,8 +33,9 @@ Several processes (one per device) train as one when ``PS_NUM_HOSTS``,
 ``PS_HOST_ID`` and ``PS_COORDINATOR`` (``host:port``) are set, as for the
 JAX CLI (``parallel.mesh.init_distributed``; ``PS_DIST_BACKEND=gloo`` lets
 ranks share one card): ``mesh_shape`` lays them out over
-``(pipe, data, fsdp, tensor)`` (default: all ``data``), ``fsdp_min_size``
-and ``pp_microbatches`` as in JAX.  Each process reads its block of every
+``(pipe, data, fsdp, tensor)`` (default: all ``data``; ``pipe`` composes
+with the other three, and ``tensor`` with PEFT and quantized LLMs),
+``fsdp_min_size`` and ``pp_microbatches`` as in JAX.  Each process reads its block of every
 global batch (``GlobalBatcher`` with the batch axes' coordinate as its
 host), the train state is written and restored one file a process, and
 rank 0 writes the reference export after a gather every process takes

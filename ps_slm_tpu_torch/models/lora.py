@@ -28,7 +28,7 @@ same masks as its first run.
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -52,16 +52,28 @@ def lora_targets(block: nn.Module) -> List[str]:
 
 
 def lora_delta(lin: nn.Module, x: torch.Tensor, keep: Optional[torch.Tensor] = None,
-               rate: float = 0.0) -> Optional[torch.Tensor]:
+               rate: float = 0.0, part: Optional[Tuple[str, slice]] = None
+               ) -> Optional[torch.Tensor]:
     """``((x' @ A) @ B) * scale`` of ``lin``'s LoRA (None without one),
     where x' is x under the keep mask ``keep`` scaled by 1 / (1 - rate),
-    zeros elsewhere, or x itself."""
+    zeros elsewhere, or x itself.  Under tensor parallelism ``part`` names
+    this rank's block of a sharded base (A and B stay whole, and the mask
+    is drawn at the whole input's width): ``("col", cols)``, the output
+    columns ``cols`` (``x' @ A @ B[:, cols]``); ``("row", rows)``, the
+    input rows ``rows`` of a row-parallel base, x holding only those
+    (``(x' @ A[rows]) @ B``, a partial sum the caller reduces)."""
     a = getattr(lin, "lora_a", None)
     if a is None:
         return None
+    b = lin.lora_b
+    if part is not None and part[0] == "row":
+        a = a[part[1]]
+        keep = None if keep is None else keep[..., part[1]]
+    elif part is not None:
+        b = b[:, part[1]]
     if keep is not None:
         x = torch.where(keep, x / (1.0 - rate), 0.0).to(x.dtype)
-    return ((x @ a) @ lin.lora_b) * lin.lora_scale
+    return ((x @ a) @ b) * lin.lora_scale
 
 
 def lora_dropout_masks(block: nn.Module, x_shape, rate: float, generator: torch.Generator,

@@ -34,6 +34,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ps_slm_tpu_torch.models.layers import LayerNorm, linear_init_, normal_, uniform_
+from ps_slm_tpu_torch.parallel.tensor import parallel_mlp
 
 HIDDEN = 2048        # the concat / cov1d / linear-silu projectors' hidden width
 CA_CHUNK = 8192      # embedding rows a chunk of the cross-attention softmax
@@ -116,9 +117,15 @@ class LinearSiLUProjector(nn.Module):
         self.norm = LayerNorm(encoder_dim)
         self.ffn1 = nn.Linear(encoder_dim, HIDDEN)
         self.ffn2 = nn.Linear(HIDDEN, llm_dim)
+        # this rank's place in a tensor-parallel group (parallel/mesh.py):
+        # its block of ffn1's columns and of ffn2's rows
+        self.tp = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.ffn2(F.silu(self.ffn1(self.norm(x))))
+        y = self.norm(x)
+        if self.tp is None:
+            return self.ffn2(F.silu(self.ffn1(y)))
+        return parallel_mlp(y, self.ffn1, F.silu, self.ffn2, self.tp)
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:
@@ -141,7 +148,11 @@ def _ca_chunk(q, kv_c, m, l, acc):
 
 class CrossAttentionProjector(nn.Module):
     """Q = post @ W_q; K = V = the LLM's embedding matrix (detached), ``heads``
-    heads; softmax over the whole vocabulary."""
+    heads; softmax over the whole vocabulary.  Under tensor parallelism
+    the caller gathers the vocabulary-sharded table whole on every rank
+    once a forward (``models/tasu.py::_project``) and every rank attends
+    over all of it; the JAX package's GSPMD may partition the softmax
+    instead.  It is not the default projector."""
 
     def __init__(self, encoder_dim: int, llm_dim: int, heads: int):
         super().__init__()
@@ -204,6 +215,9 @@ class QFormerLayer(nn.Module):
         self.ffn1 = nn.Linear(QF_HIDDEN, QF_FFN)
         self.ffn2 = nn.Linear(QF_FFN, QF_HIDDEN)
         self.ln_ffn = LayerNorm(QF_HIDDEN, eps=1e-12)
+        # this rank's place in a tensor-parallel group (parallel/mesh.py):
+        # its block of ffn1's columns and of ffn2's rows
+        self.tp = None
 
     def forward(self, h, x, atts, heads: int):
         sa = _qf_attention(self.self_q(h), self.self_k(h), self.self_v(h), heads)
@@ -212,6 +226,8 @@ class QFormerLayer(nn.Module):
             ca = _qf_attention(self.cross_q(h), self.cross_k(x), self.cross_v(x), heads,
                                mask=atts)
             h = self.ln_cross(h + self.cross_o(ca))
+        if self.tp is not None:
+            return self.ln_ffn(h + parallel_mlp(h, self.ffn1, F.gelu, self.ffn2, self.tp))
         return self.ln_ffn(h + self.ffn2(F.gelu(self.ffn1(h))))
 
     @torch.no_grad()

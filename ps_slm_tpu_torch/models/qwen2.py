@@ -23,6 +23,15 @@ takes it, and is never written to the KV cache; llama-adapter adds a gated
 attention over the layer's own projections of its prompt before
 ``o_proj``.
 
+Under tensor parallelism (``parallel/mesh.py`` sets ``Qwen2Block.tp`` and
+``Qwen2Model.vocab``, ``parallel.tensor.Shards``) a block holds its heads'
+columns of q/k/v/gate/up and rows of o/down, and sums o's and down's
+partial outputs and its inputs' gradients over the ranks
+(``parallel.tensor``); the embedding table (and an untied ``lm_head``) is
+sharded on its vocabulary rows.  The adapters stay whole on every rank:
+LoRA acts on its rank's block of each base, the prefix and llama-adapter
+on its KV heads.
+
 Checkpoints: :func:`load_hf_checkpoint` reads an HF Qwen2 directory
 (``config.json`` + ``*.safetensors``) into a state dict of this module's
 names, with the port's own safetensors reader (:func:`read_safetensors`:
@@ -53,8 +62,11 @@ from ps_slm_tpu_torch.models.quantization import (
 )
 from ps_slm_tpu_torch.ops.attention import attention, decode_attention, mha_reference
 from ps_slm_tpu_torch.ops.norms import RMSNormFn
+from ps_slm_tpu_torch.parallel.tensor import copy_in, gather_last, reduce_out, vocab_embed
 
 KVCache = List[Tuple[torch.Tensor, ...]]
+# the row-parallel projections under tensor parallelism (the rest: column)
+ROW_PARALLEL = ("o_proj", "down_proj")
 CacheIndex = Union[int, torch.Tensor]
 
 
@@ -230,22 +242,38 @@ class Qwen2Block(nn.Module):
         for name in ("prefix_k", "prefix_v", "adaption_prompt", "adaption_gate"):
             self.register_parameter(name, None)
         self.register_buffer("adaption_mask", None)
+        # this rank's place in a tensor-parallel group (parallel/mesh.py)
+        self.tp = None
 
     def _proj(self, name: str, x: torch.Tensor, keep: Optional[Dict[str, torch.Tensor]] = None,
               rate: float = 0.0) -> torch.Tensor:
         """Projection ``name`` of x, plus its LoRA (x under ``keep[name]``,
-        the dropout mask, when given)."""
+        the dropout mask, when given).  Under ``tp`` a column-parallel
+        projection gives this rank's columns and a row-parallel one (x its
+        rows) the sum over the ranks, its LoRA added before the sum."""
         lin = getattr(self, name)
         y = lin(x)
-        delta = lora_delta(lin, x, None if keep is None else keep.get(name), rate)
-        return y if delta is None else y + delta
+        part = None
+        if self.tp is not None:
+            w = lin.weight
+            part = (("row", self.tp.block(w.shape[1] * self.tp.size)) if name in ROW_PARALLEL
+                    else ("col", self.tp.block(w.shape[0] * self.tp.size)))
+        delta = lora_delta(lin, x, None if keep is None else keep.get(name), rate, part)
+        y = y if delta is None else y + delta
+        if part is not None and part[0] == "row":
+            y = reduce_out(y, self.tp)
+        return y
+
+    def _kv_heads(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's KV heads of a whole-heads adapter tensor [P, Hkv, D]."""
+        return t if self.tp is None else t[:, self.tp.block(t.shape[1])]
 
     def _with_prefix(self, k, v, mask, offset):
         """The learned prefix prepended to keys, values and mask; the causal
         offset moves by its length P (every key position shifts by P)."""
         b, n_pre = k.shape[0], self.prefix_k.shape[0]
-        pk = self.prefix_k.to(k.dtype)[None].expand(b, -1, -1, -1)
-        pv = self.prefix_v.to(v.dtype)[None].expand(b, -1, -1, -1)
+        pk = self._kv_heads(self.prefix_k).to(k.dtype)[None].expand(b, -1, -1, -1)
+        pv = self._kv_heads(self.prefix_v).to(v.dtype)[None].expand(b, -1, -1, -1)
         if mask is not None:
             mask = torch.cat([torch.ones(b, n_pre, dtype=mask.dtype, device=mask.device),
                               mask], dim=1)
@@ -257,9 +285,10 @@ class Qwen2Block(nn.Module):
         separate fp32 softmax over its P positions scaled by gate * mask,
         its context in q's layout (added before ``o_proj``)."""
         b, s, nh, hd = q.shape
-        nkv = self.cfg.num_key_value_heads
         prompt = self.adaption_prompt.to(q.dtype)
-        ak = self._proj("k_proj", prompt).view(-1, nkv, hd)
+        ak = self._proj("k_proj", prompt)
+        nkv = ak.shape[-1] // hd                        # this rank's KV heads
+        ak = ak.view(-1, nkv, hd)
         av = self._proj("v_proj", prompt).view(-1, nkv, hd)
         qg = q.reshape(b, s, nkv, nh // nkv, hd)
         scores = torch.einsum("bskrd,pkd->bskrp", qg, ak).float()
@@ -293,6 +322,8 @@ class Qwen2Block(nn.Module):
         hd = cfg.head_dim
         proj = lambda name, t: self._proj(name, t, lora_keep, lora_rate)  # noqa: E731
         y = self.input_layernorm(x)
+        if self.tp is not None:
+            y = copy_in(y, self.tp)
         # the heads this process holds: all of them, or its share under
         # tensor parallelism (column-parallel q/k/v give local heads)
         q, k, v = proj("q_proj", y), proj("k_proj", y), proj("v_proj", y)
@@ -340,6 +371,8 @@ class Qwen2Block(nn.Module):
             attn = attn + self._adaption_attention(q)
         x = x + proj("o_proj", attn.reshape(b, s, nh * hd))
         y = self.post_attention_layernorm(x)
+        if self.tp is not None:
+            y = copy_in(y, self.tp)
         return x + proj("down_proj", F.silu(proj("gate_proj", y)) * proj("up_proj", y))
 
     @torch.no_grad()
@@ -374,14 +407,21 @@ class Qwen2Model(nn.Module):
         # microbatch count of a pipe axis (0: twice the stages)
         self.mesh = None
         self.pp_microbatches = 0
+        # the tensor-parallel group whose ranks hold the vocabulary's row
+        # blocks of the table and lm_head (parallel/mesh.py), or None
+        self.vocab = None
 
     def embed(self, input_ids: torch.Tensor) -> torch.Tensor:
+        if self.vocab is not None:
+            return vocab_embed(self.embed_tokens.weight, input_ids, self.vocab)
         return self.embed_tokens(input_ids)
 
     def unembed(self, hidden: torch.Tensor) -> torch.Tensor:
-        """hidden -> fp32 vocab logits (matmul in the compute dtype)."""
+        """hidden -> fp32 vocab logits (matmul in the compute dtype); with a
+        sharded vocabulary each rank's block gathered (no gradient)."""
         w = self.embed_tokens.weight if self.lm_head is None else self.lm_head.weight
-        return F.linear(hidden, w.to(hidden.dtype)).float()
+        logits = F.linear(hidden, w.to(hidden.dtype)).float()
+        return logits if self.vocab is None else gather_last(logits, self.vocab)
 
     def forward(
         self, inputs_embeds: torch.Tensor,

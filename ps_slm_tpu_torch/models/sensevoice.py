@@ -7,6 +7,14 @@ differ), ``num_blocks - 1`` further ``encoders``, ``after_norm``,
 head ``ctc_lo`` and the query-token table ``query_embed``.  One module per
 layer; attention goes to the flash kernel with the padding as prefix
 lengths; every LayerNorm runs with fp32 statistics.
+
+Under tensor parallelism (``parallel/mesh.py`` sets ``SANMLayer.tp``, a
+``parallel.tensor.Shards``) a layer holds its heads' rows of ``qkv`` (q,
+k and v of heads ``[r h/T, (r+1) h/T)``, ``parallel.tensor.qkv_rows``)
+and of ``w1``, and the matching columns of ``out`` and ``w2``; the FSMN
+(its kernel whole on every rank) runs on this rank's channels of v, its
+output put into those channels of ``out``'s partial sum, so one sum over
+the ranks gives ``out(att) + fsmn``.
 """
 
 from __future__ import annotations
@@ -21,6 +29,7 @@ from torch import nn
 
 from ps_slm_tpu_torch.models.layers import LayerNorm, linear_init_, normal_, run_block, uniform_
 from ps_slm_tpu_torch.ops.attention import attention
+from ps_slm_tpu_torch.parallel.tensor import copy_in, parallel_mlp, reduce_out
 
 
 @dataclass(frozen=True)
@@ -84,20 +93,36 @@ class SANMLayer(nn.Module):
         self.fsmn = nn.Conv1d(d, d, cfg.kernel_size, groups=d, bias=False)
         self.w1 = nn.Linear(d, cfg.linear_units)
         self.w2 = nn.Linear(cfg.linear_units, d)
+        # this rank's place in a tensor-parallel group (parallel/mesh.py)
+        self.tp = None
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         b, t, _ = x.shape
-        d, h = self.size, self.heads
+        tp = self.tp
+        n = 1 if tp is None else tp.size
+        d, h = self.size // n, self.heads // n          # this rank's channels and heads
         residual = x
-        q, k, v = self.qkv(self.norm1(x)).split(d, dim=-1)
-        fsmn = fsmn_block(v, self.fsmn.weight, mask.to(v.dtype))
+        y = self.norm1(x)
+        if tp is not None:
+            y = copy_in(y, tp)
+        q, k, v = self.qkv(y).split(d, dim=-1)
+        fsmn_w = self.fsmn.weight if tp is None else self.fsmn.weight[tp.block(self.size)]
+        fsmn = fsmn_block(v, fsmn_w, mask.to(v.dtype))
         att = attention(
             q.reshape(b, t, h, d // h), k.reshape(b, t, h, d // h),
             v.reshape(b, t, h, d // h), kv_mask=mask, causal=False,
         ).reshape(b, t, d)
-        att = self.out(att) + fsmn
-        x = att if self.in_size != d else residual + att
-        return x + self.w2(torch.relu(self.w1(self.norm2(x))))
+        if tp is None:
+            att = self.out(att) + fsmn
+        else:
+            lo = tp.rank * d
+            part = F.linear(att, self.out.weight) + F.pad(fsmn, (lo, self.size - lo - d))
+            att = reduce_out(part, tp) + self.out.bias
+        x = att if self.in_size != self.size else residual + att
+        y = self.norm2(x)
+        if tp is None:
+            return x + self.w2(torch.relu(self.w1(y)))
+        return x + parallel_mlp(y, self.w1, torch.relu, self.w2, tp)
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:

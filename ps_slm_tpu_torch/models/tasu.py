@@ -39,6 +39,12 @@ The other branches (:func:`compute_audio_embeds`):
 * the raw-feature baseline (``ctc_posterior=False``): the projector over
   the encoder's output, PSD-pooled by the posterior when ``do_psd``.
 
+Under a ``tensor`` mesh axis the LLM's table is sharded on its vocabulary
+rows (``Qwen2Model.vocab``): voca_trans looks its top-1 ids up and mixes
+this rank's rows by the matching columns of the softmax, summed over the
+ranks (``parallel.tensor``), and the cross-attention projector attends
+over the table gathered whole once a forward.
+
 The q-former gives ``query_len`` embeddings a row, and its span in the
 merge is ``query_len`` long, attending to the row's valid frames only; the
 JAX package takes the frame count as the span and attends to the padding
@@ -75,6 +81,7 @@ from ps_slm_tpu_torch.ops.pseudo_posterior import (
     NoiseDraws, noise_draws, pseudo_posterior, pseudo_posterior_noise,
 )
 from ps_slm_tpu_torch.ops.psd import psd
+from ps_slm_tpu_torch.parallel.tensor import gather_rows, vocab_embed, vocab_mix
 from ps_slm_tpu_torch.registry import register_model
 from ps_slm_tpu_torch.training.checkpoint import load_ctc_linear, load_funasr_encoder
 
@@ -227,7 +234,10 @@ def _project(model: TasuModel, feats: torch.Tensor, lens: torch.Tensor
     unchanged); the q-former over the valid frames (``query_len`` a row);
     the others at ``lens // k``."""
     if model.flags.cross_attn:
-        return model.projector(feats, model.llm.embed_tokens.weight), lens
+        table = model.llm.embed_tokens.weight
+        if model.llm.vocab is not None:
+            table = gather_rows(table, model.llm.vocab)     # once a forward
+        return model.projector(feats, table), lens
     if model.model_cfg.encoder_projector == "q-former":
         atts = torch.arange(feats.shape[1], device=feats.device)[None, :] < lens[:, None]
         out = model.projector(feats, atts)
@@ -252,8 +262,12 @@ def _voca_trans(model: TasuModel, encoder_out: torch.Tensor, lens: torch.Tensor,
         v_real -= 1      # the last column (the CTC head's extra class) drops
         logits = logits[..., :v_real]
     ctc_outs = torch.softmax(logits.float(), dim=-1)
+    vocab = model.llm.vocab
     if f.top1_emb:
-        return table[ctc_outs.argmax(dim=-1)], lens
+        ids = ctc_outs.argmax(dim=-1)
+        return (table[ids] if vocab is None else vocab_embed(table, ids, vocab)), lens
+    if vocab is not None:
+        return vocab_mix(ctc_outs.to(table.dtype), table, v_real, vocab), lens
     return ctc_outs.to(table.dtype) @ table[:v_real], lens
 
 
@@ -396,15 +410,14 @@ def forward(
     b, t = labels.shape
     text_len = batch["input_ids"].shape[1]
     reduce = None if model.mesh is None else model.mesh.batch_sum
+    kw = dict(ignore_id=IGNORE_ID, reduce=reduce, vocab=llm.vocab)
     if text_len <= (t - 1) // 2:
         max_valid = min(-(-text_len // 8) * 8, t - 1)
-        loss, acc, ntok = gathered_ce_loss(
-            hidden, w, labels, max_valid=max_valid, ignore_id=IGNORE_ID, reduce=reduce
-        )
-    elif b * t * w.shape[0] * 4 > CHUNKED_CE_BYTES:
-        loss, acc, ntok = chunked_ce_loss(hidden, w, labels, ignore_id=IGNORE_ID, reduce=reduce)
+        loss, acc, ntok = gathered_ce_loss(hidden, w, labels, max_valid=max_valid, **kw)
+    elif b * t * llm.cfg.vocab_size * 4 > CHUNKED_CE_BYTES:
+        loss, acc, ntok = chunked_ce_loss(hidden, w, labels, **kw)
     else:
-        loss, acc, ntok = full_ce_loss(hidden, w, labels, ignore_id=IGNORE_ID, reduce=reduce)
+        loss, acc, ntok = full_ce_loss(hidden, w, labels, **kw)
     return loss, {"acc": acc, "ntokens": ntok}
 
 

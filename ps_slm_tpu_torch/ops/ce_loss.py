@@ -9,7 +9,12 @@ Both return ``(loss, acc, ntokens)``: the mean NLL and the argmax accuracy
 over the valid positions, and their count.  With ``reduce`` (a function
 that sums a count over the processes that split the batch), the count is
 the global batch's and the sums are divided by it: each process's loss is
-then its share of the global mean, and the shares sum to it.
+then its share of the global mean, and the shares sum to it.  With
+``vocab`` (a ``parallel.tensor.Shards``) the weight is this rank's block of
+the vocabulary's rows and the CE is vocabulary-parallel
+(``parallel.tensor.vocab_parallel_nll``): the hidden states' gradient is
+summed over the ranks, and every rank gets the whole rows' loss and
+accuracy.
 
 * :func:`gathered_ce_loss`: in a merged audio+text batch only the text
   targets carry labels, so each row's valid positions are moved to the
@@ -29,17 +34,28 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ps_slm_tpu_torch.parallel.tensor import copy_in, vocab_parallel_nll
+
 
 def _ce_sums(
-    x: torch.Tensor, weight: torch.Tensor, y: torch.Tensor, valid: torch.Tensor
+    x: torch.Tensor, weight: torch.Tensor, y: torch.Tensor, valid: torch.Tensor, vocab=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(summed NLL, argmax-correct count) over the valid positions of x."""
-    logits = F.linear(x.to(weight.dtype), weight).float()
+    """(summed NLL, argmax-correct count) over the valid positions of x;
+    vocabulary-parallel with ``vocab``."""
     safe = torch.where(valid, y, 0)
-    lse = torch.logsumexp(logits, dim=-1)
-    picked = logits.gather(-1, safe[..., None])[..., 0]
-    nll = torch.where(valid, lse - picked, 0.0)
-    correct = ((logits.argmax(dim=-1) == safe) & valid).sum()
+    if vocab is not None:
+        x = copy_in(x, vocab)
+    logits = F.linear(x.to(weight.dtype), weight).float()
+    if vocab is not None:
+        nll, arg = vocab_parallel_nll(logits.reshape(-1, logits.shape[-1]), safe.reshape(-1),
+                                      vocab)
+        nll, arg = nll.view(safe.shape), arg.view(safe.shape)
+    else:
+        lse = torch.logsumexp(logits, dim=-1)
+        nll = lse - logits.gather(-1, safe[..., None])[..., 0]
+        arg = logits.argmax(dim=-1)
+    nll = torch.where(valid, nll, 0.0)
+    correct = ((arg == safe) & valid).sum()
     return nll.sum(), correct
 
 
@@ -57,7 +73,7 @@ def _mean(
 
 def gathered_ce_loss(
     hidden: torch.Tensor, weight: torch.Tensor, labels: torch.Tensor,
-    *, max_valid: int, ignore_id: int = -100, reduce=None,
+    *, max_valid: int, ignore_id: int = -100, reduce=None, vocab=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """CE over at most ``max_valid`` valid positions per row (after the
     shift); positions beyond that bound are dropped silently, so callers
@@ -71,12 +87,12 @@ def gathered_ce_loss(
     xs = x.gather(1, order[..., None].expand(b, m, h))
     ys = y.gather(1, order)
     vs = valid.gather(1, order)
-    return _mean(*_ce_sums(xs, weight, ys, vs), vs, reduce)
+    return _mean(*_ce_sums(xs, weight, ys, vs, vocab), vs, reduce)
 
 
 def chunked_ce_loss(
     hidden: torch.Tensor, weight: torch.Tensor, labels: torch.Tensor,
-    *, ignore_id: int = -100, chunk: int = 128, reduce=None,
+    *, ignore_id: int = -100, chunk: int = 128, reduce=None, vocab=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """CE over every position, ``chunk`` positions' logits at a time."""
     x = hidden[:, :-1]
@@ -87,7 +103,7 @@ def chunked_ce_loss(
     for c0 in range(0, x.shape[1], chunk):
         sl = slice(c0, c0 + chunk)
         s, c = checkpoint(
-            _ce_sums, x[:, sl], weight, y[:, sl], valid[:, sl], use_reentrant=False
+            _ce_sums, x[:, sl], weight, y[:, sl], valid[:, sl], vocab, use_reentrant=False
         )
         nll = nll + s
         correct = correct + c
@@ -96,9 +112,9 @@ def chunked_ce_loss(
 
 def full_ce_loss(
     hidden: torch.Tensor, weight: torch.Tensor, labels: torch.Tensor,
-    *, ignore_id: int = -100, reduce=None,
+    *, ignore_id: int = -100, reduce=None, vocab=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """CE over every position, all logits at once."""
     y = labels[:, 1:].long()
     valid = y != ignore_id
-    return _mean(*_ce_sums(hidden[:, :-1], weight, y, valid), valid, reduce)
+    return _mean(*_ce_sums(hidden[:, :-1], weight, y, valid, vocab), valid, reduce)

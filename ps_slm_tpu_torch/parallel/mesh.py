@@ -8,8 +8,9 @@ order:
   data    data parallelism: the parameters replicated
   fsdp    FSDP: parameters and optimizer state sharded (FSDP2's
           ``fully_shard``); the batch is split over data x fsdp together
-  tensor  Megatron column / row parallelism of the LLM's projections
-          (``parallelize_module``)
+  tensor  Megatron column / row parallelism of the LLM's, the encoder's
+          and the projectors' projections, the vocabulary rows of the table
+          (``parallel/tensor.py``, by hand)
 
 The placement rules (:func:`_tp_spec`, :func:`_param_spec`,
 :func:`param_shardings`) are the JAX package's, pure Python over a leaf's
@@ -18,25 +19,27 @@ through ``convert.py``'s name map (stacked layer axes, transposed linear
 kernels, the FSMN and cov1d kernels' axis order), and
 :func:`torch_placements` turns each JAX spec back into the port's layout.
 
-:func:`shard_params` applies them, with these differences from the JAX
-package, whose GSPMD partitions any op:
+:func:`shard_params` applies them.  Each process holds its blocks as
+plain tensors and the modules call the collectives (the JAX package's
+GSPMD partitions any op): over ``tensor`` a column-parallel projection
+keeps its bias's block with its kernel's, and the encoder's fused ``qkv``
+is held by heads (q, k and v of each rank's heads, where the JAX spec's
+contiguous block of its ``[in, 3 d]`` kernel splits q, k and v by
+thirds); :meth:`Parallel.whole`, :func:`gathered` and the train state give
+the whole tensors back in the one-process layout.  FSDP2 gathers each
+transformer block and the projector as a unit, the rest with the model;
+leaves the rule replicates are left to the model (``ignored_params``) and
+their gradients summed here.  ``pipe`` composes with ``data``, ``fsdp``
+and ``tensor``: each stage keeps its own L/P layers (the JAX rule's
+``spec[0] = "pipe"``), frees the others' parameters and buffers
+(``Parallel.freed``) and shards its own within the stage; what lies
+outside the layer stack stays replicated over ``pipe``, and every stage
+computes the same gradients for it, so nothing is summed over ``pipe``.
 
-* the vocabulary-sharded ``embed_tokens`` / ``lm_head`` stay replicated
-  over ``tensor`` (the gathered CE indexes the whole table);
-* over ``tensor`` the encoder stays replicated (its fused ``qkv`` kernel
-  splits into q, k and v by thirds, which a column shard of it does not
-  keep) and of the projectors only linear-silu's ``ffn1`` / ``ffn2`` (a
-  column then a row projection) are sharded; a column-parallel
-  projection shards its bias with its kernel;
-* FSDP2 gathers each transformer block and the projector as a unit, the
-  rest with the model; leaves the rule replicates are left to the model
-  (``ignored_params``) and their gradients summed here;
-* ``pipe`` does not compose with ``fsdp`` or ``tensor``.  Each stage
-  keeps its own L/P layers (the JAX rule's ``spec[0] = "pipe"``) and
-  frees the others' parameters and buffers (``Parallel.freed``); what
-  lies outside the layer stack stays replicated over ``pipe``, and every
-  stage computes the same gradients for it, so nothing is summed over
-  ``pipe``.
+What stays different from the JAX package: the cross-attention
+projector gathers the vocabulary-sharded table whole on every rank once
+a forward (``models/tasu.py::_project``), and between cards only gloo
+has run: NCCL is untried.
 
 The JAX forward's layout hints (``_batch_sharded``,
 ``_fsdp_gathered_table`` in ``ps_slm_tpu/models/tasu.py``) steer GSPMD's
@@ -363,6 +366,12 @@ class Parallel:
         self.coords = dict(zip(AXES, mesh.get_coordinate()))
         self.groups = {a: mesh.get_group(a) for a in AXES if self.shape[a] > 1}
         self.fsdp_names: set = set()      # parameters FSDP2 shards (and sums over fsdp)
+        # the tensor-parallel group (parallel/tensor.py), the tensors cut to
+        # this rank's block over tensor (name -> (dim, by heads)) and the
+        # whole ones whose gradients are partial (summed over tensor)
+        self.shards = None
+        self.tp: Dict[str, Tuple[int, bool]] = {}
+        self.tensor_sum: set = set()
         self.per_stage = 0                # LLM layers a pipeline stage holds (pipe > 1)
         # the parameters and buffers of the other stages' layers, freed
         # here: name -> shape
@@ -394,6 +403,8 @@ class Parallel:
         replicate it, so each shard and each replicated tensor is written
         once.  A stage's layer tensors belong to that stage."""
         coords = {a: 0 for a in AXES}
+        if name in self.tp:
+            coords["tensor"] = self.coords["tensor"]
         if _is_dtensor(t):
             from torch.distributed.tensor import Replicate
 
@@ -443,11 +454,12 @@ class Parallel:
     def sync_grads(self, model: nn.Module) -> None:
         """Sum the trainable parameters' gradients over the axes that split
         the batch: data and fsdp (FSDP2's reduce-scatter already summed
-        over fsdp for the leaves it shards).  Never over pipe: a stage's
-        layers get their gradients on that stage alone, the rest the same
-        on every stage.  A parameter the loss does not reach gets a zero
-        gradient first.  One all-reduce per set of axes and dtype, over the
-        gradients flattened together."""
+        over fsdp for the leaves it shards), and over tensor for the whole
+        tensors a sharded module uses a block of (``tensor_sum``).  Never
+        over pipe: a stage's layers get their gradients on that stage
+        alone, the rest the same on every stage.  A parameter the loss does
+        not reach gets a zero gradient first.  One all-reduce per set of
+        axes and dtype, over the gradients flattened together."""
         buckets: Dict[Tuple, List[torch.Tensor]] = {}
         for name, p in model.named_parameters():
             if not p.requires_grad:
@@ -455,6 +467,8 @@ class Parallel:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
             axes = ("data",) if name in self.fsdp_names else BATCH_AXES
+            if name in self.tensor_sum:
+                axes += ("tensor",)
             axes = tuple(a for a in axes if a in self.groups)
             if axes:
                 g = p.grad.to_local() if _is_dtensor(p.grad) else p.grad
@@ -465,6 +479,20 @@ class Parallel:
                 dist.all_reduce(flat, group=self.groups[axis])
             for g, part in zip(grads, flat.split([g.numel() for g in grads])):
                 g.copy_(part.view_as(g))
+
+    @torch.no_grad()
+    def whole(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """Tensor ``name`` (a parameter, or a state kept for it) whole, in
+        the one-process layout, on every process of its groups (a
+        collective): FSDP2's shards gathered, then the tensor blocks (a
+        by-heads ``qkv`` put back in q, k, v order)."""
+        from ps_slm_tpu_torch.parallel.tensor import from_shards
+
+        t = full_tensor(t) if _is_dtensor(t) else t.detach()
+        if name not in self.tp:
+            return t
+        dim, by_heads = self.tp[name]
+        return from_shards(self.shards.all_gather(t).unbind(0), dim, by_heads)
 
     def to_param_layout(self, t: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
         """A local tensor restored beside parameter ``p`` in ``p``'s layout
@@ -477,56 +505,151 @@ class Parallel:
                                   shape=p.shape, stride=p.stride(), run_check=False)
 
 
-def _tp_modules(model, place: Dict[str, Spec]):
-    """The (module, plan) pairs tensor parallelism shards: every LLM block
-    whose seven projections the rule shards (the projections of one block
-    shard together or not at all, so each process keeps whole heads), and
-    linear-silu's ffn1 / ffn2."""
-    from torch.distributed.tensor.parallel import ColwiseParallel, RowwiseParallel
+def _shard(mod: nn.Module, key: str, dim: int, index: torch.Tensor) -> None:
+    """Keep ``index`` of ``mod``'s parameter ``key`` on ``dim`` (the same
+    Parameter, its data cut)."""
+    p = getattr(mod, key)
+    p.data = p.data.index_select(dim, index.to(p.device)).contiguous()
 
-    out = []
-    for i, layer in enumerate(model.llm.layers):
-        if any(getattr(getattr(layer, n), "lora_a", None) is not None for n in _LLM_LINEARS) \
-                or not all(isinstance(getattr(layer, n), nn.Linear) for n in _LLM_LINEARS) \
-                or layer.prefix_k is not None or layer.adaption_prompt is not None:
-            raise ValueError("tensor parallelism takes plain LLM projections: not PEFT "
-                             "adapters or quantized weights")
-        on = {n for n in _LLM_LINEARS if "tensor" in place[f"llm.layers.{i}.{n}.weight"]}
-        if not on:
-            continue
-        if len(on) != len(_LLM_LINEARS):
-            raise ValueError(f"llm.layers.{i}: the rule shards {sorted(on)} over tensor but "
-                             "not the rest; raise fsdp_min_size or use a tensor size that "
-                             "divides every projection")
-        out.append((layer, {n: ColwiseParallel() if n in _TP_COL else RowwiseParallel()
-                            for n in _LLM_LINEARS}))
+
+def _shard_linear(ctx: "Parallel", name: str, lin: nn.Module, kind: str,
+                  rows: Optional[torch.Tensor] = None) -> None:
+    """Cut ``lin`` (an ``nn.Linear`` named ``name``) to this rank's block:
+    ``col`` its output rows (``rows``, default the contiguous block) with
+    the bias, ``row`` its input columns (the bias stays whole, added after
+    the sum).  ``in_features`` / ``out_features`` keep the whole widths."""
+    shards = ctx.shards
+    if kind == "col":
+        if rows is None:
+            rows = torch.arange(lin.out_features)[shards.block(lin.out_features)]
+        _shard(lin, "weight", 0, rows)
+        ctx.tp[f"{name}.weight"] = (0, name.endswith(".qkv"))
+        if lin.bias is not None:
+            _shard(lin, "bias", 0, rows)
+            ctx.tp[f"{name}.bias"] = (0, name.endswith(".qkv"))
+    else:
+        _shard(lin, "weight", 1, torch.arange(lin.in_features)[shards.block(lin.in_features)])
+        ctx.tp[f"{name}.weight"] = (1, False)
+
+
+def _all_on(place: Dict[str, Spec], names: List[str], what: str) -> bool:
+    """Whether the rule shards every one of ``names`` over tensor (the
+    projections of one block shard together or not at all, so each rank
+    keeps whole heads); raises when it shards some only."""
+    on = [n for n in names if "tensor" in place.get(n, ())]
+    if on and len(on) != len(names):
+        raise ValueError(f"{what}: the rule shards {sorted(on)} over tensor but not the rest; "
+                         "raise fsdp_min_size or use a tensor size that divides every "
+                         "projection")
+    return bool(on)
+
+
+def shard_block(ctx: "Parallel", pre: str, layer: nn.Module, cfg) -> None:
+    """Cut the Qwen2 block ``layer`` (named ``pre``) to this rank's heads:
+    q/k/v/gate/up column-parallel, o/down row-parallel; its whole adapters
+    get partial gradients (``tensor_sum``)."""
+    from ps_slm_tpu_torch.models.lora import ADAPTER_LEAVES
+    from ps_slm_tpu_torch.parallel.tensor import check_heads
+
+    check_heads(pre, cfg.num_attention_heads, ctx.shards.size, cfg.num_key_value_heads)
+    for n in _LLM_LINEARS:
+        lin = getattr(layer, n)
+        kind = "row" if n in _TP_ROW else "col"
+        if kind == "row" and lin.bias is not None:
+            raise ValueError(f"{pre}.{n}: a row-parallel projection with a bias")
+        _shard_linear(ctx, f"{pre}.{n}", lin, kind)
+    for name, _ in layer.named_parameters(prefix=pre):
+        if name.rpartition(".")[2] in ADAPTER_LEAVES:
+            ctx.tensor_sum.add(name)
+    layer.tp = ctx.shards
+
+
+def shard_sanm(ctx: "Parallel", pre: str, layer: nn.Module) -> None:
+    """Cut the SANM layer ``layer`` (named ``pre``) to this rank's heads:
+    ``qkv`` by heads and ``w1`` column-parallel, ``out`` and ``w2``
+    row-parallel; its whole FSMN kernel gets partial gradients."""
+    from ps_slm_tpu_torch.parallel.tensor import check_heads, qkv_rows
+
+    check_heads(pre, layer.heads, ctx.shards.size)
+    _shard_linear(ctx, f"{pre}.qkv", layer.qkv, "col",
+                  qkv_rows(layer.size, ctx.shards.size, ctx.shards.rank))
+    _shard_linear(ctx, f"{pre}.out", layer.out, "row")
+    _shard_linear(ctx, f"{pre}.w1", layer.w1, "col")
+    _shard_linear(ctx, f"{pre}.w2", layer.w2, "row")
+    ctx.tensor_sum.add(f"{pre}.fsmn.weight")
+    layer.tp = ctx.shards
+
+
+@torch.no_grad()
+def shard_tensor(model, ctx: "Parallel", place: Dict[str, Spec]) -> None:
+    """Tensor parallelism over the mesh's ``tensor`` axis, by hand
+    (``parallel/tensor.py``): every LLM block of this stage whose seven
+    projections the rule shards (not an int8 / int4 one, whose leaves the
+    rule replicates), every encoder layer whose ``qkv`` / ``out`` / ``w1``
+    / ``w2`` it shards (``qkv`` by heads), linear-silu's and the q-former
+    layers' ``ffn1`` / ``ffn2``, and the vocabulary rows of the table and
+    an untied ``lm_head``; each module's ``tp`` set.  The whole adapters
+    of a sharded block and the whole FSMN kernel of a sharded encoder
+    layer get partial gradients: they are summed over tensor
+    (``Parallel.tensor_sum``)."""
+    from ps_slm_tpu_torch.parallel.tensor import Shards
+
+    size = ctx.shape["tensor"]
+    ctx.shards = shards = Shards(ctx.coords["tensor"], size, ctx.groups["tensor"])
+    llm = model.llm
+    for i, layer in enumerate(llm.layers):
+        pre = f"llm.layers.{i}"
+        if f"{pre}.input_layernorm.weight" not in ctx.freed and _all_on(
+                place, [f"{pre}.{n}.weight" for n in _LLM_LINEARS], pre):
+            shard_block(ctx, pre, layer, llm.cfg)
+    enc = model.encoder
+    layers = [("encoder.encoders0", enc.encoders0)]
+    layers += [(f"encoder.encoders.{i}", m) for i, m in enumerate(enc.encoders)]
+    layers += [(f"encoder.tp_encoders.{i}", m) for i, m in enumerate(enc.tp_encoders or ())]
+    for pre, layer in layers:
+        if _all_on(place, [f"{pre}.{n}.weight" for n in ("qkv", "out", "w1", "w2")], pre):
+            shard_sanm(ctx, pre, layer)
     proj = model.projector
-    if model.model_cfg.encoder_projector == "linear-silu" and (
-            "tensor" in place["projector.ffn1.weight"]
-            and "tensor" in place["projector.ffn2.weight"]):
-        out.append((proj, {"ffn1": ColwiseParallel(), "ffn2": RowwiseParallel()}))
-    return out
+    mlps = [("projector", proj)] if hasattr(proj, "ffn1") else []
+    mlps += [(f"projector.layers.{i}", m) for i, m in enumerate(getattr(proj, "layers", ()))
+             if hasattr(m, "ffn1")]                    # the q-former's
+    for pre, mod in mlps:
+        if _all_on(place, [f"{pre}.ffn1.weight", f"{pre}.ffn2.weight"], pre):
+            _shard_linear(ctx, f"{pre}.ffn1", mod.ffn1, "col")
+            _shard_linear(ctx, f"{pre}.ffn2", mod.ffn2, "row")
+            mod.tp = shards
+    tables = ["llm.embed_tokens.weight"] + (["llm.lm_head.weight"] if llm.lm_head is not None
+                                            else [])
+    if _all_on(place, tables, "llm's vocabulary"):
+        rows = torch.arange(llm.cfg.vocab_size)[shards.block(llm.cfg.vocab_size)]
+        for name in tables:
+            _shard(llm.embed_tokens if "embed_tokens" in name else llm.lm_head, "weight", 0, rows)
+            ctx.tp[name] = (0, False)
+        llm.vocab = shards
 
 
-def _fsdp_units(model) -> List[nn.Module]:
+def _fsdp_units(model, ctx: "Parallel") -> List[nn.Module]:
     """The modules FSDP2 gathers one at a time: each transformer block of
-    the encoder and the LLM, and the projector (the model itself last)."""
+    the encoder and of this stage's LLM layers, and the projector (the
+    model itself last)."""
     enc = model.encoder
     units = [enc.encoders0, *enc.encoders]
     if getattr(enc, "tp_encoders", None) is not None:
         units += list(enc.tp_encoders)
-    return units + list(model.llm.layers) + [model.projector]
+    layers = [layer for i, layer in enumerate(model.llm.layers)
+              if f"llm.layers.{i}.input_layernorm.weight" not in ctx.freed]
+    return units + layers + [model.projector]
 
 
 def shard_params(model, mesh, mesh_shape: Optional[dict] = None, min_size: int = 2 ** 16,
                  pp_microbatches: int = 0) -> Parallel:
     """Apply the placements to ``model`` (a ``TasuModel``, its freeze flags
-    already set) in place and set ``model.mesh`` / ``model.pp_microbatches``.
-    Build the optimizer afterwards: FSDP2 and TP replace the parameters."""
+    already set) in place and set ``model.mesh`` / ``model.pp_microbatches``:
+    free the other pipeline stages' layers, shard over tensor
+    (:func:`shard_tensor`), then FSDP2 over fsdp within the stage.  Build
+    the optimizer afterwards: FSDP2 replaces the parameters."""
     shape = mesh_dims(mesh_shape, dist.get_world_size())
     ctx = Parallel(mesh, shape)
-    if shape["pipe"] > 1 and (shape["fsdp"] > 1 or shape["tensor"] > 1):
-        raise ValueError(f"the port's pipeline does not compose with fsdp or tensor: mesh {shape}")
     if shape["pipe"] > 1 and model.llm.cfg.num_hidden_layers % shape["pipe"]:
         raise ValueError(f"pipeline: {model.llm.cfg.num_hidden_layers} layers not divisible "
                          f"by pipe={shape['pipe']}")
@@ -534,10 +657,7 @@ def shard_params(model, mesh, mesh_shape: Optional[dict] = None, min_size: int =
     if shape["pipe"] > 1:
         free_other_stages(model, ctx)
     if shape["tensor"] > 1:
-        from torch.distributed.tensor.parallel import parallelize_module
-
-        for module, plan in _tp_modules(model, place):
-            parallelize_module(module, mesh["tensor"], plan)
+        shard_tensor(model, ctx, place)
     if shape["fsdp"] > 1:
         from torch.distributed.fsdp import FSDPModule, fully_shard
         from torch.distributed.tensor import Shard
@@ -545,7 +665,7 @@ def shard_params(model, mesh, mesh_shape: Optional[dict] = None, min_size: int =
         dims, ignored = {}, set()
         for name, p in model.named_parameters():
             spec = place.get(name, ())
-            if "fsdp" in spec:
+            if "fsdp" in spec and name not in ctx.freed:
                 dims[id(p)] = spec.index("fsdp")
                 ctx.fsdp_names.add(name)
             else:
@@ -554,7 +674,7 @@ def shard_params(model, mesh, mesh_shape: Optional[dict] = None, min_size: int =
         def placement(p):
             return Shard(dims[id(p)])
 
-        for unit in _fsdp_units(model) + [model]:
+        for unit in _fsdp_units(model, ctx) + [model]:
             fully_shard(unit, mesh=mesh["fsdp"], shard_placement_fn=placement,
                         ignored_params=ignored)
         for m in model.modules():
@@ -592,20 +712,13 @@ def free_other_stages(model, ctx: Parallel) -> None:
 
 @torch.no_grad()
 def full_tensor(t: torch.Tensor) -> torch.Tensor:
-    """A DTensor's whole tensor on every process of its mesh.  A tensor
-    sharded over one mesh dimension (FSDP2's, TP's) is gathered with a
-    plain ``all_gather_into_tensor``, each shard padded to the largest: the
-    DTensor's own ``full_tensor`` goes through functional collectives, which
-    gloo does not take on CUDA tensors.  Shards over several mesh
-    dimensions (FSDP2 over TP) take ``full_tensor``."""
-    from torch.distributed.tensor import Replicate, Shard
-
-    shards = [(k, pl) for k, pl in enumerate(t.placements) if not isinstance(pl, Replicate)]
-    if len(shards) != 1 or type(shards[0][1]) is not Shard:
-        return t.full_tensor()
-    (k, pl), = shards
+    """An FSDP2 DTensor's whole tensor on every process of its (one-axis)
+    mesh, gathered with a plain ``all_gather_into_tensor``, each shard
+    padded to the largest: the DTensor's own ``full_tensor`` goes through
+    functional collectives, which gloo does not take on CUDA tensors."""
+    (pl,) = t.placements
     mesh, d, size = t.device_mesh, pl.dim, t.shape[pl.dim]
-    n = mesh.size(k)
+    k, n = 0, mesh.size(0)
     c = -(-size // n)                 # torch.chunk's sizes: c, ..., c, the rest, 0, ...
     x = t.detach().to_local().movedim(d, 0)
     if x.shape[0] < c:
@@ -617,29 +730,32 @@ def full_tensor(t: torch.Tensor) -> torch.Tensor:
 
 @contextlib.contextmanager
 def gathered(model: nn.Module):
-    """The whole parameters on every process for the duration: every
-    DTensor parameter (FSDP2's shards, TP's) replaced by its full tensor,
-    each pipeline stage's layers broadcast from that stage, and FSDP2's
+    """The whole parameters on every process for the duration, in the
+    one-process layout: every FSDP2 and tensor-parallel shard replaced by
+    its whole tensor (``Parallel.whole``) within each stage, then each
+    pipeline stage's layers broadcast from that stage, and FSDP2's
     state-dict hooks (which put the shards back) held off, so
     ``state_dict()`` and the exporters read whole tensors.  A collective:
-    every process enters it."""
+    every process enters it.  The modules' forwards do not run on it."""
+    ctx = getattr(model, "mesh", None)
     swapped, hooks = [], []
-    for mod in model.modules():
+    for mname, mod in model.named_modules():
         if mod._state_dict_pre_hooks:
             hooks.append((mod, dict(mod._state_dict_pre_hooks)))
             mod._state_dict_pre_hooks.clear()
         for n, p in list(mod._parameters.items()):
-            if p is not None and _is_dtensor(p):
-                mod._parameters[n] = nn.Parameter(full_tensor(p), requires_grad=False)
+            name = f"{mname}.{n}" if mname else n
+            if p is not None and (_is_dtensor(p) or (ctx is not None and name in ctx.tp)):
+                whole = ctx.whole(name, p) if ctx is not None else full_tensor(p)
+                mod._parameters[n] = nn.Parameter(whole, requires_grad=False)
                 swapped.append((mod, "_parameters", n, p))
-    ctx = getattr(model, "mesh", None)
     if ctx is not None and ctx.freed:
         group = ctx.groups["pipe"]
         with torch.no_grad():
             for name, mod, kind, key in _layer_tensors(model):
                 t = getattr(mod, kind)[key]
                 mine = name not in ctx.freed
-                buf = t if mine else t.new_empty(ctx.freed[name])
+                buf = t.contiguous() if mine else t.new_empty(ctx.freed[name])
                 dist.broadcast(buf, dist.get_global_rank(group, ctx.stage_of(name)), group=group)
                 if not mine:
                     getattr(mod, kind)[key] = (nn.Parameter(buf, requires_grad=False)
@@ -648,7 +764,7 @@ def gathered(model: nn.Module):
     try:
         yield model
     finally:
-        for mod, kind, n, p in swapped:
+        for mod, kind, n, p in reversed(swapped):
             getattr(mod, kind)[n] = p
         for mod, saved in hooks:
             mod._state_dict_pre_hooks.update(saved)

@@ -23,6 +23,16 @@ it.  Activations and their gradients move between neighbours by
 point-to-point sends (``batch_isend_irecv``); gloo sends only host
 tensors, so under gloo a CUDA tensor goes through the host.
 
+A stage composes with ``fsdp`` and ``tensor`` within it: the rank at
+coordinate (d, f, t) of one stage sends to the same coordinate of the
+next (the ``pipe`` group's ranks).  Under ``tensor`` the stage's blocks
+call their collectives over the stage's tensor group; under ``fsdp`` each
+of its layers is an FSDP2 unit that gathers its shards for each
+microbatch's forward and backward, and holds the reduce-scatter of its
+gradients until the last microbatch's backward
+(``set_requires_gradient_sync``), so the sum over the microbatches is
+taken once, as the unpipelined step's.
+
 Bubble fraction = (P-1)/(M+P-1).  LoRA dropout masks are drawn per layer
 and microbatch, in that order, on every stage (so the generators stay
 together); at M=1 they are the unpipelined step's masks.  Decode (KV
@@ -67,6 +77,16 @@ class _Schedule:
         self.ranks = [dist.get_global_rank(self.group, k) for k in range(self.p)] \
             if self.group is not None else [0]
         self.via_host = self.group is not None and dist.get_backend(self.group) == "gloo"
+
+    def gradient_sync(self, on: bool) -> None:
+        """Whether this stage's FSDP2 layers reduce-scatter their gradients
+        after the next backward (off: they accumulate them whole)."""
+        from torch.distributed.fsdp import FSDPModule
+
+        for i in self.layers:
+            layer = self.llm.layers[i]
+            if isinstance(layer, FSDPModule):
+                layer.set_requires_gradient_sync(on, recurse=False)
 
     def stage(self, x: torch.Tensor, m: int) -> torch.Tensor:
         remat = self.llm.remat and torch.is_grad_enabled()
@@ -136,6 +156,7 @@ class _Pipeline(torch.autograd.Function):
             mi = t - s
             g_in = None
             if 0 <= mi < m:
+                run.gradient_sync(mi == 0)       # microbatch 0's backward runs last
                 x_in, y = saved.pop(mi)
                 g_y = g_outs[mi] if s == p - 1 else g_act
                 if y.requires_grad:

@@ -946,7 +946,7 @@ def _parallel_steps(dev, mesh_shape=None):
     moments = {}
     for n in step.trainable:
         m = step.optimizer.state[params[n]]["exp_avg"]
-        moments[n] = (meshlib.full_tensor(m) if hasattr(m, "to_local") else m).detach().cpu()
+        moments[n] = (model.mesh.whole(n, m) if mesh_shape else m).detach().cpu()
     with meshlib.gathered(model) if mesh_shape else _nullcontext():
         trained = {n: p.detach().cpu().clone() for n, p in model.named_parameters()
                    if n in step.trainable}

@@ -172,7 +172,7 @@ def run_port(spec, mesh_shape=None):
         moments = {}
         for n in step.trainable:
             m = step.optimizer.state[params[n]]["exp_avg"]
-            moments[n] = meshlib.full_tensor(m) if hasattr(m, "to_local") else m.detach().clone()
+            moments[n] = model.mesh.whole(n, m) if model.mesh is not None else m.detach().clone()
         results[f"{kind}/{source}"] = {
             "metrics": metrics,
             "projector": {k: v for k, v in sd.items() if k.startswith("projector.")},

@@ -6,10 +6,13 @@ package (``parallel/mesh.py``), pure Python, one process.
 * ``param_shardings`` over the port's parameter tree, read through the
   name map (``jax_leaf``), gives every JAX leaf the spec the JAX rule gives
   it on the JAX tree of the same model, at ``{"fsdp": 4}``,
-  ``{"data": 2, "fsdp": 2, "tensor": 2}`` and ``{"pipe": 2, "data": 4}``
+  ``{"data": 2, "fsdp": 2, "tensor": 2}``, ``{"pipe": 2, "data": 4}``,
+  ``{"tensor": 2}`` and ``{"pipe": 2, "fsdp": 2, "tensor": 2}``
   and at ``min_size`` 2**16 and 1; two models: the published half_audio one
   (linear-silu) and one with the q-former projector, an int8 LLM and LoRA.
-* ``torch_placements`` puts each spec on the port's own dimensions.
+* ``torch_placements`` puts each spec on the port's own dimensions; the
+  vocabulary's and the encoder's leaves, which the port now shards over
+  ``tensor``, each where the JAX spec of its leaf puts it.
 * ``pad_batch_to_multiple`` equals JAX's.
 
 Exact equality throughout.  CPU time alone: ~10 s.
@@ -27,7 +30,8 @@ from ps_slm_tpu_torch.config import ModelConfig, TrainConfig
 from ps_slm_tpu_torch.models import tasu
 from ps_slm_tpu_torch.parallel import mesh
 
-MESHES = [{"fsdp": 4}, {"data": 2, "fsdp": 2, "tensor": 2}, {"pipe": 2, "data": 4}]
+MESHES = [{"fsdp": 4}, {"data": 2, "fsdp": 2, "tensor": 2}, {"pipe": 2, "data": 4},
+          {"tensor": 2}, {"pipe": 2, "fsdp": 2, "tensor": 2}]
 HALF_AUDIO = dict(ctc_posterior=True, do_psd=True, freeze_llm=True, freeze_encoder=True)
 MODELS = {
     "half_audio": (HALF_AUDIO, dict(encoder_projector="linear-silu", encoder_dim=11, llm_dim=64)),
@@ -111,6 +115,32 @@ def test_torch_placements_follow_the_name_map():
     assert pipe["llm.layers.0.q_proj.weight"] == (None, None)   # the stage holds the layer
     assert mesh.jax_leaf("llm.layers.3.q_proj.weight", (64, 64)).layer == 3
     assert mesh.jax_leaf("cmvn_neg_mean", (560,)) is None
+
+
+@pytest.mark.parametrize("shape", [{"tensor": 2}, {"pipe": 2, "fsdp": 2, "tensor": 2}],
+                         ids=["tensor2", "pipe2+fsdp2+tensor2"])
+def test_torch_placements_of_the_vocabulary_and_encoder_equal_jax(trees, shape):
+    params, pm = trees
+    want = _jax_specs(params, shape, 1)
+    named = mesh._named_shapes(pm)
+    place = mesh.torch_placements(named, shape, 1)
+    seen = 0
+    for name, shp in named:
+        if not name.startswith(("llm.embed_tokens", "llm.lm_head", "encoder.")):
+            continue
+        leaf = mesh.jax_leaf(name, shp)
+        if leaf is None:
+            continue
+        spec = want[leaf.path][1:] if leaf.layer is not None else want[leaf.path]
+        mine = [None] * len(shp)
+        for j, axis in enumerate(spec):
+            mine[leaf.dims[j]] = axis
+        assert place[name] == tuple(mine), name
+        seen += "tensor" in place[name]
+    assert place["llm.embed_tokens.weight"][0] == "tensor"
+    assert place["encoder.encoders0.qkv.weight"][0] == "tensor"     # JAX's [in, 3d] columns
+    assert place["encoder.encoders.0.out.weight"][1] == "tensor"
+    assert seen >= 1 + 4 * 4                    # the table and 4 x 4 encoder projections
 
 
 def test_pad_batch_to_multiple_equals_jax():
