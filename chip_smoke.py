@@ -3,9 +3,12 @@
 
     python3 chip_smoke.py              # every phase below
     python3 chip_smoke.py --variants   # phases 1-2, then the LayerNorm
-                                       # forward's designs side by side
+                                       # forward's and backward's designs
+                                       # side by side
     python3 chip_smoke.py --slice12    # phase 12 alone (and its phase 3 rows)
-    python3 chip_smoke.py --slice13    # phase 13 alone (and its phase 3 rows)
+    python3 chip_smoke.py --slice13    # phase 13 alone (and its phase 3 rows),
+                                       # with each launch's wall, its ranks'
+                                       # start and import seconds
 
 Phases, each of which fails the run:
 
@@ -16,10 +19,11 @@ Phases, each of which fails the run:
    (tensor cores or fp32 FMA), ptxas's registers and spills and the
    tensor-core instructions (HMMA) in its SASS (``cuobjdump``); a
    tensor-core kernel that spills or has no HMMA fails the run; the
-   LayerNorm backward kernel's registers and spills; and those of every
-   other norm kernel (the LayerNorm forward's and RMSNorm's on every
-   route, each dtype and chunks a lane, with and without dw), where a
-   spill in a bf16 vectorised kernel fails the run;
+   LayerNorm backward's wide kernel's registers and spills; and those of
+   every other norm kernel (the LayerNorm forward's, the LayerNorm
+   backward's vectorised one and RMSNorm's on every route, each dtype and
+   chunks a lane, with and without dw / dw and db, and the partial sum),
+   where a spill in a bf16 vectorised kernel fails the run;
 3. kernels: each kernel against its plain PyTorch version at the main
    paths' shapes, in fp32 and bf16, with its time, the plain version's,
    one PyTorch library call's, and the least time the card could take:
@@ -30,7 +34,10 @@ Phases, each of which fails the run:
    and dq + dk/dv together against SDPA's whole backward; the RMSNorm
    backward with dw and with frozen weights (the training main path's
    call), each against ``F.rms_norm``'s autograd backward with the weight
-   trained or frozen; the beam decode's and the text-only step's shapes
+   trained or frozen, and the LayerNorm backward likewise (kernel + the
+   dw/db sum against ``F.layer_norm``'s backward) on both its routes, the
+   encoder training step's 760 x 560 / 512 rows included; the beam
+   decode's and the text-only step's shapes
    too (RMSNorm at 16 and 795 rows, flash forward, dq and dk/dv at 5 x
    159, the projector's LayerNorm forward and backward at 640 x 25 055 on
    smoothed, clean and all-zero one-hot rows); the route each norm call
@@ -181,7 +188,7 @@ Phases, each of which fails the run:
 12. encoder training and ASR, the projectors and branches (12a fp32 on
    card and CPU; 12b-12d at full size): see their functions;
 13. training over several processes sharing the card over gloo: 13a the
-   finetune CLI in fp32 at reduced depth on every mesh (PARALLEL_RUNS,
+   finetune CLI in fp32 at reduced depth on every mesh (PARALLEL_GROUPS,
    pipe with fsdp and tensor and tensor with LoRA included, the tiny
    model alone in 8 processes), 13b phase 7b's recipe at full size on
    data, fsdp and tensor, 13c whisper mel and goldens verify;
@@ -191,6 +198,21 @@ Phases, each of which fails the run:
 The fp32 phases' CPU sides (4-4e, 8a, 10a, 11a, 12a, 13c) run in REFS, a
 worker process beside the card's work (4-4e's from the start, the rest
 once 13a's ranks are done); phase 3 times each shape once a call.
+
+Cuts to the wall, none of a mesh, variant, resume, check or tolerance
+(each phase still checks what it checked):
+13a starts one launch of PARALLEL_PROCESSES processes (the host's cores),
+not one per process count and kind (21 processes at once, each importing
+torch); groups of them take every mesh's full-width and tiny-model runs
+in turn, the 8-process mesh all of them at the end (PARALLEL_GROUPS;
+fsdp2 and its resume in a group of their own), and its one-process runs
+(LoRA's, the tiny model's) run in this process beside the launch; 13a
+runs right after phase 3 and 4e's card run, and 4-4d's card sides and
+4e's comparison come after it, so their CPU runs go on beside phase 3
+and 13a instead of the card waiting for them; 13b runs data2 and fsdp2 at
+once in one launch of 4 processes, tensor2 after data2.  Every launch
+prints its processes' start and import seconds and each run's wall
+(``--slice13`` measures 13a and 13b alone).
 
 Exits non-zero without a result when CUDA is absent or when the
 ``ps_slm_tpu_torch`` package is not beside this file.
@@ -212,6 +234,7 @@ import tempfile
 import threading
 import time
 
+T_PROCESS = time.time()   # this process's first statement: a rank's start (phase 13)
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 LFR_FRAME_SEC = 0.06    # one LFR frame: 6 x 10 ms shift
@@ -299,22 +322,27 @@ FLASH_PATHS = {
 # the norm kernels in ptxas's report (the LayerNorm backward's apart), by
 # mangled name: the kernel, its element type, its integer template argument
 # (16-byte chunks a lane on the vectorised route) and its flag (LayerNorm
-# for the vectorised forward, dw for the RMSNorm backward)
+# for the vectorised forward, dw for the RMSNorm backward, dw/db for the
+# LayerNorm's vectorised backward)
 NORM_KERNEL = re.compile(r"\d((?:layer_norm_fwd|rms_norm_(?:fwd|bwd))(?:_vec|_held|_staged)?_kernel"
-                         r"|norm_fwd_vec_kernel|rms_dw_sum_kernel)"
+                         r"|layer_norm_bwd_vec_kernel|norm_fwd_vec_kernel|partial_sum_kernel)"
                          r"I(13__nv_bfloat16|f)(?:Li(\d+)E)?(?:Lb([01])E)?")
 # the vectorised kernels, where a bf16 spill fails the run
-VEC_KERNELS = ("norm_fwd_vec_kernel", "rms_norm_bwd_vec_kernel")
+VEC_KERNELS = ("norm_fwd_vec_kernel", "rms_norm_bwd_vec_kernel", "layer_norm_bwd_vec_kernel")
 # the route each main-path shape ([rows, d], bf16) must take; the RMSNorm
 # wrappers' every main-path launch is vectorised, the LayerNorm forward's
 # are the encoder's on the vectorised route and the projector's on the
-# staged one, per generate and per training step
+# staged one, per generate and per training step; the LayerNorm
+# backward's the projector's on the wide route, the encoder's (12b) and
+# the q-former's (12d) on the vectorised one
 MAIN_ROUTES = {
     "rms_norm_fwd": {(2172, 1536): "vec", (4, 1536): "vec", (16, 1536): "vec",
                      (795, 1536): "vec"},
     "rms_norm_bwd": {(2715, 1536): "vec", (795, 1536): "vec"},
     "layer_norm_fwd": {(2064, 512): "vec", (2064, 560): "vec", (2064, 25055): "staged",
                        (640, 25055): "staged"},
+    "layer_norm_bwd": {(2560, 25055): "wide", (640, 25055): "wide", (760, 560): "vec",
+                       (760, 512): "vec", (256, 768): "vec", (256, 1536): "vec"},
 }
 LN_ROUTES_PER_PASS = {"vec": LN_PER_GENERATE - 1, "staged": 1, "held": 0, "general": 0}
 LN_ROUTES_TEXT_ONLY = {"vec": 0, "staged": 1, "held": 0, "general": 0}
@@ -327,23 +355,37 @@ LN_ROUTES_TEXT_ONLY = {"vec": 0, "staged": 1, "held": 0, "general": 0}
 # CUDA tensor, so the pipeline's sends go through the host under gloo;
 # every mesh runs, so none is left to run at size 1), 13b's meshes at full
 # size, 13b's train manifest and the fp32 tolerances against one process
-# 13a's meshes by process count, each with its variant (PARALLEL_VARIANTS'
-# overrides; "": 4e's recipe), the meshes that train the tiny model only,
-# and the mesh that writes full-width checkpoints and resumes
-PARALLEL_RUNS = {
-    2: (({"data": 2}, ""), ({"fsdp": 2}, ""), ({"pipe": 2}, ""), ({"tensor": 2}, ""),
-        ({"tensor": 2}, "lora")),
-    4: (({"pipe": 2, "data": 2}, ""), ({"pipe": 2, "fsdp": 2}, ""), ({"pipe": 2, "tensor": 2}, "")),
-}
-PARALLEL_TINY_ONLY = {8: ({"pipe": 2, "data": 2, "fsdp": 2},)}
+# 13a's runs, in one launch of PARALLEL_PROCESSES processes (as many as
+# the card's host has cores): groups of launch processes, each taking its
+# runs in turn: ("full", mesh, variant) the full-width run
+# (PARALLEL_VARIANTS' overrides; "": 4e's recipe), PARALLEL_RESUME's
+# resume after it; ("tiny", mesh, variant) the tiny model's run and its
+# resume.  Every mesh runs both but pipe2+data2+fsdp2 (8 processes), the
+# tiny model's alone, which starts once every process is done with its
+# group's runs.  fsdp2, whose every pass gathers the model over gloo, and
+# its full-width resume have processes of their own; pipe2+fsdp2 runs last
+# in its group, after fsdp2's gathers are done.
+PARALLEL_PROCESSES = 8
+PARALLEL_GROUPS = (
+    ((0, 1, 2, 3), (("full", {"pipe": 2, "data": 2}, ""), ("full", {"pipe": 2, "tensor": 2}, ""),
+                    ("full", {"pipe": 2, "fsdp": 2}, ""), ("tiny", {"pipe": 2, "data": 2}, ""),
+                    ("tiny", {"pipe": 2, "fsdp": 2}, ""), ("tiny", {"pipe": 2, "tensor": 2}, ""))),
+    ((4, 5), (("full", {"fsdp": 2}, ""), ("tiny", {"fsdp": 2}, ""))),
+    ((6, 7), (("full", {"data": 2}, ""), ("full", {"pipe": 2}, ""), ("full", {"tensor": 2}, ""),
+              ("full", {"tensor": 2}, "lora"), ("tiny", {"data": 2}, ""), ("tiny", {"pipe": 2}, ""),
+              ("tiny", {"tensor": 2}, ""), ("tiny", {"tensor": 2}, "lora"))),
+    (tuple(range(8)), (("tiny", {"pipe": 2, "data": 2, "fsdp": 2}, ""),)),
+)
 PARALLEL_VARIANTS = {"": [], "lora": ["++train_config.use_peft=true"]}
 PARALLEL_RESUME = {"fsdp": 2}
 # 13b's meshes and train manifests: 16 utterances (two micro-steps) on data,
 # 8 (one) on fsdp, whose every micro-step gathers the bf16 model over gloo,
-# and 8 (one) on tensor
-PARALLEL_MESHES_BF16 = (({"data": 2}, {"ark": 12, "wav": 2, "flac": 2}),
-                        ({"fsdp": 2}, {"ark": 8, "wav": 0, "flac": 0}),
-                        ({"tensor": 2}, {"ark": 8, "wav": 0, "flac": 0}))
+# and 8 (one) on tensor; each with the launch processes that run it: data2
+# then tensor2 on two, fsdp2 beside them on two more (the four ranks of
+# data2 and fsdp2 peak at 45.6 GB together)
+PARALLEL_MESHES_BF16 = (({"data": 2}, {"ark": 12, "wav": 2, "flac": 2}, (0, 1)),
+                        ({"fsdp": 2}, {"ark": 8, "wav": 0, "flac": 0}, (2, 3)),
+                        ({"tensor": 2}, {"ark": 8, "wav": 0, "flac": 0}, (0, 1)))
 PARALLEL_TOL = 1e-5
 # AdamW's first moments after micro-step MOMENT_STEP, several processes
 # against one, of each trained tensor's largest.  The first step runs at
@@ -360,7 +402,8 @@ MOMENT_STEP = 2
 # that rounding up where |g| is small (on the H100: data2 3.9e-6 above the
 # floor, 1.5e-5 below it, the moments 5.8e-6 and the losses 2.9e-6 apart)
 PARALLEL_PROJ_TOL = 1e-4
-PARALLEL_TIMEOUT = 600.0
+# a launch's time limit; its processes print every thread's stack 20 s before it
+PARALLEL_TIMEOUT = 420.0
 WHISPER_TOL = 1e-4      # whisper_log_mel card vs CPU, after the (x + 4) / 4 scaling
 # kernel vs plain version on the card: |a - b| <= atol + rtol * |b|
 KERNEL_TOL = {"f32": (2e-5, 2e-5), "bf16": (1e-2, 1e-2)}
@@ -666,13 +709,14 @@ def mfu(flops: float, ms: float, dev) -> str:
     return f"MFU {flops / (ms / 1e3) / (peak * 1e12):.4f} (bf16 dense peak {peak:.0f} TFLOP/s)"
 
 
-def profiled(torch, fn):
+def profiled(torch, fn, kernels=()):
     """Run ``fn`` once under ``torch.profiler`` with device activity only
     (no host operators are recorded, which keeps the host slow-down small).
     Returns the run's own wall ms, its device-busy ms (the kernels', copies'
     and memsets' durations, summed; one stream, so they do not overlap;
     None when the profiler saw no device activity), the number of device
-    operations and the largest items by device time."""
+    operations and the largest items by device time, followed by every
+    other item whose name holds one of ``kernels``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -689,7 +733,8 @@ def profiled(torch, fn):
             agg[0] += e.time_range.elapsed_us() / 1e3
             agg[1] += 1
     busy_ms = sum(v[0] for v in by_name.values()) if by_name else None
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    top = ranked[:10] + [kv for kv in ranked[10:] if any(k in kv[0] for k in kernels)]
     return wall_ms, busy_ms, sum(v[1] for v in by_name.values()), \
         [[name[:60], ms, n] for name, (ms, n) in top]
 
@@ -871,6 +916,7 @@ def phase_paths(logs: dict) -> None:
             what.append(f"{num} chunks a lane")
         if flag:
             what.append((("RMSNorm", "LayerNorm") if kernel == "norm_fwd_vec_kernel"
+                         else ("no dw/db", "dw/db") if kernel == "layer_norm_bwd_vec_kernel"
                          else ("no dw", "dw"))[int(flag)])
         what = ", ".join(what)
         print(f"path norms: {kernel} ({what}); ptxas: {regs} registers, {spill} bytes "
@@ -1060,13 +1106,75 @@ def phase_ln_variants(torch, dev) -> None:
                       f"{time_ms(torch, fn):.4f} bound {bms:.4f} ({by})", flush=True)
 
 
+def phase_ln_bwd_variants(torch, dev) -> None:
+    """``--variants``: the LayerNorm backward's designs with dw/db at the
+    encoder's (760 x 560 / 512) and the q-former's (256 x 768 at eps 1e-12,
+    256 x 1536) rows in both dtypes, each kernel followed by the fixed-order
+    sum of its partial rows, against the plain version and timed by
+    CUDA-graph replay: the vectorised route at 1 to 8 blocks an SM (where
+    the row fits it), also with at least 4 rows a block (a warp each: fewer
+    partial rows), and the wide kernel (the only design before it) at one
+    block an SM."""
+    from ps_slm_tpu_torch import _build
+    from ps_slm_tpu_torch.ops import norms
+
+    lib = _build.load("norms", norms._SIGNATURES)
+    vlib = _build.load("ln_bwd", norms._LN_BWD_SIGNATURES)
+    g = torch.Generator(device=dev).manual_seed(3)
+    for dt, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        for n, d, eps in ((760, 560, 1e-5), (760, 512, 1e-5), (256, 768, 1e-12),
+                          (256, 1536, 1e-5)):
+            x = (torch.randn(n, d, device=dev, generator=g) * 3 + 1).to(dtype)
+            w = (1 + 0.1 * torch.randn(d, device=dev, generator=g)).to(dtype)
+            bb = (0.1 * torch.randn(d, device=dev, generator=g)).to(dtype)
+            gy = torch.randn(n, d, device=dev, generator=g).to(dtype)
+            _, mu, rstd = norms.layer_norm_ref(x, w, bb, eps)
+            want = norms.layer_norm_bwd_ref(x, w, mu, rstd, gy)
+            dx, dw, db = torch.empty_like(x), torch.empty_like(w), torch.empty_like(w)
+            code = _build.DTYPE_CODES[dtype]
+
+            def variant(launch, nb):
+                part = torch.empty((2, nb, d), device=dev)
+
+                def run():   # on the current stream: a CUDA graph's while one is captured
+                    st = _build.stream_ptr(x)
+                    err = launch(dev.index, code, x.data_ptr(), w.data_ptr(), mu.data_ptr(),
+                                 rstd.data_ptr(), gy.data_ptr(), dx.data_ptr(),
+                                 part[0].data_ptr(), part[1].data_ptr(), n, d, nb, st)
+                    return err or lib.ps_layer_norm_dwdb_sum(
+                        dev.index, code, part[0].data_ptr(), part[1].data_ptr(), dw.data_ptr(),
+                        db.data_ptr(), nb, d, st)
+                return run
+
+            esize = x.element_size()
+            variants = {f"vec {per} blocks/SM{f', >= {rows} rows a block' * (rows > 1)}":
+                        variant(vlib.ps_layer_norm_bwd_vec, norms._blocks(x, n, per, rows))
+                        for rows in (1, 4) for per in (1, 2, 3, 4, 6, 8)
+                        if d * esize <= norms.VEC_ROW_BYTES}
+            variants["wide"] = variant(lib.ps_layer_norm_bwd, norms._blocks(x, n, 1))
+            bms, by = bound(3 * n * d * esize + 3 * d * esize + 8 * n, 13.0 * n * d, dt)
+            for label, fn in variants.items():
+                dx.zero_()
+                err = fn()
+                if err:
+                    fail(f"variant layer_norm_bwd [{n},{d}] {dt} {label}: refused ({err})")
+                torch.cuda.synchronize()
+                e = max(compare(torch, a, r, dt, f"variant layer_norm_bwd {label}",
+                                1.0 if i == 0 else n ** 0.5)
+                        for i, (a, r) in enumerate(zip((dx, dw, db), want)))
+                print(f"variant layer_norm_bwd [{n},{d}] eps {eps:g} {dt} {label} (kernel + "
+                      f"sum): err {e:.3e} ms {time_ms(torch, fn):.4f} bound {bms:.4f} ({by}) "
+                      f"[{CARD}]", flush=True)
+
+
 # the backward kernels' cases of phase 3: flash dq/dkv (as FLASH_CASES) at
 # the LLM's causal GQA attention at bench.py's training shape (every row
 # full, as SDPA's is_causal takes it), a ragged case with a left-padded
 # row, a right-padded row and a row with no valid key, and the text-only
 # step's; norms (wrapper, rows, width, posterior rows' kind or None) at the
 # projector's LayerNorm and the LLM's RMSNorm (5 x 543 merged rows), each
-# also at the text-only step's rows
+# also at the text-only step's rows, and the LayerNorm backward at 12b's
+# encoder rows (8 x 95, 560 and 512 wide: its vectorised route)
 FLASH_BWD_CASES = (
     ("training", 5, 543, 12, 2, True, [0] * 5, [543] * 5),
     ("ragged", 4, 543, 12, 2, True, [0, 112, 0, 0], [543, 543, 300, 0]),
@@ -1074,6 +1182,7 @@ FLASH_BWD_CASES = (
 )
 NORM_BWD_CASES = (
     ("layer_norm_bwd", 2560, 25055, None), ("layer_norm_bwd", 640, 25055, "mixed"),
+    ("layer_norm_bwd", 760, 560, None), ("layer_norm_bwd", 760, 512, None),
     ("rms_norm_bwd", 2715, 1536, None), ("rms_norm_bwd", 795, 1536, None),
 )
 
@@ -1163,20 +1272,28 @@ def phase_kernels_bwd(torch, dev, results, flash_cases=FLASH_BWD_CASES,
             gy = torch.randn(n, d, device=dev, generator=g).to(dtype)
             esize = x.element_size()
             xr, wr, br = (t.detach().requires_grad_(True) for t in (x, w, bb))
+            # frozen: F's backward with the weights not requiring grad, the
+            # bytes and operations of dx alone
             if name == "layer_norm_bwd":
                 _, mu, rstd = norms.layer_norm_fwd(x, w, bb, eps)
                 bwd, bwd_ref, args = norms.layer_norm_bwd, norms.layer_norm_bwd_ref, (x, w, mu, rstd, gy)
                 library = lambda: backward_ms(                          # noqa: E731
                     torch, lambda: F.layer_norm(xr, (d,), wr, br, eps), (xr, wr, br), gy)
+                frozen = lambda: backward_ms(                           # noqa: E731
+                    torch, lambda: F.layer_norm(xr, (d,), w, bb, eps), (xr,), gy)
                 nbytes = 3 * n * d * esize + 3 * d * esize + 8 * n
                 flops = 13.0 * n * d
+                frozen_bytes, frozen_flops = nbytes - 2 * d * esize, flops - 3.0 * n * d
             else:
                 _, rstd = norms.rms_norm_fwd(x, w)
                 bwd, bwd_ref, args = norms.rms_norm_bwd, norms.rms_norm_bwd_ref, (x, w, rstd, gy)
                 library = lambda: backward_ms(                          # noqa: E731
                     torch, lambda: F.rms_norm(xr, (d,), wr, 1e-6), (xr, wr), gy)
+                frozen = lambda: backward_ms(                           # noqa: E731
+                    torch, lambda: F.rms_norm(xr, (d,), w, 1e-6), (xr,), gy)
                 nbytes = 3 * n * d * esize + 2 * d * esize + 4 * n
                 flops = 9.0 * n * d
+                frozen_bytes, frozen_flops = nbytes - d * esize, flops - 2.0 * n * d
             routes = getattr(bwd, "routes", None)
             before = dict(routes or {})
             got = bwd(*args)
@@ -1185,25 +1302,24 @@ def phase_kernels_bwd(torch, dev, results, flash_cases=FLASH_BWD_CASES,
             want = bwd_ref(*args)
             err = max(compare(torch, a, r, dt, f"{name} [{n},{d}] {dt}", 1.0 if i == 0 else n ** 0.5)
                       for i, (a, r) in enumerate(zip(got, want)))
-            ms, plain, (lib, method), kernel_ms = timed_once((name, n, d, kind, eps, dt), lambda: (
+            ms, plain, (lib_w, method), kernel_ms = timed_once((name, n, d, kind, eps, dt), lambda: (
                 time_ms(torch, lambda: bwd(*args)), time_ms(torch, lambda: bwd_ref(*args)),
                 library(), time_ms(torch, lambda: bwd(*args, weight_grad=False))))
-            record(name, shape, dt, ms, plain, lib, method, nbytes, flops, err)
-            if name == "layer_norm_bwd":
-                print(f"kernel {name} {shape} {dt}: {kernel_ms:.4f} ms without the partials' "
-                      f"sum", flush=True)
-                continue
-            # frozen weights, the training main path's call: dx alone,
-            # against F.rms_norm's backward with the weight not requiring
-            # grad
+            record(name, shape, dt, ms, plain, lib_w, method, nbytes, flops, err)
+            # frozen weights (the RMSNorm's training main path): dx alone,
+            # against F's backward with the weights not requiring grad (the
+            # LayerNorm's wide kernel still writes its partial rows, unsummed)
+            before = dict(routes or {})
             dx = bwd(*args, weight_grad=False)[0]
             torch.cuda.synchronize()
+            route_frozen = route_taken(name, routes, before, n, d, dt)
             err = compare(torch, dx, want[0], dt, f"{name} [{n},{d}] {dt} frozen w")
-            lib, method = timed_once((name, n, d, kind, eps, dt, "frozen w"), lambda: backward_ms(
-                torch, lambda: F.rms_norm(xr, (d,), w, 1e-6), (xr,), gy))
+            lib, method = timed_once((name, n, d, kind, eps, dt, "frozen w"), frozen)
             record(name, f"{shape} frozen w", dt, kernel_ms, plain, lib, method,
-                   nbytes - d * esize, flops - 2.0 * n * d, err)
-            print(f"kernel {name} {shape} {dt}{route}", flush=True)
+                   frozen_bytes, frozen_flops, err)
+            print(f"kernel {name} {shape} {dt}{route}; frozen w{route_frozen}; with dw"
+                  f"{'/db' if name == 'layer_norm_bwd' else ''}, kernel + sum {ms:.4f} ms, "
+                  f"library {lib_w:.4f} ms ({ms / lib_w:.2f}x)", flush=True)
 
 
 def path_fp32_run(device) -> tuple:
@@ -1591,11 +1707,13 @@ def phase_finetune_cli_fp32(torch, dev, ref) -> dict:
     train and 4-utterance dev manifest: 4 steps of 2 rows, validation every
     2, on the card (:func:`finetune_cli_fp32_run`) against ``ref``, the
     CPU's run; per-step losses, eval losses and the exported projectors
-    within PATH_TOL; then a resume on the card from ``step_2/state`` that
+    within PATH_TOL; and a resume on the card from ``step_2/state`` that
     reproduces the last two losses bit for bit.  Returns the card run (its
     losses, evaluations, model, ``last/`` export and AdamW's first moments
     after micro-step MOMENT_STEP) and its assets for phase 13a, which
-    deletes the directory."""
+    deletes the directory, and ``against_cpu``, which awaits ``ref`` and
+    holds the card's run against it: called after 13a, so that the CPU's
+    run goes on beside 13a's instead of the card waiting for it."""
     from ps_slm_tpu_torch.cli import finetune
 
     what = "finetune CLI fp32"
@@ -1605,8 +1723,33 @@ def phase_finetune_cli_fp32(torch, dev, ref) -> dict:
         assets, mc = finetune_fp32_assets(root)
         trained: dict = {}
         card = finetune_cli_fp32_run(dev, root, assets, mc, trained)
+        if "step_2" not in card["steps"]:
+            fail(f"{what}: checkpoints {card['steps']} on the card; want step_2")
+
+        # resume on the card from step_2 (while the CPU's run may still be
+        # going): the last two losses, bit for bit (no checkpoint written: the
+        # card machine's disk takes a bounded amount of writes)
+        out = os.path.join(root, "resumed")
+        with TrainProbe(torch, dev) as probe:
+            rc = finetune.main(finetune_args(assets, root, out, llm_dim=mc.llm_dim,
+                                             encoder_dim=mc.encoder_dim) + FINETUNE_FP32_EXTRA + [
+                f"++train_config.resume_from={card['out']}/step_2/state",
+                "++train_config.save_model=false", "++train_config.save_last=false"], device=dev)
+        skipped = "skipping 2 trained batches" in read_log(os.path.join(out, "train.log"))
+        resumed = probe.losses()
+    except BaseException:
+        shutil.rmtree(root, ignore_errors=True)
+        raise
+    same = resumed == card["losses"][2:]
+    if not (skipped and same):
+        fail(f"{what}: the resumed run did not skip 2 batches and reproduce the last two losses")
+    t_card = time.time() - t0
+
+    def against_cpu():
+        """The card's run against the CPU's (``ref``, awaited here)."""
+        t1 = time.time()
         cpu = ref.result()
-        if len(card["losses"]) != 4 or card["steps"] != cpu["steps"] or "step_2" not in card["steps"]:
+        if len(card["losses"]) != 4 or card["steps"] != cpu["steps"]:
             fail(f"{what}: {len(card['losses'])} steps, checkpoints {card['steps']} on the card "
                  f"and {cpu['steps']} on the CPU; want 4 steps and step_2 on both")
         loss_err = max(abs(a - b) for a, b in zip(card["losses"] + card["evals"],
@@ -1617,34 +1760,20 @@ def phase_finetune_cli_fp32(torch, dev, ref) -> dict:
             if sorted(a) != sorted(b) or not all(k.startswith("encoder_projector.") for k in a):
                 fail(f"{what}: {tag}'s exports hold other keys than the projector's")
             proj_err = max([proj_err] + [float((a[k] - b[k]).abs().max()) for k in a])
+        print(f"{what} (2+1 encoder blocks, 2 LLM layers, full width, 4 steps of 2 rows, "
+              f"validation every 2, dither 0): losses card {card['losses']} cpu {cpu['losses']}; "
+              f"eval card {card['evals']} cpu {cpu['evals']}; max err {loss_err:.3e}, exported "
+              f"projectors {proj_err:.3e} (tol {PATH_TOL}); checkpoints {card['steps']} + last; "
+              f"resumed from step_2 on the card: skipped 2 batches {skipped}, losses {resumed} "
+              f"bit-identical; main {card['wall']:.1f} s card, {cpu['wall']:.1f} s CPU "
+              f"({t_card:.1f} s the card's side, {time.time() - t1:.1f} s the CPU's awaited and "
+              f"compared) [{CARD}]", flush=True)
+        if max(loss_err, proj_err) > PATH_TOL:
+            fail(f"{what}: card and CPU disagree beyond the tolerance")
 
-        # resume on the card from step_2: the last two losses, bit for bit (no
-        # checkpoint written: the card machine's disk takes a bounded amount of writes)
-        out = os.path.join(root, "resumed")
-        with TrainProbe(torch, dev) as probe:
-            rc = finetune.main(finetune_args(assets, root, out, llm_dim=mc.llm_dim,
-                                             encoder_dim=mc.encoder_dim) + FINETUNE_FP32_EXTRA + [
-                f"++train_config.resume_from={card['out']}/step_2/state",
-                "++train_config.save_model=false", "++train_config.save_last=false"], device=dev)
-        skipped = "skipping 2 trained batches" in read_log(os.path.join(out, "train.log"))
-        same = probe.losses() == card["losses"][2:]
-    except BaseException:
-        shutil.rmtree(root, ignore_errors=True)
-        raise
-    print(f"{what} (2+1 encoder blocks, 2 LLM layers, full width, 4 steps of 2 rows, "
-          f"validation every 2, dither 0): losses card {card['losses']} cpu {cpu['losses']}; "
-          f"eval card {card['evals']} cpu {cpu['evals']}; max err {loss_err:.3e}, exported "
-          f"projectors {proj_err:.3e} (tol {PATH_TOL}); checkpoints {card['steps']} + last; "
-          f"resumed from step_2 on the card: skipped 2 batches {skipped}, losses "
-          f"{probe.losses()} {'bit-identical' if same else 'DIFFERENT'}; main {card['wall']:.1f} s "
-          f"card, {cpu['wall']:.1f} s CPU ({time.time() - t0:.1f} s) [{CARD}]", flush=True)
-    if max(loss_err, proj_err) > PATH_TOL:
-        fail(f"{what}: card and CPU disagree beyond the tolerance")
-    if not (skipped and same):
-        fail(f"{what}: the resumed run did not skip 2 batches and reproduce the last two losses")
     return {"root": root, "assets": assets, "mc": mc, "extra": FINETUNE_FP32_EXTRA,
             "losses": card["losses"], "evals": card["evals"], "model": card["model"],
-            "moments": trained["moments"],
+            "moments": trained["moments"], "against_cpu": against_cpu,
             "export": os.path.join(card["out"], "last", "pytorch_model.bin")}
 
 
@@ -1891,12 +2020,16 @@ def launch_counts(counters) -> dict:
     return out
 
 
-def with_routes(per: dict, ln_routes: dict, passes: int = 1) -> dict:
+def with_routes(per: dict, ln_routes: dict, passes: int = 1, ln_bwd_vec: int = 0) -> dict:
     """``per`` (launches by wrapper) times ``passes``, with the routes the
     main paths take: every RMSNorm vectorised, the LayerNorm forward by
-    ``ln_routes`` a pass."""
+    ``ln_routes`` a pass, and the LayerNorm backward ``ln_bwd_vec`` a pass
+    vectorised (the encoder's, the q-former's), the rest wide (the
+    projector's)."""
     out = {k: v * passes for k, v in per.items()}
     out.update({f"layer_norm_fwd.{r}": n * passes for r, n in ln_routes.items()})
+    out.update({"layer_norm_bwd.vec": ln_bwd_vec * passes,
+                "layer_norm_bwd.wide": out["layer_norm_bwd"] - ln_bwd_vec * passes})
     for name in ("rms_norm_fwd", "rms_norm_bwd"):
         out.update({f"{name}.vec": out[name], f"{name}.general": 0})
     return out
@@ -2165,16 +2298,18 @@ def reset_counters(counters) -> None:
 def check_routes(counters, launches, what: str, passes: int,
                  ln_per_pass=LN_ROUTES_PER_PASS) -> None:
     """Fails unless every RMSNorm launch counted since the reset took the
-    vectorised route (the main paths are bf16, 1536 wide), and the
-    LayerNorm forward's took the routes ``ln_per_pass`` gives (by default
-    the vectorised route 142 times and the staged one once) in each of
-    ``passes`` generate calls or training steps; adds each route's count
-    to ``launches`` as ``name.route``."""
+    vectorised route (the main paths are bf16, 1536 wide), the LayerNorm
+    forward's took the routes ``ln_per_pass`` gives (by default the
+    vectorised route 142 times and the staged one once) in each of
+    ``passes`` generate calls or training steps, and the LayerNorm
+    backward's the wide one (the projector's); adds each route's count to
+    ``launches`` as ``name.route``."""
     routes = {name: dict(counters[name].routes) for name in MAIN_ROUTES}
     print(f"{what}: norm routes {routes}", flush=True)
     for name, r in routes.items():
-        want = ({k: v * passes for k, v in ln_per_pass.items()}
-                if name == "layer_norm_fwd" else {"vec": launches[name], "general": 0})
+        want = ({k: v * passes for k, v in ln_per_pass.items()} if name == "layer_norm_fwd"
+                else {"vec": 0, "wide": launches[name]} if name == "layer_norm_bwd"
+                else {"vec": launches[name], "general": 0})
         if r != want:
             fail(f"{what}: {name} launched {launches[name]} times, by route {r}, not {want}")
         launches.update({f"{name}.{k}": v for k, v in r.items()})
@@ -2476,7 +2611,8 @@ def phase_decode_cli(torch, dev, launches, root=None) -> tuple:
                      "rms_norm_fwd": RMS_PER_FORWARD * DECODE_MAX_NEW})
         want_routes = {"layer_norm_fwd": LN_ROUTES_PER_PASS,
                        "rms_norm_fwd": {"vec": RMS_PER_FORWARD * DECODE_MAX_NEW, "general": 0},
-                       "rms_norm_bwd": {"vec": 0, "general": 0}}
+                       "rms_norm_bwd": {"vec": 0, "general": 0},
+                       "layer_norm_bwd": {"vec": 0, "wide": 0}}
         gen_ms = 0.0
         for i, rec in enumerate(batches):
             rows, frames, merged = batch_shapes(rec["batch"], model.fbank_cfg)
@@ -4184,7 +4320,8 @@ def phase_encoder_train(torch, dev, launches: dict) -> dict:
         losses.append(float(step()["loss"]))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    want = with_routes(LAUNCHES_PER_ENC_STEP, LN_ROUTES_ENC)
+    want = with_routes(LAUNCHES_PER_ENC_STEP, LN_ROUTES_ENC,
+                       ln_bwd_vec=LAUNCHES_PER_ENC_STEP["layer_norm_bwd"])
     for i in range(ENC_STEPS):
         reset_counters(counters)
         t0 = time.perf_counter()
@@ -4202,7 +4339,9 @@ def phase_encoder_train(torch, dev, launches: dict) -> dict:
         fail(f"{what}: losses {losses} not finite or not falling")
     ms = statistics.median(times)
     flops = 3 * sensevoice_matmul_flops(cfg, t_len, ENC_UTTS)["total"]
-    prof = profiled(torch, step)
+    prof = profiled(torch, step, kernels=("layer_norm_bwd", "partial_sum_kernel"))
+    ln_bwd = [(ms, n) for name, ms, n in prof[3]
+              if "layer_norm_bwd" in name or "partial_sum_kernel" in name]
     print(f"{what} 12b (SenseVoiceSmall, 50 + 20 blocks, bf16, {ENC_UTTS} utterances of "
           f"{audio_s:.2f} s, {flens.tolist()} frames + 4 queries): step {ms:.2f} ms (min "
           f"{min(times):.2f}, max {max(times):.2f}); {audio_s / ms * 1e3:.1f} audio-s/s; "
@@ -4211,6 +4350,11 @@ def phase_encoder_train(torch, dev, launches: dict) -> dict:
           f"{[round(x, 3) for x in losses]}; launches a step {nonzero(want)} [{CARD}]",
           flush=True)
     print_profiled(f"{what} step", prof)
+    if prof[1] is not None:
+        ms_ln = sum(ms for ms, _ in ln_bwd)
+        print(f"{what} 12b: the LayerNorm backward (kernel and dw/db sum) {ms_ln:.3f} ms of the "
+              f"profiled step's {prof[1]:.2f} ms device time ({ms_ln / prof[1]:.3f}), "
+              f"{sum(n for _, n in ln_bwd)} launches [{CARD}]", flush=True)
 
     # one step with remat: the 69 blocks after encoders0 run their forward again
     again = cfg.num_blocks - 1 + cfg.tp_blocks
@@ -4223,7 +4367,8 @@ def phase_encoder_train(torch, dev, launches: dict) -> dict:
     remat_ms = (time.perf_counter() - t0) * 1e3
     want_remat = dict(LAUNCHES_PER_ENC_STEP, flash_attention_fwd=70 + again,
                       layer_norm_fwd=142 + 2 * again)
-    want_remat = with_routes(want_remat, dict(LN_ROUTES_ENC, vec=142 + 2 * again))
+    want_remat = with_routes(want_remat, dict(LN_ROUTES_ENC, vec=142 + 2 * again),
+                             ln_bwd_vec=LAUNCHES_PER_ENC_STEP["layer_norm_bwd"])
     got = launch_counts(counters)
     if got != want_remat or not math.isfinite(float(out["loss"])):
         fail(f"{what}: the remat step launched {nonzero(got)}, not {nonzero(want_remat)}")
@@ -4382,12 +4527,13 @@ def projector_launches(label: str) -> dict:
     """A projector-trained step's launches by route on phase 5's model."""
     per = dict(LAUNCHES_PER_TRAIN_STEP, layer_norm_fwd=LN_PER_GENERATE - 1, layer_norm_bwd=0)
     vec = LN_PER_GENERATE - 1
-    if label == "q-former":
+    if label == "q-former":               # its 768- and 1536-wide norms, all vectorised
         per.update(layer_norm_fwd=vec + QF_NORMS, layer_norm_bwd=QF_NORMS)
         vec += QF_NORMS
     if label == "voca_trans top1":        # the argmax passes no gradient: no backward
         per.update(flash_attention_dq=0, flash_attention_dkv=0, rms_norm_bwd=0)
-    return with_routes(per, {"vec": vec, "staged": 0, "held": 0, "general": 0})
+    return with_routes(per, {"vec": vec, "staged": 0, "held": 0, "general": 0},
+                       ln_bwd_vec=per["layer_norm_bwd"])
 
 
 def phase_projectors(torch, dev, model, launches: dict) -> dict:
@@ -4618,32 +4764,53 @@ def moment_err(got: dict, want: dict) -> float:
 
 
 def rank13_worker(spec_path: str) -> None:
-    """One rank of phases 13a / 13b (``python3 chip_smoke.py --rank13
-    spec.json``, started by :func:`launch_ranks`): each run of the spec
-    through ``cli.finetune.main`` on card ``rank % count``, each in a
-    process group of its own (its port in ``PS_COORDINATOR``), under
-    :class:`TrainProbe`.  Prints one ``RANK13`` JSON line: each run's
-    global losses, evaluations, micro-steps (wall, launches, peak memory),
-    the gradient sums' synchronised ms a micro-step, the parameter bytes
-    this rank holds and the whole model's, the trained projector's largest
-    gap to the spec's ``projector`` file (when given), whether the frozen
-    weights kept their bits (when the run asks) and the launch mismatches
-    against phase 7b's micro-step (when it asks)."""
+    """One process of phases 13a / 13b (``python3 chip_smoke.py --rank13
+    spec.json``, started by :func:`launch_ranks`): :func:`run13` on the
+    spec's runs whose ``procs`` hold this process, each in a process group
+    of its own.  Prints one ``RANK13`` JSON line: those runs' records, and
+    the seconds the process took to start (from the launch,
+    ``PS_LAUNCH_T0``), to import torch and the port, and each run's
+    wall."""
+    import faulthandler
+
     import torch
 
     sys.path.insert(0, HERE)
+    from ps_slm_tpu_torch.cli import finetune  # noqa: F401  (imported before the clock reads)
+
+    # a rank still running near the launch's time limit shows where it waits
+    faulthandler.dump_traceback_later(float(os.environ["PS_RANK_STACKS_S"]), exit=False)
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    me = int(os.environ["PS_HOST_ID"])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    started = dict(start_s=round(T_PROCESS - float(os.environ["PS_LAUNCH_T0"]), 2),
+                   import_s=round(time.time() - T_PROCESS, 2))
+    runs, started["run_s"] = run13(torch, [r for r in spec["runs"] if me in r["procs"]], me)
+    print("RANK13 " + json.dumps({"rank": me, "runs": runs, "started": started}), flush=True)
+
+
+def run13(torch, spec_runs: list, me: int = -1) -> tuple:
+    """Each run of ``spec_runs`` through ``cli.finetune.main`` under
+    :class:`TrainProbe`: launch process ``me`` as rank ``procs.index(me)``
+    of the run's own process group (its port in ``PS_COORDINATOR``, its
+    size in ``PS_NUM_HOSTS``), on card ``rank % count``; with ``me`` -1 in
+    this process alone (13a's one-process runs, in the phase's own
+    process).  Returns each run's record and wall seconds.  A record holds
+    the run's global losses, evaluations, micro-steps (wall, launches,
+    peak memory), the gradient sums' synchronised ms a micro-step, the
+    parameter bytes this rank holds and the whole model's, the trained
+    projector's largest gap to the run's ``projector`` file (when given),
+    whether the frozen weights kept their bits (when the run asks) and the
+    launch mismatches against phase 7b's micro-step (when it asks)."""
     from torch.distributed.tensor import DTensor
 
     from ps_slm_tpu_torch.cli import finetune
     from ps_slm_tpu_torch.parallel import mesh as meshlib
     from ps_slm_tpu_torch.training import step as step_mod
 
-    with open(spec_path) as f:
-        spec = json.load(f)
-    rank = int(os.environ["PS_HOST_ID"])
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device("cuda", rank % torch.cuda.device_count())
     real_sync, real_make = meshlib.Parallel.sync_grads, step_mod.make_train_step
     sync_ms: list = []
 
@@ -4676,84 +4843,110 @@ def rank13_worker(spec_path: str) -> None:
                 m.reshard()
 
     meshlib.Parallel.sync_grads = timed_sync
-    runs = []
-    for run in spec["runs"]:
-        os.environ["PS_COORDINATOR"] = f"localhost:{run['port']}"
-        info: dict = {}
+    runs, walls = [], []
+    try:
+        for run in spec_runs:
+            t_run = time.time()
+            rank = run["procs"].index(me) if me >= 0 else 0
+            if me >= 0:
+                os.environ.update(PS_COORDINATOR=f"localhost:{run['port']}",
+                                  PS_NUM_HOSTS=str(len(run["procs"])), PS_HOST_ID=str(rank))
+            dev = torch.device("cuda", rank % torch.cuda.device_count())
+            info: dict = {}
 
-        def make(model, tc, device="cuda"):
-            st = real_make(model, tc, device=device)
-            params = list(model.named_parameters())
-            info["bytes"] = sum(local(p).numel() * p.element_size() for _, p in params)
-            info["full_bytes"] = sum(whole_bytes(model, n, p) for n, p in params)
+            def make(model, tc, device="cuda"):
+                st = real_make(model, tc, device=device)
+                params = list(model.named_parameters())
+                info["bytes"] = sum(local(p).numel() * p.element_size() for _, p in params)
+                info["full_bytes"] = sum(whole_bytes(model, n, p) for n, p in params)
+                if run.get("frozen"):
+                    info["frozen"] = {n: local(p).cpu().clone() for n, p in params
+                                      if n not in st.trainable}
+                info["step"] = st
+                return st
+
+            step_mod.make_train_step = make
+            undo = capture_trained(torch, info)
+            sync_ms.clear()
+            torch.cuda.reset_peak_memory_stats()
+            try:
+                with TrainProbe(torch, dev) as probe:
+                    rc = finetune.main(run["args"])
+            finally:
+                step_mod.make_train_step = real_make
+                undo()
+            model = info["step"].model
+            out = dict(tag=run["tag"], rc=rc, losses=probe.losses(),
+                       evals=[e["loss"] for e in probe.evals], ms=[s["ms"] for s in probe.steps],
+                       launches=[s["launches"] for s in probe.steps],
+                       peak=torch.cuda.max_memory_allocated() / 1e9, sync_ms=list(sync_ms),
+                       bytes=info["bytes"], full_bytes=info["full_bytes"],
+                       mesh=None if model.mesh is None else model.mesh.shape)
+            if run.get("save_projector"):
+                torch.save({"projector": info["projector"], "moments": info["moments"]},
+                           run["save_projector"])
+            if run.get("compare"):
+                for _ in range(600):        # a variant's: its one-process run's, beside
+                    if os.path.exists(run["projector"]):
+                        break
+                    time.sleep(1.0)
+                want = torch.load(run["projector"], weights_only=True)
+                out["proj"] = projector_errs(info["projector"], want["projector"], want["moments"])
+                out["moment_err"] = moment_err(info.get("moments", {}), want["moments"])
             if run.get("frozen"):
-                info["frozen"] = {n: local(p).cpu().clone() for n, p in params
-                                  if n not in st.trainable}
-            info["step"] = st
-            return st
+                resharded(model)
+                params = dict(model.named_parameters())
+                changed = [n for n, v in info.pop("frozen").items()
+                           if not torch.equal(local(params[n]).cpu(), v)]
+                out["frozen_same"], out["frozen_changed"] = not changed, changed[:4]
+            if run.get("check"):
+                want = with_routes(LAUNCHES_PER_TRAIN_STEP, LN_ROUTES_PER_PASS)
+                out["launch_mismatch"] = [i for i, s in enumerate(probe.steps)
+                                          if s["launches"] != want]
+            if run.get("cases") and rank == 0:
+                out["cases"] = finetune_cases(torch, dev, model, probe.largest[1],
+                                              f"13b {run['tag']}")
+            if run.get("save_batch") and rank == 0 and probe.largest is not None:
+                torch.save({k: v.detach().cpu() for k, v in probe.largest[1].items()},
+                           run["save_batch"])
+            runs.append(out)
+            probe.model = probe.largest = None
+            del model, info
+            torch.cuda.empty_cache()
+            walls.append(round(time.time() - t_run, 1))
+    finally:
+        meshlib.Parallel.sync_grads = real_sync
+    return runs, walls
 
-        step_mod.make_train_step = make
-        undo = capture_trained(torch, info)
-        sync_ms.clear()
-        torch.cuda.reset_peak_memory_stats()
-        try:
-            with TrainProbe(torch, dev) as probe:
-                rc = finetune.main(run["args"])
-        finally:
-            step_mod.make_train_step = real_make
-            undo()
-        model = info["step"].model
-        out = dict(tag=run["tag"], rc=rc, losses=probe.losses(),
-                   evals=[e["loss"] for e in probe.evals], ms=[s["ms"] for s in probe.steps],
-                   launches=[s["launches"] for s in probe.steps],
-                   peak=torch.cuda.max_memory_allocated() / 1e9, sync_ms=list(sync_ms),
-                   bytes=info["bytes"], full_bytes=info["full_bytes"],
-                   mesh=None if model.mesh is None else model.mesh.shape)
-        if run.get("save_projector"):
-            torch.save({"projector": info["projector"], "moments": info["moments"]},
-                       run["save_projector"])
-        if run.get("compare"):
-            for _ in range(600):            # a variant's: its one-process run's, in another launch
-                if os.path.exists(run["projector"]):
-                    break
-                time.sleep(1.0)
-            want = torch.load(run["projector"], weights_only=True)
-            out["proj"] = projector_errs(info["projector"], want["projector"], want["moments"])
-            out["moment_err"] = moment_err(info.get("moments", {}), want["moments"])
-        if run.get("frozen"):
-            resharded(model)
-            params = dict(model.named_parameters())
-            changed = [n for n, v in info.pop("frozen").items()
-                       if not torch.equal(local(params[n]).cpu(), v)]
-            out["frozen_same"], out["frozen_changed"] = not changed, changed[:4]
-        if run.get("check"):
-            want = with_routes(LAUNCHES_PER_TRAIN_STEP, LN_ROUTES_PER_PASS)
-            out["launch_mismatch"] = [i for i, s in enumerate(probe.steps)
-                                      if s["launches"] != want]
-        if run.get("cases") and rank == 0:
-            out["cases"] = finetune_cases(torch, dev, model, probe.largest[1],
-                                          f"13b {run['tag']}")
-        if run.get("save_batch") and rank == 0 and probe.largest is not None:
-            torch.save({k: v.detach().cpu() for k, v in probe.largest[1].items()},
-                       run["save_batch"])
-        runs.append(out)
-        probe.model = probe.largest = None
-        del model, info
-        torch.cuda.empty_cache()
-    print("RANK13 " + json.dumps({"rank": rank, "runs": runs}), flush=True)
+
+def ephemeral_low() -> int:
+    """The lowest port the kernel hands out to connections
+    (``ip_local_port_range``; 32768, Linux's default, where it cannot be
+    read)."""
+    try:
+        with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
+            return int(f.read().split()[0])
+    except (OSError, ValueError, IndexError):
+        return 32768
 
 
 def run_ports(runs: list, taken: set) -> None:
     """A port of its own for each run of ``runs`` that has none, free now
-    and not in ``taken`` (which it joins): below the kernel's ephemeral
-    range (32768 up), so that no connection takes it while the run waits
-    its turn."""
+    and not in ``taken`` (which it joins), below the kernel's ephemeral
+    range (which some hosts start as low as 16000): no connection takes it
+    while the run waits its turn, and a rank that reaches the run before
+    rank 0 listens cannot, while it retries, be given the port itself and
+    connect to itself (a TCP self-connection, which hangs the
+    rendezvous)."""
     import socket
 
-    port = 20000
+    low = ephemeral_low()
+    port = max(1024, min(20000, low) - 4000)
     for run in runs:
         while "port" not in run:
             port += 1
+            if port >= low:
+                raise RuntimeError(f"no free port below the ephemeral range ({low} up)")
             if port in taken:
                 continue
             with socket.socket() as sock:
@@ -4765,28 +4958,45 @@ def run_ports(runs: list, taken: set) -> None:
             taken.add(port)
 
 
-def launch_ranks(torch, n: int, runs: list, root: str, timeout: float, name: str) -> list:
-    """``runs`` (dicts of ``tag``, ``args`` and the worker's flags) in ``n``
-    processes sharing the card over gloo, one launch for all of them (each
-    run its own process group on a port of its own: :func:`run_ports`),
-    its spec ``ranks<n>_<name>.json`` in ``root``; every rank's RANK13
-    record, by rank.  A rank that fails fails the phase."""
+def launch_ranks(torch, n: int, runs: list, root: str, timeout: float, name: str) -> dict:
+    """``runs`` (dicts of ``tag``, ``args``, ``procs`` and the worker's
+    flags) in one launch of ``n`` processes sharing the card over gloo,
+    its spec ``ranks<n>_<name>.json`` in ``root``: each process takes, in
+    order, the runs whose ``procs`` (launch process indices, by rank)
+    hold it, each run its own process group on a port of its own
+    (:func:`run_ports`), whose rendezvous waits for all its processes.
+    Returns every run's records by rank, by tag.  A process that fails
+    fails the phase."""
     from ps_slm_tpu_torch.parallel.launch import launch
 
     run_ports(runs, {run["port"] for run in runs if "port" in run})
     spec = os.path.join(root, f"ranks{n}_{name}.json")
     with open(spec, "w") as f:
         json.dump({"runs": runs}, f)
+    t0 = time.time()
     done = launch([sys.executable, os.path.join(HERE, "chip_smoke.py"), "--rank13", spec], n,
-                  env={"PS_DIST_BACKEND": "gloo", "PYTHONPATH": HERE}, timeout=timeout, cwd=HERE)
-    records = []
-    for f in done:
-        line = next((x for x in f.stdout.splitlines() if x.startswith("RANK13 ")), None)
-        if f.returncode != 0 or line is None:
-            fail(f"rank {f.rank} of {n} exited {f.returncode}:\n{f.stdout[-3000:]}\n"
-                 f"{f.stderr[-6000:]}")
-        records.append(json.loads(line[len("RANK13 "):]))
-    return [r["runs"] for r in sorted(records, key=lambda r: r["rank"])]
+                  env={"PS_DIST_BACKEND": "gloo", "PYTHONPATH": HERE, "PS_LAUNCH_T0": repr(t0),
+                       "PS_RANK_STACKS_S": repr(max(timeout - 20.0, 1.0))},
+                  timeout=timeout, cwd=HERE)
+    lines = [next((x for x in f.stdout.splitlines() if x.startswith("RANK13 ")), None)
+             for f in done]
+    if any(f.returncode != 0 or line is None for f, line in zip(done, lines)):
+        fail(f"launch {name}: the processes exited {[f.returncode for f in done]}:\n" + "\n".join(
+            f"process {f.rank} of {n}, exit {f.returncode}:\n{f.stdout[-1500:]}\n"
+            f"{f.stderr[-4000:]}" for f in done))
+    records = sorted((json.loads(line[len("RANK13 "):]) for line in lines),
+                     key=lambda r: r["rank"])
+    mine = [[run for run in runs if p in run["procs"]] for p in range(n)]
+    out, walls = {}, {}
+    for run in runs:
+        at = [(p, mine[p].index(run)) for p in run["procs"]]
+        out[run["tag"]] = [records[p]["runs"][i] for p, i in at]
+        walls[run["tag"]] = records[at[0][0]]["started"]["run_s"][at[0][1]]
+    print(f"launch {name}: {n} processes, wall {time.time() - t0:.1f} s; they started after "
+          f"{[r['started']['start_s'] for r in records]} s and imported torch and the port in "
+          f"{[r['started']['import_s'] for r in records]} s; each run's wall (its rank 0's) "
+          f"{walls} s", flush=True)
+    return out
 
 
 def _mesh_tag(mesh: dict) -> str:
@@ -4797,29 +5007,29 @@ def phase_parallel_fp32(torch, dev, fp32: dict) -> dict:
     """Phase 13a: phase 4e's finetune CLI run (full width and reduced
     depth, its assets, recipe and 4 steps of 2 rows with validation every
     2, fp32, dither 0; ``fp32`` is what 4e returns: its card run is the
-    one-process run) on each mesh of PARALLEL_RUNS, the processes of each
-    launch (2, 4) running their meshes one after another and every launch
-    at once, sharing the card over gloo: every rank's losses the same bit
-    for bit, the losses and evaluations within PARALLEL_TOL, AdamW's first
-    moments after micro-step MOMENT_STEP within PARALLEL_MOMENT_TOL of each
-    tensor's largest, and the trained projector (gathered when the loop
-    ends) within PARALLEL_TOL where its moment is at least GRAD_FLOOR of
-    the tensor's largest and PARALLEL_PROJ_TOL elsewhere, of the
-    one-process run (a variant's, PARALLEL_VARIANTS: LoRA's, run in a
-    launch of one process beside the others); the frozen weights
-    bit-identical.  The full-width runs write no checkpoint but
-    PARALLEL_RESUME's (the card machine's disk takes a bounded amount of
-    writes: a state is 1.6 GB), which writes ``step_2`` / ``step_4`` and is
-    resumed from ``step_2``: its last two losses bit for bit, rank 0's
-    ``step_4`` export as the trained projector.  Every mesh (and
-    PARALLEL_TINY_ONLY's) also trains a tiny model, in a launch of its
-    process count's own (:func:`tiny_finetune_args`, with the variant's
-    overrides; its one-process run in the launch of one process) on 4e's
-    manifests with checkpoints and resumes it from ``step_2``: the last
-    losses bit for bit, and the rank files' tensors (each shard and
-    replicated tensor written once) as many bytes as the one-process
-    state's.  Deletes 4e's directory.  Returns the one-process model and
-    the ranks' largest batches for phase 3's shard and microbatch rows."""
+    one-process run) on each mesh of PARALLEL_GROUPS, in one launch of
+    PARALLEL_PROCESSES processes sharing the card over gloo, each group of
+    them running its runs one after another: every rank's losses the same
+    bit for bit, the losses and
+    evaluations within PARALLEL_TOL, AdamW's first moments after micro-step
+    MOMENT_STEP within PARALLEL_MOMENT_TOL of each tensor's largest, and
+    the trained projector (gathered when the loop ends) within
+    PARALLEL_TOL where its moment is at least GRAD_FLOOR of the tensor's
+    largest and PARALLEL_PROJ_TOL elsewhere, of the one-process run (a
+    variant's, PARALLEL_VARIANTS: LoRA's, run in this process beside the
+    launches); the frozen weights bit-identical.  The full-width runs
+    write no checkpoint but PARALLEL_RESUME's (the card machine's disk
+    takes a bounded amount of writes: a state is 1.6 GB), which writes
+    ``step_2`` / ``step_4`` and is resumed from ``step_2``: its last two
+    losses bit for bit, rank 0's ``step_4`` export as the trained
+    projector.  Every mesh also trains a tiny model
+    (:func:`tiny_finetune_args`, with the variant's overrides; its
+    one-process run in this process) on 4e's manifests with checkpoints and
+    resumes it from ``step_2``: the last losses bit for bit, and the rank
+    files' tensors (each shard and replicated tensor written once) as many
+    bytes as the one-process state's.  Deletes 4e's directory.  Returns
+    the one-process model and the ranks' largest batches for phase 3's
+    shard and microbatch rows."""
     from ps_slm_tpu_torch.training.checkpoint import _projector_keymap
 
     what = "parallel fp32"
@@ -4839,10 +5049,27 @@ def phase_parallel_fp32(torch, dev, fp32: dict) -> dict:
     def tiny_args(out, mesh=None, resume=None, variant=""):
         return tiny_finetune_args(root, out, mesh, resume) + PARALLEL_VARIANTS[variant]
 
-    # the one-process runs on the card: 4e's (its projector after its 4
+    def full_runs(mesh, variant, tag):
+        out = os.path.join(root, tag)
+        save = mesh == PARALLEL_RESUME and not variant
+        runs = [dict(tag=tag, args=args(out, mesh, save=save, variant=variant), frozen=True,
+                     compare=True, projector=one[variant]["file"],
+                     save_batch=None if variant else os.path.join(root, f"batch_{tag}.pt"))]
+        if save:
+            runs.append(dict(tag=tag + " resumed", args=args(
+                out + "_resumed", mesh, resume=os.path.join(out, "step_2", "state"))))
+        return runs
+
+    def tiny_runs(mesh, variant, tag):
+        out = os.path.join(root, f"tiny_{tag}")
+        return [dict(tag=tag + " tiny", args=tiny_args(out, mesh, variant=variant)),
+                dict(tag=tag + " tiny resumed", args=tiny_args(
+                    out + "_resumed", mesh, os.path.join(out, "step_2", "state"), variant))]
+
+    # the one-process runs: 4e's on the card (its projector after its 4
     # steps, in the port's names); each other variant's and the tiny
-    # model's in a launch of one process beside the meshes' (a variant's
-    # writes the projector file its meshes' runs compare with)
+    # model's in this process beside the launches (a variant's writes the
+    # projector file its meshes' runs compare with, so it goes first)
     keymap = _projector_keymap("linear-silu")
     export = torch.load(fp32["export"], weights_only=True)
     one = {"": dict(losses=fp32["losses"], evals=fp32["evals"], moments=fp32["moments"],
@@ -4855,157 +5082,131 @@ def phase_parallel_fp32(torch, dev, fp32: dict) -> dict:
     for variant in PARALLEL_VARIANTS:
         if variant:
             one[variant] = dict(file=os.path.join(root, f"one_projector{variant}.pt"))
-            single.append(dict(tag=f"one {variant}", save_projector=one[variant]["file"],
-                               args=args(os.path.join(root, f"one_{variant}"), variant=variant)))
+            single.insert(0, dict(tag=f"one {variant}", save_projector=one[variant]["file"],
+                                  args=args(os.path.join(root, f"one_{variant}"),
+                                            variant=variant)))
         single.append(dict(tag=f"tiny one {variant}", args=tiny_args(
             os.path.join(root, f"tiny_one{variant}"), variant=variant)))
-    batches, report, groups, launches = {}, {}, {}, {}
-    for n in sorted(set(PARALLEL_RUNS) | set(PARALLEL_TINY_ONLY)):
-        entries = [(m, v, True) for m, v in PARALLEL_RUNS.get(n, ())]
-        entries += [(m, "", False) for m in PARALLEL_TINY_ONLY.get(n, ())]
-        full_runs, tiny_runs = [], []
-        for mesh, variant, full in entries:
+    runs, meshes = [], {}
+    for procs, entries in PARALLEL_GROUPS:
+        for kind, mesh, variant in entries:
             tag = _mesh_tag(mesh) + (f"+{variant}" if variant else "")
-            if full:
-                out = os.path.join(root, tag)
-                save = mesh == PARALLEL_RESUME and not variant
-                full_runs.append(dict(tag=tag, args=args(out, mesh, save=save, variant=variant),
-                                      frozen=True, compare=True, projector=one[variant]["file"],
-                                      save_batch=None if variant else os.path.join(
-                                          root, f"batch_{tag}.pt")))
-                if save:
-                    full_runs.append(dict(tag=tag + " resumed", args=args(
-                        out + "_resumed", mesh, resume=os.path.join(out, "step_2", "state"))))
-            out = os.path.join(root, f"tiny_{tag}")
-            tiny_runs.append(dict(tag=tag + " tiny", args=tiny_args(out, mesh, variant=variant)))
-            tiny_runs.append(dict(tag=tag + " tiny resumed", args=tiny_args(
-                out + "_resumed", mesh, os.path.join(out, "step_2", "state"), variant)))
-        groups[n] = entries
-        launches.update({(n, "full"): full_runs} if full_runs else {})
-        launches[n, "tiny"] = tiny_runs
-    launches[1, "one"] = single
-    # every launch at once, the full-width and the tiny model's runs of a
-    # process count in launches of their own (20 processes on the card;
-    # their walls are not what 13a checks), each run on a port of its own
-    taken: set = set()
-    for runs in launches.values():
-        run_ports(runs, taken)
+            runs += [dict(r, procs=procs) for r in
+                     (full_runs if kind == "full" else tiny_runs)(mesh, variant, tag)]
+            meshes.setdefault(tag, dict(n=len(procs), mesh=mesh, variant=variant, full=False))
+            meshes[tag]["full"] |= kind == "full"
     t1 = time.time()
-    done, walls = {}, {}
+    result: dict = {}
 
-    def start(key, runs):
+    def launched():
         try:
-            done[key] = launch_ranks(torch, key[0], runs, root, PARALLEL_TIMEOUT,
-                                     f"13a_{key[1]}")
-        except BaseException as e:          # fail() exits; keep it for this thread's caller
-            done[key] = e
-        walls[f"{key[0]} {key[1]}"] = round(time.time() - t1, 1)
+            result["done"] = launch_ranks(torch, PARALLEL_PROCESSES, runs, root,
+                                          PARALLEL_TIMEOUT, "13a")
+        finally:
+            result["wall"] = round(time.time() - t1, 1)
 
-    threads = [threading.Thread(target=start, args=(key, runs)) for key, runs in launches.items()]
-    for th in threads:
-        th.start()
-    for th in threads:
-        th.join()
-    for key, got in done.items():
-        if isinstance(got, BaseException):
-            raise got
-    tiny = {}
+    ranks = threading.Thread(target=launched)
+    ranks.start()
+    try:
+        ones, one_walls = run13(torch, single)
+    finally:
+        ranks.join()
+    t_one = round(time.time() - t1, 1)
+    if "done" not in result:
+        fail(f"{what}: the launch failed")
+    ranks_of = result["done"].__getitem__
+
+    rec = {r["tag"]: r for r in ones}
+    batches, report, tiny = {}, {}, {}
     for variant in PARALLEL_VARIANTS:
-        rec = {r["tag"]: r for r in done[1, "one"][0]}
         if variant:
             one[variant].update(losses=rec[f"one {variant}"]["losses"],
                                 evals=rec[f"one {variant}"]["evals"])
         out = os.path.join(root, f"tiny_one{variant}")
         tiny[variant] = dict(losses=rec[f"tiny one {variant}"]["losses"], bytes=state_bytes(
             torch, os.path.join(out, "step_2", "state", "train_state.pt")))
-    for n, entries in groups.items():
+    for tag, m in meshes.items():
+        n, mesh, variant, full = m["n"], m["mesh"], m["variant"], m["full"]
         files = [f"train_state.rank{r}.pt" for r in range(n)]
-        for mesh, variant, full in entries:
-            tag = _mesh_tag(mesh) + (f"+{variant}" if variant else "")
-            runs, ranks = launches[n, "tiny"], done[n, "tiny"]
-            k = next(j for j, r in enumerate(runs) if r["tag"] == tag + " tiny")
-            t_straight, t_res = [r[k] for r in ranks], [r[k + 1] for r in ranks]
-            t_state = os.path.join(root, f"tiny_{tag}", "step_2", "state")
-            t_files = sorted(os.listdir(t_state))
-            t_bytes = sum(state_bytes(torch, os.path.join(t_state, f)) for f in t_files)
-            t_one = tiny[variant]
-            t_loss = max(abs(a - b) for a, b in zip(t_straight[0]["losses"], t_one["losses"]))
-            t_same = (all(r["losses"] == t_straight[0]["losses"] for r in t_straight)
-                      and all(r["losses"] == t_straight[0]["losses"][2:] for r in t_res))
-            ok = (t_same and t_files == files and t_bytes == t_one["bytes"]
-                  and len(t_straight[0]["losses"]) == len(t_one["losses"])
-                  and t_loss <= PARALLEL_TOL)
-            tiny_line = (f"tiny model: losses {t_loss:.3e} off one process, resumed from step_2 "
-                         f"{'bit-identical' if t_same else 'DIFFERENT'}, train state {t_files} "
-                         f"{t_bytes} bytes of tensors (one process: {t_one['bytes']}); "
-                         f"parameter bytes a rank {[r['bytes'] for r in t_straight]} of "
-                         f"{t_straight[0]['full_bytes']}")
-            if not full:
-                print(f"{what} {tag} ({n} processes on one card, gloo): {tiny_line} [{CARD}]",
-                      flush=True)
-                if not ok:
-                    fail(f"{what} {tag}: the tiny model's ranks or resume differ, its train "
-                         f"state holds a tensor twice or it is off the one-process run")
-                continue
-            runs, ranks = launches[n, "full"], done[n, "full"]
-            i = next(j for j, r in enumerate(runs) if r["tag"] == tag)
-            straight = [r[i] for r in ranks]
-            same = all(r["losses"] == straight[0]["losses"] and r["evals"] == straight[0]["evals"]
-                       for r in straight)
-            got, want = straight[0], one[variant]
-            if len(got["losses"]) != 4 or len(got["evals"]) != 2:
-                fail(f"{what} {tag}: {len(got['losses'])} steps, {len(got['evals'])} evaluations")
-            loss_err = max(abs(a - b) for a, b in zip(got["losses"] + got["evals"],
-                                                      want["losses"] + want["evals"]))
-            proj, mom_err = got["proj"], got["moment_err"]
-            frozen = all(r["frozen_same"] for r in straight)
-            resumed = ""
-            ok = ok and same and frozen
-            if mesh == PARALLEL_RESUME and not variant:
-                res = next(r for r in runs if r["tag"] == tag + " resumed")
-                res = [r[runs.index(res)] for r in ranks]
-                res_same = all(r["losses"] == got["losses"][2:] for r in res)
-                out = os.path.join(root, tag)
-                export = torch.load(os.path.join(out, "step_4", "pytorch_model.bin"),
-                                    weights_only=True)
-                exp = projector_errs({ours: export[f"encoder_projector.{ref}"]
-                                      for ours, ref in keymap.items()}, want["projector"],
-                                     want["moments"])
-                states = sorted(os.listdir(os.path.join(out, "step_2", "state")))
-                resumed = (f"; resumed from step_2: {res[0]['losses']} "
-                           f"{'bit-identical' if res_same else 'DIFFERENT'}, train state "
-                           f"{states}, rank 0's step_4 export off the one-process projector "
-                           f"{exp['kept']:.3e} / {exp['floored']:.3e}")
-                ok = (ok and res_same and exp["kept"] <= PARALLEL_TOL
-                      and exp["floored"] <= PARALLEL_PROJ_TOL and states == files)
-            report[tag] = dict(loss_err=loss_err, proj_err=proj["kept"],
-                               proj_floored=proj["floored"], moment_err=mom_err,
-                               bytes=got["bytes"])
-            print(f"{what} {tag} ({n} processes on one card, gloo): losses {got['losses']}, "
-                  f"evals {got['evals']}; every rank's the same bit for bit {same}; against "
-                  f"one process: losses and evals {loss_err:.3e} (tol {PARALLEL_TOL}), AdamW's "
-                  f"first moments after micro-step {MOMENT_STEP} {mom_err:.3e} of each tensor's "
-                  f"largest (tol {PARALLEL_MOMENT_TOL}), trained projector {proj['kept']:.3e} "
-                  f"(tol {PARALLEL_TOL}) where its moment is at least {GRAD_FLOOR} of the "
-                  f"tensor's largest, {proj['floored']:.3e} on the {proj['n_floored']} elements "
-                  f"below (tol {PARALLEL_PROJ_TOL}); frozen weights bit-identical "
-                  f"{frozen}{'' if frozen else [r['frozen_changed'] for r in straight]}"
-                  f"{resumed}; {tiny_line}; micro-step ms rank 0 "
-                  f"{[round(x, 1) for x in got['ms']]}, gradient sums "
-                  f"{[round(x, 2) for x in got['sync_ms']]} ms; parameter bytes a rank "
-                  f"{[r['bytes'] for r in straight]} of {got['full_bytes']}; peak "
-                  f"{[round(r['peak'], 2) for r in straight]} GB [{CARD}]", flush=True)
-            if (not ok or loss_err > PARALLEL_TOL or mom_err > PARALLEL_MOMENT_TOL
-                    or proj["kept"] > PARALLEL_TOL or proj["floored"] > PARALLEL_PROJ_TOL):
-                fail(f"{what} {tag}: ranks differ, a frozen weight changed, a resume differs, "
-                     f"a train state holds a tensor twice or the run is off the one-process "
-                     f"run beyond its tolerance")
-            if not variant:
-                batches[tag] = torch.load(os.path.join(root, f"batch_{tag}.pt"),
-                                          weights_only=True)
-    print(f"{what}: meshes {[_mesh_tag(m) + (f'+{v}' if v else '') for entries in groups.values() for m, v, _ in entries]} "
-          f"in {time.time() - t1:.1f} s (every launch at once; each done after {walls} s)",
-          flush=True)
+        t_straight, t_res = ranks_of(tag + " tiny"), ranks_of(tag + " tiny resumed")
+        t_state = os.path.join(root, f"tiny_{tag}", "step_2", "state")
+        t_files = sorted(os.listdir(t_state))
+        t_bytes = sum(state_bytes(torch, os.path.join(t_state, f)) for f in t_files)
+        t_one = tiny[variant]
+        t_loss = max(abs(a - b) for a, b in zip(t_straight[0]["losses"], t_one["losses"]))
+        t_same = (all(r["losses"] == t_straight[0]["losses"] for r in t_straight)
+                  and all(r["losses"] == t_straight[0]["losses"][2:] for r in t_res))
+        ok = (t_same and t_files == files and t_bytes == t_one["bytes"]
+              and len(t_straight[0]["losses"]) == len(t_one["losses"])
+              and t_loss <= PARALLEL_TOL)
+        tiny_line = (f"tiny model: losses {t_loss:.3e} off one process, resumed from step_2 "
+                     f"{'bit-identical' if t_same else 'DIFFERENT'}, train state {t_files} "
+                     f"{t_bytes} bytes of tensors (one process: {t_one['bytes']}); "
+                     f"parameter bytes a rank {[r['bytes'] for r in t_straight]} of "
+                     f"{t_straight[0]['full_bytes']}")
+        if not full:
+            print(f"{what} {tag} ({n} processes on one card, gloo): {tiny_line} [{CARD}]",
+                  flush=True)
+            if not ok:
+                fail(f"{what} {tag}: the tiny model's ranks or resume differ, its train "
+                     f"state holds a tensor twice or it is off the one-process run")
+            continue
+        straight = ranks_of(tag)
+        same = all(r["losses"] == straight[0]["losses"] and r["evals"] == straight[0]["evals"]
+                   for r in straight)
+        got, want = straight[0], one[variant]
+        if len(got["losses"]) != 4 or len(got["evals"]) != 2:
+            fail(f"{what} {tag}: {len(got['losses'])} steps, {len(got['evals'])} evaluations")
+        loss_err = max(abs(a - b) for a, b in zip(got["losses"] + got["evals"],
+                                                  want["losses"] + want["evals"]))
+        proj, mom_err = got["proj"], got["moment_err"]
+        frozen = all(r["frozen_same"] for r in straight)
+        resumed = ""
+        ok = ok and same and frozen
+        if mesh == PARALLEL_RESUME and not variant:
+            res = ranks_of(tag + " resumed")
+            res_same = all(r["losses"] == got["losses"][2:] for r in res)
+            out = os.path.join(root, tag)
+            export = torch.load(os.path.join(out, "step_4", "pytorch_model.bin"),
+                                weights_only=True)
+            exp = projector_errs({ours: export[f"encoder_projector.{ref}"]
+                                  for ours, ref in keymap.items()}, want["projector"],
+                                 want["moments"])
+            states = sorted(os.listdir(os.path.join(out, "step_2", "state")))
+            resumed = (f"; resumed from step_2: {res[0]['losses']} "
+                       f"{'bit-identical' if res_same else 'DIFFERENT'}, train state "
+                       f"{states}, rank 0's step_4 export off the one-process projector "
+                       f"{exp['kept']:.3e} / {exp['floored']:.3e}")
+            ok = (ok and res_same and exp["kept"] <= PARALLEL_TOL
+                  and exp["floored"] <= PARALLEL_PROJ_TOL and states == files)
+        report[tag] = dict(loss_err=loss_err, proj_err=proj["kept"],
+                           proj_floored=proj["floored"], moment_err=mom_err,
+                           bytes=got["bytes"])
+        print(f"{what} {tag} ({n} processes on one card, gloo): losses {got['losses']}, "
+              f"evals {got['evals']}; every rank's the same bit for bit {same}; against "
+              f"one process: losses and evals {loss_err:.3e} (tol {PARALLEL_TOL}), AdamW's "
+              f"first moments after micro-step {MOMENT_STEP} {mom_err:.3e} of each tensor's "
+              f"largest (tol {PARALLEL_MOMENT_TOL}), trained projector {proj['kept']:.3e} "
+              f"(tol {PARALLEL_TOL}) where its moment is at least {GRAD_FLOOR} of the "
+              f"tensor's largest, {proj['floored']:.3e} on the {proj['n_floored']} elements "
+              f"below (tol {PARALLEL_PROJ_TOL}); frozen weights bit-identical "
+              f"{frozen}{'' if frozen else [r['frozen_changed'] for r in straight]}"
+              f"{resumed}; {tiny_line}; micro-step ms rank 0 "
+              f"{[round(x, 1) for x in got['ms']]}, gradient sums "
+              f"{[round(x, 2) for x in got['sync_ms']]} ms; parameter bytes a rank "
+              f"{[r['bytes'] for r in straight]} of {got['full_bytes']}; peak "
+              f"{[round(r['peak'], 2) for r in straight]} GB [{CARD}]", flush=True)
+        if (not ok or loss_err > PARALLEL_TOL or mom_err > PARALLEL_MOMENT_TOL
+                or proj["kept"] > PARALLEL_TOL or proj["floored"] > PARALLEL_PROJ_TOL):
+            fail(f"{what} {tag}: ranks differ, a frozen weight changed, a resume differs, "
+                 f"a train state holds a tensor twice or the run is off the one-process "
+                 f"run beyond its tolerance")
+        if not variant:
+            batches[tag] = torch.load(os.path.join(root, f"batch_{tag}.pt"), weights_only=True)
+    print(f"{what}: meshes {list(meshes)} in {time.time() - t1:.1f} s (one launch of "
+          f"{PARALLEL_PROCESSES} processes, done after {result['wall']} s; the one-process runs "
+          f"in this process {dict(zip((r['tag'] for r in single), one_walls))} s, done after "
+          f"{t_one} s)", flush=True)
     shutil.rmtree(root, ignore_errors=True)
     return {"model": fp32["model"], "batches": batches, "report": report}
 
@@ -5050,7 +5251,8 @@ def parallel_cases(torch, dev, model, batches: dict) -> dict:
 def phase_parallel(torch, dev, chain: dict) -> dict:
     """Phase 13b: phase 7b's recipe (bf16, SenseVoiceSmall + linear-silu +
     Qwen2.5-1.5B) on phase 7's assets and 7a's export, in 2 processes
-    sharing the card over gloo, on each mesh of PARALLEL_MESHES_BF16, for a
+    sharing the card over gloo, on each mesh of PARALLEL_MESHES_BF16 (in
+    one launch of 4 processes, two meshes at once), for a
     step or two (its train manifest, no validation): each rank's launches a
     micro-step exactly 7b's, by route; the micro-step wall, the gradient
     sums' time, each rank's peak memory and parameter bytes against the
@@ -5059,7 +5261,7 @@ def phase_parallel(torch, dev, chain: dict) -> dict:
     rank's micro-steps and phase 3's cases at a rank's largest batch."""
     root = os.path.join(chain["root"], "parallel")
     runs = []
-    for mesh, utts in PARALLEL_MESHES_BF16:
+    for mesh, utts, procs in PARALLEL_MESHES_BF16:
         tag = _mesh_tag(mesh)
         data = os.path.join(root, f"data_{tag}")
         for split, seed in (("train", 3), ("dev", 4)):
@@ -5069,15 +5271,17 @@ def phase_parallel(torch, dev, chain: dict) -> dict:
                                        **chain["dims"])]
         # the per-rank shapes (phase 3's rows) from a run whose model is whole
         # (a sharded model's forward runs its collectives: data's alone is whole)
-        runs.append(dict(tag=tag, check=True, cases=set(mesh) == {"data"}, args=args + [
+        runs.append(dict(tag=tag, check=True, cases=set(mesh) == {"data"}, procs=procs, args=args + [
             "++train_config.num_epochs=1", "++train_config.run_validation=false",
             "++train_config.save_model=false", "++train_config.mesh_shape=" + json.dumps(mesh)]))
     t0 = time.time()
-    ranks = launch_ranks(torch, 2, runs, root, PARALLEL_TIMEOUT, "13b")
+    torch.cuda.empty_cache()          # the ranks need the card's memory, not this process's cache
+    done = launch_ranks(torch, 1 + max(p for *_, procs in PARALLEL_MESHES_BF16 for p in procs),
+                        runs, root, PARALLEL_TIMEOUT, "13b")
     out: dict = {"per_step": {}, "total": {}, "cases": None}
-    for i, (mesh, _) in enumerate(PARALLEL_MESHES_BF16):
+    for mesh, *_ in PARALLEL_MESHES_BF16:
         tag = _mesh_tag(mesh)
-        recs = [r[i] for r in ranks]
+        recs = done[tag]
         bad = {r_i: rec["launch_mismatch"] for r_i, rec in enumerate(recs) if rec["launch_mismatch"]}
         same = all(rec["losses"] == recs[0]["losses"] for rec in recs)
         finite = all(math.isfinite(x) for x in recs[0]["losses"])
@@ -5207,9 +5411,10 @@ def add_case_rows(path_rows: dict, cases: dict, tag: str) -> None:
             c[0] for c in cases["flash" if name.endswith("fwd") else "flash_bwd"])
     for w, n, d, kind in cases["norm"] + cases["norm_bwd"]:
         label = f"{tag} {n}x{d}" + (f" {kind}" if kind else "")
-        name = f"{w} ({'staged' if d == 25055 else 'vec'})" if w == "layer_norm_fwd" else w
+        name = {"layer_norm_fwd": f"{w} ({'staged' if d == 25055 else 'vec'})",
+                "layer_norm_bwd": f"{w} ({'wide' if d == 25055 else 'vec'})"}.get(w, w)
         path_rows.setdefault(name, []).append(label)
-        if w == "rms_norm_bwd":
+        if w.endswith("_bwd"):
             path_rows[name].append(f"{label} frozen w")
 
 
@@ -5252,6 +5457,7 @@ def run_slice13(torch, dev) -> None:
     ref_13c = REFS.submit(goldens_fp32_ref)
     fp32 = timed("4e finetune CLI fp32", phase_finetune_cli_fp32, torch, dev, ref_4e)
     par = timed("13a parallel fp32", phase_parallel_fp32, torch, dev, fp32)
+    timed("4e against the CPU", fp32["against_cpu"])
     del fp32
     timed("3 at 13a's shapes", phase_kernels_parallel, torch, dev, results, par, "13a")
     del par
@@ -5382,6 +5588,7 @@ def main() -> None:
     phase_paths(logs)
     if "--variants" in sys.argv[1:]:
         phase_ln_variants(torch, dev)
+        phase_ln_bwd_variants(torch, dev)
         print(f"variants done, {time.time() - t_start:.1f} s", flush=True)
         return
     if "--slice12" in sys.argv[1:]:
@@ -5398,8 +5605,9 @@ def main() -> None:
     print("kernel vs plain tolerance, |a - b| <= atol + rtol * |b|: "
           + ", ".join(f"{dt} atol {a} rtol {r}" for dt, (a, r) in KERNEL_TOL.items()),
           flush=True)
-    # the fp32 phases' CPU references, in the order the phases collect them:
-    # 4-4e's now, the rest once 13a (whose ranks take every core) is done
+    # the fp32 phases' CPU references: 4-4e's now (awaited after 13a, beside
+    # whose ranks they may still run), the rest once 13a (whose ranks take
+    # every core) is done
     refs = {key: REFS.submit(fn, *args) for key, fn, args in (
         ("4", path_fp32_run, ("cpu",)), ("4b", train_fp32_run, ("cpu",)),
         ("4c", beam_text_only_fp32_run, ("cpu",)), ("4d", decode_cli_fp32_run, ("cpu",)),
@@ -5407,18 +5615,21 @@ def main() -> None:
     results: dict = {}
     timed("3 kernels", phase_kernels, torch, dev, results)
     timed("3 kernels backward", phase_kernels_bwd, torch, dev, results)
-    timed("4 serving path fp32", phase_path_fp32, torch, dev, refs["4"])
-    timed("4b train fp32", phase_train_fp32, torch, dev, refs["4b"])
-    timed("4c beam and text-only fp32", phase_beam_text_only_fp32, torch, dev, refs["4c"])
-    timed("4d decode CLI fp32", phase_decode_cli_fp32, torch, dev, refs["4d"])
+    # 13a needs 4e's card run only; 4-4d's card sides come after it, when
+    # their CPU runs (computed beside phase 3 and 13a) are done
     fp32 = timed("4e finetune CLI fp32", phase_finetune_cli_fp32, torch, dev, refs["4e"])
     par = timed("13a parallel fp32", phase_parallel_fp32, torch, dev, fp32)
-    del fp32
     refs.update({key: REFS.submit(fn, *args) for key, fn, args in (
         ("13c", goldens_fp32_ref, ()), ("11a", peft_fp32_runs, ("cpu",)),
         ("12a encoder", encoder_fp32_run, ("cpu",)),
         ("12a projectors", projectors_fp32_run, ("cpu",)), ("8a", serving_fp32_run, ("cpu",)),
         ("10a", serve_cli_fp32_run, ("cpu",)))})
+    timed("4 serving path fp32", phase_path_fp32, torch, dev, refs["4"])
+    timed("4b train fp32", phase_train_fp32, torch, dev, refs["4b"])
+    timed("4c beam and text-only fp32", phase_beam_text_only_fp32, torch, dev, refs["4c"])
+    timed("4d decode CLI fp32", phase_decode_cli_fp32, torch, dev, refs["4d"])
+    timed("4e against the CPU", fp32["against_cpu"])
+    del fp32
     cases13 = {"13a": timed("3 at 13a's shapes", phase_kernels_parallel, torch, dev, results,
                             par, "13a")}
     del par
@@ -5487,8 +5698,14 @@ def main() -> None:
          norms_cu, "ps_slm_tpu/ops/norms.py:49", ("2064x512", "2064x560")),
         ("layer_norm_fwd (staged)", "layer_norm_fwd.staged", "layer_norm_fwd_staged_kernel<T>",
          norms_cu, "ps_slm_tpu/ops/norms.py:49", ("2064x25055", "640x25055 mixed", "640x25055 clean")),
-        ("layer_norm_bwd", "layer_norm_bwd", "layer_norm_bwd_kernel", norms_cu,
-         "ps_slm_tpu/ops/norms.py:73", ("2560x25055", "640x25055 mixed")),
+        ("layer_norm_bwd (vec)", "layer_norm_bwd.vec",
+         "layer_norm_bwd_vec_kernel<T, chunks, dw/db> + partial_sum_kernel",
+         "ps_slm_tpu_torch/csrc/ln_bwd.cu",
+         "ps_slm_tpu/ops/norms.py:73", ("760x560", "760x512", "760x560 frozen w",
+                                        "760x512 frozen w")),
+        ("layer_norm_bwd (wide)", "layer_norm_bwd.wide", "layer_norm_bwd_kernel + partial_sum_kernel",
+         norms_cu, "ps_slm_tpu/ops/norms.py:73", ("2560x25055", "640x25055 mixed",
+                                                  "2560x25055 frozen w", "640x25055 mixed frozen w")),
         ("rms_norm_fwd", "rms_norm_fwd", "norm_fwd_vec_kernel<T, chunks, RMSNorm>", norms_cu,
          "ps_slm_tpu/ops/norms.py:61", ("2172x1536", "4x1536", "16x1536", "795x1536")),
         ("rms_norm_bwd", "rms_norm_bwd", "rms_norm_bwd_vec_kernel<T, chunks, no dw>", norms_cu,
@@ -5515,9 +5732,11 @@ def main() -> None:
     for tag, cases in (("encoder train", enc_cases["norm"] + enc_cases["norm_bwd"]),
                        ("q-former", QF_NORM_CASES + QF_NORM_BWD_CASES)):
         for w, n, d, _, *eps in cases:
-            name = "layer_norm_fwd (vec)" if w == "layer_norm_fwd" else w
-            label = f"{tag} {n}x{d}" + (f" eps{eps[0]:g}" if eps else "")
+            name = f"{w} (vec)"
+            label = f"{tag} {n}x{d}" + (f" eps{eps[0]:g}" if eps and eps[0] != 1e-5 else "")
             path_rows.setdefault(name, []).append(label)
+            if w == "layer_norm_bwd":
+                path_rows[name].append(f"{label} frozen w")
     # phase 7's largest batches and phase 13's shards, as phase 3 labelled their rows
     for stage, cases in chain_per_step["cases"].items():
         add_case_rows(path_rows, cases, f"finetune {stage}")

@@ -13,9 +13,8 @@
 //   RMSNorm    dx = (gw - xhat * mean(gw * xhat)) * rstd
 //   dw = sum over rows of g * xhat, db = sum over rows of g.
 // dw and db leave the kernel as per-block partial sums in an fp32
-// [n_blocks, d] buffer, summed over blocks after it: by PyTorch for the
-// LayerNorm (as the TPU wrapper does), by rms_dw_sum_kernel for the
-// RMSNorm.
+// [n_blocks, d] buffer, summed over blocks after it by partial_sum_kernel
+// in a fixed order (one launch for the LayerNorm's dw and db together).
 //
 // Bound: bytes.  A row is read and written once; the work is a handful of
 // flops per element, far below the card's ~295 flop/byte ridge.
@@ -62,12 +61,24 @@
 //    pass for the mean and one for dx, adding each row's dw terms into
 //    its block's partial row in device memory (L2) unless dw is not
 //    wanted.
-//  * rms_dw_sum_kernel sums the partial rows over blocks in a fixed order
+//  * partial_sum_kernel sums the partial rows over blocks in a fixed order
 //    (16 warps a 32-column slice, then the warps' sums in warp order), in
-//    the weight's dtype: dw is the same bits from run to run.
+//    the weight's dtype, one buffer a grid row (the RMSNorm's dw; the
+//    LayerNorm's dw and db in one launch): dw and db are the same bits from
+//    run to run.
 //
-// LayerNorm backward (its main-path shape is the projector's norm over the
-// CTC posterior, 2560 x 25 055 bf16, one launch a training step): one
+// LayerNorm backward: two routes, by the width, the dtype and the pointers
+// alone (ops/norms.py::ln_bwd_route).
+//
+// The vectorised route (the rows the forward's vectorised route takes:
+// bf16 d <= 1 792, fp32 d <= 896, whole 16-byte chunks, x, w, g and dx
+// 16-byte aligned; the encoder's 560 / 512 and the q-former's 768 / 1536)
+// is ln_bwd.cu's layer_norm_bwd_vec_kernel (LAYER_NORM_BWD_VEC_DESIGN
+// there), built apart so that the two sources compile at once; the
+// vectorised routes' shared pieces are in vec.cuh.
+//
+// The wide route (every other row: the projector's norm over the CTC
+// posterior, 2560 x 25 055 bf16, one launch a training step): one
 // block an SM, 896 threads for bf16 (512 for fp32), each block a run of
 // consecutive rows.
 //  * Each row's x and g cross device memory once: a thread loads its 28
@@ -92,19 +103,12 @@
 //    reduction and dx pass: the likely reason, not measured, that the
 //    kernel stays near 3x its bound.
 #include <cstdint>
-#include <initializer_list>
-#include <type_traits>
 
 #include "common.cuh"
 #include "mma.cuh"
+#include "vec.cuh"
 
 namespace {
-
-// the vectorised route: warps a block, and 16-byte chunks a lane at most
-// (ops/norms.py::VEC_ROW_BYTES = VEC_MAX_CHUNKS * 32 * 16)
-constexpr int VEC_WARPS = 4;
-constexpr int VEC_MAX_CHUNKS = 7;
-constexpr int VEC_ROW_BYTES = VEC_MAX_CHUNKS * 32 * 16;
 
 template <typename T>
 __global__ void layer_norm_fwd_kernel(const T* __restrict__ x,
@@ -311,63 +315,6 @@ __global__ void rms_norm_bwd_kernel(
       dx[off + i] = ps::from_f32<T>((gv * ps::to_f32(w[i]) - xh * m) * r);
       if (WG) dwb[i] += gv * xh;
     }
-  }
-}
-
-// 16 bytes of T as fp32 values: 8 bf16 or 4 fp32
-template <typename T>
-struct Pack;
-template <>
-struct Pack<__nv_bfloat16> {
-  static constexpr int N = 8;
-  static __device__ __forceinline__ void unpack(const uint4& u, float (&f)[N]) {
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-    for (int i = 0; i < N / 2; ++i) {
-      const float2 p = __bfloat1622float2(h[i]);
-      f[2 * i] = p.x;
-      f[2 * i + 1] = p.y;
-    }
-  }
-  static __device__ __forceinline__ uint4 pack(const float (&f)[N]) {
-    uint4 u;
-    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
-#pragma unroll
-    for (int i = 0; i < N / 2; ++i) h[i] = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
-    return u;
-  }
-};
-template <>
-struct Pack<float> {
-  static constexpr int N = 4;
-  static __device__ __forceinline__ void unpack(const uint4& u, float (&f)[N]) {
-    f[0] = __uint_as_float(u.x);
-    f[1] = __uint_as_float(u.y);
-    f[2] = __uint_as_float(u.z);
-    f[3] = __uint_as_float(u.w);
-  }
-  static __device__ __forceinline__ uint4 pack(const float (&f)[N]) {
-    return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]), __float_as_uint(f[2]),
-                      __float_as_uint(f[3]));
-  }
-};
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// A lane's chunks lane + 32 j of one row of `chunks` 16-byte chunks, into
-// registers; the chunks past the row's end are zeros.
-template <int NCH>
-__device__ __forceinline__ void load_chunks(const void* row, int lane, int chunks,
-                                            uint4 (&v)[NCH]) {
-  const uint4* p = static_cast<const uint4*>(row);
-#pragma unroll
-  for (int j = 0; j < NCH; ++j) {
-    const int c = lane + 32 * j;
-    v[j] = c < chunks ? __ldg(p + c) : make_uint4(0u, 0u, 0u, 0u);
   }
 }
 
@@ -838,14 +785,20 @@ __global__ void __launch_bounds__(VEC_WARPS * 32) rms_norm_bwd_vec_kernel(
   }
 }
 
-// dw[c] = sum over blocks b of part[b, c], in the weight's dtype: a block
-// of 16 warps a 32-column slice, warp i summing blocks i, i + 16, ... in
-// order, then warp 0 adding the 16 sums in warp order.
+// out[c] = sum over blocks b of part[b, c], in the weight's dtype, for one
+// (part, out) pair a grid row (blockIdx.y: 0 the first pair, 1 the second;
+// the RMSNorm's dw, the LayerNorm's dw and db): a block of 16 warps a
+// 32-column slice, warp i summing blocks i, i + 16, ... in order, then
+// warp 0 adding the 16 sums in warp order.
 template <typename T>
-__global__ void __launch_bounds__(512) rms_dw_sum_kernel(const float* __restrict__ part,
-                                                         T* __restrict__ dw, int n_blocks,
-                                                         int d) {
+__global__ void __launch_bounds__(512) partial_sum_kernel(const float* __restrict__ part0,
+                                                          T* __restrict__ out0,
+                                                          const float* __restrict__ part1,
+                                                          T* __restrict__ out1, int n_blocks,
+                                                          int d) {
   __shared__ float red[16][33];
+  const float* part = blockIdx.y ? part1 : part0;
+  T* out = blockIdx.y ? out1 : out0;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int c = blockIdx.x * 32 + lane;
@@ -860,54 +813,8 @@ __global__ void __launch_bounds__(512) rms_dw_sum_kernel(const float* __restrict
     float t = 0.f;
 #pragma unroll
     for (int i = 0; i < 16; ++i) t += red[i][lane];
-    dw[c] = ps::from_f32<T>(t);
+    out[c] = ps::from_f32<T>(t);
   }
-}
-
-// f(std::integral_constant<int, nch>) for nch in 1..VEC_MAX_CHUNKS
-template <typename F>
-bool with_chunks(int nch, F&& f) {
-  switch (nch) {
-    case 1: f(std::integral_constant<int, 1>{}); return true;
-    case 2: f(std::integral_constant<int, 2>{}); return true;
-    case 3: f(std::integral_constant<int, 3>{}); return true;
-    case 4: f(std::integral_constant<int, 4>{}); return true;
-    case 5: f(std::integral_constant<int, 5>{}); return true;
-    case 6: f(std::integral_constant<int, 6>{}); return true;
-    case 7: f(std::integral_constant<int, 7>{}); return true;
-    default: return false;
-  }
-}
-static_assert(VEC_MAX_CHUNKS == 7, "with_chunks covers 1..VEC_MAX_CHUNKS");
-
-template <typename T>
-struct Tag {
-  using type = T;
-};
-
-// f(Tag<T>{}) with T the element type of a dtype code; false for others
-template <typename F>
-bool with_dtype(int dtype, F&& f) {
-  if (dtype == ps::kBFloat16) {
-    f(Tag<__nv_bfloat16>{});
-    return true;
-  }
-  if (dtype == ps::kFloat32) {
-    f(Tag<float>{});
-    return true;
-  }
-  return false;
-}
-
-// 16-byte chunks a lane for the vectorised route, or 0 where the route
-// does not take these rows or pointers (a null pointer, an absent operand,
-// passes)
-int vec_chunks(int d, int esize, std::initializer_list<const void*> ptrs) {
-  const long long bytes = static_cast<long long>(d) * esize;
-  if (bytes % 16 != 0 || bytes > VEC_ROW_BYTES) return 0;
-  for (const void* p : ptrs)
-    if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return 0;
-  return static_cast<int>((bytes / 16 + 31) / 32);
 }
 
 // Narrow rows use fewer threads so that each thread still has a few
@@ -1180,8 +1087,27 @@ extern "C" int ps_rms_norm_dw_sum(int device, int dtype, const void* dw_part,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool known = with_dtype(dtype, [&](auto tag) {
     using T = typename decltype(tag)::type;
-    rms_dw_sum_kernel<T><<<(d + 31) / 32, 512, 0, st>>>(
-        static_cast<const float*>(dw_part), static_cast<T*>(dw), n_blocks, d);
+    partial_sum_kernel<T><<<dim3((d + 31) / 32, 1), 512, 0, st>>>(
+        static_cast<const float*>(dw_part), static_cast<T*>(dw), nullptr, nullptr, n_blocks, d);
+  });
+  if (!known) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// dw and db = the sums over blocks of the LayerNorm backward's two
+// [n_blocks, d] fp32 partial buffers (either route), in the weight's
+// dtype, in a fixed order: one launch for both.
+extern "C" int ps_layer_norm_dwdb_sum(int device, int dtype, const void* dw_part,
+                                      const void* db_part, void* dw, void* db, int n_blocks,
+                                      int d, void* stream) {
+  if (n_blocks <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaSetDevice(device);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool known = with_dtype(dtype, [&](auto tag) {
+    using T = typename decltype(tag)::type;
+    partial_sum_kernel<T><<<dim3((d + 31) / 32, 2), 512, 0, st>>>(
+        static_cast<const float*>(dw_part), static_cast<T*>(dw),
+        static_cast<const float*>(db_part), static_cast<T*>(db), n_blocks, d);
   });
   if (!known) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());

@@ -13,7 +13,11 @@ row from 16-byte loads, or a block per row for any width and alignment),
 the LayerNorm forward one of four with :func:`ln_route` (the same two,
 and for rows too wide for a warp a block that reads each row once and
 keeps it on chip: in shared memory where four rows fit there, else in
-registers), and each counts its launches per route in ``.routes``.
+registers), the LayerNorm backward one of two with :func:`ln_bwd_route`
+(a warp per row, or a block an SM for any width), and each counts its
+launches per route in ``.routes``.  Every weight gradient is summed from
+per-block partial rows by a kernel in a fixed order (the same bits from
+call to call).
 :class:`LayerNormFn` and :class:`RMSNormFn` put a forward and its backward
 together for autograd, saving what the JAX custom VJPs save: ``x, w, mu,
 rstd`` for LayerNorm; ``x`` in its own dtype, ``w`` and the fp32 ``rstd``
@@ -53,10 +57,18 @@ _SIGNATURES = {
     "ps_rms_norm_bwd_vec": (_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     # device, dtype, dw_part, dw, n_blocks, d, stream
     "ps_rms_norm_dw_sum": (_I, _I, _P, _P, _I, _I, _P),
+    # device, dtype, dw_part, db_part, dw, db, n_blocks, d, stream
+    "ps_layer_norm_dwdb_sum": (_I, _I, _P, _P, _P, _P, _I, _I, _P),
+}
+# csrc/ln_bwd.cu, the LayerNorm backward's vectorised route: device, dtype,
+# x, w, mu, rstd, g, dx, dw_part, db_part (both null: no dw / db), n, d,
+# n_blocks, stream
+_LN_BWD_SIGNATURES = {
+    "ps_layer_norm_bwd_vec": (_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
 }
 
 # The kernels' vectorised route takes rows of at most this many bytes
-# (csrc/norms.cu: VEC_MAX_CHUNKS = 7 16-byte chunks a lane, 32 lanes)
+# (csrc/vec.cuh: VEC_MAX_CHUNKS = 7 16-byte chunks a lane, 32 lanes)
 VEC_ROW_BYTES = 7 * 32 * 16
 # The LayerNorm forward's staged route takes wider rows whose four buffers
 # of 16-byte granules (w, b and a ring of two rows) fit in this much
@@ -72,6 +84,14 @@ _VEC_BWD_BLOCKS_PER_SM = 2
 # wide rows: the fastest of 1, 2, 3, 4, 6 and 8 on the H100 over both
 # widths and dtypes (chip_smoke.py --variants)
 _VEC_LN_BLOCKS_PER_SM = 4
+# the LayerNorm backward's vectorised route: blocks of at least 4 rows (a
+# warp each: fewer partial rows to write and sum), at most 2 an SM; at the
+# encoder's 760 x 560 / 512 rows and the q-former's 256 x 768 / 1536, in
+# both dtypes, within the spread of the fastest of 1, 2, 3, 4, 6 and 8 an
+# SM with and without the 4-row floor on the H100 (chip_smoke.py
+# --variants)
+_VEC_LN_BWD_BLOCKS_PER_SM = 2
+_VEC_LN_BWD_MIN_ROWS = 4
 
 
 def layer_norm_ref(
@@ -258,13 +278,24 @@ def _check_bwd(x, g, stats, name: str) -> None:
             raise ValueError(f"{name}: statistics must be contiguous {tuple(x.shape[:-1]) + (1,)}")
 
 
-def _blocks(x: torch.Tensor, n: int, per_sm: int) -> int:
+def _blocks(x: torch.Tensor, n: int, per_sm: int, min_rows: int = 1) -> int:
     """Blocks of a launch that gives each block a run of consecutive rows
     (for a backward, the rows of its partial-sum buffers): ``per_sm`` an
-    SM, fewer where there are fewer rows."""
+    SM, fewer where there are fewer rows, and fewer still where a block
+    would get fewer than ``min_rows`` rows."""
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    per = -(-n // (per_sm * sms))
+    per = max(-(-n // (per_sm * sms)), min_rows)
     return -(-n // per)
+
+
+def ln_bwd_route(d: int, dtype: torch.dtype, ptrs) -> str:
+    """The LayerNorm backward's kernel route for rows of ``d`` elements of
+    ``dtype`` at the data pointers ``ptrs`` (x, w, g and dx): ``"vec"``, a
+    warp per row, by :func:`rms_route`'s rule (a whole number of 16-byte
+    chunks, at most ``VEC_ROW_BYTES``, every pointer 16-byte aligned); else
+    ``"wide"``, a block an SM walking its rows one at a time, for any width
+    and alignment (the projector's 25 055)."""
+    return "vec" if rms_route(d, dtype, ptrs) == "vec" else "wide"
 
 
 def layer_norm_bwd(
@@ -273,9 +304,12 @@ def layer_norm_bwd(
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor], Optional[torch.Tensor]]:
     """LayerNorm backward: ``(dx, dw, db)`` as :func:`layer_norm_bwd_ref`.
 
-    dx is always computed.  The kernel writes dw/db as per-block partial
-    sums; ``weight_grad=False`` skips summing them and returns None for
-    both (frozen weights)."""
+    dx is always computed.  The kernel of the route :func:`ln_bwd_route`
+    gives writes dw/db as per-block partial rows, which a second kernel
+    sums in a fixed order, so dw and db are the same bits from call to
+    call.  ``weight_grad=False`` (frozen weights) returns None for both:
+    the vectorised route then computes no dw/db and allocates no partial
+    rows; the wide one still writes them, unsummed."""
     if x.device.type == "cpu":
         dx, dw, db = layer_norm_bwd_ref(x, weight, mu, rstd, g)
         return (dx, dw, db) if weight_grad else (dx, None, None)
@@ -287,24 +321,41 @@ def layer_norm_bwd(
     if n == 0:
         zeros = torch.zeros_like(weight)
         return (dx, zeros, zeros.clone()) if weight_grad else (dx, None, None)
-    nb = _blocks(x, n, per_sm=1)   # each block's partial rows fill its SM's shared memory
-    dw_part = torch.empty((nb, d), device=x.device, dtype=torch.float32)
-    db_part = torch.empty_like(dw_part)
+    ptrs = (x.data_ptr(), weight.data_ptr(), g.data_ptr(), dx.data_ptr())
+    route = ln_bwd_route(d, x.dtype, ptrs)
+    vec = route == "vec"
+    # the wide kernel's partial rows fill its SM's shared memory: one block an SM
+    nb = (_blocks(x, n, _VEC_LN_BWD_BLOCKS_PER_SM, _VEC_LN_BWD_MIN_ROWS) if vec
+          else _blocks(x, n, 1))
+    part = (torch.empty((2, nb, d), device=x.device, dtype=torch.float32)
+            if weight_grad or not vec else None)
+    dw_part, db_part = (None, None) if part is None else (part[0].data_ptr(), part[1].data_ptr())
     lib = _build.load("norms", _SIGNATURES)
-    err = lib.ps_layer_norm_bwd(
-        x.device.index, _build.DTYPE_CODES[x.dtype], x.data_ptr(),
-        weight.data_ptr(), mu.data_ptr(), rstd.data_ptr(), g.data_ptr(),
-        dx.data_ptr(), dw_part.data_ptr(), db_part.data_ptr(), n, d, nb,
-        _build.stream_ptr(x),
-    )
-    _build.check(lib, err, "layer_norm_bwd")
+    dev, dtype = x.device.index, _build.DTYPE_CODES[x.dtype]
+    if vec:
+        vlib = _build.load("ln_bwd", _LN_BWD_SIGNATURES)
+        err = vlib.ps_layer_norm_bwd_vec(
+            dev, dtype, ptrs[0], ptrs[1], mu.data_ptr(), rstd.data_ptr(), ptrs[2], ptrs[3],
+            dw_part, db_part, n, d, nb, _build.stream_ptr(x))
+        _build.check(vlib, err, "layer_norm_bwd")
+    else:
+        err = lib.ps_layer_norm_bwd(
+            dev, dtype, ptrs[0], ptrs[1], mu.data_ptr(), rstd.data_ptr(), ptrs[2], ptrs[3],
+            dw_part, db_part, n, d, nb, _build.stream_ptr(x))
+        _build.check(lib, err, "layer_norm_bwd")
     layer_norm_bwd.launches += 1
+    layer_norm_bwd.routes[route] += 1
     if not weight_grad:
         return dx, None, None
-    return dx, dw_part.sum(0).to(weight.dtype), db_part.sum(0).to(weight.dtype)
+    dw, db = torch.empty_like(weight), torch.empty_like(weight)
+    err = lib.ps_layer_norm_dwdb_sum(dev, dtype, dw_part, db_part, dw.data_ptr(), db.data_ptr(),
+                                     nb, d, _build.stream_ptr(x))
+    _build.check(lib, err, "layer_norm_bwd (dw, db sum)")
+    return dx, dw, db
 
 
 layer_norm_bwd.launches = 0
+layer_norm_bwd.routes = {"vec": 0, "wide": 0}
 
 
 def rms_norm_bwd(

@@ -13,9 +13,11 @@ passes.  For example two ranks sharing one card over gloo:
 
 from __future__ import annotations
 
+import contextlib
 import os
 import socket
 import subprocess
+import tempfile
 import time
 from typing import Dict, List, NamedTuple, Optional, Sequence
 
@@ -39,35 +41,46 @@ def launch(argv: Sequence[str], n: int, *, env: Optional[Dict[str, str]] = None,
     """Run ``argv`` as ranks 0..n-1 of one process group and return each
     rank's exit code and output.  A rank that has not finished when
     ``timeout`` seconds have passed since the start, or that is still
-    running when another has failed, is killed (return code -9)."""
+    running when another has failed, is killed (return code -9).  Each
+    rank writes its output to files of its own, read when it ends, so a
+    rank that prints much never waits on a full pipe while the others wait
+    on it in a collective."""
     base = dict(os.environ if env is None else {**os.environ, **env})
     base.update(PS_COORDINATOR=f"localhost:{free_port()}", PS_NUM_HOSTS=str(n))
-    procs = []
-    for rank in range(n):
-        procs.append(subprocess.Popen(
-            list(argv), env={**base, "PS_HOST_ID": str(rank)}, cwd=cwd,
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
-    deadline = time.monotonic() + timeout
-    outs: Dict[int, tuple] = {}
-    try:
-        while len(outs) < n:
-            failed = any(rc != 0 for rc, _, _ in outs.values())
-            for rank, p in enumerate(procs):
-                if rank in outs:
-                    continue
-                left = deadline - time.monotonic()
-                if failed or left <= 0:
+    with contextlib.ExitStack() as files:
+        procs, logs = [], []
+        for rank in range(n):
+            out, err = (files.enter_context(tempfile.TemporaryFile("w+", errors="replace"))
+                        for _ in range(2))
+            logs.append((out, err))
+            procs.append(subprocess.Popen(
+                list(argv), env={**base, "PS_HOST_ID": str(rank)}, cwd=cwd,
+                stdout=out, stderr=err))
+        deadline = time.monotonic() + timeout
+        codes: Dict[int, int] = {}
+        try:
+            while len(codes) < n:
+                failed = any(rc != 0 for rc in codes.values())
+                for rank, p in enumerate(procs):
+                    if rank in codes:
+                        continue
+                    left = deadline - time.monotonic()
+                    if failed or left <= 0:
+                        p.kill()
+                    try:
+                        codes[rank] = p.wait(timeout=max(min(left, 0.5), 0.01))
+                    except subprocess.TimeoutExpired:
+                        continue
+                    if codes[rank] != 0:
+                        break
+        finally:
+            for p in procs:
+                if p.poll() is None:
                     p.kill()
-                try:
-                    out, err = p.communicate(timeout=max(min(left, 1.0), 0.01))
-                except subprocess.TimeoutExpired:
-                    continue
-                outs[rank] = (p.returncode, out, err)
-                if p.returncode != 0:
-                    break
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.communicate()
-    return [Finished(r, *outs[r]) for r in range(n)]
+                    p.wait()
+        done = []
+        for rank, (out, err) in enumerate(logs):
+            out.seek(0)
+            err.seek(0)
+            done.append(Finished(rank, codes[rank], out.read(), err.read()))
+    return done

@@ -4,8 +4,8 @@ On CPU tensors the port's backward wrappers take their plain versions, so
 these tests pin the arithmetic that the CUDA kernels repeat.  The JAX side
 runs its Pallas kernels in interpret mode (``_flash_bwd`` with 16-blocks,
 ``fused_layer_norm`` / ``fused_rms_norm`` at d = 40, not a multiple of
-128, and LayerNorm at the odd d = 263), as tests/test_flash_attention.py
-and tests/test_norms.py do.
+128, LayerNorm at the odd d = 263 and at the encoder's and the q-former's
+widths), as tests/test_flash_attention.py and tests/test_norms.py do.
 Inputs come from numpy with a fixed seed.  Tolerance: 1e-5 absolute and
 relative (fp32; the two sides sum in different orders).
 """
@@ -86,19 +86,30 @@ def test_flash_plain_backward_matches_jax_kernels(case):
     assert torch.equal(got[0][empty], torch.zeros_like(got[0][empty]))
 
 
-@pytest.mark.parametrize("shape", [(3, 5, 40), (7, 40), (9, 263)])
+# eps by shape where it is not the default: the q-former's 768-wide
+# post-LN layers run at 1e-12
+LN_EPS = {(4, 768): 1e-12}
+
+
+# the encoder's widths (560, 512: the vectorised backward's rows in
+# encoder training) and the q-former's (768 at eps 1e-12, 1536) at a few
+# rows, beside widths that are not a multiple of 128 or of 8
+@pytest.mark.parametrize("shape", [(3, 5, 40), (7, 40), (9, 263), (7, 560), (5, 512),
+                                   (4, 768), (3, 1536)])
 def test_layer_norm_plain_backward_matches_jax(shape):
+    eps = LN_EPS.get(shape, 1e-5)
     rng = np.random.default_rng(11)
     x = rng.normal(size=shape).astype(np.float32) * 3 + 1
     w = (1 + 0.1 * rng.normal(size=shape[-1])).astype(np.float32)
     b = (0.1 * rng.normal(size=shape[-1])).astype(np.float32)
     g = rng.normal(size=shape).astype(np.float32)
     want = jax.grad(
-        lambda x_, w_, b_: jnp.sum(jnorms.fused_layer_norm(x_, w_, b_) * g), argnums=(0, 1, 2)
+        lambda x_, w_, b_: jnp.sum(jnorms.fused_layer_norm(x_, w_, b_, eps) * g),
+        argnums=(0, 1, 2),
     )(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b))
 
     tx, tw, tb = (torch.from_numpy(a) for a in (x, w, b))
-    _, mu, rstd = tnorms.layer_norm_ref(tx, tw, tb)
+    _, mu, rstd = tnorms.layer_norm_ref(tx, tw, tb, eps)
     got = tnorms.layer_norm_bwd_ref(tx, tw, mu, rstd, torch.from_numpy(g))
     for a, e in zip(got, want):
         np.testing.assert_allclose(a.numpy(), np.asarray(e), **TOL)

@@ -225,6 +225,107 @@ def test_layer_norm_bwd_is_deterministic(dev, dtype):
         assert torch.equal(a, b)
 
 
+# The LayerNorm backward on both kernel routes (ops/norms.py::ln_bwd_route):
+# (n, d, storage offset of x and g in elements, eps, route for bf16, route
+# for fp32).  760 x 560 / 512 are the encoder training step's rows, 256 x
+# 768 (eps 1e-12, where rstd is large) and 256 x 1536 the q-former's; 1792
+# and 896 are the cap (3 584-byte rows), 1792 in fp32 past it; 263 and
+# 25 055 are not whole 16-byte chunks; an odd storage offset misaligns a
+# contiguous tensor; 5 rows leave most blocks without a row.
+LN_BWD_ROUTE_CASES = {
+    "n760_d560": (760, 560, 0, 1e-5, "vec", "vec"),
+    "n760_d512": (760, 512, 0, 1e-5, "vec", "vec"),
+    "n256_d768_eps1e-12": (256, 768, 0, 1e-12, "vec", "vec"),
+    "n256_d1536": (256, 1536, 0, 1e-5, "vec", "wide"),
+    "n37_d1792_cap": (37, 1792, 0, 1e-5, "vec", "wide"),
+    "n37_d896_cap": (37, 896, 0, 1e-5, "vec", "vec"),
+    "n5_d24": (5, 24, 0, 1e-5, "vec", "vec"),
+    "n1_d512": (1, 512, 0, 1e-5, "vec", "vec"),
+    "n300_d560_odd_offset": (300, 560, 1, 1e-5, "wide", "wide"),
+    "n3_d263": (3, 263, 0, 1e-5, "wide", "wide"),
+    "n5_d25055": (5, 25055, 0, 1e-5, "wide", "wide"),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(LN_BWD_ROUTE_CASES))
+def test_layer_norm_bwd_routes_match_plain(dev, dtype, case):
+    """The backward with dw/db and with frozen weights (dw, db None) on
+    the route the case names, each against its plain version; the route
+    counter moves as ``ln_bwd_route`` says, once a call."""
+    n, d, offset, eps, bf16_route, f32_route = LN_BWD_ROUTE_CASES[case]
+    route = bf16_route if dtype == torch.bfloat16 else f32_route
+    x, w, g = _norm_inputs(dev, dtype, n, d, offset, n + d + offset)
+    b = torch.zeros_like(w) + 0.1
+    dx0 = torch.empty_like(x)
+    assert norms.ln_bwd_route(d, dtype, (x.data_ptr(), w.data_ptr(), g.data_ptr(),
+                                         dx0.data_ptr())) == route
+    tol = TOL[dtype]
+    wtol = dict(tol, atol=tol["atol"] * n ** 0.5)
+    _, mu, rstd = norms.layer_norm_ref(x, w, b, eps)
+    want = norms.layer_norm_bwd_ref(x, w, mu, rstd, g)
+    for weight_grad in (True, False):
+        before, n0 = dict(norms.layer_norm_bwd.routes), norms.layer_norm_bwd.launches
+        dx, dw, db = norms.layer_norm_bwd(x, w, mu, rstd, g, weight_grad=weight_grad)
+        torch.cuda.synchronize()
+        assert _route_moved(norms.layer_norm_bwd.routes, before) == [route]
+        assert norms.layer_norm_bwd.launches == n0 + 1
+        assert not torch.isnan(dx).any()
+        torch.testing.assert_close(dx.float(), want[0].float(), **tol)
+        if weight_grad:
+            assert dw.dtype == dtype and db.dtype == dtype
+            torch.testing.assert_close(dw.float(), want[1].float(), **wtol)
+            torch.testing.assert_close(db.float(), want[2].float(), **wtol)
+        else:
+            assert dw is None and db is None
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [560, 512])
+def test_layer_norm_bwd_of_a_padded_batch(dev, dtype, d):
+    """The encoder's padded rows carry g = 0 and a finite rstd: their dx is
+    exactly 0 and they add nothing to dw and db, which equal the plain
+    version's over the valid rows alone."""
+    lens = [95, 60, 33, 95, 12, 80, 95, 41]
+    t = max(lens)
+    x, w, g = _norm_inputs(dev, dtype, len(lens) * t, d, 0, d)
+    valid = (torch.arange(t, device=dev)[None] < torch.tensor(lens, device=dev)[:, None]).reshape(-1)
+    g[~valid] = 0
+    b = torch.zeros_like(w)
+    _, mu, rstd = norms.layer_norm_ref(x, w, b)
+    assert torch.isfinite(rstd).all()
+    before = dict(norms.layer_norm_bwd.routes)
+    dx, dw, db = norms.layer_norm_bwd(x, w, mu, rstd, g)
+    torch.cuda.synchronize()
+    assert _route_moved(norms.layer_norm_bwd.routes, before) == ["vec"]
+    assert torch.equal(dx[~valid], torch.zeros_like(dx[~valid]))
+    tol = TOL[dtype]
+    wtol = dict(tol, atol=tol["atol"] * sum(lens) ** 0.5)
+    want = norms.layer_norm_bwd_ref(x[valid], w, mu[valid], rstd[valid], g[valid])
+    torch.testing.assert_close(dx[valid].float(), want[0].float(), **tol)
+    torch.testing.assert_close(dw.float(), want[1].float(), **wtol)
+    torch.testing.assert_close(db.float(), want[2].float(), **wtol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [560, 1536])
+def test_layer_norm_bwd_vec_is_deterministic(dev, dtype, d):
+    """Two calls give the same bits at the encoder training step's rows on
+    the vectorised route (and at 1536: bf16's shared-memory sums, fp32's
+    wide route): each block's warps add their sums in warp order and the
+    partial rows are summed in a fixed order, with no atomics; the frozen
+    call's dx is the same bits as the one with dw/db."""
+    x, w, g = _norm_inputs(dev, dtype, 760, d, 0, 13)
+    _, mu, rstd = norms.layer_norm_ref(x, w, torch.zeros_like(w))
+    first = norms.layer_norm_bwd(x, w, mu, rstd, g)
+    second = norms.layer_norm_bwd(x, w, mu, rstd, g)
+    frozen = norms.layer_norm_bwd(x, w, mu, rstd, g, weight_grad=False)
+    torch.cuda.synchronize()
+    for a, c in zip(first, second):
+        assert torch.equal(a, c)
+    assert frozen[1:] == (None, None) and torch.equal(frozen[0], first[0])
+
+
 # RMSNorm on both kernel routes (ops/norms.py::rms_route): (n, d, storage
 # offset of x and g in elements, route for bf16, route for fp32).  1536 is
 # the LLM's width (n 4: a decode step, 2715: the training step's merged

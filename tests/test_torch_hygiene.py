@@ -327,7 +327,7 @@ def test_ctypes_signatures_match_c_entry_points():
         for name, args in re.findall(r'extern "C" int (\w+)\(([^)]*)\)', src):
             c_entries[name] = len(args.split(","))
     declared = {
-        **norms._SIGNATURES, **flash_attention._SIGNATURES,
+        **norms._SIGNATURES, **norms._LN_BWD_SIGNATURES, **flash_attention._SIGNATURES,
         **flash_attention._BWD_SIGNATURES,
     }
     assert {k: len(v) for k, v in declared.items()} == c_entries
