@@ -187,11 +187,13 @@ Phases, each of which fails the run:
    11c ``cli.serve.main`` on the merged export, 8 requests answered;
 12. encoder training and ASR, the projectors and branches (12a fp32 on
    card and CPU; 12b-12d at full size): see their functions;
-13. training over several processes sharing the card over gloo: 13a the
-   finetune CLI in fp32 at reduced depth on every mesh (PARALLEL_GROUPS,
-   pipe with fsdp and tensor and tensor with LoRA included, the tiny
-   model alone in 8 processes), 13b phase 7b's recipe at full size on
-   data, fsdp and tensor, 13c whisper mel and goldens verify;
+13. training over several processes sharing the card over gloo, each run
+   a process group on a port from ``parallel/launch.py::coordinator_port``:
+   13a the finetune CLI in fp32 at reduced depth on every mesh
+   (PARALLEL_GROUPS, pipe with fsdp and tensor and tensor with LoRA
+   included, the tiny model alone in 8 processes), 13b phase 7b's recipe
+   at full size on data, fsdp and tensor, 13c whisper mel and goldens
+   verify;
 9. one JSON line listing every kernel, then the contract line
    ``{"ok": true, "device": {...}}`` last.
 
@@ -199,20 +201,30 @@ The fp32 phases' CPU sides (4-4e, 8a, 10a, 11a, 12a, 13c) run in REFS, a
 worker process beside the card's work (4-4e's from the start, the rest
 once 13a's ranks are done); phase 3 times each shape once a call.
 
-Cuts to the wall, none of a mesh, variant, resume, check or tolerance
-(each phase still checks what it checked):
+Cuts to the wall, none of a phase, mesh, variant, resume, check or
+tolerance (each phase still checks what it checked, and no timed phase's
+warm-up or count of timed steps changed):
 13a starts one launch of PARALLEL_PROCESSES processes (the host's cores),
 not one per process count and kind (21 processes at once, each importing
 torch); groups of them take every mesh's full-width and tiny-model runs
 in turn, the 8-process mesh all of them at the end (PARALLEL_GROUPS;
 fsdp2 and its resume in a group of their own), and its one-process runs
-(LoRA's, the tiny model's) run in this process beside the launch; 13a
-runs right after phase 3 and 4e's card run, and 4-4d's card sides and
-4e's comparison come after it, so their CPU runs go on beside phase 3
-and 13a instead of the card waiting for them; 13b runs data2 and fsdp2 at
-once in one launch of 4 processes, tensor2 after data2.  Every launch
-prints its processes' start and import seconds and each run's wall
-(``--slice13`` measures 13a and 13b alone).
+(LoRA's, the tiny model's) run in this process beside the launch; 13b
+runs data2 and fsdp2 at once in one launch of 4 processes, tensor2 after
+data2.  13a's and 13b's processes start with the script and import
+torch and the port beside the build, then wait for their runs
+(:class:`Ranks`; 13a's also ready the card, and use two CPU threads
+each); REFS starts without this process waiting for it; 4e's assets are
+written beside the build; 13a's ranks start on them, and this process
+runs, while they run, 4e's card run, 13a's one-process runs, 4-4d's card
+sides and 8a's, 10a's and 12a's card sides (held against their CPU runs
+later; phases that only check correctness), then
+4e's comparison; a ``gc.collect()`` before each ``empty_cache`` keeps
+the shared card's memory free; the finetune CLI's export gathers only the
+submodules it writes (``parallel/mesh.py::gathered``'s ``exclude``),
+which shortens 13a's fsdp2 run.  Every launch prints its processes' start, import and
+waiting seconds and each run's wall and parts (``--slice13`` measures 13a
+and 13b alone); every phase prints when it ended.
 
 Exits non-zero without a result when CUDA is absent or when the
 ``ps_slm_tpu_torch`` package is not beside this file.
@@ -402,8 +414,10 @@ MOMENT_STEP = 2
 # that rounding up where |g| is small (on the H100: data2 3.9e-6 above the
 # floor, 1.5e-5 below it, the moments 5.8e-6 and the losses 2.9e-6 apart)
 PARALLEL_PROJ_TOL = 1e-4
-# a launch's time limit; its processes print every thread's stack 20 s before it
+# a launch's time limit once its runs are handed to it: a process still running
+# then prints every thread's stack and exits, and the launch stops the others
 PARALLEL_TIMEOUT = 420.0
+RUN_LIMIT = 1200.0      # the whole script's time limit on the card
 WHISPER_TOL = 1e-4      # whisper_log_mel card vs CPU, after the (x + 4) / 4 scaling
 # kernel vs plain version on the card: |a - b| <= atol + rtol * |b|
 KERNEL_TOL = {"f32": (2e-5, 2e-5), "bf16": (1e-2, 1e-2)}
@@ -1516,7 +1530,8 @@ class TrainProbe:
             peak = probe.torch.cuda.max_memory_allocated() / 1e9 if probe.cuda else 0.0
             shape = (probe.model.flags.needs_encoder,
                      *sorted((k, tuple(v.shape)) for k, v in batch.items()))
-            probe.steps.append(dict(loss=loss, ms=ms, audio=audio, launches=probe.delta(before),
+            probe.steps.append(dict(loss=loss, ms=ms, start=t, audio=audio,
+                                    launches=probe.delta(before),
                                     peak=peak, accum=state.accum.mini_step,
                                     warm=shape in TrainProbe.shapes_run,
                                     after_save=probe.after_save, profiled=profiled_step,
@@ -1657,6 +1672,13 @@ def finetune_fp32_assets(root: str) -> tuple:
     return assets, mc
 
 
+def assets_4e() -> tuple:
+    """A temporary directory holding 4e's assets
+    (:func:`finetune_fp32_assets`): (directory, assets, model config)."""
+    root = tempfile.mkdtemp(prefix="finetune_cli_fp32_")
+    return (root, *finetune_fp32_assets(root))
+
+
 def finetune_cli_fp32_run(device, root: str = None, assets: dict = None, mc=None,
                           trained: dict = None) -> dict:
     """Phase 4e's finetune CLI run on ``device`` over ``root``'s assets
@@ -1700,27 +1722,26 @@ def finetune_cli_fp32_run(device, root: str = None, assets: dict = None, mc=None
             shutil.rmtree(root, ignore_errors=True)
 
 
-def phase_finetune_cli_fp32(torch, dev, ref) -> dict:
+def phase_finetune_cli_fp32(torch, dev, ref, root: str, assets: dict, mc) -> dict:
     """Phase 4e: the finetune CLI (``cli.finetune.main``, the half_audio
     recipe's overrides, fp32, dither 0, lr 1e-3 from the first step) at full
     width and reduced depth on phase 4d's kind of assets and a 8-utterance
-    train and 4-utterance dev manifest: 4 steps of 2 rows, validation every
-    2, on the card (:func:`finetune_cli_fp32_run`) against ``ref``, the
-    CPU's run; per-step losses, eval losses and the exported projectors
-    within PATH_TOL; and a resume on the card from ``step_2/state`` that
+    train and 4-utterance dev manifest (:func:`finetune_fp32_assets`, in
+    ``root``): 4 steps of 2 rows, validation every 2, on the card
+    (:func:`finetune_cli_fp32_run`) against ``ref``, the CPU's run;
+    per-step losses, eval losses and the exported projectors within
+    PATH_TOL; and a resume on the card from ``step_2/state`` that
     reproduces the last two losses bit for bit.  Returns the card run (its
     losses, evaluations, model, ``last/`` export and AdamW's first moments
-    after micro-step MOMENT_STEP) and its assets for phase 13a, which
-    deletes the directory, and ``against_cpu``, which awaits ``ref`` and
-    holds the card's run against it: called after 13a, so that the CPU's
-    run goes on beside 13a's instead of the card waiting for it."""
+    after micro-step MOMENT_STEP) for phase 13a, and ``against_cpu``, which
+    awaits ``ref`` and holds the card's run against it: called later, so
+    that the CPU's run goes on beside the card's work instead of the card
+    waiting for it."""
     from ps_slm_tpu_torch.cli import finetune
 
     what = "finetune CLI fp32"
     t0 = time.time()
-    root = tempfile.mkdtemp(prefix="finetune_cli_fp32_")
     try:
-        assets, mc = finetune_fp32_assets(root)
         trained: dict = {}
         card = finetune_cli_fp32_run(dev, root, assets, mc, trained)
         if "step_2" not in card["steps"]:
@@ -1771,8 +1792,7 @@ def phase_finetune_cli_fp32(torch, dev, ref) -> dict:
         if max(loss_err, proj_err) > PATH_TOL:
             fail(f"{what}: card and CPU disagree beyond the tolerance")
 
-    return {"root": root, "assets": assets, "mc": mc, "extra": FINETUNE_FP32_EXTRA,
-            "losses": card["losses"], "evals": card["evals"], "model": card["model"],
+    return {"losses": card["losses"], "evals": card["evals"], "model": card["model"],
             "moments": trained["moments"], "against_cpu": against_cpu,
             "export": os.path.join(card["out"], "last", "pytorch_model.bin")}
 
@@ -2829,7 +2849,7 @@ def serving_fp32_run(device) -> tuple:
     return preds, toks, walls
 
 
-def phase_serving_fp32(torch, dev, cpu_ref) -> None:
+def phase_serving_fp32(torch, dev, cpu_ref, card: tuple) -> None:
     """Phase 8a: scripts/decode_serving.sh's modes through ``cli.decode.main``
     in fp32 at full width and reduced depth (2+1 encoder blocks, 2 LLM
     layers), on the card (:func:`serving_fp32_run`) against ``cpu_ref``,
@@ -2838,11 +2858,11 @@ def phase_serving_fp32(torch, dev, cpu_ref) -> None:
     ``_pred`` must be byte-identical to the CPU's in every mode run on
     both, and on the card the pool and speculative modes' to plain
     greedy's (the beam pool's to static beam-4's), its lines sorted (the
-    pools write in completion order)."""
+    pools write in completion order).  ``card``: the card's run
+    (:func:`serving_fp32_run`), made earlier."""
     t0 = time.time()
     preds, walls, toks = {}, {}, {}
-    for name, run in (("cuda", lambda: serving_fp32_run(dev)), ("cpu", cpu_ref.result)):
-        p, t, w = run()
+    for name, (p, t, w) in (("cuda", card), ("cpu", cpu_ref.result())):
         for label in p:
             preds[label, name], toks[label, name], walls[label, name] = p[label], t[label], w[label]
     n = sum(SERVE_FP32_UTTS.values())
@@ -3490,7 +3510,7 @@ def serve_cli_fp32_run(device) -> dict:
         shutil.rmtree(root, ignore_errors=True)
 
 
-def phase_serve_cli_fp32(torch, dev, ref) -> None:
+def phase_serve_cli_fp32(torch, dev, ref, card: dict) -> None:
     """Phase 10a: ``cli.serve.main`` in fp32 at full width and reduced depth
     (8a's 2+1 encoder blocks, 1 LLM layer, assets and knobs: int8 weights,
     3 slots, 8 new tokens) on 4 utterances and two bad lines, through the
@@ -3499,10 +3519,10 @@ def phase_serve_cli_fp32(torch, dev, ref) -> None:
     run in the reference worker).  Each route's final and error lines must be
     identical card against CPU (as sets: lines come in completion order),
     and on the card the greedy routes' token ids equal plain greedy decode's
-    (the decode CLI, MODE=plain; streamed partials: the pool's texts)."""
+    (the decode CLI, MODE=plain; streamed partials: the pool's texts).
+    ``card``: the card's run (:func:`serve_cli_fp32_run`), made earlier."""
     what = "serve CLI fp32"
     t0 = time.time()
-    card = serve_cli_fp32_run(dev)
     cpu = ref.result()
     good, greedy = card["good"], card["greedy"]
     out, walls, toks = {}, {}, {}
@@ -4118,7 +4138,7 @@ def encoder_fp32_run(device) -> tuple:
     return results, grads, run, feasible[1], infeasible[1]
 
 
-def phase_encoder_fp32(torch, dev, ref) -> None:
+def phase_encoder_fp32(torch, dev, ref, card: tuple) -> None:
     """12a, the encoder: full widths at 2+1 blocks, fp32, card
     (:func:`encoder_fp32_run`) against ``ref``, the CPU's run from the same
     weights: ``inference`` with timestamps on 4
@@ -4142,11 +4162,12 @@ def phase_encoder_fp32(torch, dev, ref) -> None:
     shift shared by every key) steps by its normalised rounding noise,
     which differs between the devices.  So a second update, or a gradient
     taken after the first, is no longer a like-for-like comparison: the
-    parameters already differ in those elements by up to 2 lr."""
+    parameters already differ in those elements by up to 2 lr.  ``card``:
+    the card's run (:func:`encoder_fp32_run`), made earlier."""
     what = "encoder fp32"
     t0 = time.time()
     results, grads, runs = {}, {}, {}
-    results["cuda"], grads["cuda"], runs["cuda"], feasible, infeasible = encoder_fp32_run(dev)
+    results["cuda"], grads["cuda"], runs["cuda"], feasible, infeasible = card
     results["cpu"], grads["cpu"], runs["cpu"], _, _ = ref.result()
     if results["cpu"] != results["cuda"]:
         fail(f"{what}: inference differs card vs CPU: {results['cuda']} / {results['cpu']}")
@@ -4243,7 +4264,7 @@ def projectors_fp32_run(device) -> dict:
     return out
 
 
-def phase_projectors_fp32(torch, dev, ref) -> None:
+def phase_projectors_fp32(torch, dev, ref, card: dict) -> None:
     """12a, the projectors and branches: full widths at 2+1 encoder blocks
     and 1 LLM layer, fp32, card (:func:`projectors_fp32_run`) against
     ``ref``, the CPU's run: one model built from its seed on each, then
@@ -4257,11 +4278,12 @@ def phase_projectors_fp32(torch, dev, ref) -> None:
     whose gradient is smaller is rounding-limited: the q-former's key
     biases).  A norm, not the largest element: a ReLU input within
     rounding of 0 takes one frame of one unit out of the gradient on one
-    device only."""
+    device only.  ``card``: the card's run (:func:`projectors_fp32_run`),
+    made earlier."""
     from ps_slm_tpu_torch.config import SENSEVOICE_SMALL
 
     t0 = time.time()
-    runs = projectors_fp32_run(dev)
+    runs = card
     ref_runs = ref.result()
     batch = train_batch(torch, SENSEVOICE_SMALL["input_size"], PROJECTOR_FP32_FRAMES, seed=5)
     for label, *_ in PROJECTOR_RUNS:
@@ -4765,12 +4787,13 @@ def moment_err(got: dict, want: dict) -> float:
 
 def rank13_worker(spec_path: str) -> None:
     """One process of phases 13a / 13b (``python3 chip_smoke.py --rank13
-    spec.json``, started by :func:`launch_ranks`): :func:`run13` on the
-    spec's runs whose ``procs`` hold this process, each in a process group
-    of its own.  Prints one ``RANK13`` JSON line: those runs' records, and
-    the seconds the process took to start (from the launch,
-    ``PS_LAUNCH_T0``), to import torch and the port, and each run's
-    wall."""
+    spec.json``, started by :class:`Ranks`): once the spec is written,
+    :func:`run13` on its runs whose ``procs`` hold this process, each in a
+    process group of its own.  Prints one ``RANK13`` JSON line: those
+    runs' records, and the seconds the process took to start (from the
+    launch, ``PS_LAUNCH_T0``), to import torch and the port, to ready the
+    card, waiting for the spec, and each run's wall.  Exits once
+    ``PS_LAUNCH_PID``, the launching process, is gone."""
     import faulthandler
 
     import torch
@@ -4778,16 +4801,37 @@ def rank13_worker(spec_path: str) -> None:
     sys.path.insert(0, HERE)
     from ps_slm_tpu_torch.cli import finetune  # noqa: F401  (imported before the clock reads)
 
-    # a rank still running near the launch's time limit shows where it waits
-    faulthandler.dump_traceback_later(float(os.environ["PS_RANK_STACKS_S"]), exit=False)
-
-    with open(spec_path) as f:
-        spec = json.load(f)
     me = int(os.environ["PS_HOST_ID"])
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     started = dict(start_s=round(T_PROCESS - float(os.environ["PS_LAUNCH_T0"]), 2),
                    import_s=round(time.time() - T_PROCESS, 2))
+
+    def orphaned():
+        """Exit once the launching process is gone: nobody stops this one then."""
+        while os.getppid() == int(os.environ["PS_LAUNCH_PID"]):
+            time.sleep(1.0)
+        os._exit(3)
+
+    threading.Thread(target=orphaned, daemon=True).start()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_card = time.time()
+    if os.environ["PS_READY_CARD"] == "1":
+        # the card's context and the GEMM and convolution libraries, before the runs
+        x = torch.ones(64, 64, device="cuda")
+        torch.nn.functional.conv1d((x @ x)[None], torch.ones(64, 1, 11, device="cuda"), groups=64)
+        torch.cuda.synchronize()
+        del x
+    started["card_s"] = round(time.time() - t_card, 2)
+    with open(f"{spec_path}.ready{me}", "w"):
+        pass
+    t_wait = time.time()
+    while not os.path.exists(spec_path):     # the runs are known once the spec is written
+        time.sleep(0.2)
+    started["wait_s"] = round(time.time() - t_wait, 2)
+    # a rank still running at the launch's time limit shows where it waits, and exits
+    faulthandler.dump_traceback_later(PARALLEL_TIMEOUT, exit=True)
+    with open(spec_path) as f:
+        spec = json.load(f)
     runs, started["run_s"] = run13(torch, [r for r in spec["runs"] if me in r["procs"]], me)
     print("RANK13 " + json.dumps({"rank": me, "runs": runs, "started": started}), flush=True)
 
@@ -4812,7 +4856,9 @@ def run13(torch, spec_runs: list, me: int = -1) -> tuple:
     from ps_slm_tpu_torch.training import step as step_mod
 
     real_sync, real_make = meshlib.Parallel.sync_grads, step_mod.make_train_step
+    real_gather = torch.distributed.all_gather_into_tensor
     sync_ms: list = []
+    gathers = [0, 0]      # all_gather_into_tensor calls and bytes out (FSDP2's, the exports')
 
     def timed_sync(self, model):
         torch.cuda.synchronize()
@@ -4820,6 +4866,11 @@ def run13(torch, spec_runs: list, me: int = -1) -> tuple:
         real_sync(self, model)
         torch.cuda.synchronize()
         sync_ms.append((time.perf_counter() - t) * 1e3)
+
+    def counted_gather(output, *args, **kwargs):
+        gathers[0] += 1
+        gathers[1] += output.numel() * output.element_size()
+        return real_gather(output, *args, **kwargs)
 
     def local(p):
         return (p.to_local() if isinstance(p, DTensor) else p).detach()
@@ -4843,10 +4894,11 @@ def run13(torch, spec_runs: list, me: int = -1) -> tuple:
                 m.reshard()
 
     meshlib.Parallel.sync_grads = timed_sync
+    torch.distributed.all_gather_into_tensor = counted_gather
     runs, walls = [], []
     try:
         for run in spec_runs:
-            t_run = time.time()
+            t_run, t_perf, t_cpu = time.time(), time.perf_counter(), time.process_time()
             rank = run["procs"].index(me) if me >= 0 else 0
             if me >= 0:
                 os.environ.update(PS_COORDINATOR=f"localhost:{run['port']}",
@@ -4868,6 +4920,7 @@ def run13(torch, spec_runs: list, me: int = -1) -> tuple:
             step_mod.make_train_step = make
             undo = capture_trained(torch, info)
             sync_ms.clear()
+            gathers[:] = [0, 0]
             torch.cuda.reset_peak_memory_stats()
             try:
                 with TrainProbe(torch, dev) as probe:
@@ -4881,10 +4934,18 @@ def run13(torch, spec_runs: list, me: int = -1) -> tuple:
                        launches=[s["launches"] for s in probe.steps],
                        peak=torch.cuda.max_memory_allocated() / 1e9, sync_ms=list(sync_ms),
                        bytes=info["bytes"], full_bytes=info["full_bytes"],
-                       mesh=None if model.mesh is None else model.mesh.shape)
-            if run.get("save_projector"):
+                       mesh=None if model.mesh is None else model.mesh.shape,
+                       parts=dict(steps=sum(s["ms"] for s in probe.steps) / 1e3,
+                                  evals=sum(e["s"] for e in probe.evals),
+                                  saves=sum(v["s"] for v in probe.saves),
+                                  restores=sum(v["s"] for v in probe.restores),
+                                  to_first_step=probe.steps[0]["start"] - t_perf,
+                                  cpu=time.process_time() - t_cpu,
+                                  gathers=gathers[0], gather_gb=gathers[1] / 1e9))
+            if run.get("save_projector"):       # whole when another process sees it
                 torch.save({"projector": info["projector"], "moments": info["moments"]},
-                           run["save_projector"])
+                           run["save_projector"] + ".tmp")
+                os.replace(run["save_projector"] + ".tmp", run["save_projector"])
             if run.get("compare"):
                 for _ in range(600):        # a variant's: its one-process run's, beside
                     if os.path.exists(run["projector"]):
@@ -4912,104 +4973,142 @@ def run13(torch, spec_runs: list, me: int = -1) -> tuple:
             runs.append(out)
             probe.model = probe.largest = None
             del model, info
+            gc.collect()        # the run's model may sit in reference cycles (FSDP2's)
             torch.cuda.empty_cache()
             walls.append(round(time.time() - t_run, 1))
     finally:
         meshlib.Parallel.sync_grads = real_sync
+        torch.distributed.all_gather_into_tensor = real_gather
     return runs, walls
 
 
-def ephemeral_low() -> int:
-    """The lowest port the kernel hands out to connections
-    (``ip_local_port_range``; 32768, Linux's default, where it cannot be
-    read)."""
-    try:
-        with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
-            return int(f.read().split()[0])
-    except (OSError, ValueError, IndexError):
-        return 32768
+def card_memory(torch, when: str) -> None:
+    """Give back this process's cached card memory (other processes share
+    the card) and print what is free."""
+    gc.collect()        # a finished run's model may sit in reference cycles
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    print(f"card memory {when}: {free / 1e9:.2f} of {total / 1e9:.2f} GB free, this process "
+          f"holding {torch.cuda.memory_reserved() / 1e9:.2f} GB; host memory available "
+          f"{host_available_gb():.1f} GB", flush=True)
 
 
 def run_ports(runs: list, taken: set) -> None:
-    """A port of its own for each run of ``runs`` that has none, free now
-    and not in ``taken`` (which it joins), below the kernel's ephemeral
-    range (which some hosts start as low as 16000): no connection takes it
-    while the run waits its turn, and a rank that reaches the run before
-    rank 0 listens cannot, while it retries, be given the port itself and
-    connect to itself (a TCP self-connection, which hangs the
-    rendezvous)."""
-    import socket
+    """A port of its own for each run of ``runs`` that has none, not in
+    ``taken`` (which it joins), by the launcher's rule
+    (``parallel.launch.coordinator_port``: free now, below the kernel's
+    ephemeral range), so no connection takes it while the run waits its
+    turn."""
+    from ps_slm_tpu_torch.parallel.launch import coordinator_port
 
-    low = ephemeral_low()
-    port = max(1024, min(20000, low) - 4000)
     for run in runs:
-        while "port" not in run:
-            port += 1
-            if port >= low:
-                raise RuntimeError(f"no free port below the ephemeral range ({low} up)")
-            if port in taken:
-                continue
-            with socket.socket() as sock:
-                try:
-                    sock.bind(("localhost", port))
-                except OSError:
-                    continue
-            run["port"] = port
-            taken.add(port)
+        if "port" not in run:
+            run["port"] = coordinator_port(taken)
 
 
-def launch_ranks(torch, n: int, runs: list, root: str, timeout: float, name: str) -> dict:
-    """``runs`` (dicts of ``tag``, ``args``, ``procs`` and the worker's
-    flags) in one launch of ``n`` processes sharing the card over gloo,
-    its spec ``ranks<n>_<name>.json`` in ``root``: each process takes, in
-    order, the runs whose ``procs`` (launch process indices, by rank)
-    hold it, each run its own process group on a port of its own
-    (:func:`run_ports`), whose rendezvous waits for all its processes.
-    Returns every run's records by rank, by tag.  A process that fails
-    fails the phase."""
-    from ps_slm_tpu_torch.parallel.launch import launch
+class Ranks:
+    """One launch of ``n`` processes (``python3 chip_smoke.py --rank13
+    spec.json``, by ``parallel/launch.py``'s ``launch``) sharing the card
+    over gloo, started when made, in a thread of this process, before
+    their runs are known: each imports torch and the port, says it is
+    ready, and waits for the spec that :meth:`go` writes, so its start and
+    import overlap the work before the phase.  A process whose launching
+    process has gone exits (:func:`rank13_worker`).  With ``card`` the
+    processes also ready the card (its context, GEMM and convolution
+    libraries) before they wait, holding that memory while they do;
+    ``threads`` caps each one's CPU threads (``OMP_NUM_THREADS``)."""
 
-    run_ports(runs, {run["port"] for run in runs if "port" in run})
-    spec = os.path.join(root, f"ranks{n}_{name}.json")
-    with open(spec, "w") as f:
-        json.dump({"runs": runs}, f)
-    t0 = time.time()
-    done = launch([sys.executable, os.path.join(HERE, "chip_smoke.py"), "--rank13", spec], n,
-                  env={"PS_DIST_BACKEND": "gloo", "PYTHONPATH": HERE, "PS_LAUNCH_T0": repr(t0),
-                       "PS_RANK_STACKS_S": repr(max(timeout - 20.0, 1.0))},
-                  timeout=timeout, cwd=HERE)
-    lines = [next((x for x in f.stdout.splitlines() if x.startswith("RANK13 ")), None)
-             for f in done]
-    if any(f.returncode != 0 or line is None for f, line in zip(done, lines)):
-        fail(f"launch {name}: the processes exited {[f.returncode for f in done]}:\n" + "\n".join(
-            f"process {f.rank} of {n}, exit {f.returncode}:\n{f.stdout[-1500:]}\n"
-            f"{f.stderr[-4000:]}" for f in done))
-    records = sorted((json.loads(line[len("RANK13 "):]) for line in lines),
-                     key=lambda r: r["rank"])
-    mine = [[run for run in runs if p in run["procs"]] for p in range(n)]
-    out, walls = {}, {}
-    for run in runs:
-        at = [(p, mine[p].index(run)) for p in run["procs"]]
-        out[run["tag"]] = [records[p]["runs"][i] for p, i in at]
-        walls[run["tag"]] = records[at[0][0]]["started"]["run_s"][at[0][1]]
-    print(f"launch {name}: {n} processes, wall {time.time() - t0:.1f} s; they started after "
-          f"{[r['started']['start_s'] for r in records]} s and imported torch and the port in "
-          f"{[r['started']['import_s'] for r in records]} s; each run's wall (its rank 0's) "
-          f"{walls} s", flush=True)
-    return out
+    def __init__(self, n: int, name: str, card: bool, threads: int = 0):
+        from ps_slm_tpu_torch.parallel.launch import launch
+
+        self.n, self.name, self.t0 = n, name, time.time()
+        self.root = tempfile.mkdtemp(prefix=f"ranks_{name}_")
+        self.spec = os.path.join(self.root, "spec.json")
+        self.done: list = []
+        env = {"PS_DIST_BACKEND": "gloo", "PYTHONPATH": HERE, "PS_LAUNCH_T0": repr(self.t0),
+               "PS_LAUNCH_PID": str(os.getpid()), "PS_READY_CARD": str(int(card))}
+        if threads:
+            env["OMP_NUM_THREADS"] = str(threads)
+        argv = [sys.executable, os.path.join(HERE, "chip_smoke.py"), "--rank13", self.spec]
+        # the processes keep PARALLEL_TIMEOUT from their spec themselves; this
+        # bounds a launch whose spec never comes
+        self.thread = threading.Thread(target=lambda: self.done.extend(launch(
+            argv, n, env=env, timeout=RUN_LIMIT, cwd=HERE)), daemon=True)
+        self.thread.start()
+
+    def ready(self) -> None:
+        """Wait until every process has imported torch and the port and
+        readied the card (or the launch has ended)."""
+        while self.thread.is_alive() and not all(
+                os.path.exists(f"{self.spec}.ready{p}") for p in range(self.n)):
+            time.sleep(0.2)
+
+    def go(self, runs: list) -> None:
+        """Hand the processes ``runs`` (dicts of ``tag``, ``args``, ``procs``
+        and the worker's flags): each process takes, in order, the runs
+        whose ``procs`` (launch process indices, by rank) hold it, each run
+        its own process group on a port of its own (:func:`run_ports`),
+        whose rendezvous waits for all its processes."""
+        run_ports(runs, {run["port"] for run in runs if "port" in run})
+        self.runs, self.t_go = runs, time.time()
+        with open(self.spec + ".tmp", "w") as f:
+            json.dump({"runs": runs}, f)
+        os.replace(self.spec + ".tmp", self.spec)
+
+    def records(self) -> dict:
+        """Every run's records by rank, by tag, once the processes are done.
+        A process that fails fails the phase."""
+        self.thread.join()
+        shutil.rmtree(self.root, ignore_errors=True)
+        n, runs, done, name = self.n, self.runs, self.done, self.name
+        if len(done) != n:
+            fail(f"launch {name}: the launch failed")
+        lines = [next((x for x in f.stdout.splitlines() if x.startswith("RANK13 ")), None)
+                 for f in done]
+        if any(f.returncode != 0 or line is None for f, line in zip(done, lines)):
+            fail(f"launch {name}: the processes exited {[f.returncode for f in done]}:\n"
+                 + "\n".join(f"process {f.rank} of {n}, exit {f.returncode}:\n"
+                             f"{f.stdout[-1500:]}\n{f.stderr[-4000:]}" for f in done))
+        records = sorted((json.loads(line[len("RANK13 "):]) for line in lines),
+                         key=lambda r: r["rank"])
+        mine = [[run for run in runs if p in run["procs"]] for p in range(n)]
+        out, walls, parts = {}, {}, {}
+        for run in runs:
+            at = [(p, mine[p].index(run)) for p in run["procs"]]
+            out[run["tag"]] = [records[p]["runs"][i] for p, i in at]
+            walls[run["tag"]] = wall = records[at[0][0]]["started"]["run_s"][at[0][1]]
+            part = out[run["tag"]][0]["parts"]
+            parts[run["tag"]] = dict({k: round(v, 2) for k, v in part.items()}, rest=round(
+                wall - sum(part[k] for k in ("steps", "evals", "saves", "to_first_step")), 2))
+        print(f"launch {name}: {n} processes, started {self.t_go - self.t0:.1f} s before their "
+              f"runs were handed them, done {time.time() - self.t_go:.1f} s after; they started "
+              f"after {[r['started']['start_s'] for r in records]} s, imported torch and the port "
+              f"in {[r['started']['import_s'] for r in records]} s, readied the card in "
+              f"{[r['started']['card_s'] for r in records]} s and then waited "
+              f"{[r['started']['wait_s'] for r in records]} s for their runs; each run's wall "
+              f"(its rank 0's) {walls} s; its parts (rank 0's seconds of micro-steps, "
+              f"evaluations, train-state writes and restores, before the first micro-step "
+              f"(restores included), the rest; the process's CPU seconds; all_gather calls and "
+              f"GB) {parts}", flush=True)
+        return out
 
 
 def _mesh_tag(mesh: dict) -> str:
     return "+".join(f"{k}{v}" for k, v in mesh.items())
 
 
-def phase_parallel_fp32(torch, dev, fp32: dict) -> dict:
+def phase_parallel_fp32(torch, dev, ranks: "Ranks", ref_4e, made: tuple, beside=None) -> dict:
     """Phase 13a: phase 4e's finetune CLI run (full width and reduced
     depth, its assets, recipe and 4 steps of 2 rows with validation every
-    2, fp32, dither 0; ``fp32`` is what 4e returns: its card run is the
-    one-process run) on each mesh of PARALLEL_GROUPS, in one launch of
-    PARALLEL_PROCESSES processes sharing the card over gloo, each group of
-    them running its runs one after another: every rank's losses the same
+    2, fp32, dither 0, on ``made``, :func:`assets_4e`'s directory; 4e's
+    card run, against ``ref_4e``, is the one-process run) on each mesh of
+    PARALLEL_GROUPS, in ``ranks`` (one
+    launch of PARALLEL_PROCESSES processes sharing the card over gloo),
+    each group of them running its runs one after another, while this
+    process runs phase 4e, the other one-process runs and ``beside``
+    (other phases that only check correctness; a mesh's run waits at its
+    end for its one-process run's projector file): every rank's losses
+    the same
     bit for bit, the losses and
     evaluations within PARALLEL_TOL, AdamW's first moments after micro-step
     MOMENT_STEP within PARALLEL_MOMENT_TOL of each tensor's largest, and
@@ -5029,12 +5128,12 @@ def phase_parallel_fp32(torch, dev, fp32: dict) -> dict:
     files' tensors (each shard and replicated tensor written once) as many
     bytes as the one-process state's.  Deletes 4e's directory.  Returns
     the one-process model and the ranks' largest batches for phase 3's
-    shard and microbatch rows."""
+    shard and microbatch rows, and 4e's ``against_cpu``."""
     from ps_slm_tpu_torch.training.checkpoint import _projector_keymap
 
     what = "parallel fp32"
-    root, assets, mc = fp32["root"], fp32["assets"], fp32["mc"]
-    extra = [a for a in fp32["extra"] if not a.startswith("++train_config.save_last=")]
+    root, assets, mc = made
+    extra = [a for a in FINETUNE_FP32_EXTRA if not a.startswith("++train_config.save_last=")]
 
     def args(out, mesh=None, save=False, resume=None, variant=""):
         a = finetune_args(assets, root, out, llm_dim=mc.llm_dim,
@@ -5066,18 +5165,11 @@ def phase_parallel_fp32(torch, dev, fp32: dict) -> dict:
                 dict(tag=tag + " tiny resumed", args=tiny_args(
                     out + "_resumed", mesh, os.path.join(out, "step_2", "state"), variant))]
 
-    # the one-process runs: 4e's on the card (its projector after its 4
-    # steps, in the port's names); each other variant's and the tiny
-    # model's in this process beside the launches (a variant's writes the
-    # projector file its meshes' runs compare with, so it goes first)
-    keymap = _projector_keymap("linear-silu")
-    export = torch.load(fp32["export"], weights_only=True)
-    one = {"": dict(losses=fp32["losses"], evals=fp32["evals"], moments=fp32["moments"],
-                    projector={ours: export[f"encoder_projector.{ref}"]
-                               for ours, ref in keymap.items()},
-                    file=os.path.join(root, "one_projector.pt"))}
-    torch.save({"projector": one[""]["projector"], "moments": one[""]["moments"]},
-               one[""]["file"])
+    # the one-process runs, in this process beside the launch: 4e's on the
+    # card first (its projector after its 4 steps, in the port's names),
+    # then each other variant's (writing the projector file its meshes'
+    # runs compare with) and the tiny model's
+    one = {"": dict(file=os.path.join(root, "one_projector.pt"))}
     single = []
     for variant in PARALLEL_VARIANTS:
         if variant:
@@ -5096,25 +5188,28 @@ def phase_parallel_fp32(torch, dev, fp32: dict) -> dict:
             meshes.setdefault(tag, dict(n=len(procs), mesh=mesh, variant=variant, full=False))
             meshes[tag]["full"] |= kind == "full"
     t1 = time.time()
-    result: dict = {}
-
-    def launched():
-        try:
-            result["done"] = launch_ranks(torch, PARALLEL_PROCESSES, runs, root,
-                                          PARALLEL_TIMEOUT, "13a")
-        finally:
-            result["wall"] = round(time.time() - t1, 1)
-
-    ranks = threading.Thread(target=launched)
-    ranks.start()
-    try:
-        ones, one_walls = run13(torch, single)
-    finally:
-        ranks.join()
+    card_memory(torch, "before 13a's runs")
+    ranks.go(runs)
+    fp32 = timed("4e finetune CLI fp32", phase_finetune_cli_fp32, torch, dev, ref_4e, root,
+                 assets, mc)
+    card_memory(torch, "after 4e")
+    keymap = _projector_keymap("linear-silu")
+    export = torch.load(fp32["export"], weights_only=True)
+    one[""].update(losses=fp32["losses"], evals=fp32["evals"], moments=fp32["moments"],
+                   projector={ours: export[f"encoder_projector.{ref}"]
+                              for ours, ref in keymap.items()})
+    torch.save({"projector": one[""]["projector"], "moments": one[""]["moments"]},
+               one[""]["file"] + ".tmp")
+    os.replace(one[""]["file"] + ".tmp", one[""]["file"])   # whole when the ranks see it
+    t_4e = round(time.time() - t1, 1)
+    ones, one_walls = run13(torch, single)
     t_one = round(time.time() - t1, 1)
-    if "done" not in result:
-        fail(f"{what}: the launch failed")
-    ranks_of = result["done"].__getitem__
+    card_memory(torch, "after 13a's one-process runs")
+    if beside is not None:
+        beside()
+    t_beside = round(time.time() - t1, 1)
+    ranks_of = ranks.records().__getitem__
+    t_ranks = round(time.time() - t1, 1)
 
     rec = {r["tag"]: r for r in ones}
     batches, report, tiny = {}, {}, {}
@@ -5204,11 +5299,12 @@ def phase_parallel_fp32(torch, dev, fp32: dict) -> dict:
         if not variant:
             batches[tag] = torch.load(os.path.join(root, f"batch_{tag}.pt"), weights_only=True)
     print(f"{what}: meshes {list(meshes)} in {time.time() - t1:.1f} s (one launch of "
-          f"{PARALLEL_PROCESSES} processes, done after {result['wall']} s; the one-process runs "
-          f"in this process {dict(zip((r['tag'] for r in single), one_walls))} s, done after "
-          f"{t_one} s)", flush=True)
+          f"{PARALLEL_PROCESSES} processes, done after {t_ranks} s; in this process 4e done "
+          f"after {t_4e} s, the one-process runs {dict(zip((r['tag'] for r in single), one_walls))}"
+          f" s after {t_one} s, the phases beside after {t_beside} s)", flush=True)
     shutil.rmtree(root, ignore_errors=True)
-    return {"model": fp32["model"], "batches": batches, "report": report}
+    return {"model": fp32["model"], "batches": batches, "report": report,
+            "against_cpu": fp32["against_cpu"]}
 
 
 def parallel_cases(torch, dev, model, batches: dict) -> dict:
@@ -5248,11 +5344,11 @@ def parallel_cases(torch, dev, model, batches: dict) -> dict:
     return cases
 
 
-def phase_parallel(torch, dev, chain: dict) -> dict:
+def phase_parallel(torch, dev, chain: dict, ranks: "Ranks") -> dict:
     """Phase 13b: phase 7b's recipe (bf16, SenseVoiceSmall + linear-silu +
     Qwen2.5-1.5B) on phase 7's assets and 7a's export, in 2 processes
     sharing the card over gloo, on each mesh of PARALLEL_MESHES_BF16 (in
-    one launch of 4 processes, two meshes at once), for a
+    ``ranks``, one launch of 4 processes, two meshes at once), for a
     step or two (its train manifest, no validation): each rank's launches a
     micro-step exactly 7b's, by route; the micro-step wall, the gradient
     sums' time, each rank's peak memory and parameter bytes against the
@@ -5276,8 +5372,8 @@ def phase_parallel(torch, dev, chain: dict) -> dict:
             "++train_config.save_model=false", "++train_config.mesh_shape=" + json.dumps(mesh)]))
     t0 = time.time()
     torch.cuda.empty_cache()          # the ranks need the card's memory, not this process's cache
-    done = launch_ranks(torch, 1 + max(p for *_, procs in PARALLEL_MESHES_BF16 for p in procs),
-                        runs, root, PARALLEL_TIMEOUT, "13b")
+    ranks.go(runs)
+    done = ranks.records()
     out: dict = {"per_step": {}, "total": {}, "cases": None}
     for mesh, *_ in PARALLEL_MESHES_BF16:
         tag = _mesh_tag(mesh)
@@ -5433,12 +5529,28 @@ def start_refs() -> None:
         REFS = ProcessPoolExecutor(max_workers=1, mp_context=multiprocessing.get_context("spawn"),
                                    initializer=_refs_init,
                                    initargs=(max(1, (os.cpu_count() or 3) - 2),))
-        REFS.submit(os.getpid).result()          # the worker starts now, in that environment
+        REFS.submit(os.getpid)          # the worker starts now, in that environment
     finally:
         if visible is None:
             del os.environ["CUDA_VISIBLE_DEVICES"]
         else:
             os.environ["CUDA_VISIBLE_DEVICES"] = visible
+
+
+def ref(fn, *args):
+    """``fn(*args)`` in REFS (a future): the worker prints when it started
+    and ended the call, in seconds after this process started, and the CPU
+    seconds it took."""
+    return REFS.submit(_timed_ref, T_PROCESS, fn, *args)
+
+
+def _timed_ref(t_main: float, fn, *args):
+    t, cpu = time.time(), time.process_time()
+    try:
+        return fn(*args)
+    finally:
+        print(f"reference {fn.__name__}{args}: from {t - t_main:.1f} to {time.time() - t_main:.1f} "
+              f"s, {time.process_time() - cpu:.1f} s CPU", flush=True)
 
 
 def _refs_init(threads: int) -> None:
@@ -5448,17 +5560,17 @@ def _refs_init(threads: int) -> None:
     os.nice(10)     # the card's work, 13a's ranks included, comes first
 
 
-def run_slice13(torch, dev) -> None:
+def run_slice13(torch, dev, ranks: dict) -> None:
     """``--slice13``: phase 13 alone (4e, whose run 13a takes as the
     one-process run, 13a, 13c, and 13b on phase 7's assets with their
-    projector checkpoint as the initial one) and phase 3 at its shapes."""
+    projector checkpoint as the initial one; ``ranks`` their launches)
+    and phase 3 at its shapes."""
     results: dict = {}
-    ref_4e = REFS.submit(finetune_cli_fp32_run, "cpu")
-    ref_13c = REFS.submit(goldens_fp32_ref)
-    fp32 = timed("4e finetune CLI fp32", phase_finetune_cli_fp32, torch, dev, ref_4e)
-    par = timed("13a parallel fp32", phase_parallel_fp32, torch, dev, fp32)
-    timed("4e against the CPU", fp32["against_cpu"])
-    del fp32
+    ref_4e = ref(finetune_cli_fp32_run, "cpu")
+    ref_13c = ref(goldens_fp32_ref)
+    par = timed("13a parallel fp32", phase_parallel_fp32, torch, dev, ranks["13a"], ref_4e,
+                assets_4e())
+    timed("4e against the CPU", par["against_cpu"])
     timed("3 at 13a's shapes", phase_kernels_parallel, torch, dev, results, par, "13a")
     del par
     torch.cuda.empty_cache()
@@ -5469,10 +5581,20 @@ def run_slice13(torch, dev) -> None:
         chain = {"assets": assets, "root": root, "init": assets["ckpt_path"],
                  "dims": dict(llm_dim=mc.llm_dim, encoder_dim=mc.encoder_dim),
                  "median_ms": float("nan")}
-        par_b = timed("13b parallel bf16", phase_parallel, torch, dev, chain)
+        par_b = timed("13b parallel bf16", phase_parallel, torch, dev, chain, ranks["13b"])
     finally:
         shutil.rmtree(root, ignore_errors=True)
     timed("3 at 13b's shapes", phase_kernels_parallel, torch, dev, results, par_b, "13b")
+
+
+def host_available_gb() -> float:
+    """The host's available memory (``MemAvailable``), GB; NaN where it
+    cannot be read."""
+    try:
+        with open("/proc/meminfo") as f:
+            return next(int(x.split()[1]) for x in f if x.startswith("MemAvailable:")) / 1e6
+    except (OSError, StopIteration, ValueError, IndexError):
+        return float("nan")
 
 
 def timed(label: str, fn, *args, **kwargs):
@@ -5483,7 +5605,8 @@ def timed(label: str, fn, *args, **kwargs):
         return fn(*args, **kwargs)
     finally:
         PHASE_SECONDS[label] = round(time.time() - t, 1)
-        print(f"phase {label}: {PHASE_SECONDS[label]:.1f} s", flush=True)
+        print(f"phase {label}: {PHASE_SECONDS[label]:.1f} s (done {time.time() - T_PROCESS:.1f} s "
+              f"after the start; host memory available {host_available_gb():.1f} GB)", flush=True)
 
 
 def phase_kernels_slice12(torch, dev, results, enc_cases: dict) -> None:
@@ -5504,10 +5627,12 @@ def run_slice12(torch, dev) -> None:
     from ps_slm_tpu_torch.models.tasu import model_factory
 
     results: dict = {}
-    ref_enc = REFS.submit(encoder_fp32_run, "cpu")
-    ref_proj = REFS.submit(projectors_fp32_run, "cpu")
-    timed("12a encoder fp32", phase_encoder_fp32, torch, dev, ref_enc)
-    timed("12a projectors fp32", phase_projectors_fp32, torch, dev, ref_proj)
+    ref_enc = ref(encoder_fp32_run, "cpu")
+    ref_proj = ref(projectors_fp32_run, "cpu")
+    card_enc = timed("12a encoder fp32, the card's side", encoder_fp32_run, dev)
+    timed("12a encoder fp32", phase_encoder_fp32, torch, dev, ref_enc, card_enc)
+    card_proj = timed("12a projectors fp32, the card's side", projectors_fp32_run, dev)
+    timed("12a projectors fp32", phase_projectors_fp32, torch, dev, ref_proj, card_proj)
     tc, mc = half_audio_configs()
     model = model_factory(tc, mc, dtype=torch.bfloat16)
     model.speech_token_id = SPEECH_TOKEN
@@ -5526,10 +5651,11 @@ def run_slice12(torch, dev) -> None:
 
 
 def run_decode_and_serving(torch, dev, results, cli_launches, serve_launches,
-                           serve_cli_launches, refs: dict) -> tuple:
+                           serve_cli_launches, refs: dict, early: dict) -> tuple:
     """Phase 6, phase 3 at its largest batch, then phase 8 on phase 6's
     assets (8b, 8c; 8a after the assets are deleted), phase 10 (10b on the
-    same assets, 10a after 8a) and phase 3 at the pools' shapes.  Returns
+    same assets, 10a after 8a) and phase 3 at the pools' shapes; 8a's and
+    10a's card runs are ``early``'s, their CPU runs ``refs``'.  Returns
     phase 6's launches per batch and cases, 8c's pool columns and 10b's
     launches by run."""
     root = tempfile.mkdtemp(prefix="serving_")
@@ -5545,11 +5671,11 @@ def run_decode_and_serving(torch, dev, results, cli_launches, serve_launches,
         serve_runs = timed("10b serve CLI", phase_serve_cli, torch, dev, serve_cli_launches,
                            assets)
     finally:
-        shutil.rmtree(root, ignore_errors=True)
-    timed("8a serving fp32", phase_serving_fp32, torch, dev, refs["8a"])
+        timed("serving assets deleted", shutil.rmtree, root, ignore_errors=True)
+    timed("8a serving fp32", phase_serving_fp32, torch, dev, refs["8a"], early["8a"])
     timed("3 at 8c's shapes", phase_kernels, torch, dev, results, pools["flash"],
           pools["norm"], "serving pool")
-    timed("10a serve CLI fp32", phase_serve_cli_fp32, torch, dev, refs["10a"])
+    timed("10a serve CLI fp32", phase_serve_cli_fp32, torch, dev, refs["10a"], early["10a"])
     return cli_per_batch, cli_flash, cli_norm, pools, serve_runs
 
 
@@ -5564,6 +5690,7 @@ def main() -> None:
     from ps_slm_tpu_torch import _build
 
     t_start = time.time()
+    print(f"start: {t_start - T_PROCESS:.1f} s after the process started", flush=True)
     start_refs()
     dev = torch.device("cuda", 0)
     try:
@@ -5578,6 +5705,31 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    variants, slice12 = ("--variants" in sys.argv[1:]), ("--slice12" in sys.argv[1:])
+    ranks = {}
+    if not (variants or slice12):
+        # 13a's and 13b's processes start now and import torch and the port
+        # beside the build (13a's ready the card too: 13b's would hold its
+        # memory through 13a); they wait for their runs.  13a's 8 share the
+        # host's cores with this process and REFS: two CPU threads each
+        ranks = {"13a": Ranks(PARALLEL_PROCESSES, "13a", card=True, threads=2), "13b": Ranks(
+            1 + max(p for *_, procs in PARALLEL_MESHES_BF16 for p in procs), "13b", card=False)}
+    refs: dict = {}
+    if not (variants or slice12 or "--slice13" in sys.argv[1:]):
+        # the fp32 phases' CPU references: 4-4e's now (awaited beside 13a's
+        # ranks), the rest once 13a (whose ranks take most cores) is done
+        refs = {key: ref(fn, *args) for key, fn, args in (
+            ("4", path_fp32_run, ("cpu",)), ("4b", train_fp32_run, ("cpu",)),
+            ("4c", beam_text_only_fp32_run, ("cpu",)), ("4d", decode_cli_fp32_run, ("cpu",)),
+            ("4e", finetune_cli_fp32_run, ("cpu",)))}
+    made_4e = None
+    if refs:
+        # 4e's assets, on which 13a's ranks start, written beside the build
+        from concurrent.futures import ThreadPoolExecutor
+
+        writer = ThreadPoolExecutor(max_workers=1)
+        made_4e = writer.submit(assets_4e)
+        writer.shutdown(wait=False)
     t0 = time.time()
     try:
         logs = _build.build_all()
@@ -5586,18 +5738,26 @@ def main() -> None:
     PHASE_SECONDS["1-2 build"] = round(time.time() - t0, 1)
     print(f"build: {time.time() - t0:.1f} s ({', '.join(_build.SOURCES)})", flush=True)
     phase_paths(logs)
-    if "--variants" in sys.argv[1:]:
+    if variants:
         phase_ln_variants(torch, dev)
         phase_ln_bwd_variants(torch, dev)
         print(f"variants done, {time.time() - t_start:.1f} s", flush=True)
         return
-    if "--slice12" in sys.argv[1:]:
+    if slice12:
         run_slice12(torch, dev)
         print(f"phase seconds: {json.dumps(PHASE_SECONDS)}", flush=True)
         print(f"slice 12 done, {time.time() - t_start:.1f} s", flush=True)
         return
+    t0 = time.time()
+    for r in ranks.values():
+        r.ready()
+    if made_4e is not None:
+        made_4e.result()    # no CPU work of this process's beside phase 3's timings
+    print(f"13a's and 13b's processes ready and 4e's assets written "
+          f"{time.time() - t_start:.1f} s after the start, "
+          f"{time.time() - t0:.1f} s after the build", flush=True)
     if "--slice13" in sys.argv[1:]:
-        run_slice13(torch, dev)
+        run_slice13(torch, dev, ranks)
         print(f"phase seconds: {json.dumps(PHASE_SECONDS)}", flush=True)
         print(f"slice 13 done, {time.time() - t_start:.1f} s", flush=True)
         return
@@ -5605,31 +5765,36 @@ def main() -> None:
     print("kernel vs plain tolerance, |a - b| <= atol + rtol * |b|: "
           + ", ".join(f"{dt} atol {a} rtol {r}" for dt, (a, r) in KERNEL_TOL.items()),
           flush=True)
-    # the fp32 phases' CPU references: 4-4e's now (awaited after 13a, beside
-    # whose ranks they may still run), the rest once 13a (whose ranks take
-    # every core) is done
-    refs = {key: REFS.submit(fn, *args) for key, fn, args in (
-        ("4", path_fp32_run, ("cpu",)), ("4b", train_fp32_run, ("cpu",)),
-        ("4c", beam_text_only_fp32_run, ("cpu",)), ("4d", decode_cli_fp32_run, ("cpu",)),
-        ("4e", finetune_cli_fp32_run, ("cpu",)))}
     results: dict = {}
     timed("3 kernels", phase_kernels, torch, dev, results)
     timed("3 kernels backward", phase_kernels_bwd, torch, dev, results)
-    # 13a needs 4e's card run only; 4-4d's card sides come after it, when
-    # their CPU runs (computed beside phase 3 and 13a) are done
-    fp32 = timed("4e finetune CLI fp32", phase_finetune_cli_fp32, torch, dev, refs["4e"])
-    par = timed("13a parallel fp32", phase_parallel_fp32, torch, dev, fp32)
-    refs.update({key: REFS.submit(fn, *args) for key, fn, args in (
+
+    early: dict = {}
+
+    def beside_13a():
+        """While 13a's ranks run, what only checks correctness: 4-4d's card
+        sides against their CPU runs, then 8a's, 10a's and 12a's card sides,
+        held against their CPU runs later (those run in REFS after 13a)."""
+        for label, phase, key in (("4 serving path fp32", phase_path_fp32, "4"),
+                                  ("4b train fp32", phase_train_fp32, "4b"),
+                                  ("4c beam and text-only fp32", phase_beam_text_only_fp32, "4c"),
+                                  ("4d decode CLI fp32", phase_decode_cli_fp32, "4d")):
+            timed(label, phase, torch, dev, refs[key])
+            card_memory(torch, f"after {key}")
+        for key, run in (("8a", serving_fp32_run), ("10a", serve_cli_fp32_run),
+                         ("12a encoder", encoder_fp32_run),
+                         ("12a projectors", projectors_fp32_run)):
+            early[key] = timed(f"{key} fp32, the card's side", run, dev)
+            card_memory(torch, f"after {key}'s card side")
+
+    par = timed("13a parallel fp32, 4-4e, 8a, 10a and 12a's card sides beside", phase_parallel_fp32,
+                torch, dev, ranks["13a"], refs["4e"], made_4e.result(), beside_13a)
+    timed("4e against the CPU", par["against_cpu"])
+    refs.update({key: ref(fn, *args) for key, fn, args in (
         ("13c", goldens_fp32_ref, ()), ("11a", peft_fp32_runs, ("cpu",)),
         ("12a encoder", encoder_fp32_run, ("cpu",)),
         ("12a projectors", projectors_fp32_run, ("cpu",)), ("8a", serving_fp32_run, ("cpu",)),
         ("10a", serve_cli_fp32_run, ("cpu",)))})
-    timed("4 serving path fp32", phase_path_fp32, torch, dev, refs["4"])
-    timed("4b train fp32", phase_train_fp32, torch, dev, refs["4b"])
-    timed("4c beam and text-only fp32", phase_beam_text_only_fp32, torch, dev, refs["4c"])
-    timed("4d decode CLI fp32", phase_decode_cli_fp32, torch, dev, refs["4d"])
-    timed("4e against the CPU", fp32["against_cpu"])
-    del fp32
     cases13 = {"13a": timed("3 at 13a's shapes", phase_kernels_parallel, torch, dev, results,
                             par, "13a")}
     del par
@@ -5652,24 +5817,27 @@ def main() -> None:
     timed("12c standalone ASR", phase_asr, torch, dev, asr_launches)
     timed("13c whisper and goldens", phase_parallel_tools, torch, dev, refs["13c"])
     timed("11a PEFT fp32", phase_peft_fp32, torch, dev, refs["11a"])
-    timed("12a encoder fp32", phase_encoder_fp32, torch, dev, refs["12a encoder"])
-    timed("12a projectors fp32", phase_projectors_fp32, torch, dev, refs["12a projectors"])
+    timed("12a encoder fp32", phase_encoder_fp32, torch, dev, refs["12a encoder"],
+          early["12a encoder"])
+    timed("12a projectors fp32", phase_projectors_fp32, torch, dev, refs["12a projectors"],
+          early["12a projectors"])
     cli_launches, serve_launches, serve_cli_launches = {}, {}, {}
     cli_per_batch, cli_flash, cli_norm, pools, serve_runs = run_decode_and_serving(
-        torch, dev, results, cli_launches, serve_launches, serve_cli_launches, refs)
+        torch, dev, results, cli_launches, serve_launches, serve_cli_launches, refs, early)
     chain_launches, peft_launches = {}, {}
     chain_root = tempfile.mkdtemp(prefix="finetune_chain_")
     try:
         chain_per_step = timed("7 finetune chain", phase_finetune_chain, torch, dev,
                                chain_launches, step_5b_prof, chain_root)
-        par_b = timed("13b parallel bf16", phase_parallel, torch, dev, chain_per_step)
+        par_b = timed("13b parallel bf16", phase_parallel, torch, dev, chain_per_step,
+                      ranks["13b"])
         peft_per_step = timed("11b-c PEFT", phase_peft, torch, dev, peft_launches,
                               chain_per_step)
         qf_launches: dict = {}
         timed("12d q-former CLI", phase_qformer_cli, torch, dev, chain_per_step["assets"],
               chain_root, qf_launches, chain_per_step["steps"] // 2 + 1)
     finally:
-        shutil.rmtree(chain_root, ignore_errors=True)
+        timed("finetune chain deleted", shutil.rmtree, chain_root, ignore_errors=True)
     t3 = time.time()
     for stage, cases in chain_per_step["cases"].items():
         phase_kernels(torch, dev, results, cases["flash"], cases["norm"], f"finetune {stage}")
@@ -5777,7 +5945,7 @@ def main() -> None:
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "shape": f"{shapes[0]} bf16",
         })
-    REFS.shutdown()
+    timed("references' worker stopped", REFS.shutdown)
     print(f"phase seconds: {json.dumps(PHASE_SECONDS)}", flush=True)
     print(f"total {time.time() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -39,7 +39,8 @@ with the other three, and ``tensor`` with PEFT and quantized LLMs),
 global batch (``GlobalBatcher`` with the batch axes' coordinate as its
 host), the train state is written and restored one file a process, and
 rank 0 writes the reference export after a gather every process takes
-part in.  One process trains on its device whatever ``mesh_shape`` says,
+part in, of the submodules the export writes (the JAX CLI gathers every
+parameter).  One process trains on its device whatever ``mesh_shape`` says,
 as the JAX CLI sets no mesh on one device.
 """
 
@@ -170,8 +171,9 @@ def _main(cfg, device, world: int, rank: int) -> int:
     def checkpoint_fn(state, tag):
         path = os.path.join(tc.output_dir, tag)
         ckpt.save_train_state(os.path.join(path, "state"), state)
-        # the whole parameters on every process (a collective), rank 0 writes
-        with meshlib.gathered(model) if sharded else contextlib.nullcontext():
+        # the whole parameters the export writes, on every process (a
+        # collective), rank 0 writes
+        with meshlib.gathered(model, exclude) if sharded else contextlib.nullcontext():
             if rank == 0:
                 ckpt.export_reference_checkpoint(
                     model, os.path.join(path, "pytorch_model.bin"), exclude=exclude)

@@ -729,27 +729,33 @@ def full_tensor(t: torch.Tensor) -> torch.Tensor:
 
 
 @contextlib.contextmanager
-def gathered(model: nn.Module):
+def gathered(model: nn.Module, exclude: Iterable[str] = ()):
     """The whole parameters on every process for the duration, in the
     one-process layout: every FSDP2 and tensor-parallel shard replaced by
     its whole tensor (``Parallel.whole``) within each stage, then each
     pipeline stage's layers broadcast from that stage, and FSDP2's
     state-dict hooks (which put the shards back) held off, so
-    ``state_dict()`` and the exporters read whole tensors.  A collective:
-    every process enters it.  The modules' forwards do not run on it."""
+    ``state_dict()`` and the exporters read whole tensors.  The top-level
+    submodules named in ``exclude`` ("llm", "encoder", "projector": those
+    an export leaves out) keep their shards: nothing of them is gathered
+    or broadcast.  A collective: every process enters it with the same
+    ``exclude``.  The modules' forwards do not run on it."""
     ctx = getattr(model, "mesh", None)
+    exclude = set(exclude)
     swapped, hooks = [], []
     for mname, mod in model.named_modules():
         if mod._state_dict_pre_hooks:
             hooks.append((mod, dict(mod._state_dict_pre_hooks)))
             mod._state_dict_pre_hooks.clear()
+        if mname.split(".")[0] in exclude:
+            continue
         for n, p in list(mod._parameters.items()):
             name = f"{mname}.{n}" if mname else n
             if p is not None and (_is_dtensor(p) or (ctx is not None and name in ctx.tp)):
                 whole = ctx.whole(name, p) if ctx is not None else full_tensor(p)
                 mod._parameters[n] = nn.Parameter(whole, requires_grad=False)
                 swapped.append((mod, "_parameters", n, p))
-    if ctx is not None and ctx.freed:
+    if ctx is not None and ctx.freed and "llm" not in exclude:
         group = ctx.groups["pipe"]
         with torch.no_grad():
             for name, mod, kind, key in _layer_tensors(model):

@@ -249,7 +249,7 @@ def test_training_options_not_ported_name_their_roadmap_item(tmp_path, monkeypat
         with pytest.raises(ValueError, match="PS_COORDINATOR"):
             mesh.init_distributed("cpu")
     with monkeypatch.context() as m:
-        m.setenv("PS_COORDINATOR", f"localhost:{launch.free_port()}")
+        m.setenv("PS_COORDINATOR", f"localhost:{launch.coordinator_port()}")
         m.setenv("PS_NUM_HOSTS", "1")
         m.setenv("PS_HOST_ID", "0")
         try:

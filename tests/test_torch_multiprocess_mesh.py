@@ -366,18 +366,11 @@ def test_mesh_composition_matches_one_process_and_jax(mesh_runs, mesh_shape, kin
 
 @pytest.fixture(scope="module")
 def cli_runs(cli_one, tmp_path_factory):
-    from ps_slm_tpu_torch.parallel.launch import free_port
+    from ps_slm_tpu_torch.parallel.launch import coordinator_port
 
     data, one = cli_one
     d = tmp_path_factory.mktemp("cli_mesh")
-    ports = set()
-
-    def port():
-        while True:
-            p = free_port()
-            if p not in ports:
-                ports.add(p)
-                return p
+    ports: set = set()
 
     def args(out, mesh_shape, resume=None):
         a = _args(data, out) + ["++train_config.mesh_shape=" + json.dumps(mesh_shape),
@@ -389,11 +382,12 @@ def cli_runs(cli_one, tmp_path_factory):
     runs = []
     for mesh_shape in CLI_MESHES:
         out = str(d / _tag(mesh_shape))
-        runs.append(dict(tag=_tag(mesh_shape), port=port(), args=args(out, mesh_shape)))
-        runs.append(dict(tag=_tag(mesh_shape) + " resumed", port=port(), args=args(
-            out + "_resumed", mesh_shape, f"{out}/step_2/state")))
-    eight = [dict(tag=_tag(CLI_EIGHT), port=port(), args=args(str(d / _tag(CLI_EIGHT)),
-                                                                CLI_EIGHT))]
+        runs.append(dict(tag=_tag(mesh_shape), port=coordinator_port(ports),
+                         args=args(out, mesh_shape)))
+        runs.append(dict(tag=_tag(mesh_shape) + " resumed", port=coordinator_port(ports),
+                         args=args(out + "_resumed", mesh_shape, f"{out}/step_2/state")))
+    eight = [dict(tag=_tag(CLI_EIGHT), port=coordinator_port(ports),
+                  args=args(str(d / _tag(CLI_EIGHT)), CLI_EIGHT))]
     launches = []
     for name, n, rs in (("four", 4, runs), ("eight", 8, eight)):
         path = str(d / f"{name}.pt")

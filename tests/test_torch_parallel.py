@@ -14,6 +14,8 @@ package (``parallel/mesh.py``), pure Python, one process.
   vocabulary's and the encoder's leaves, which the port now shards over
   ``tensor``, each where the JAX spec of its leaf puts it.
 * ``pad_batch_to_multiple`` equals JAX's.
+* ``gathered`` makes whole, for its duration, only the submodules an
+  export writes (the finetune CLI's ``exclude``) and puts every leaf back.
 
 Exact equality throughout.  CPU time alone: ~10 s.
 """
@@ -21,6 +23,7 @@ Exact equality throughout.  CPU time alone: ~10 s.
 import jax
 import numpy as np
 import pytest
+import torch
 
 from ps_slm_tpu.config import ModelConfig as JaxModelConfig
 from ps_slm_tpu.config import TrainConfig as JaxTrainConfig
@@ -152,3 +155,31 @@ def test_pad_batch_to_multiple_equals_jax():
         assert sorted(got) == sorted(want)
         for k in want:
             np.testing.assert_array_equal(got[k], want[k])
+
+
+@pytest.mark.parametrize("exclude", [(), ("llm", "encoder"), ("llm", "encoder", "projector")])
+def test_gathered_makes_whole_only_what_the_export_writes(exclude):
+    """Every parameter cut over ``tensor`` (a stand-in context whose
+    ``whole`` doubles a shard): inside ``gathered`` the submodules outside
+    ``exclude`` read whole and those inside keep their shards, none of them
+    gathered; afterwards every parameter is the one it was."""
+    tc, mc = TrainConfig(**HALF_AUDIO), ModelConfig(**MODELS["half_audio"][1])
+    model = tasu.model_factory(tc, mc, device="cpu")
+    before = dict(model.named_parameters())
+    asked = []
+
+    class Cut:
+        tp, freed = set(before), {}
+
+        def whole(self, name, p):
+            asked.append(name)
+            return torch.cat([p, p])
+
+    model.mesh = Cut()
+    with mesh.gathered(model, exclude) as m:
+        state = m.state_dict()
+    kept = {n for n in before if n.split(".")[0] in exclude}
+    assert sorted(asked) == sorted(set(before) - kept)
+    for n, p in before.items():
+        assert state[n].shape[0] == p.shape[0] * (1 if n in kept else 2), n
+    assert all(p is before[n] for n, p in model.named_parameters())
