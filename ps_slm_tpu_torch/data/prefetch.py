@@ -13,6 +13,10 @@ receives the batch and marks every tensor with ``record_stream``, so the
 caching allocator does not hand the memory to another tensor while the
 consumer's stream may still read it.  The copy of batch N+1 then overlaps
 the step on batch N.  On the CPU the batch is converted to tensors.
+
+The consumer's waits are spans ``data.wait`` (``utils/profiler.py``): the
+queue's ``get`` and the stream's wait on the copy.  The producer thread has
+none: a profiler started on the consumer's thread does not record it.
 """
 
 from __future__ import annotations
@@ -23,6 +27,8 @@ from typing import Callable, Dict, Iterable, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
+
+from ps_slm_tpu_torch.utils.profiler import span
 
 _SENTINEL = object()
 
@@ -47,7 +53,8 @@ def prefetch(iterable: Iterable, depth: int = 2) -> Iterator:
     t = threading.Thread(target=producer, daemon=True)
     t.start()
     while True:
-        item = q.get()
+        with span("data.wait"):
+            item = q.get()
         if item is _SENTINEL:
             if err:
                 raise err[0]
@@ -86,8 +93,9 @@ def device_prefetch(
 
     for batch, out, ready in prefetch((place(b) for b in iterable), depth=depth):
         if ready is not None:
-            consumer = torch.cuda.current_stream(dev)
-            consumer.wait_event(ready)
-            for t in out.values():
-                t.record_stream(consumer)
+            with span("data.wait"):
+                consumer = torch.cuda.current_stream(dev)
+                consumer.wait_event(ready)
+                for t in out.values():
+                    t.record_stream(consumer)
         yield batch, out

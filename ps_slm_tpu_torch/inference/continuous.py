@@ -45,6 +45,7 @@ import torch.nn.functional as F
 
 from ps_slm_tpu_torch._build import resolve_device
 from ps_slm_tpu_torch.models.qwen2 import init_cache
+from ps_slm_tpu_torch.utils.profiler import count, span
 
 Merge = Callable[[Dict[str, torch.Tensor]], SimpleNamespace]
 
@@ -160,7 +161,8 @@ class HostCopy:
 
     def get(self) -> List[np.ndarray]:
         if self.event is not None:
-            self.event.synchronize()
+            with span("pool.harvest_wait"):
+                self.event.synchronize()
         return [h.numpy() for h in self.host]
 
 
@@ -173,9 +175,17 @@ class _SlotPoolBase:
 
     Subclass hooks: ``_insert_chunk`` (install k prefilled requests),
     ``_reset_slot``, ``_launch_chunk`` (launch one chunk, return a
-    :class:`HostCopy`), ``_harvest_chunk`` (read it, yield finished
-    ``(key, tokens)``), and ``_payload_batch`` / ``_prepare_refill`` for
-    payloads that carry more than the batch dict (the speculative drafts).
+    :class:`HostCopy`), ``_harvest_chunk`` (read it, return the finished
+    ``(key, tokens)`` in order), and ``_payload_batch`` / ``_prepare_refill``
+    for payloads that carry more than the batch dict (the speculative
+    drafts).
+
+    Spans (``utils/profiler.py``): ``pool.admit`` (each pull from the
+    source), ``pool.refill`` (the front half and ``pool.prefill``, the B=k
+    prefill and install), ``pool.launch``, ``pool.harvest`` (with
+    ``pool.harvest_wait``, the wait on the chunk's copy); counters
+    ``pool.requests``, ``pool.chunks``, ``pool.slot_steps``,
+    ``pool.tokens`` and ``pool.slot_s``.
     """
 
     _supports_stop_after = True
@@ -199,6 +209,7 @@ class _SlotPoolBase:
         # a host bound on each slot's device progress (insert sets 1, each
         # launched chunk adds sync_every): the provably-done skip reads it
         self._t_host: list = [0] * num_slots
+        self._installed: list = [0.0] * num_slots     # perf_counter at each install
 
     def _payload_batch(self, payload):
         return payload
@@ -216,25 +227,34 @@ class _SlotPoolBase:
         extra = self._prepare_refill(slot_req)
         for i, k in _pow2_chunks(len(slot_req)):
             chunk, ms = slot_req[i:i + k], padded[i:i + k]
-            with torch.inference_mode():
+            with span("pool.prefill"), torch.inference_mode():
                 self._insert_chunk(
                     torch.tensor([s for s, _, _ in chunk], device=self.dev),
                     torch.cat([e for e, _, _ in ms]), torch.cat([m for _, m, _ in ms]),
                     torch.cat([p for _, _, p in ms]), k=k, extra=extra, offset=i)
+            now = time.perf_counter()
             for slot, key, _ in chunk:
                 self._reset_slot(slot, key)
                 self._epoch[slot] += 1
                 self._t_host[slot] = 1
                 self._emitted_n[slot] = 0
+                self._installed[slot] = now
+            count("pool.requests", k)
+
+    def _release(self, slot, tokens: np.ndarray):
+        """Free a finished slot; ``(key, tokens)`` for the caller."""
+        key = self._keys[slot]
+        self._keys[slot] = None
+        self._free.append(slot)
+        count("pool.tokens", len(tokens))
+        count("pool.slot_s", time.perf_counter() - self._installed[slot])
+        return key, tokens
 
     def _finish(self, slot, cap):
         """Free a token-accumulating slot (greedy, speculative)."""
-        key = self._keys[slot]
-        toks = [t for t in self._toks[slot] if t != self.eos][: cap(key)]
-        self._keys[slot] = None
+        toks = [t for t in self._toks[slot] if t != self.eos][: cap(self._keys[slot])]
         self._toks[slot] = []
-        self._free.append(slot)
-        return key, np.asarray(toks, np.int32)
+        return self._release(slot, np.asarray(toks, np.int32))
 
     def _emit_partial(self, slot, cap):
         """Pass the clean (EOS-free, capped) prefix to ``on_partial`` when a
@@ -275,7 +295,8 @@ class _SlotPoolBase:
             pending, got_none = [], False
             while self._free and not exhausted:
                 try:
-                    item = next(batches)
+                    with span("pool.admit"):
+                        item = next(batches)
                 except StopIteration:
                     exhausted = True
                     break
@@ -285,7 +306,8 @@ class _SlotPoolBase:
                 key, payload = item
                 pending.append((self._free.pop(), key, payload))
             if pending:
-                self._refill_many(pending)
+                with span("pool.refill"):
+                    self._refill_many(pending)
 
             busy = [i for i in range(self.num_slots) if self._keys[i] is not None]
             if not busy and inflight is None:
@@ -298,15 +320,19 @@ class _SlotPoolBase:
             all_done = all(self._t_host[i] >= cap(self._keys[i]) for i in busy)
             nxt = None
             if busy and not (all_done and inflight is not None):
-                with torch.inference_mode():
+                with span("pool.launch"), torch.inference_mode():
                     copy = self._launch_chunk()
+                count("pool.chunks")
+                count("pool.slot_steps", self.num_slots * self.sync_every)
                 for i in busy:
                     self._t_host[i] += self.sync_every
                 nxt = (copy, [(i, self._keys[i], self._epoch[i]) for i in busy])
 
             if inflight is not None:
                 copy, snapshot = inflight
-                yield from self._harvest_chunk(copy, snapshot, cap)
+                with span("pool.harvest"):
+                    finished = self._harvest_chunk(copy, snapshot, cap)
+                yield from finished
             inflight = nxt
 
 
@@ -337,8 +363,9 @@ class ContinuousGreedyDecoder(_SlotPoolBase):
         return _pool_steps(self.llm, self.pool, eos_token_id=self.eos, steps=self.sync_every,
                            max_new_tokens=self.max_new)
 
-    def _harvest_chunk(self, copy: HostCopy, snapshot, cap):
+    def _harvest_chunk(self, copy: HostCopy, snapshot, cap) -> list:
         toks, tok0, fresh = copy.get()
+        finished = []
         for slot, key, epoch in snapshot:
             if self._keys[slot] != key or self._epoch[slot] != epoch:
                 continue        # finished and refilled: a stale column
@@ -347,7 +374,7 @@ class ContinuousGreedyDecoder(_SlotPoolBase):
                 self._toks[slot].append(int(tok0[slot]))
             if self._toks[slot] and (self._toks[slot][-1] == self.eos
                                      or len(self._toks[slot]) >= cap(key)):
-                yield self._finish(slot, cap)
+                finished.append(self._finish(slot, cap))
                 continue
             for t in toks[:, slot]:
                 self._toks[slot].append(int(t))
@@ -355,7 +382,8 @@ class ContinuousGreedyDecoder(_SlotPoolBase):
                     break
             self._emit_partial(slot, cap)
             if self._toks[slot][-1] == self.eos or len(self._toks[slot]) >= cap(key):
-                yield self._finish(slot, cap)
+                finished.append(self._finish(slot, cap))
+        return finished
 
 
 def _init_pool(cfg, num_slots: int, capacity: int, eos: int, dtype, kv_bits: int, dev):

@@ -181,15 +181,13 @@ class ContinuousBeamDecoder(_SlotPoolBase):
         best = torch.where(f_valid, f_scores, NEG_INF).argmax(dim=1)
         return f_seqs[torch.arange(len(slots), device=self.dev), best]
 
-    def _harvest_chunk(self, copy: HostCopy, snapshot, cap):
+    def _harvest_chunk(self, copy: HostCopy, snapshot, cap) -> list:
         (active,) = copy.get()
         done = [slot for slot, key, epoch in snapshot
                 if self._keys[slot] == key and self._epoch[slot] == epoch and not active[slot]]
-        if done:
-            with torch.inference_mode():
-                seqs = self._finalize(torch.tensor(done, device=self.dev)).cpu().numpy()
-            for slot, seq in zip(done, seqs):
-                key = self._keys[slot]
-                self._keys[slot] = None
-                self._free.append(slot)
-                yield key, seq[seq != self.eos].astype("int32")
+        if not done:
+            return []
+        with torch.inference_mode():
+            seqs = self._finalize(torch.tensor(done, device=self.dev)).cpu().numpy()
+        return [self._release(slot, seq[seq != self.eos].astype("int32"))
+                for slot, seq in zip(done, seqs)]

@@ -132,8 +132,9 @@ class ContinuousSpeculativeDecoder(_SlotPoolBase):
         p.tok0_fresh.zero_()
         return copy
 
-    def _harvest_chunk(self, copy: HostCopy, snapshot, cap):
+    def _harvest_chunk(self, copy: HostCopy, snapshot, cap) -> list:
         toks, accs, tok0, fresh = copy.get()
+        done = []
         for slot, key, epoch in snapshot:
             if self._keys[slot] != key or self._epoch[slot] != epoch:
                 continue        # finished and refilled: a stale column
@@ -152,4 +153,5 @@ class ContinuousSpeculativeDecoder(_SlotPoolBase):
             self._emit_partial(slot, cap)
             n_real = len([t for t in self._toks[slot] if t != self.eos])
             if finished or n_real >= cap(key):
-                yield self._finish(slot, cap)
+                done.append(self._finish(slot, cap))
+        return done

@@ -84,6 +84,7 @@ from ps_slm_tpu_torch.ops.psd import psd
 from ps_slm_tpu_torch.parallel.tensor import gather_rows, vocab_embed, vocab_mix
 from ps_slm_tpu_torch.registry import register_model
 from ps_slm_tpu_torch.training.checkpoint import load_ctc_linear, load_funasr_encoder
+from ps_slm_tpu_torch.utils.profiler import span
 
 IGNORE_ID = -100
 QUERY_IDS = (0, 1, 2, 2)   # language, event, emotion, textnorm
@@ -348,18 +349,20 @@ def prepare_merged(
     generate_mode: bool = False, generator: Optional[torch.Generator] = None,
     draws: Optional[Draws] = None, train: bool = False,
 ) -> Merged:
-    """Audio embeds merged into the text embeddings at the speech token."""
-    audio_embeds, audio_lens = compute_audio_embeds(
-        model, batch, generate_mode=generate_mode, generator=generator, draws=draws,
-        train=train,
-    )
-    inputs_embeds = model.llm.embed(batch["input_ids"])
-    return merge_audio_text(
-        audio_embeds.to(inputs_embeds.dtype), audio_lens, inputs_embeds,
-        batch["input_ids"], batch["attention_mask"], batch.get("labels"),
-        speech_token_id=model.speech_token_id, ignore_id=IGNORE_ID,
-        pad_token_id=model.pad_token_id, left_padding=left_padding,
-    )
+    """Audio embeds merged into the text embeddings at the speech token
+    (span ``front_half``)."""
+    with span("front_half"):
+        audio_embeds, audio_lens = compute_audio_embeds(
+            model, batch, generate_mode=generate_mode, generator=generator, draws=draws,
+            train=train,
+        )
+        inputs_embeds = model.llm.embed(batch["input_ids"])
+        return merge_audio_text(
+            audio_embeds.to(inputs_embeds.dtype), audio_lens, inputs_embeds,
+            batch["input_ids"], batch["attention_mask"], batch.get("labels"),
+            speech_token_id=model.speech_token_id, ignore_id=IGNORE_ID,
+            pad_token_id=model.pad_token_id, left_padding=left_padding,
+        )
 
 
 def forward(
@@ -392,33 +395,37 @@ def forward(
     Under a mesh the batch is this process's block of the global batch:
     the token count is summed over the batch axes, so the loss and the
     accuracy are this block's shares of the global means.
+
+    Spans: ``front_half`` (:func:`prepare_merged`), ``llm``, ``loss``.
     """
     if "labels" not in batch:
         raise ValueError("the training forward needs batch['labels']")
     merged = prepare_merged(model, batch, left_padding=False, generator=generator,
                             draws=draws, train=train)
-    hidden, _ = model.llm(
-        merged.embeds, merged.attention_mask, merged.position_ids,
-        generator=generator if train else None, lora_masks=lora_masks if train else None,
-    )
-    labels = merged.labels
-    if "batch_valid" in batch:
-        labels = torch.where(batch["batch_valid"][:, None], labels, IGNORE_ID)
+    with span("llm"):
+        hidden, _ = model.llm(
+            merged.embeds, merged.attention_mask, merged.position_ids,
+            generator=generator if train else None, lora_masks=lora_masks if train else None,
+        )
+    with span("loss"):
+        labels = merged.labels
+        if "batch_valid" in batch:
+            labels = torch.where(batch["batch_valid"][:, None], labels, IGNORE_ID)
 
-    llm = model.llm
-    w = llm.embed_tokens.weight if llm.lm_head is None else llm.lm_head.weight
-    b, t = labels.shape
-    text_len = batch["input_ids"].shape[1]
-    reduce = None if model.mesh is None else model.mesh.batch_sum
-    kw = dict(ignore_id=IGNORE_ID, reduce=reduce, vocab=llm.vocab)
-    if text_len <= (t - 1) // 2:
-        max_valid = min(-(-text_len // 8) * 8, t - 1)
-        loss, acc, ntok = gathered_ce_loss(hidden, w, labels, max_valid=max_valid, **kw)
-    elif b * t * llm.cfg.vocab_size * 4 > CHUNKED_CE_BYTES:
-        loss, acc, ntok = chunked_ce_loss(hidden, w, labels, **kw)
-    else:
-        loss, acc, ntok = full_ce_loss(hidden, w, labels, **kw)
-    return loss, {"acc": acc, "ntokens": ntok}
+        llm = model.llm
+        w = llm.embed_tokens.weight if llm.lm_head is None else llm.lm_head.weight
+        b, t = labels.shape
+        text_len = batch["input_ids"].shape[1]
+        reduce = None if model.mesh is None else model.mesh.batch_sum
+        kw = dict(ignore_id=IGNORE_ID, reduce=reduce, vocab=llm.vocab)
+        if text_len <= (t - 1) // 2:
+            max_valid = min(-(-text_len // 8) * 8, t - 1)
+            loss, acc, ntok = gathered_ce_loss(hidden, w, labels, max_valid=max_valid, **kw)
+        elif b * t * llm.cfg.vocab_size * 4 > CHUNKED_CE_BYTES:
+            loss, acc, ntok = chunked_ce_loss(hidden, w, labels, **kw)
+        else:
+            loss, acc, ntok = full_ce_loss(hidden, w, labels, **kw)
+        return loss, {"acc": acc, "ntokens": ntok}
 
 
 def trainable_mask(model: TasuModel, train_config) -> List[str]:

@@ -8,7 +8,9 @@ the global batch's on every process):
     semantics);
   * metrics stay on the device until a ``log_interval`` point, where the
     pending ones are read (no host sync per step), logged and sent to the
-    metric sink;
+    metric sink; the logged it/s and audio-s/s time the steps from one log
+    point's read to the next (an evaluation restarts the clock), so they
+    are step rates, not the rates at which steps are queued;
   * ``validation_interval`` evaluation when ``run_validation``; a
     ``step_N`` checkpoint on a new best eval loss when ``save_model``;
     ``last`` at the end when ``save_last``;
@@ -171,7 +173,7 @@ def train(
     """
     device = state.device
     eval_step = make_eval_step(model, device=device) if eval_batches_fn else None
-    timer = StepTimer()
+    timer = StepTimer(window=1)     # the steps since the last log point
     best_eval = float("inf")
     history = {"train_loss": [], "eval_loss": []}
     global_step = 0
@@ -196,11 +198,13 @@ def train(
             epoch_batches = 0
             with MemoryTrace() as mem:
                 pending = []  # device metrics, read at log points only
+                timer.start()
+                timed_steps, timed_audio = 0, 0.0
                 for batch, dbatch in device_prefetch(src, device, device_fields, depth=2):
-                    timer.start()
                     metrics = state(dbatch)
                     pending.append(metrics)
-                    timer.stop(_batch_audio_seconds(batch))
+                    timed_steps += 1
+                    timed_audio += _batch_audio_seconds(batch)
                     epoch_batches += 1
                     global_step += 1
 
@@ -211,6 +215,10 @@ def train(
                         loss = float(pending[-1]["loss"])
                         acc = float(pending[-1]["acc"])
                         pending = []
+                        # the reads waited for the steps' device work
+                        timer.stop(timed_audio, steps=timed_steps)
+                        timer.start()
+                        timed_steps, timed_audio = 0, 0.0
                         log(f"step {global_step} loss {loss:.4f} acc {acc:.4f} "
                             f"{timer.steps_per_sec:.2f} it/s "
                             f"{timer.audio_sec_per_sec:.1f} audio-s/s")
@@ -234,6 +242,8 @@ def train(
                             best_eval = ev["eval_loss"]
                             checkpoint_fn(state, f"step_{global_step}")
                             log(f"checkpoint saved (eval_loss {best_eval:.4f})")
+                        timer.start()
+                        timed_steps, timed_audio = 0, 0.0
 
                 for m in pending:  # the tail's metrics
                     epoch_loss += float(m["loss"])

@@ -46,6 +46,7 @@ from ps_slm_tpu_torch.models import tasu
 from ps_slm_tpu_torch.ops.fbank import FrontendDraws
 from ps_slm_tpu_torch.ops.pseudo_posterior import NoiseDraws
 from ps_slm_tpu_torch.training.train_state import MultiSteps, build_optimizer, warmup_cosine
+from ps_slm_tpu_torch.utils.profiler import span
 
 Metrics = Dict[str, torch.Tensor]
 
@@ -76,6 +77,11 @@ class TrainStep:
     before the update, as device tensors (no host sync).  ``draws`` and
     ``lora_masks`` (LoRA dropout's keep masks, a dict per layer) replace
     the generator's draws for one call (tests feed the JAX step's).
+
+    Spans (``utils/profiler.py``): ``step`` around the call, holding the
+    model's ``front_half``, ``llm`` and ``loss``, then ``backward``,
+    ``grad_sync`` under a mesh, and ``optimizer`` (the zeroing, and the
+    gradient fill with AdamW's step).
     """
 
     def __init__(self, model: tasu.TasuModel, train_config, device):
@@ -101,27 +107,32 @@ class TrainStep:
         draws: Optional[Union[NoiseDraws, FrontendDraws]] = None,
         lora_masks: Optional[List[Dict[str, torch.Tensor]]] = None,
     ) -> Metrics:
-        batch = {k: v.to(self.device) for k, v in batch.items()}
-        mesh = self.model.mesh
-        if mesh is not None:
-            draws, lora_masks = mesh.local_rows(draws), mesh.local_rows(lora_masks)
-        self.optimizer.zero_grad(set_to_none=True)
-        loss, aux = self.model(
-            batch, train=True, generator=self.generator, draws=draws, lora_masks=lora_masks,
-        )
-        if loss.requires_grad:
-            loss.backward()
-        if mesh is not None:
-            mesh.sync_grads(self.model)
-        for p in self.accum.params:
-            if p.grad is None:
-                # a trainable parameter the loss does not reach (voca_trans'
-                # top1_emb) gets a zero gradient, as under jax.grad: AdamW
-                # then still decays it
-                p.grad = torch.zeros_like(p)
-        self.accum.step()
-        self.step += 1
-        return _metrics(self.model, loss.detach(), aux)
+        with span("step"):
+            batch = {k: v.to(self.device) for k, v in batch.items()}
+            mesh = self.model.mesh
+            if mesh is not None:
+                draws, lora_masks = mesh.local_rows(draws), mesh.local_rows(lora_masks)
+            with span("optimizer"):
+                self.optimizer.zero_grad(set_to_none=True)
+            loss, aux = self.model(
+                batch, train=True, generator=self.generator, draws=draws, lora_masks=lora_masks,
+            )
+            if loss.requires_grad:
+                with span("backward"):
+                    loss.backward()
+            if mesh is not None:
+                with span("grad_sync"):
+                    mesh.sync_grads(self.model)
+            with span("optimizer"):
+                for p in self.accum.params:
+                    if p.grad is None:
+                        # a trainable parameter the loss does not reach (voca_trans'
+                        # top1_emb) gets a zero gradient, as under jax.grad: AdamW
+                        # then still decays it
+                        p.grad = torch.zeros_like(p)
+                self.accum.step()
+            self.step += 1
+            return _metrics(self.model, loss.detach(), aux)
 
     def state_dict(self) -> Dict:
         """What an exact resume needs besides the parameters: the

@@ -1,4 +1,5 @@
-"""Profiler traces, step timing and audio-seconds throughput.
+"""Profiler traces, spans and counters, step timing and audio-seconds
+throughput.
 
 Counterpart of ``ps_slm_tpu/utils/profiler.py``: :func:`trace` records a
 ``torch.profiler`` trace (host and, on CUDA, device activity) and writes
@@ -6,24 +7,131 @@ it as a Chrome trace into ``profile_dir``; :class:`StepTimer` times steps
 on the host clock.  The timer measures what the host waited for: the
 caller makes the timed work finish before ``stop`` (a device-to-host copy
 of the result, or ``torch.cuda.synchronize()``) when it wants device time
-in it; the training loop does not, so its rates time dispatch.
+in it; the training loop stops it after reading the metrics of a log
+interval, so its rates are step rates.
+
+The port's one tracing facility:
+
+* :func:`span` marks a phase of the program (``tasu.<name>``) as a host
+  range of the profiler's trace exactly while some profiler records (this
+  module's :func:`trace` or any other ``torch.profiler.profile``); with
+  none running it costs one check.  A span sits in the trace on the same
+  clock as the CUDA kernels, so an idle gap of the device can be put down
+  to the innermost span over it.  It is a function-scope record (as an
+  operator's), not a user annotation: the profiler mirrors annotations on
+  the device's timeline, where a reader of device time would take them
+  for device work.  While recording, each span also adds its host seconds
+  to :func:`recorded`, by its path of enclosing spans
+  (``step/front_half``).  A span never stays open across a ``yield``.
+* :func:`count` adds to one of :data:`COUNTERS`, always; :func:`counts`
+  reads them, and :func:`recorded` their part added while a profiler
+  recorded.
 """
 
 from __future__ import annotations
 
 import contextlib
+import json
 import os
+import threading
 import time
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
+
+# the counters, each added where its work happens
+COUNTERS = frozenset({
+    "pool.requests",      # requests installed in a slot
+    "pool.chunks",        # chunks launched
+    "pool.slot_steps",    # num_slots x sync_every for each chunk launched
+    "pool.tokens",        # tokens kept for a finished request (to its EOS or cap)
+    "pool.slot_s",        # host seconds from a request's install to its finish
+})
+
+_OFF = contextlib.nullcontext()
+_profiling = torch.autograd._profiler_enabled
+_Range = torch._C._profiler._RecordFunctionFast
+_counts: Dict[str, float] = {}
+_recorded_counts: Dict[str, float] = {}
+_recorded_spans: Dict[str, list] = {}        # path -> [calls, host seconds]
+_lock = threading.Lock()
+_open = threading.local()                    # each thread's open span paths
+
+
+class _Span:
+    __slots__ = ("name", "path", "range", "t0")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        stack = getattr(_open, "paths", None)
+        if stack is None:
+            stack = _open.paths = []
+        self.path = f"{stack[-1]}/{self.name}" if stack else self.name
+        stack.append(self.path)
+        self.range = _Range(f"tasu.{self.name}")
+        self.range.__enter__()
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        seconds = time.perf_counter() - self.t0
+        self.range.__exit__(*exc)
+        _open.paths.pop()
+        with _lock:
+            acc = _recorded_spans.setdefault(self.path, [0, 0.0])
+            acc[0] += 1
+            acc[1] += seconds
+        return False
+
+
+def span(name: str):
+    """``with span("pool.launch"):`` marks a phase as ``tasu.<name>`` in
+    any running profiler's trace; a shared no-op context when none
+    records."""
+    if not _profiling():
+        return _OFF
+    return _Span(name)
+
+
+def count(name: str, n: float = 1) -> None:
+    """Add ``n`` to the counter ``name`` (one of :data:`COUNTERS`)."""
+    if name not in COUNTERS:
+        raise KeyError(f"no counter {name!r}; the counters are {sorted(COUNTERS)}")
+    with _lock:
+        _counts[name] = _counts.get(name, 0) + n
+        if _profiling():
+            _recorded_counts[name] = _recorded_counts.get(name, 0) + n
+
+
+def counts() -> Dict[str, float]:
+    """The counters' totals in this process."""
+    with _lock:
+        return dict(_counts)
+
+
+def recorded() -> Dict[str, Dict]:
+    """What this process added while a profiler recorded: ``{"spans":
+    {path: {"calls", "seconds"}}, "counts": {name: total}}``, host
+    seconds by span path (``pool.refill/front_half``)."""
+    with _lock:
+        return {"spans": {p: {"calls": c, "seconds": s} for p, (c, s) in _recorded_spans.items()},
+                "counts": dict(_recorded_counts)}
+
+
+def _change(after: Dict[str, float], before: Dict[str, float]) -> Dict[str, float]:
+    return {k: v - before.get(k, 0) for k, v in after.items() if v != before.get(k, 0)}
 
 
 @contextlib.contextmanager
 def trace(profile_dir: Optional[str]):
     """``with trace("/tmp/profile"):`` records a ``torch.profiler`` trace
-    of the block into ``profile_dir/trace.json`` (Chrome trace format);
-    nothing when ``profile_dir`` is empty."""
+    of the block into ``profile_dir/trace.json`` (Chrome trace format,
+    the ``tasu.*`` spans among its host events) and, beside it,
+    ``counters.json``: the counters' change over the block and each span
+    path's calls and host seconds in it.  Nothing when ``profile_dir`` is
+    empty."""
     if not profile_dir:
         yield
         return
@@ -33,14 +141,25 @@ def trace(profile_dir: Optional[str]):
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(profile_dir, exist_ok=True)
+    before, spans_before = counts(), recorded()["spans"]
     with profile(activities=activities) as prof:
         yield
+    spans = {}
+    for path, v in recorded()["spans"].items():
+        old = spans_before.get(path, {"calls": 0, "seconds": 0.0})
+        if v["calls"] > old["calls"]:
+            spans[path] = {"calls": v["calls"] - old["calls"],
+                           "seconds": v["seconds"] - old["seconds"]}
     prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
+    with open(os.path.join(profile_dir, "counters.json"), "w") as f:
+        json.dump({"counters": _change(counts(), before), "spans": spans}, f, indent=1,
+                  sort_keys=True)
 
 
 class StepTimer:
     """Rolling step timing + audio-seconds throughput over the last
-    ``window`` steps (every step with ``window=None``)."""
+    ``window`` timed intervals (every interval with ``window=None``); an
+    interval may hold several steps (``stop(..., steps=n)``)."""
 
     def __init__(self, window: Optional[int] = 50):
         self.window = window
@@ -49,29 +168,32 @@ class StepTimer:
     def reset(self):
         self._times = []
         self._audio = []
+        self._steps = []
         self._last = None
 
     def start(self):
         self._last = time.perf_counter()
 
-    def stop(self, audio_seconds: float = 0.0):
+    def stop(self, audio_seconds: float = 0.0, steps: int = 1):
         now = time.perf_counter()
         if self._last is not None:
             self._times.append(now - self._last)
             self._audio.append(audio_seconds)
+            self._steps.append(steps)
             if self.window is not None and len(self._times) > self.window:
                 self._times.pop(0)
                 self._audio.pop(0)
+                self._steps.pop(0)
         self._last = None
 
     @property
     def steps_per_sec(self) -> float:
         t = sum(self._times)
-        return len(self._times) / t if t else 0.0
+        return sum(self._steps) / t if t else 0.0
 
     @property
     def seconds(self) -> float:
-        """Seconds of the steps in the window."""
+        """Seconds of the intervals in the window."""
         return sum(self._times)
 
     @property
