@@ -148,8 +148,12 @@ Phases, each of which fails the run:
    bytes, the speculative forwards, each mode's agreement with plain
    (reported); 8c the greedy and speculative pools driven directly on
    8b's int8 model, 32 requests capped at 4-32 tokens: each answered
-   once within its cap, exact launches per chunk and per refill, one
-   chunk profiled, an oracle draft through ``generate(draft_ids=...)``
+   once within its cap, exact launches per chunk (the greedy pool's CUDA
+   graph: one capture of two chunks' launches at its construction, one
+   replay a chunk through no wrapper, counted as the capture's launches;
+   the profiled replay shows the RMSNorm kernel on the device) and per
+   refill, one chunk profiled, an oracle draft through
+   ``generate(draft_ids=...)``
    against plain greedy; 8a fp32 at full width and reduced depth (2+1
    encoder blocks, 1 LLM layer, 4 utterances, 3 slots, 8 new tokens):
    plain, speculative, int4 weights and the int8 KV cache on the card and
@@ -261,6 +265,9 @@ EOS = 151645            # <|im_end|>
 # generate call (70 encoder + 28 prefill flash calls; 142 encoder + 1
 # projector LayerNorms)
 RMS_PER_FORWARD = 57
+# the device kernel of the RMSNorm forward's vectorised route, by name in a
+# profile (a CUDA graph's replay passes through no wrapper)
+RMS_VEC_KERNEL = "norm_fwd_vec_kernel"
 FLASH_PER_GENERATE = 98
 LN_PER_GENERATE = 143
 # the training batch is bench.py's (config.BENCH_*): 5 utterances of 512
@@ -3105,7 +3112,10 @@ def shape_groups(batches) -> list:
 def instrument_pool(counters, dec, rec: dict) -> None:
     """Count the launches of each chunk and each refill of ``dec``, checked
     exactly: a chunk is ``sync_every`` forwards of the pool (57 RMSNorm
-    each, nothing else); a refill of k requests runs the front half once a
+    each, nothing else), or, where the pool captured its chunk as a CUDA
+    graph (``rec["graph"]``: the greedy pool), a replay that runs no
+    wrapper (the launches its capture recorded, which the caller counts
+    for each replay); a refill of k requests runs the front half once a
     power-of-two chunk of each same-shape group (70 flash, 143 LayerNorm)
     and the prefill once a power-of-two chunk of k (28 flash, 57 RMSNorm)."""
     real_launch, real_refill = dec._launch_chunk, dec._refill_many
@@ -3114,7 +3124,7 @@ def instrument_pool(counters, dec, rec: dict) -> None:
         before = launch_snapshot(counters)
         copy = real_launch()
         got = launch_delta(counters, before)
-        want = want_launches(counters, rms=RMS_PER_FORWARD * dec.sync_every)
+        want = want_launches(counters, rms=0 if rec["graph"] else RMS_PER_FORWARD * dec.sync_every)
         if got != want:
             fail(f"{rec['what']}: a chunk launched {got}, not {want}")
         rec["chunks"].append(got)
@@ -3154,6 +3164,7 @@ def phase_serving_pools(torch, dev, launches, model, assets) -> dict:
     from ps_slm_tpu_torch.inference import ctc_draft, make_pool_decoder, speculative
     from ps_slm_tpu_torch.inference.generate import generate
     from ps_slm_tpu_torch.models.tasu import prepare_merged
+    from ps_slm_tpu_torch.utils import profiler
 
     what = "serving pools"
     counters = kernel_counters()
@@ -3174,11 +3185,29 @@ def phase_serving_pools(torch, dev, launches, model, assets) -> dict:
     spec_tc = parse_cli(serving_args(assets, "speculative", "unused", DECODE_MAX_NEW)
                         + ["++train_config.continuous_batching=true"], RunConfig()).train_config
 
+    def graph_counts(before):
+        now = profiler.counts()
+        return [now.get(n, 0) - before.get(n, 0)
+                for n in ("pool.graph_captures", "pool.graph_replays")]
+
     def pool(kind, stop_after=None):
+        before, counted = launch_snapshot(counters), profiler.counts()
         dec = make_pool_decoder(model, spec_tc if kind == "speculative" else tc, dc,
                                 eos_token_id=eos)
-        rec = {"what": f"{what} {kind}", "chunks": [], "refills": []}
+        built, (captures, _) = launch_delta(counters, before), graph_counts(counted)
+        rec = {"what": f"{what} {kind}", "chunks": [], "refills": [], "graph": None}
+        if getattr(dec, "graph", None) is not None:
+            # one capture: the warm-up chunk and the recorded one
+            chunk = want_launches(counters, rms=RMS_PER_FORWARD * dec.sync_every)
+            if captures != 1 or built != {n: 2 * c for n, c in chunk.items()}:
+                fail(f"{rec['what']}: {captures} captures launched {built}, not one of two "
+                     f"chunks of {chunk}")
+            rec["graph"] = {n: c // 2 for n, c in built.items()}
+        elif captures or any(built.values()):
+            fail(f"{rec['what']}: building the pool made {captures} captures and launched "
+                 f"{nonzero(built)}")
         instrument_pool(counters, dec, rec)
+        counted = profiler.counts()
         items = [(k, (b, drafts[k], len(drafts[k])) if kind == "speculative" else b)
                  for k, b in reqs]
         torch.cuda.synchronize()
@@ -3186,8 +3215,12 @@ def phase_serving_pools(torch, dev, launches, model, assets) -> dict:
         t0 = time.perf_counter()
         got = list(dec.run(iter(items), stop_after=stop_after))
         wall = time.perf_counter() - t0
+        replays = graph_counts(counted)[1]
+        if replays != (len(rec["chunks"]) if rec["graph"] else 0):
+            fail(f"{rec['what']}: {replays} graph replays for {len(rec['chunks'])} chunks")
+        # a replay runs the launches its capture recorded, through no wrapper
         for n, c in launch_snapshot(counters).items():
-            launches[n] = launches.get(n, 0) + c
+            launches[n] = launches.get(n, 0) + c + replays * (rec["graph"] or {}).get(n, 0)
         answered = [k for k, _ in got]
         if sorted(answered) != sorted(caps):
             fail(f"{rec['what']}: answered {sorted(answered)}, not each request once")
@@ -3208,7 +3241,9 @@ def phase_serving_pools(torch, dev, launches, model, assets) -> dict:
         agree = sum(np.array_equal(got[k], full[k][:len(got[k])]) for k in got)
         print(f"{what} {label}: {len(got)} requests in {wall:.2f} s, "
               f"{sum(map(len, got.values()))} tokens ({sum(map(len, got.values())) / wall:.1f} "
-              f"tokens/s); {len(rec['chunks'])} chunks of {nonzero(rec['chunks'][0])} launches; "
+              f"tokens/s); {len(rec['chunks'])} chunks of "
+              f"{nonzero(rec['graph'] or rec['chunks'][0])} launches"
+              f"{' (replays of the capture)' if rec['graph'] else ''}; "
               f"{len(rec['refills'])} refills (requests, front halves, prefills) "
               f"{[r[:3] for r in rec['refills']]}, the first's launches "
               f"{nonzero(rec['refills'][0][3])}; "
@@ -3251,7 +3286,8 @@ def phase_serving_pools(torch, dev, launches, model, assets) -> dict:
     finally:
         speculative.speculative_greedy_generate = real_spec
 
-    # one greedy pool chunk profiled, the pool full
+    # one greedy pool chunk profiled, the pool full: a replay of its graph,
+    # which has to show the hand-written RMSNorm on the device
     dec = make_pool_decoder(model, tc, dc, eos_token_id=eos)
     dec._emitted_n = [0] * dec.num_slots
     dec._free = []
@@ -3262,8 +3298,15 @@ def phase_serving_pools(torch, dev, launches, model, assets) -> dict:
             dec._launch_chunk().get()
 
     chunk()
-    prof = profiled(torch, chunk)
+    prof = profiled(torch, chunk, kernels=(RMS_VEC_KERNEL,))
     print_profiled(f"{what} greedy chunk ({dec.sync_every} steps of {dec.num_slots} slots)", prof)
+    if dec.graph is not None:
+        seen = sum(n for name, _, n in prof[3] if RMS_VEC_KERNEL in name)
+        print(f"{what}: the profiled replay's device trace shows {seen} {RMS_VEC_KERNEL} "
+              f"(the capture recorded {RMS_PER_FORWARD * dec.sync_every}; the profiler may "
+              f"drop a record of a graph's) [{CARD}]", flush=True)
+        if prof[1] is not None and not seen:
+            fail(f"{what}: a replay of the greedy chunk ran no {RMS_VEC_KERNEL}")
 
     # phase 3's cases at the pools' largest shapes: the first refill's
     # prefill (k x prefill_len, left-padded), the largest request's front
@@ -3282,7 +3325,9 @@ def phase_serving_pools(torch, dev, launches, model, assets) -> dict:
             ("rms_norm_fwd", k, 1536, None), ("rms_norm_fwd", k * tc.spec_window, 1536, None),
             ("rms_norm_fwd", k * 4, 1536, None))
     del dec, dec_spec
-    return {"chunk": {"greedy": rec_cap["chunks"][0], "speculative": rec_spec["chunks"][0]},
+    greedy = ("greedy_captured", rec_cap["graph"]) if rec_cap["graph"] else \
+        ("greedy", rec_cap["chunks"][0])
+    return {"chunk": dict([greedy, ("speculative", rec_spec["chunks"][0])]),
             "refill": rec_cap["refills"][0][3], "flash": flash, "norm": norm}
 
 

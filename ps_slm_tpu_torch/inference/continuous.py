@@ -13,7 +13,11 @@ prefill at once, so the decode products stay at the pool's batch.
   first token stays on the device, in the pool state's ``tok0`` channel.
 * **A chunk** is ``sync_every`` one-token steps over the whole pool
   (:func:`_pool_steps`), each slot at its own cache offset and position;
-  finished slots are carried masked.
+  finished slots are carried masked.  Every shape is fixed and every pool
+  tensor is written in place, so on a CUDA device the pool records one
+  chunk as a CUDA graph at construction, while it is idle, and each launch
+  replays it: one graph launch in place of the chunk's thousands of kernel
+  launches.  On the CPU it runs the same function eagerly.
 * **The pipelined harvest**: chunk k + 1 is launched before chunk k's
   tokens are read.  Right after a chunk is launched its tokens (and
   ``tok0`` / ``fresh``) are copied without blocking into pinned host
@@ -342,7 +346,12 @@ class ContinuousGreedyDecoder(_SlotPoolBase):
     merged-prefill bucket; a longer request raises ``ValueError``.  The
     pool's cache has capacity ``prefill_len + max_new_tokens``: a slot writes
     cell ``prefill_len + gen - 1`` with ``gen <= max_new_tokens``, and a
-    finished slot keeps writing that same cell, so no write leaves it."""
+    finished slot keeps writing that same cell, so no write leaves it.
+
+    On a CUDA device the chunk is a CUDA graph (``graph``), captured once
+    here and replayed by each launch; counters ``pool.graph_captures`` and
+    ``pool.graph_replays``.  On the CPU ``graph`` is None and the chunk
+    runs eagerly."""
 
     def __init__(self, model, *, num_slots: int = 8, prefill_len: int,
                  max_new_tokens: int = 200, eos_token_id: int, sync_every: int = 8,
@@ -352,16 +361,49 @@ class ContinuousGreedyDecoder(_SlotPoolBase):
                     sync_every=sync_every, kv_bits=kv_bits, merge=merge, device=device)
         self.capacity = prefill_len + max_new_tokens
         with torch.inference_mode():
-            self.pool = _init_pool(self.llm.cfg, num_slots, self.capacity, eos_token_id,
-                                   self.dtype, kv_bits, self.dev)
+            self.pool = _init_pool(self.llm.cfg, num_slots, self.capacity, sync_every,
+                                   eos_token_id, self.dtype, kv_bits, self.dev)
+        self.graph = self._capture() if self.dev.type == "cuda" else None
+
+    def _steps(self) -> None:
+        _pool_steps(self.llm, self.pool, eos_token_id=self.eos, max_new_tokens=self.max_new)
+
+    def _capture(self):
+        """One chunk recorded as a CUDA graph, the pool idle: every slot is
+        inactive, so the warm-up chunk and the recorded one change no mask,
+        offset, position, count or token, and write only each slot's cache
+        cell 0, which a refill's :func:`install_rows` overwrites.  The
+        warm-up runs the chunk's lazy set-up (library handles, workspaces)
+        on the capture's own stream before the recording."""
+        stream = torch.cuda.Stream(self.dev)
+        stream.wait_stream(torch.cuda.current_stream(self.dev))
+        graph = torch.cuda.CUDAGraph()
+        with torch.inference_mode():
+            with torch.cuda.stream(stream):
+                self._steps()
+            with torch.cuda.graph(graph, stream=stream, capture_error_mode="thread_local"):
+                self._steps()
+        torch.cuda.current_stream(self.dev).wait_stream(stream)
+        count("pool.graph_captures")
+        return graph
 
     def _insert_chunk(self, slots, embeds, mask, pos, *, k, extra, offset):
         _insert_slots(self.llm, self.pool, slots, embeds, mask, pos,
                       eos_token_id=self.eos, kv_bits=self.kv_bits)
 
     def _launch_chunk(self) -> HostCopy:
-        return _pool_steps(self.llm, self.pool, eos_token_id=self.eos, steps=self.sync_every,
-                           max_new_tokens=self.max_new)
+        """A chunk (the graph's replay, or :func:`_pool_steps` eagerly),
+        then the host copy of (tokens [steps, slots], tok0, fresh) taken
+        before the tok0 channel is cleared."""
+        p = self.pool
+        if self.graph is not None:
+            self.graph.replay()
+            count("pool.graph_replays")
+        else:
+            self._steps()
+        copy = HostCopy(p.toks, p.tok0_buf, p.tok0_fresh)
+        p.tok0_fresh.zero_()
+        return copy
 
     def _harvest_chunk(self, copy: HostCopy, snapshot, cap) -> list:
         toks, tok0, fresh = copy.get()
@@ -386,8 +428,10 @@ class ContinuousGreedyDecoder(_SlotPoolBase):
         return finished
 
 
-def _init_pool(cfg, num_slots: int, capacity: int, eos: int, dtype, kv_bits: int, dev):
-    """The greedy pool: its cache and per-slot state on the device."""
+def _init_pool(cfg, num_slots: int, capacity: int, steps: int, eos: int, dtype, kv_bits: int,
+               dev):
+    """The greedy pool: its cache, per-slot state and a chunk's tokens
+    [steps, slots] on the device, each written in place from then on."""
     def ints(fill=0):
         return torch.full((num_slots,), fill, dtype=torch.long, device=dev)
     return SimpleNamespace(
@@ -396,6 +440,7 @@ def _init_pool(cfg, num_slots: int, capacity: int, eos: int, dtype, kv_bits: int
         positions=ints(), write_idx=ints(), last_tok=ints(eos),
         active=torch.zeros(num_slots, dtype=torch.bool, device=dev), gen=ints(),
         tok0_buf=ints(eos), tok0_fresh=torch.zeros(num_slots, dtype=torch.bool, device=dev),
+        toks=torch.full((steps, num_slots), eos, dtype=torch.long, device=dev),
     )
 
 
@@ -417,14 +462,14 @@ def _insert_slots(llm, pool, slots, embeds, attn_mask, position_ids, *, eos_toke
     pool.tok0_fresh[slots] = True
 
 
-def _pool_steps(llm, pool, *, eos_token_id: int, steps: int, max_new_tokens: int) -> HostCopy:
-    """``steps`` one-token steps over the whole pool; inactive slots emit
-    EOS and stay frozen.  Returns the host copy of (tokens [steps, slots],
-    tok0, fresh) taken before the tok0 channel is cleared."""
+def _pool_steps(llm, pool, *, eos_token_id: int, max_new_tokens: int) -> None:
+    """A chunk: one-token steps over the whole pool, one a row of
+    ``pool.toks``; inactive slots emit EOS and stay frozen.  Writes only
+    into the pool's tensors, in place, and never waits on the device: the
+    function a CUDA graph records."""
     n = pool.full_mask.shape[0]
     rows = torch.arange(n, device=pool.full_mask.device)
-    toks = torch.empty(steps, n, dtype=torch.long, device=pool.full_mask.device)
-    for st in range(steps):
+    for st in range(pool.toks.shape[0]):
         # expose the cell about to be written, for active slots
         pool.full_mask[rows, pool.write_idx] |= pool.active
         hidden, _ = llm(llm.embed(pool.last_tok[:, None]), attention_mask=pool.full_mask,
@@ -437,11 +482,8 @@ def _pool_steps(llm, pool, *, eos_token_id: int, steps: int, max_new_tokens: int
         pool.positions += step
         pool.gen += step
         pool.active &= (nxt != eos_token_id) & (pool.gen < max_new_tokens)
-        pool.last_tok = nxt
-        toks[st] = nxt
-    copy = HostCopy(toks, pool.tok0_buf, pool.tok0_fresh)
-    pool.tok0_fresh.zero_()
-    return copy
+        pool.last_tok.copy_(nxt)
+        pool.toks[st] = nxt
 
 
 def decode_continuous(model, batches: Iterator[Tuple[str, Dict]], *, prefill_len: int,

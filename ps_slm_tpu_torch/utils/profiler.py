@@ -46,6 +46,8 @@ COUNTERS = frozenset({
     "pool.slot_steps",    # num_slots x sync_every for each chunk launched
     "pool.tokens",        # tokens kept for a finished request (to its EOS or cap)
     "pool.slot_s",        # host seconds from a request's install to its finish
+    "pool.graph_captures",  # chunks recorded as a CUDA graph (one a greedy pool on CUDA)
+    "pool.graph_replays",   # chunks launched as a replay of that graph
 })
 
 _OFF = contextlib.nullcontext()

@@ -247,3 +247,79 @@ def test_pools_refuse_a_prefill_longer_than_the_bucket(kind):
     if kind == "beam":
         with pytest.raises(ValueError, match="stop_after"):
             list(dec.run([], stop_after={key: 1}))
+
+
+def _pool_ptrs(pool) -> dict:
+    """Each pool tensor's storage, the cache's leaves by layer."""
+    out = {}
+    for name, v in vars(pool).items():
+        if name == "cache":
+            out.update({f"cache.{i}.{j}": t.data_ptr()
+                        for i, layer in enumerate(v) for j, t in enumerate(layer)})
+        else:
+            out[name] = v.data_ptr()
+    return out
+
+
+def test_greedy_pool_writes_its_tensors_in_place():
+    """The precondition of the chunk's CUDA graph: across a run with refills
+    between chunks every pool tensor keeps its storage.  On the CPU no
+    graph is built: the chunks run eagerly and count no capture or
+    replay, while ``pool.chunks`` counts them."""
+    from ps_slm_tpu_torch.utils import profiler
+
+    _, _, llm, reqs = _setup()
+    eos = _eos(llm, reqs)
+    dec = continuous.ContinuousGreedyDecoder(
+        SimpleNamespace(llm=llm), merge=lambda batch: _port_merged(reqs[batch["key"]]),
+        num_slots=2, prefill_len=PREFILL, max_new_tokens=MAX_NEW, eos_token_id=eos,
+        sync_every=3, device="cpu")
+    assert dec.graph is None
+    want = _pool_ptrs(dec.pool)
+    events = []
+    launch, insert = dec._launch_chunk, dec._insert_chunk
+
+    def launch_chunk():
+        copy = launch()
+        events.append(("chunk", _pool_ptrs(dec.pool)))
+        return copy
+
+    def insert_chunk(*a, **k):
+        insert(*a, **k)
+        events.append(("refill", _pool_ptrs(dec.pool)))
+
+    dec._launch_chunk, dec._insert_chunk = launch_chunk, insert_chunk
+    before = profiler.counts()
+    got = dict(dec.run((k, {"key": k}) for k in reqs))
+    change = {k: v - before.get(k, 0) for k, v in profiler.counts().items()}
+    assert set(got) == set(reqs)
+    kinds = [kind for kind, _ in events]
+    assert "refill" in kinds[kinds.index("chunk"):], "a refill between chunks"
+    for kind, ptrs in events:
+        assert ptrs == want, kind
+    assert change["pool.chunks"] == kinds.count("chunk") > 0
+    assert change.get("pool.graph_replays", 0) == change.get("pool.graph_captures", 0) == 0
+
+
+@pytest.mark.parametrize("kv_bits", [16, 8])
+def test_a_chunk_on_the_idle_pool_changes_only_cache_cell_0(kv_bits):
+    """What the capture runs on a CUDA device before the first request: a
+    chunk over an idle pool leaves every mask, offset, position, count and
+    token as ``_init_pool`` made them, and of the cache writes only each
+    slot's cell 0 (a refill's ``install_rows`` overwrites the whole row)."""
+    _, _, llm, reqs = _setup()
+    dec = continuous.ContinuousGreedyDecoder(
+        SimpleNamespace(llm=llm), merge=lambda batch: _port_merged(reqs[batch["key"]]),
+        num_slots=3, prefill_len=PREFILL, max_new_tokens=MAX_NEW, eos_token_id=5,
+        sync_every=4, kv_bits=kv_bits, device="cpu")
+    with torch.inference_mode():
+        dec._steps()
+    fresh = continuous._init_pool(llm.cfg, 3, PREFILL + MAX_NEW, 4, 5, dec.dtype, kv_bits,
+                                  dec.dev)
+    for name, v in vars(fresh).items():
+        if name != "cache":
+            assert torch.equal(getattr(dec.pool, name), v), name
+    for layer, layer0 in zip(dec.pool.cache, fresh.cache):
+        for leaf, leaf0 in zip(layer, layer0):
+            assert torch.equal(leaf[:, 1:], leaf0[:, 1:])
+            assert leaf[:, 0].abs().sum() > 0

@@ -946,6 +946,94 @@ def test_quantization_on_card_equals_cpu(dev, what):
         assert torch.equal(a.cpu(), b)
 
 
+POOL_PREFILL, POOL_MAX_NEW = 24, 20
+
+
+def _pool_llm(dev):
+    """A small int8-weight bf16 Qwen2 (head dim 128), as the serving cell's
+    LLM is quantized."""
+    from ps_slm_tpu_torch.models.qwen2 import Qwen2Config, Qwen2Model
+    from ps_slm_tpu_torch.models.quantization import quantize_llm
+
+    cfg = Qwen2Config.tiny(vocab_size=1000, hidden_size=256, num_attention_heads=4,
+                           num_key_value_heads=2, head_dim=128, num_hidden_layers=2)
+    llm = Qwen2Model(cfg)
+    llm.init_weights(torch.Generator().manual_seed(0))
+    return quantize_llm(llm.to(dev, torch.bfloat16), 8).eval()
+
+
+def _pool_requests(dev, n=11):
+    """Ragged merged prefills, left-padded to the bucket by the pool."""
+    from types import SimpleNamespace
+
+    g = torch.Generator().manual_seed(1)
+    reqs = {}
+    for i in range(n):
+        s = int(torch.randint(5, POOL_PREFILL + 1, (1,), generator=g))
+        reqs[f"r{i}"] = SimpleNamespace(
+            embeds=torch.randn(1, s, 256, generator=g).to(dev, torch.bfloat16),
+            attention_mask=torch.ones(1, s, dtype=torch.bool, device=dev),
+            position_ids=torch.arange(s, device=dev)[None])
+    return reqs
+
+
+def _greedy_pool(llm, reqs, eos, kv_bits, dev):
+    from types import SimpleNamespace
+
+    from ps_slm_tpu_torch.inference.continuous import ContinuousGreedyDecoder
+
+    return ContinuousGreedyDecoder(
+        SimpleNamespace(llm=llm), merge=lambda batch: reqs[batch["key"]], num_slots=4,
+        prefill_len=POOL_PREFILL, max_new_tokens=POOL_MAX_NEW, eos_token_id=eos, sync_every=3,
+        kv_bits=kv_bits, device=dev)
+
+
+@pytest.mark.parametrize("kv_bits", [16, 8])
+def test_captured_greedy_pool_equals_eager_on_card(dev, kv_bits):
+    """The greedy pool's chunk as a CUDA graph: right after construction
+    the pool's masks, offsets, positions, counts and tokens are
+    ``_init_pool``'s (the cache differs in cell 0 alone); over a backlog
+    with ragged caps, an EOS some requests emit and refills between chunks,
+    the captured pool gives the same tokens, bit for bit, as the same pool
+    stepped eagerly through ``_pool_steps``; the pool captures once and
+    every chunk is a replay."""
+    from ps_slm_tpu_torch.inference.continuous import _init_pool
+    from ps_slm_tpu_torch.utils import profiler
+
+    llm, reqs = _pool_llm(dev), _pool_requests(dev)
+    g = torch.Generator().manual_seed(2)
+    caps = {k: int(torch.randint(1, POOL_MAX_NEW + 1, (1,), generator=g)) for k in reqs}
+    caps["r0"] = POOL_MAX_NEW
+
+    def run(dec, stop_after=None):
+        return dict(dec.run(((k, {"key": k}) for k in reqs), stop_after=stop_after))
+
+    probe = _greedy_pool(llm, reqs, 999, kv_bits, dev)
+    fresh = _init_pool(llm.cfg, 4, POOL_PREFILL + POOL_MAX_NEW, 3, 999, torch.bfloat16,
+                       kv_bits, dev)
+    assert probe.graph is not None
+    for name, v in vars(fresh).items():
+        if name != "cache":
+            assert torch.equal(getattr(probe.pool, name), v), name
+    for layer, layer0 in zip(probe.pool.cache, fresh.cache):
+        for leaf, leaf0 in zip(layer, layer0):
+            assert torch.equal(leaf[:, 1:], leaf0[:, 1:])
+    eos = int(run(probe)["r0"][4])                  # r0 ends at it, before its cap
+    eager = _greedy_pool(llm, reqs, eos, kv_bits, dev)
+    eager.graph = None
+    want = run(eager, caps)
+    before = profiler.counts()
+    captured = _greedy_pool(llm, reqs, eos, kv_bits, dev)
+    got = run(captured, caps)
+    change = {k: v - before.get(k, 0) for k, v in profiler.counts().items()}
+    assert set(got) == set(want) == set(reqs)
+    for key in want:
+        assert got[key].tolist() == want[key].tolist(), key
+    assert len(want["r0"]) <= 4 and len({len(v) for v in want.values()}) > 2
+    assert change["pool.graph_captures"] == 1
+    assert change["pool.graph_replays"] == change["pool.chunks"] > 0
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n,d,eps", [(832, 560, 1e-5), (832, 512, 1e-5), (256, 768, 1e-12),
                                      (256, 1536, 1e-5)])
