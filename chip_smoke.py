@@ -9,6 +9,7 @@
     python3 chip_smoke.py --slice13    # phase 13 alone (and its phase 3 rows),
                                        # with each launch's wall, its ranks'
                                        # start and import seconds
+    python3 chip_smoke.py --slice14    # phases 1-2, then phase 14 alone
 
 Phases, each of which fails the run:
 
@@ -198,6 +199,27 @@ Phases, each of which fails the run:
    included, the tiny model alone in 8 processes), 13b phase 7b's recipe
    at full size on data, fsdp and tensor, 13c whisper mel and goldens
    verify;
+14. latent attention and the routed experts of the ``deepseek_v3``
+   configuration (Moonlight-16B-A3B's published widths, bf16): 14a the
+   flash forward's latent-attention instantiation
+   (``flash_fwd_mla_bf16_kernel``, q/k 192, v 128, 16 heads, causal) at
+   the pool's prefills (1 and 8 rows of 2 000 positions, left-padded to
+   300 valid) against ``flash_attention_ref``, and the grouped expert
+   kernels (``moe_grouped_gemm_gate_up``, ``moe_grouped_gemm_down``, 64
+   experts of 1 408, 6 a token) at a decode step's 64 rows and a prefill's
+   8 x 2 000 rows (1 700 of each alike, as left padding routes) against
+   ``experts_ref``; each with its time, the plain version's, a library
+   call's (SDPA with a boolean mask; one batched cuBLAS product over the
+   experts' rows padded to the largest count) and the least time the card
+   could take; ptxas's registers and spills and the HMMA count of the
+   grouped kernels, a spill or no HMMA failing the run; 14b the greedy
+   slot pool (64 slots, the 2 000-position bucket, 8 steps a chunk) on the
+   decoder at those widths and 3 layers deep (one dense, two MoE) over 16
+   ragged requests: each answered once within its cap, one replay a
+   chunk, and the three kernels' launches counted over that one run (the
+   counts read just before it), a refill's and a chunk's (the capture's,
+   which each replay repeats) checked exactly; its rows join the
+   ``kernels`` line;
 9. one JSON line listing every kernel, then the contract line
    ``{"ok": true, "device": {...}}`` last.
 
@@ -5605,6 +5627,239 @@ def _refs_init(threads: int) -> None:
     os.nice(10)     # the card's work, 13a's ranks included, comes first
 
 
+MOON_PREFILL = 2000     # the pool's merged-prefill bucket (prefill_len)
+MOON_VALID = 300        # a merged prompt's positions in it, left-padded
+MOON_ALIKE = 1700       # a prefill row's padded positions, which route alike
+
+
+def moon_llm(torch, dev, layers: int = 3):
+    """Moonlight-16B-A3B's decoder (``DeepseekV3Config``'s defaults) at
+    its published widths, ``layers`` deep (one dense, the rest MoE),
+    random bf16 weights drawn on the card."""
+    from ps_slm_tpu_torch.models import deepseek_v3 as ds
+
+    with torch.device(dev):
+        llm = ds.DeepseekV3Model(ds.DeepseekV3Config(num_hidden_layers=layers))
+    llm.init_weights(torch.Generator(device=dev).manual_seed(14))
+    return llm.to(torch.bfloat16).eval()
+
+
+def moon_grouped_ptxas(logs: dict) -> None:
+    """The grouped kernels' registers, spills and HMMA count; a spill or no
+    HMMA fails the run."""
+    from ps_slm_tpu_torch import _build
+
+    report = ptxas_report(logs)
+    hmma = sass_hmma([_build._lib_path("moe")])
+    for name in sorted(n for n in (hmma or report) if "moe_grouped_gemm" in n):
+        regs, spill = report.get(name, (None, None))
+        n_hmma = None if hmma is None else hmma.get(name)
+        ptxas = ("ptxas: not measured (library built before this run)" if regs is None
+                 else f"ptxas: {regs} registers, {spill} bytes spilled")
+        print(f"path moe: {name}; {ptxas}; HMMA in SASS "
+              f"{'not measured' if n_hmma is None else n_hmma}", flush=True)
+        if spill or n_hmma == 0:
+            fail(f"{name}: the grouped tensor-core kernel spills or has no HMMA")
+
+
+def phase_moon_kernels(torch, dev) -> dict:
+    """14a: the latent-attention flash instantiation and the grouped expert
+    kernels against their plain versions at Moonlight's widths and the
+    pool's shapes; {kernel: [rows]} as phase 3's."""
+    import torch.nn.functional as F
+
+    from ps_slm_tpu_torch.ops import flash_attention as fa
+    from ps_slm_tpu_torch.ops import moe
+
+    bf = torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(140)
+    rows: dict = {"mla": [], "gate_up": [], "down": []}
+    heads, dqk, dv, s = 16, 192, 128, MOON_PREFILL
+    scale = dqk ** -0.5
+    for b in (1, 8):
+        q = torch.randn(b, s, heads, dqk, generator=g, device=dev).to(bf)
+        k = torch.randn(b, s, heads, dqk, generator=g, device=dev).to(bf)
+        v = torch.randn(b, s, heads, dv, generator=g, device=dev).to(bf)
+        start = torch.full((b,), s - MOON_VALID, dtype=torch.int32, device=dev)
+        end = torch.full((b,), s, dtype=torch.int32, device=dev)
+        got, _ = fa.flash_attention_fwd(q, k, v, start, end, causal=True, scale=scale)
+        want, _ = fa.flash_attention_ref(q.float(), k.float(), v.float(), start, end,
+                                         causal=True, scale=scale)
+        shape = f"prefill {b}x{s} left-padded, {MOON_VALID} valid, {heads}/{heads}, causal"
+        err = compare(torch, got, want, "bf16", f"flash_attention_fwd (latent) {shape}")
+        del want
+        keep = torch.arange(s, device=dev)[None, :] >= start[:, None]
+        mask = (torch.ones(s, s, dtype=torch.bool, device=dev).tril()[None]
+                & keep[:, None, :])[:, None]
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        pairs = b * heads * MOON_VALID * (MOON_VALID + 1) / 2
+        t_bound, by = bound(b * MOON_VALID * heads * (2 * dqk + 2 * dv) * 2,
+                            pairs * 2 * (dqk + dv), "bf16")
+        rows["mla"].append({
+            "shape": shape, "err": err, "bound_ms": t_bound, "bound_by": by,
+            "ms": time_ms(torch, lambda: fa.flash_attention_fwd(
+                q, k, v, start, end, causal=True, scale=scale)),
+            "plain_ms": eager_ms(torch, lambda: fa.flash_attention_ref(
+                q, k, v, start, end, causal=True, scale=scale), iters=3),
+            "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, scale=scale), iters=3)})
+        del q, k, v, qt, kt, vt, mask
+    h, inter, n_exp, top_k = 2048, 1408, 64, 6
+    gate_up = (torch.randn(n_exp, 2 * inter, h, generator=g, device=dev) * h ** -0.5).to(bf)
+    down = (torch.randn(n_exp, h, inter, generator=g, device=dev) * inter ** -0.5).to(bf)
+    gate = torch.randn(n_exp, h, generator=g, device=dev) * h ** -0.5
+    bias = torch.randn(n_exp, generator=g, device=dev) * 0.01
+    for label, tokens in (("decode step 64 rows", 64),
+                          (f"prefill 8x{s} rows, {MOON_ALIKE} of each alike", 8 * s)):
+        x = torch.randn(tokens, h, generator=g, device=dev).to(bf)
+        if tokens > 64:
+            x.view(8, s, h)[:, :MOON_ALIKE] = x[0]
+        idx, w = moe.route(x, gate, bias, top_k, 2.446)
+        counts = torch.bincount(idx.reshape(-1), minlength=n_exp)
+        got = moe.experts(x, idx, w, gate_up, down, counts)
+        want = moe.experts_ref(x.float(), idx, w, gate_up.float(), down.float())
+        # the intermediate is rounded to bf16 once before the second product
+        err = compare(torch, got, want, "bf16", f"moe.experts {label}", scale=2.0)
+        del want
+        large = moe._large(tokens, n_exp, top_k)
+        sorted_ids, tile_expert = moe.align(idx, counts, moe.TILE_ROWS[large])
+        hid = moe.grouped_gate_up(x, gate_up, sorted_ids, tile_expert, top_k, large)
+        wts = w.reshape(-1).float().contiguous()
+        pairs, read = tokens * top_k, int((counts > 0).sum())
+        most = int(counts.max())
+        xe = torch.randn(n_exp, most, h, generator=g, device=dev).to(bf)
+        he = torch.randn(n_exp, most, inter, generator=g, device=dev).to(bf)
+        plain_ms = eager_ms(torch, lambda: moe.experts_ref(x, idx, w, gate_up, down), iters=3)
+        for name, run, library, nbytes, flops in (
+                ("gate_up", lambda: moe.grouped_gate_up(x, gate_up, sorted_ids, tile_expert,
+                                                        top_k, large),
+                 lambda: torch.bmm(xe, gate_up.transpose(1, 2)),
+                 read * 2 * inter * h * 2 + tokens * h * 2 + pairs * inter * 2,
+                 2 * pairs * 2 * inter * h),
+                ("down", lambda: moe.grouped_down(hid, down, wts, sorted_ids, tile_expert, large),
+                 lambda: torch.bmm(he, down.transpose(1, 2)),
+                 read * h * inter * 2 + pairs * inter * 2 + pairs * h * 4,
+                 2 * pairs * h * inter)):
+            t_bound, by = bound(nbytes, flops, "bf16")
+            rows[name].append({"shape": label, "err": err, "ms": time_ms(torch, run),
+                               "plain_ms": plain_ms, "library_ms": time_ms(torch, library, iters=5),
+                               "bound_ms": t_bound, "bound_by": by})
+        del x, xe, he, hid
+    for name, rs in rows.items():
+        for r in rs:
+            print(f"kernel 14a {name} {r['shape']} bf16: max abs err {r['err']:.3g}; "
+                  f"{r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, library "
+                  f"{r['library_ms']:.4f}, least {r['bound_ms']:.4f} by {r['bound_by']})",
+                  flush=True)
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_moon_pool(torch, dev) -> dict:
+    """14b: the greedy slot pool on the decoder at Moonlight's widths, 3
+    layers deep: each request answered once within its cap, one replay a
+    chunk; the three kernels' launches over the run, a refill's and a
+    chunk's."""
+    from types import SimpleNamespace
+
+    from ps_slm_tpu_torch.inference.continuous import ContinuousGreedyDecoder
+    from ps_slm_tpu_torch.ops import flash_attention as fa
+    from ps_slm_tpu_torch.ops import moe
+    from ps_slm_tpu_torch.utils import profiler
+
+    llm = moon_llm(torch, dev)
+    cfg = llm.cfg
+    moe_layers = cfg.num_hidden_layers - cfg.first_k_dense_replace
+    steps, slots, max_new = 8, 64, 32
+    g = torch.Generator(device=dev).manual_seed(141)
+    reqs = {}
+    for i in range(16):
+        n = 200 + 13 * i
+        reqs[f"m{i}"] = SimpleNamespace(
+            embeds=(torch.randn(1, n, cfg.hidden_size, generator=g, device=dev)
+                    * cfg.hidden_size ** -0.5).to(torch.bfloat16),
+            attention_mask=torch.ones(1, n, dtype=torch.bool, device=dev),
+            position_ids=torch.arange(n, device=dev)[None])
+    caps = {key: 4 + 2 * i for i, key in enumerate(reqs)}
+
+    def kernel_counts():
+        return fa.flash_attention_fwd.mla_launches, moe.experts.launches // 2
+
+    mla0, moe0 = kernel_counts()
+    dec = ContinuousGreedyDecoder(
+        SimpleNamespace(llm=llm), merge=lambda batch: reqs[batch["key"]], num_slots=slots,
+        prefill_len=MOON_PREFILL, max_new_tokens=max_new, eos_token_id=cfg.vocab_size - 1,
+        sync_every=steps, kv_bits=16, device=dev)
+    mla1, moe1 = kernel_counts()
+    # the warm-up chunk and the captured one: two chunks' calls
+    per_chunk = {"mla": (mla1 - mla0) // 2, "moe": (moe1 - moe0) // 2}
+    if per_chunk != {"mla": 0, "moe": steps * moe_layers} or (moe1 - moe0) % 2:
+        fail(f"14b: a chunk's launches {per_chunk}, want no latent-attention flash and "
+             f"{steps * moe_layers} of each grouped kernel")
+    before = profiler.counts()
+    mla1, moe1 = kernel_counts()
+    out = {}
+    for key, toks in dec.run(((k, {"key": k}) for k in reqs), stop_after=caps):
+        if key in out or len(toks) > caps[key]:
+            fail(f"14b: {key} answered twice or past its cap")
+        out[key] = toks
+    torch.cuda.synchronize()
+    mla2, moe2 = kernel_counts()
+    change = {k: v - before.get(k, 0) for k, v in profiler.counts().items()}
+    if set(out) != set(reqs):
+        fail(f"14b: {len(reqs) - len(out)} requests unanswered")
+    replays, chunks = change.get("pool.graph_replays", 0), change.get("pool.chunks", 0)
+    if replays != chunks or chunks == 0:
+        fail(f"14b: {replays} replays for {chunks} chunks")
+    prefills = (mla2 - mla1) // cfg.num_hidden_layers
+    if (mla2 - mla1) % cfg.num_hidden_layers or moe2 - moe1 != prefills * moe_layers:
+        fail(f"14b: {mla2 - mla1} latent-attention flash and {moe2 - moe1} grouped launches "
+             f"of each kind for the refills, want {cfg.num_hidden_layers} and {moe_layers} "
+             "a prefill")
+    launches = {"mla": mla2 - mla1, "moe": moe2 - moe1 + replays * per_chunk["moe"]}
+    print(f"14b pool: {len(out)} requests, {change.get('pool.requests', 0)} refilled in "
+          f"{prefills} prefills, {chunks} chunks replayed; launches: latent-attention flash "
+          f"{launches['mla']} ({cfg.num_hidden_layers} a prefill, 0 a chunk), each grouped "
+          f"kernel {launches['moe']} ({moe_layers} a prefill, {per_chunk['moe']} a chunk)",
+          flush=True)
+    del dec, llm
+    torch.cuda.empty_cache()
+    return {"launches": launches, "chunk": per_chunk, "refill": {
+        "mla": cfg.num_hidden_layers, "moe": moe_layers}}
+
+
+def phase_moon(torch, dev, logs: dict) -> list:
+    """Phase 14; its rows of the ``kernels`` line."""
+    moon_grouped_ptxas(logs)
+    cases = timed("14a latent attention and grouped experts", phase_moon_kernels, torch, dev)
+    pool = timed("14b MoE slot pool", phase_moon_pool, torch, dev)
+    table = (
+        ("flash_attention_fwd (latent attention)", "mla", "mla", "flash_fwd_mla_bf16_kernel",
+         "ps_slm_tpu_torch/csrc/flash_fwd.cu"),
+        ("moe_grouped_gemm_gate_up", "gate_up", "moe", "moe_grouped_gemm_gate_up<Cfg>",
+         "ps_slm_tpu_torch/csrc/moe.cu"),
+        ("moe_grouped_gemm_down", "down", "moe", "moe_grouped_gemm_down<Cfg>",
+         "ps_slm_tpu_torch/csrc/moe.cu"),
+    )
+    kernels = []
+    for name, key, count, kernel, source in table:
+        row = cases[key][-1]
+        kernels.append({
+            "name": name, "kernel": kernel, "route": "cuda", "source": source,
+            "replaces": "none (the JAX package runs no latent attention or experts)",
+            "launches": pool["launches"][count],
+            "launches_per_pool_chunk": {"greedy_captured": pool["chunk"][count]},
+            "launches_per_pool_refill": pool["refill"][count],
+            "max_abs_err": max(r["err"] for r in cases[key]),
+            "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "shape": f"{row['shape']} bf16",
+            "other_shapes": [{k: r[k] for k in ("shape", "ms", "bound_ms", "library_ms")}
+                             for r in cases[key][:-1]],
+        })
+    return kernels
+
+
 def run_slice13(torch, dev, ranks: dict) -> None:
     """``--slice13``: phase 13 alone (4e, whose run 13a takes as the
     one-process run, 13a, 13c, and 13b on phase 7's assets with their
@@ -5751,8 +6006,9 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
     variants, slice12 = ("--variants" in sys.argv[1:]), ("--slice12" in sys.argv[1:])
+    slice14 = "--slice14" in sys.argv[1:]
     ranks = {}
-    if not (variants or slice12):
+    if not (variants or slice12 or slice14):
         # 13a's and 13b's processes start now and import torch and the port
         # beside the build (13a's ready the card too: 13b's would hold its
         # memory through 13a); they wait for their runs.  13a's 8 share the
@@ -5760,7 +6016,7 @@ def main() -> None:
         ranks = {"13a": Ranks(PARALLEL_PROCESSES, "13a", card=True, threads=2), "13b": Ranks(
             1 + max(p for *_, procs in PARALLEL_MESHES_BF16 for p in procs), "13b", card=False)}
     refs: dict = {}
-    if not (variants or slice12 or "--slice13" in sys.argv[1:]):
+    if not (variants or slice12 or slice14 or "--slice13" in sys.argv[1:]):
         # the fp32 phases' CPU references: 4-4e's now (awaited beside 13a's
         # ranks), the rest once 13a (whose ranks take most cores) is done
         refs = {key: ref(fn, *args) for key, fn, args in (
@@ -5787,6 +6043,12 @@ def main() -> None:
         phase_ln_variants(torch, dev)
         phase_ln_bwd_variants(torch, dev)
         print(f"variants done, {time.time() - t_start:.1f} s", flush=True)
+        return
+    if slice14:
+        kernels = phase_moon(torch, dev, logs)
+        print(f"phase seconds: {json.dumps(PHASE_SECONDS)}", flush=True)
+        print(f"slice 14 done, {time.time() - t_start:.1f} s", flush=True)
+        print(json.dumps({"kernels": kernels}), flush=True)
         return
     if slice12:
         run_slice12(torch, dev)
@@ -5990,6 +6252,7 @@ def main() -> None:
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "shape": f"{shapes[0]} bf16",
         })
+    kernels += phase_moon(torch, dev, logs)
     timed("references' worker stopped", REFS.shutdown)
     print(f"phase seconds: {json.dumps(PHASE_SECONDS)}", flush=True)
     print(f"total {time.time() - t_start:.1f} s", flush=True)

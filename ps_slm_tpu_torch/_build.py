@@ -34,7 +34,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-SOURCES = ("flash_fwd", "flash_bwd", "norms", "ln_bwd")
+SOURCES = ("flash_fwd", "flash_bwd", "norms", "ln_bwd", "moe")
 # dtype codes understood by every C entry point (csrc/common.cuh)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 

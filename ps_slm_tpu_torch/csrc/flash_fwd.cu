@@ -49,6 +49,15 @@
 //    ragged S and T are zero-filled by the copies and masked, with no
 //    padding of the inputs.
 //
+// flash_fwd_mla_bf16_kernel is the same body (fwd_bf16) at q/k head dim 192
+// and v head dim 128: DeepSeek-V3's latent attention in its expanded form
+// (128 nope + 64 rope dims of q and k, 128 of v), for prefills.  Its q
+// fragments take 48 registers (32 at 128), its tiles 104 KB of shared
+// memory, so two blocks still fit on an SM.  bf16 only; its entry point is
+// ps_flash_fwd_mla.  At a pool prefill (2 000 left-padded positions, a few
+// hundred valid, 16 heads) the valid causal pairs set its work: 4 * 160
+// flops a pair on average over q.k (192) and p.v (128).
+//
 // fp32: flash_fwd_f32_kernel, on fp32 FMAs from shared memory.  The bf16
 // tensor cores cannot take fp32 operands, and TF32 (10-bit mantissa) would
 // break the fp32 tolerances (2e-5 against the plain version, 1e-3 for the
@@ -79,6 +88,12 @@ constexpr int SMEM_FLOATS = BQ * QK_STRIDE + BK * QK_STRIDE + BK * D + BQ * P_ST
 constexpr int SMEM_BYTES = SMEM_FLOATS * static_cast<int>(sizeof(float));
 
 constexpr int TC_SMEM_BYTES = 5 * ps::kTile * static_cast<int>(sizeof(bf16));
+// the MLA instantiation: q and two K tiles 192 wide, two V tiles 128 wide
+// (104 KB, so two blocks still fit on an SM)
+constexpr int MLA_DQK = 192;
+constexpr int MLA_DV = 128;
+constexpr int MLA_SMEM_BYTES =
+    (BQ * MLA_DQK + 2 * BK * MLA_DQK + 2 * BK * MLA_DV) * static_cast<int>(sizeof(bf16));
 
 __global__ void __launch_bounds__(THREADS)
     flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
@@ -217,16 +232,20 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-__global__ void __launch_bounds__(ps::kTcThreads, 2)
-    flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                          const bf16* __restrict__ v, bf16* __restrict__ o,
-                          float* __restrict__ lse, const int* __restrict__ kv_start,
-                          const int* __restrict__ kv_end, int S, int Tk, int Hq,
-                          int Hkv, float scale, int causal) {
-  extern __shared__ __align__(128) unsigned char tc_smem[];
-  bf16* q_s = reinterpret_cast<bf16*>(tc_smem);   // [kTile], swizzled
-  bf16* k_s = q_s + ps::kTile;                     // [2][kTile]
-  bf16* v_s = k_s + 2 * ps::kTile;                 // [2][kTile]
+// The bf16 kernels' body over q/k rows of DQK and v rows of DV head dims
+// (128 and 128, or latent attention's expanded 192 and 128); `smem` holds
+// the q tile and two K and two V tiles, each 64 rows, swizzled.
+template <int DQK, int DV>
+__device__ __forceinline__ void fwd_bf16(unsigned char* smem, const bf16* __restrict__ q,
+                                         const bf16* __restrict__ k, const bf16* __restrict__ v,
+                                         bf16* __restrict__ o, float* __restrict__ lse,
+                                         const int* __restrict__ kv_start,
+                                         const int* __restrict__ kv_end, int S, int Tk, int Hq,
+                                         int Hkv, float scale, int causal) {
+  constexpr int QT = BQ * DQK, KT = BK * DQK, VT = BK * DV;
+  bf16* q_s = reinterpret_cast<bf16*>(smem);   // [QT], swizzled
+  bf16* k_s = q_s + QT;                         // [2][KT]
+  bf16* v_s = k_s + 2 * KT;                     // [2][VT]
 
   const int q0 = blockIdx.x * BQ;
   const int h = blockIdx.y;
@@ -238,32 +257,34 @@ __global__ void __launch_bounds__(ps::kTcThreads, 2)
   const int start = kv_start[b];
   const int end = kv_end[b];
 
-  const long long q_row = static_cast<long long>(Hq) * D;
-  const long long kv_row = static_cast<long long>(Hkv) * D;
-  const bf16* qb = q + (static_cast<long long>(b) * S * Hq + h) * D;
-  const bf16* kb = k + (static_cast<long long>(b) * Tk * Hkv + hk) * D;
-  const bf16* vb = v + (static_cast<long long>(b) * Tk * Hkv + hk) * D;
+  const long long q_row = static_cast<long long>(Hq) * DQK;
+  const long long k_row = static_cast<long long>(Hkv) * DQK;
+  const long long v_row = static_cast<long long>(Hkv) * DV;
+  const long long o_row = static_cast<long long>(Hq) * DV;
+  const bf16* qb = q + (static_cast<long long>(b) * S * Hq + h) * DQK;
+  const bf16* kb = k + (static_cast<long long>(b) * Tk * Hkv + hk) * DQK;
+  const bf16* vb = v + (static_cast<long long>(b) * Tk * Hkv + hk) * DV;
 
   const int hi = causal ? min(end, q0 + BQ) : end;
   const int k_begin = (start / BK) * BK;
   const int n_tiles = hi > k_begin ? (hi - k_begin + BK - 1) / BK : 0;
   if (n_tiles > 0) {
-    ps::stage_tile(q_s, qb, q0, S, q_row);
-    ps::stage_tile(k_s, kb, k_begin, Tk, kv_row);
-    ps::stage_tile(v_s, vb, k_begin, Tk, kv_row);
+    ps::stage_tile<ps::kTcThreads, DQK>(q_s, qb, q0, S, q_row);
+    ps::stage_tile<ps::kTcThreads, DQK>(k_s, kb, k_begin, Tk, k_row);
+    ps::stage_tile<ps::kTcThreads, DV>(v_s, vb, k_begin, Tk, v_row);
     ps::cp_async_commit();
   }
 
   // rows r_w + g (i = 0) and r_w + g + 8 (i = 1) of the tile: their max
-  // (log2 units), this lane's share of their sum, and out by 16 8-wide
+  // (log2 units), this lane's share of their sum, and out by DV / 8 8-wide
   // head-dim tiles
   float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
-  float acc[16][4];
+  float acc[DV / 8][4];
 #pragma unroll
-  for (int n = 0; n < 16; ++n)
+  for (int n = 0; n < DV / 8; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-  uint32_t qf[8][4];
+  uint32_t qf[DQK / 16][4];
   const float scale2 = scale * LOG2E;
 
   for (int j = 0; j < n_tiles; ++j) {
@@ -271,14 +292,15 @@ __global__ void __launch_bounds__(ps::kTcThreads, 2)
     __syncthreads();  // tile j has landed; every reader of tile j - 1 is done
     if (j == 0) {
 #pragma unroll
-      for (int kk = 0; kk < 8; ++kk) ps::ldsm_x4(qf[kk], ps::a_frag_addr(q_s, r_w, kk * 16, lane));
+      for (int kk = 0; kk < DQK / 16; ++kk)
+        ps::ldsm_x4(qf[kk], ps::a_frag_addr<DQK>(q_s, r_w, kk * 16, lane));
     }
     const int k0 = k_begin + j * BK;
-    const bf16* ks = k_s + (j & 1) * ps::kTile;
-    const bf16* vs = v_s + (j & 1) * ps::kTile;
+    const bf16* ks = k_s + (j & 1) * KT;
+    const bf16* vs = v_s + (j & 1) * VT;
     if (j + 1 < n_tiles) {
-      ps::stage_tile(k_s + ((j + 1) & 1) * ps::kTile, kb, k0 + BK, Tk, kv_row);
-      ps::stage_tile(v_s + ((j + 1) & 1) * ps::kTile, vb, k0 + BK, Tk, kv_row);
+      ps::stage_tile<ps::kTcThreads, DQK>(k_s + ((j + 1) & 1) * KT, kb, k0 + BK, Tk, k_row);
+      ps::stage_tile<ps::kTcThreads, DV>(v_s + ((j + 1) & 1) * VT, vb, k0 + BK, Tk, v_row);
       ps::cp_async_commit();
     }
 
@@ -289,11 +311,11 @@ __global__ void __launch_bounds__(ps::kTcThreads, 2)
 #pragma unroll
       for (int e = 0; e < 4; ++e) sc[n][e] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < 8; ++kk) {
+    for (int kk = 0; kk < DQK / 16; ++kk) {
 #pragma unroll
       for (int np = 0; np < 4; ++np) {
         uint32_t bk[4];
-        ps::ldsm_x4(bk, ps::bt_frag_addr(ks, np * 16, kk * 16, lane));
+        ps::ldsm_x4(bk, ps::bt_frag_addr<DQK>(ks, np * 16, kk * 16, lane));
         ps::mma_bf16(sc[2 * np], qf[kk], bk[0], bk[1]);
         ps::mma_bf16(sc[2 * np + 1], qf[kk], bk[2], bk[3]);
       }
@@ -333,7 +355,7 @@ __global__ void __launch_bounds__(ps::kTcThreads, 2)
         l[e >> 1] += p;
       }
 #pragma unroll
-    for (int n = 0; n < 16; ++n) {
+    for (int n = 0; n < DV / 8; ++n) {
       acc[n][0] *= alpha[0];
       acc[n][1] *= alpha[0];
       acc[n][2] *= alpha[1];
@@ -346,16 +368,16 @@ __global__ void __launch_bounds__(ps::kTcThreads, 2)
       uint32_t pa[4];
       ps::c_to_a(pa, sc[2 * kk], sc[2 * kk + 1]);
 #pragma unroll
-      for (int dp = 0; dp < 8; ++dp) {
+      for (int dp = 0; dp < DV / 16; ++dp) {
         uint32_t bv[4];
-        ps::ldsm_x4_trans(bv, ps::b_frag_addr(vs, kk * 16, dp * 16, lane));
+        ps::ldsm_x4_trans(bv, ps::b_frag_addr<DV>(vs, kk * 16, dp * 16, lane));
         ps::mma_bf16(acc[2 * dp], pa, bv[0], bv[1]);
         ps::mma_bf16(acc[2 * dp + 1], pa, bv[2], bv[3]);
       }
     }
   }
 
-  bf16* ob = o + (static_cast<long long>(b) * S * Hq + h) * D;
+  bf16* ob = o + (static_cast<long long>(b) * S * Hq + h) * DV;
   float* lb = lse + (static_cast<long long>(b) * Hq + h) * S;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -364,13 +386,37 @@ __global__ void __launch_bounds__(ps::kTcThreads, 2)
     const int s = q0 + r_w + g + 8 * i;
     if (s >= S) continue;
     const float inv = l[i] == 0.f ? 1.f : 1.f / l[i];
-    bf16* row = ob + s * q_row + 2 * t4;
+    bf16* row = ob + s * o_row + 2 * t4;
 #pragma unroll
-    for (int n = 0; n < 16; ++n)
+    for (int n = 0; n < DV / 8; ++n)
       *reinterpret_cast<__nv_bfloat162*>(row + n * 8) =
           __floats2bfloat162_rn(acc[n][2 * i] * inv, acc[n][2 * i + 1] * inv);
     if (t4 == 0) lb[s] = l[i] == 0.f ? NEG_INF : m[i] * LN2 + logf(l[i]);
   }
+}
+
+__global__ void __launch_bounds__(ps::kTcThreads, 2)
+    flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                          const bf16* __restrict__ v, bf16* __restrict__ o,
+                          float* __restrict__ lse, const int* __restrict__ kv_start,
+                          const int* __restrict__ kv_end, int S, int Tk, int Hq,
+                          int Hkv, float scale, int causal) {
+  extern __shared__ __align__(128) unsigned char tc_smem[];
+  fwd_bf16<D, D>(tc_smem, q, k, v, o, lse, kv_start, kv_end, S, Tk, Hq, Hkv, scale, causal);
+}
+
+// Latent attention's expanded prefill (DeepSeek-V3 MLA): q and k of 128
+// nope + 64 rope dims, v of 128.  Its own name, so that a reader of the
+// device trace tells it from the 128 route.
+__global__ void __launch_bounds__(ps::kTcThreads, 2)
+    flash_fwd_mla_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                              const bf16* __restrict__ v, bf16* __restrict__ o,
+                              float* __restrict__ lse, const int* __restrict__ kv_start,
+                              const int* __restrict__ kv_end, int S, int Tk, int Hq,
+                              int Hkv, float scale, int causal) {
+  extern __shared__ __align__(128) unsigned char tc_smem[];
+  fwd_bf16<MLA_DQK, MLA_DV>(tc_smem, q, k, v, o, lse, kv_start, kv_end, S, Tk, Hq, Hkv, scale,
+                            causal);
 }
 
 template <typename T, typename K>
@@ -399,6 +445,13 @@ cudaError_t configure() {
       e = cudaFuncSetAttribute(flash_fwd_bf16_kernel,
                                cudaFuncAttributePreferredSharedMemoryCarveout,
                                cudaSharedmemCarveoutMaxShared);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(flash_fwd_mla_bf16_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, MLA_SMEM_BYTES);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(flash_fwd_mla_bf16_kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
     return e;
   }();
   return err;
@@ -424,4 +477,21 @@ extern "C" int ps_flash_fwd(int device, int dtype, const void* q,
     return launch<float>(flash_fwd_f32_kernel, SMEM_BYTES, THREADS, q, k, v, o, lse, kv_start,
                          kv_end, B, S, Tk, Hq, Hkv, scale, causal, st);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Latent attention's expanded prefill: q/k head dim 192, v head dim 128,
+// bf16 only; out [B, S, Hq, 128].
+extern "C" int ps_flash_fwd_mla(int device, int dtype, const void* q, const void* k,
+                                const void* v, void* o, void* lse, const void* kv_start,
+                                const void* kv_end, int B, int S, int Tk, int Hq, int Hkv,
+                                int qk_dim, int v_dim, float scale, int causal, void* stream) {
+  if (dtype != ps::kBFloat16 || qk_dim != MLA_DQK || v_dim != MLA_DV || Hkv <= 0 ||
+      Hq % Hkv != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaSetDevice(device);
+  const cudaError_t configured = configure();
+  if (configured != cudaSuccess) return static_cast<int>(configured);
+  return launch<bf16>(flash_fwd_mla_bf16_kernel, MLA_SMEM_BYTES, ps::kTcThreads, q, k, v, o,
+                      lse, kv_start, kv_end, B, S, Tk, Hq, Hkv, scale, causal,
+                      static_cast<cudaStream_t>(stream));
 }

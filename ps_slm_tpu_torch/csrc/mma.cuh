@@ -26,9 +26,10 @@ constexpr int kTile = kTileRows * kTileCols;
 constexpr int kTcThreads = 128;            // one warpgroup, 16 tile rows a warp
 
 // Element offset of (row, col) in a tile of COLS-wide bf16 rows (COLS a
-// multiple of 64): chunk c of row r is stored at chunk c ^ (r % 8), so the
-// 8 rows that one ldmatrix phase reads, or one warp's fragment stores
-// write, at the same logical chunk sit in 8 different bank groups.
+// multiple of 64: 128, or 192 for latent attention's q and k): chunk c of
+// row r is stored at chunk c ^ (r % 8), so the 8 rows that one ldmatrix
+// phase reads, or one warp's fragment stores write, at the same logical
+// chunk sit in 8 different bank groups.
 template <int COLS = kTileCols>
 __device__ __forceinline__ int swz(int row, int col) {
   return row * COLS + ((((col >> 3) ^ (row & 7))) << 3) + (col & 7);
@@ -57,18 +58,19 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// Rows [row0, row0 + 64) of one head of a [rows, heads, 128] bf16 tensor
-// (row_stride = heads * 128) into a swizzled tile, by the block's THREADS
+// Rows [row0, row0 + 64) of one head of a [rows, heads, COLS] bf16 tensor
+// (row_stride = heads * COLS) into a swizzled tile, by the block's THREADS
 // threads; rows past `rows` are zero-filled.
-template <int THREADS = kTcThreads>
+template <int THREADS = kTcThreads, int COLS = kTileCols>
 __device__ __forceinline__ void stage_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
                                            int row0, int rows, long long row_stride) {
+  constexpr int kChunks = COLS / 8;         // 16-byte chunks a row
 #pragma unroll
-  for (int i = 0; i < kTile / 8 / THREADS; ++i) {
+  for (int i = 0; i < kTileRows * kChunks / THREADS; ++i) {
     const int idx = i * THREADS + static_cast<int>(threadIdx.x);
-    const int r = idx >> 4, c = (idx & 15) << 3;
+    const int r = idx / kChunks, c = (idx % kChunks) << 3;
     const bool ok = row0 + r < rows;
-    cp_async16(dst + swz(r, c), src + (ok ? (row0 + r) * row_stride + c : 0), ok);
+    cp_async16(dst + swz<COLS>(r, c), src + (ok ? (row0 + r) * row_stride + c : 0), ok);
   }
 }
 
@@ -94,16 +96,20 @@ __device__ __forceinline__ const __nv_bfloat16* a_frag_addr(const __nv_bfloat16*
 // ... of ldsm_x4 for the B fragments of two 8-wide n tiles, where the
 // tile's rows are the n index (B = tile^T, e.g. K in Q K^T): r[0], r[1]
 // are (b0, b1) of rows [row0, row0 + 8), r[2], r[3] of the next 8.
+template <int COLS = kTileCols>
 __device__ __forceinline__ const __nv_bfloat16* bt_frag_addr(const __nv_bfloat16* tile,
                                                              int row0, int col0, int lane) {
-  return tile + swz(row0 + (lane & 7) + ((lane >> 4) << 3), col0 + (((lane >> 3) & 1) << 3));
+  return tile + swz<COLS>(row0 + (lane & 7) + ((lane >> 4) << 3),
+                          col0 + (((lane >> 3) & 1) << 3));
 }
 // ... of ldsm_x4_trans for the B fragments of two 8-wide n tiles, where the
 // tile's rows are the k index (B = tile, e.g. V in P V): r[0], r[1] are
 // (b0, b1) of cols [col0, col0 + 8), r[2], r[3] of the next 8.
+template <int COLS = kTileCols>
 __device__ __forceinline__ const __nv_bfloat16* b_frag_addr(const __nv_bfloat16* tile,
                                                             int row0, int col0, int lane) {
-  return tile + swz(row0 + (lane & 7) + (((lane >> 3) & 1) << 3), col0 + ((lane >> 4) << 3));
+  return tile + swz<COLS>(row0 + (lane & 7) + (((lane >> 3) & 1) << 3),
+                          col0 + ((lane >> 4) << 3));
 }
 
 // c += a * b on the tensor cores: bf16 operands, fp32 accumulation

@@ -48,7 +48,6 @@ import torch
 import torch.nn.functional as F
 
 from ps_slm_tpu_torch._build import resolve_device
-from ps_slm_tpu_torch.models.qwen2 import init_cache
 from ps_slm_tpu_torch.utils.profiler import count, span
 
 Merge = Callable[[Dict[str, torch.Tensor]], SimpleNamespace]
@@ -67,7 +66,8 @@ def default_merge(model) -> Merge:
 
 def _left_pad_merged(merged, prefill_len: int):
     """Left-pad a merged B=1 prefill to the pool's prefill bucket
-    (positions padded with 0)."""
+    (positions padded with 0); counts its positions (``pool.prefill_valid``:
+    the merged row's length, as the host knows it) and the padding."""
     s = merged.embeds.shape[1]
     if s > prefill_len:
         raise ValueError(
@@ -75,6 +75,8 @@ def _left_pad_merged(merged, prefill_len: int):
             "raise prefill_len or the dataset buckets"
         )
     pad = prefill_len - s
+    count("pool.prefill_valid", s)
+    count("pool.prefill_padded", pad)
     if pad == 0:
         return merged.embeds, merged.attention_mask, merged.position_ids
     return (F.pad(merged.embeds, (0, 0, pad, 0)), F.pad(merged.attention_mask, (pad, 0)),
@@ -128,8 +130,8 @@ def prefill_rows(llm, embeds, attn_mask, position_ids, kv_bits: int):
     """One B=k prefill forward over a left-padded bucket: (last-position
     logits [k, V] fp32, its cache of capacity S)."""
     k, s, _ = embeds.shape
-    cache = init_cache(llm.cfg, k, s, dtype=llm.embed_tokens.weight.dtype,
-                       device=embeds.device, kv_bits=kv_bits)
+    cache = llm.init_cache(k, s, dtype=llm.embed_tokens.weight.dtype, device=embeds.device,
+                           kv_bits=kv_bits)
     hidden, _ = llm(embeds.to(llm.embed_tokens.weight.dtype), attention_mask=attn_mask,
                     position_ids=position_ids, cache=cache, cache_index=0)
     return llm.unembed(hidden[:, -1:])[:, 0], cache
@@ -138,7 +140,8 @@ def prefill_rows(llm, embeds, attn_mask, position_ids, kv_bits: int):
 def install_rows(pool_cache, cachek, rows: torch.Tensor, repeat: int = 1) -> None:
     """Copy a prefill cache's rows (capacity S) into pool cache rows
     ``rows`` (each prefill row ``repeat`` times), zeroing the cells past S,
-    as the JAX insert copies a whole zero-initialised row."""
+    as the JAX insert copies a whole zero-initialised row.  Every leaf of
+    every LLM's cache has the batch on axis 0 and the capacity on axis 1."""
     s = cachek[0][0].shape[1]
     for layer, layer_k in zip(pool_cache, cachek):
         for leaf, leaf_k in zip(layer, layer_k):
@@ -361,7 +364,7 @@ class ContinuousGreedyDecoder(_SlotPoolBase):
                     sync_every=sync_every, kv_bits=kv_bits, merge=merge, device=device)
         self.capacity = prefill_len + max_new_tokens
         with torch.inference_mode():
-            self.pool = _init_pool(self.llm.cfg, num_slots, self.capacity, sync_every,
+            self.pool = _init_pool(self.llm, num_slots, self.capacity, sync_every,
                                    eos_token_id, self.dtype, kv_bits, self.dev)
         self.graph = self._capture() if self.dev.type == "cuda" else None
 
@@ -428,14 +431,14 @@ class ContinuousGreedyDecoder(_SlotPoolBase):
         return finished
 
 
-def _init_pool(cfg, num_slots: int, capacity: int, steps: int, eos: int, dtype, kv_bits: int,
+def _init_pool(llm, num_slots: int, capacity: int, steps: int, eos: int, dtype, kv_bits: int,
                dev):
-    """The greedy pool: its cache, per-slot state and a chunk's tokens
+    """The greedy pool: the LLM's cache, per-slot state and a chunk's tokens
     [steps, slots] on the device, each written in place from then on."""
     def ints(fill=0):
         return torch.full((num_slots,), fill, dtype=torch.long, device=dev)
     return SimpleNamespace(
-        cache=init_cache(cfg, num_slots, capacity, dtype=dtype, device=dev, kv_bits=kv_bits),
+        cache=llm.init_cache(num_slots, capacity, dtype=dtype, device=dev, kv_bits=kv_bits),
         full_mask=torch.zeros(num_slots, capacity, dtype=torch.bool, device=dev),
         positions=ints(), write_idx=ints(), last_tok=ints(eos),
         active=torch.zeros(num_slots, dtype=torch.bool, device=dev), gen=ints(),

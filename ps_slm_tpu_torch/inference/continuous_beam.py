@@ -30,7 +30,6 @@ from ps_slm_tpu_torch.inference.continuous import (
     HostCopy, Merge, _SlotPoolBase, install_rows, prefill_rows,
 )
 from ps_slm_tpu_torch.inference.generate import NEG_INF, top_k, top_k_wide
-from ps_slm_tpu_torch.models.qwen2 import init_cache
 from ps_slm_tpu_torch.ops import fp32_reciprocal
 
 
@@ -68,8 +67,8 @@ class ContinuousBeamDecoder(_SlotPoolBase):
         n, bm, dev, eos = num_slots, num_beams, self.dev, eos_token_id
         with torch.inference_mode():
             self.pool = SimpleNamespace(
-                cache=init_cache(self.llm.cfg, n * bm, self.capacity, dtype=self.dtype,
-                                 device=dev, kv_bits=kv_bits),
+                cache=self.llm.init_cache(n * bm, self.capacity, dtype=self.dtype,
+                                          device=dev, kv_bits=kv_bits),
                 pmask=torch.zeros(n * bm, self.capacity, dtype=torch.bool, device=dev),
                 positions=torch.zeros(n, dtype=torch.long, device=dev),
                 write_idx=torch.zeros(n, dtype=torch.long, device=dev),

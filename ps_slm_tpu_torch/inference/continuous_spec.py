@@ -27,7 +27,6 @@ from ps_slm_tpu_torch.inference.continuous import (
     HostCopy, Merge, _SlotPoolBase, install_rows, prefill_rows,
 )
 from ps_slm_tpu_torch.inference.speculative import _accept, _verify_window
-from ps_slm_tpu_torch.models.qwen2 import init_cache
 
 
 class ContinuousSpeculativeDecoder(_SlotPoolBase):
@@ -55,8 +54,8 @@ class ContinuousSpeculativeDecoder(_SlotPoolBase):
             return torch.full((num_slots,), fill, dtype=torch.long, device=dev)
         with torch.inference_mode():
             self.pool = SimpleNamespace(
-                cache=init_cache(self.llm.cfg, num_slots, self.capacity, dtype=self.dtype,
-                                 device=dev, kv_bits=kv_bits),
+                cache=self.llm.init_cache(num_slots, self.capacity, dtype=self.dtype,
+                                          device=dev, kv_bits=kv_bits),
                 pmask=torch.zeros(num_slots, self.capacity, dtype=torch.bool, device=dev),
                 positions=ints(), write_idx=ints(), last_tok=ints(eos_token_id),
                 active=torch.zeros(num_slots, dtype=torch.bool, device=dev), gen=ints(),

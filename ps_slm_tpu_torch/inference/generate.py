@@ -33,7 +33,7 @@ from typing import Callable, Dict, List, Optional
 import torch
 
 from ps_slm_tpu_torch._build import resolve_device
-from ps_slm_tpu_torch.models.qwen2 import Qwen2Model, init_cache
+from ps_slm_tpu_torch.models.qwen2 import Qwen2Model
 from ps_slm_tpu_torch.models.tasu import TasuModel, encode_speech, prepare_merged
 from ps_slm_tpu_torch.ops import fp32_reciprocal
 from ps_slm_tpu_torch.ops.fbank import frontend
@@ -74,10 +74,8 @@ def top_k_wide(x: torch.Tensor, k: int):
 def _prefill(llm: Qwen2Model, embeds, attn_mask, position_ids, capacity: int,
              kv_bits: int = 16):
     b, s, _ = embeds.shape
-    cache = init_cache(
-        llm.cfg, b, capacity, dtype=llm.embed_tokens.weight.dtype,
-        device=embeds.device, kv_bits=kv_bits,
-    )
+    cache = llm.init_cache(b, capacity, dtype=llm.embed_tokens.weight.dtype,
+                           device=embeds.device, kv_bits=kv_bits)
     full_mask = torch.zeros(b, capacity, dtype=torch.bool, device=embeds.device)
     full_mask[:, :s] = attn_mask
     hidden, cache = llm(

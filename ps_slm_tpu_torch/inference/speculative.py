@@ -23,7 +23,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-from ps_slm_tpu_torch.models.qwen2 import Qwen2Model, init_cache
+from ps_slm_tpu_torch.models.qwen2 import Qwen2Model
 
 
 def _verify_window(llm: Qwen2Model, cache, prefill_mask, cells, prefill_len: int,
@@ -103,8 +103,8 @@ def speculative_greedy_generate(
     k = window
     dev = inputs_embeds.device
     capacity = s + max_new_tokens + k      # room for a partly used window
-    cache = init_cache(llm.cfg, b, capacity, dtype=llm.embed_tokens.weight.dtype,
-                       device=dev, kv_bits=kv_bits)
+    cache = llm.init_cache(b, capacity, dtype=llm.embed_tokens.weight.dtype, device=dev,
+                           kv_bits=kv_bits)
     prefill_mask = torch.zeros(b, capacity, dtype=torch.bool, device=dev)
     prefill_mask[:, :s] = attention_mask
     hidden, _ = llm(inputs_embeds, attention_mask=prefill_mask, position_ids=position_ids,

@@ -121,6 +121,11 @@ def quantize_llm(llm: nn.Module, bits: int = 8, group_size: int = 128) -> nn.Mod
 
     if bits not in (4, 8):
         raise ValueError(f"quant_bits must be 4 or 8, got {bits}")
+    model_type = getattr(llm.cfg, "model_type", "qwen2")
+    if model_type != "qwen2":
+        raise NotImplementedError(
+            f"quantize_llm: the {model_type} decoder has no int{bits} weights (its latent "
+            "attention and stacked experts are not quantized; ROADMAP queue C)")
     for layer in llm.layers:
         for name in QUANT_TARGETS:
             lin = getattr(layer, name)

@@ -470,6 +470,11 @@ class Qwen2Model(nn.Module):
                           None if cache is None else cache[i], cache_index, keep, rate)
         return self.norm(x), cache
 
+    def init_cache(self, batch: int, capacity: int, dtype: torch.dtype, device="cuda",
+                   kv_bits: int = 16) -> KVCache:
+        """This decoder's zeroed KV cache (:func:`init_cache`)."""
+        return init_cache(self.cfg, batch, capacity, dtype, device, kv_bits)
+
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:
         h = self.cfg.hidden_size

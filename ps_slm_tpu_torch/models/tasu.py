@@ -69,10 +69,11 @@ from torch import nn
 
 from ps_slm_tpu_torch._build import resolve_device
 from ps_slm_tpu_torch.config import FbankConfig
+from ps_slm_tpu_torch.models import deepseek_v3, qwen2
 from ps_slm_tpu_torch.models import projector as proj
 from ps_slm_tpu_torch.models.lora import ADAPTER_LEAVES, add_peft
 from ps_slm_tpu_torch.models.quantization import quantize_llm
-from ps_slm_tpu_torch.models.qwen2 import Qwen2Config, Qwen2Model, load_hf_checkpoint
+from ps_slm_tpu_torch.models.qwen2 import Qwen2Config, Qwen2Model
 from ps_slm_tpu_torch.models.sensevoice import SenseVoiceConfig, SenseVoiceEncoder
 from ps_slm_tpu_torch.ops.ce_loss import chunked_ce_loss, full_ce_loss, gathered_ce_loss
 from ps_slm_tpu_torch.ops.fbank import FrontendDraws, frontend
@@ -142,7 +143,7 @@ class TasuModel(nn.Module):
         self.pad_token_id = pad_token_id
         self.encoder = SenseVoiceEncoder(enc_cfg)
         self.projector = proj.build_projector(model_cfg)
-        self.llm = Qwen2Model(llm_cfg)
+        self.llm = build_llm(llm_cfg)
         self.fbank_cfg = FbankConfig()
         # the global CMVN of the waveform front end (``cmvn``), as buffers
         # so that they follow the model's device
@@ -463,6 +464,44 @@ def trainable_mask(model: TasuModel, train_config) -> List[str]:
     return names
 
 
+# the decoders by ``model_type``: (config from HF config.json keys, model, HF loader)
+LLMS = {
+    "qwen2": (lambda c: Qwen2Config.tiny(**c), Qwen2Model, qwen2.load_hf_checkpoint),
+    "deepseek_v3": (lambda c: deepseek_v3.DeepseekV3Config.tiny(**c),
+                    deepseek_v3.DeepseekV3Model, deepseek_v3.load_hf_checkpoint),
+}
+
+
+def _llm_kind(model_type: str):
+    if model_type not in LLMS:
+        raise NotImplementedError(f"no decoder for model_type {model_type!r}; "
+                                  f"the port has {sorted(LLMS)}")
+    return LLMS[model_type]
+
+
+def llm_config(overrides: Optional[dict]):
+    """The decoder's config for ``llm_config_overrides`` (HF ``config.json``
+    keys over the tiny test widths), by its ``model_type`` (qwen2 when
+    absent)."""
+    over = dict(overrides or {})
+    return _llm_kind(over.pop("model_type", "qwen2"))[0](over)
+
+
+def build_llm(cfg) -> nn.Module:
+    """The decoder module of a config of :data:`LLMS`."""
+    return _llm_kind(getattr(cfg, "model_type", "qwen2"))[1](cfg)
+
+
+def load_llm(path: str):
+    """(state dict, config) of an HF directory, by its ``model_type``."""
+    import json
+    import os
+
+    with open(os.path.join(path, "config.json")) as f:
+        model_type = json.load(f).get("model_type", "qwen2")
+    return _llm_kind(model_type)[2](path)
+
+
 @register_model("tasu")
 def model_factory(
     train_config, model_config, *, device="cuda", dtype: torch.dtype = torch.float32,
@@ -470,9 +509,10 @@ def model_factory(
 ) -> TasuModel:
     """Build a TasuModel on ``device`` in ``dtype``.
 
-    ``model_config.llm_path`` (an HF Qwen2 directory: ``config.json`` and
-    safetensors) and ``encoder_path`` (a funasr SenseVoiceSmall directory:
-    ``model.pt`` and ``config.yaml``, ``encoder_config_overrides`` over the
+    ``model_config.llm_path`` (an HF directory: ``config.json`` and
+    safetensors; Qwen2, or DeepSeek-V3 by its ``model_type``, :data:`LLMS`)
+    and ``encoder_path`` (a funasr SenseVoiceSmall directory: ``model.pt``
+    and ``config.yaml``, ``encoder_config_overrides`` over the
     latter) load their module, each tensor cast once into the model's
     dtype; without a path the module is a random init, sized by the config
     overrides (the tiny test configs when absent, as in the JAX factory).
@@ -493,10 +533,10 @@ def model_factory(
     t0 = time.perf_counter()
     loaded, seconds = {}, {}
     if model_config.llm_path:
-        loaded["llm"], llm_cfg = load_hf_checkpoint(model_config.llm_path)
+        loaded["llm"], llm_cfg = load_llm(model_config.llm_path)
         seconds["llm"] = time.perf_counter() - t0
     else:
-        llm_cfg = Qwen2Config.tiny(**(model_config.llm_config_overrides or {}))
+        llm_cfg = llm_config(model_config.llm_config_overrides)
     enc_over = model_config.encoder_config_overrides or {}
     if model_config.encoder_path:
         t1 = time.perf_counter()

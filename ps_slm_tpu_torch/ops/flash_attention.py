@@ -11,7 +11,11 @@ out = 0 and lse = ``NEG_INF``, and zero gradients.
 :func:`flash_attention_dq` and :func:`flash_attention_dkv` launch
 ``csrc/flash_bwd.cu`` for CUDA tensors (head dim 128 only): bf16 runs the
 forward, dq and dk/dv on the tensor cores, fp32 on fp32 FMAs, the dtype
-alone deciding.  Each takes its
+alone deciding.  The forward has a second instantiation for latent
+attention's expanded form, q/k head dim 192 and v head dim 128 (bf16 only,
+``flash_fwd_mla_bf16_kernel``, counted in ``flash_attention_fwd.mla_launches``),
+chosen by the head dims; there is no backward at those dims on the card
+(ROADMAP queue C, training the deepseek_v3 configuration).  Each takes its
 plain version (:func:`flash_attention_ref`, :func:`flash_attention_bwd_ref`)
 only for CPU tensors.  :class:`FlashAttentionFn` saves ``q, k, v, kv_start,
 kv_end, out, lse`` as the JAX custom VJP does, and its backward computes
@@ -29,6 +33,7 @@ from ps_slm_tpu_torch import _build
 
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 HEAD_DIM = 128  # the kernel's compiled head dim
+MLA_DIMS = (192, 128)  # the latent-attention instantiation's q/k and v head dims
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
@@ -36,6 +41,10 @@ _SIGNATURES = {
     # B, S, T, Hq, Hkv, head_dim, scale, causal, stream
     "ps_flash_fwd": (_I, _I, _P, _P, _P, _P, _P, _P, _P,
                      _I, _I, _I, _I, _I, _I, _F, _I, _P),
+    # device, dtype, q, k, v, o, lse, kv_start, kv_end,
+    # B, S, T, Hq, Hkv, qk_dim, v_dim, scale, causal, stream
+    "ps_flash_fwd_mla": (_I, _I, _P, _P, _P, _P, _P, _P, _P,
+                         _I, _I, _I, _I, _I, _I, _I, _F, _I, _P),
 }
 _BWD_SIGNATURES = {
     # device, dtype, q, k, v, dout, lse, delta, dq, kv_start, kv_end,
@@ -91,8 +100,9 @@ def flash_attention_ref(
     kv_start: torch.Tensor, kv_end: torch.Tensor,
     *, causal: bool, scale: float,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of the kernel: ``(out [B,S,Hq,D] in q.dtype,
-    lse [B,Hq,S] fp32)``, with the whole [B,Hq,S,T] score matrix in fp32."""
+    """Plain version of the kernel: ``(out [B,S,Hq,Dv] in q.dtype,
+    lse [B,Hq,S] fp32)``, with the whole [B,Hq,S,T] score matrix in fp32;
+    v's head dim Dv may differ from q's and k's."""
     b, s, hq, _ = q.shape
     t, hkv = k.shape[1], k.shape[2]
     rep = hq // hkv
@@ -146,6 +156,11 @@ def flash_attention_bwd_ref(
 
 
 def _check_cuda(q, k, v, kv_start, kv_end, name: str = "flash_attention_fwd") -> None:
+    if (q.shape[-1], v.shape[-1]) == MLA_DIMS and name != "flash_attention_fwd":
+        raise NotImplementedError(
+            f"{name}: no backward kernel at q/k head dim 192, v 128 (latent attention); "
+            "training the deepseek_v3 configuration on the card waits for it (ROADMAP "
+            "queue C)")
     if q.device.type != "cuda":
         raise ValueError(f"{name}: tensors must be on CPU or CUDA, got {q.device}")
     if q.dtype not in _build.DTYPE_CODES:
@@ -156,11 +171,15 @@ def _check_cuda(q, k, v, kv_start, kv_end, name: str = "flash_attention_fwd") ->
     for x in (kv_start, kv_end):
         if x.device != q.device or x.dtype != torch.int32:
             raise TypeError(f"{name}: windows must be int32 on q's device")
-    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
-        raise ValueError(f"{name}: expected q [B,S,Hq,D], k/v [B,T,Hkv,D]")
+    if q.dim() != 4 or k.dim() != 4 or k.shape[:3] != v.shape[:3] or v.dim() != 4:
+        raise ValueError(f"{name}: expected q [B,S,Hq,D], k [B,T,Hkv,D], v [B,T,Hkv,Dv]")
     b, _, hq, d = q.shape
-    if d != HEAD_DIM or k.shape[0] != b or k.shape[3] != d:
-        raise ValueError(f"{name}: the kernel takes head dim {HEAD_DIM} only")
+    if k.shape[0] != b or k.shape[3] != d or (d, v.shape[3]) not in ((HEAD_DIM, HEAD_DIM),
+                                                                     MLA_DIMS):
+        raise ValueError(f"{name}: the kernels take head dims {HEAD_DIM} (q, k, v) or "
+                         f"{MLA_DIMS[0]} (q, k) and {MLA_DIMS[1]} (v) only")
+    if (d, v.shape[3]) == MLA_DIMS and q.dtype != torch.bfloat16:
+        raise TypeError(f"{name}: the latent-attention instantiation takes bfloat16 only")
     if k.shape[2] == 0 or hq % k.shape[2] != 0:
         raise ValueError(f"{name}: Hq={hq} is not a multiple of Hkv={k.shape[2]}")
     if kv_start.shape != (b,) or kv_end.shape != (b,):
@@ -183,6 +202,8 @@ def flash_attention_fwd(
     _check_cuda(q, k, v, kv_start, kv_end)
     b, s, hq, d = q.shape
     t, hkv = k.shape[1], k.shape[2]
+    if (d, v.shape[3]) == MLA_DIMS:
+        return _flash_fwd_mla(q, k, v, kv_start, kv_end, causal=causal, scale=scale)
     out = torch.empty_like(q)
     lse = torch.empty((b, hq, s), device=q.device, dtype=torch.float32)
     if b * s == 0:
@@ -200,6 +221,26 @@ def flash_attention_fwd(
 
 
 flash_attention_fwd.launches = 0
+flash_attention_fwd.mla_launches = 0
+
+
+def _flash_fwd_mla(q, k, v, kv_start, kv_end, *, causal: bool, scale: float):
+    """The latent-attention instantiation (q/k 192, v 128, bf16)."""
+    b, s, hq, d = q.shape
+    t, hkv, dv = k.shape[1], k.shape[2], v.shape[3]
+    out = torch.empty((b, s, hq, dv), device=q.device, dtype=q.dtype)
+    lse = torch.empty((b, hq, s), device=q.device, dtype=torch.float32)
+    if b * s == 0:
+        return out, lse
+    lib = _build.load("flash_fwd", _SIGNATURES)
+    err = lib.ps_flash_fwd_mla(
+        q.device.index, _build.DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        out.data_ptr(), lse.data_ptr(), kv_start.data_ptr(), kv_end.data_ptr(), b, s, t, hq,
+        hkv, d, dv, float(scale), int(causal), _build.stream_ptr(q),
+    )
+    _build.check(lib, err, "flash_attention_fwd (latent attention)")
+    flash_attention_fwd.mla_launches += 1
+    return out, lse
 
 
 def _check_bwd(q, out, lse, dout, delta, name: str) -> None:

@@ -48,21 +48,30 @@ def write_safetensors(path: str, tensors: dict) -> None:
 
 
 def write_llm_dir(path: str, llm, dtype, specials=None) -> dict:
-    """An HF Qwen2 directory from the port's ``llm``: ``config.json``
-    (``tie_word_embeddings`` as the model has it), one ``model.safetensors``
-    in ``dtype`` under the HF names, and a byte-level tokenizer: the 256
-    byte tokens (ids 0-255), no merges, ``specials`` (default: Qwen2.5's at
-    their ids) and ``<|im_end|>`` as EOS.  Returns the written tensors."""
+    """An HF directory from the port's ``llm`` (Qwen2, or DeepSeek-V3 by its
+    ``model_type``): ``config.json`` (``tie_word_embeddings`` as the model
+    has it), one ``model.safetensors`` in ``dtype`` under the HF names, and
+    a byte-level tokenizer: the 256 byte tokens (ids 0-255), no merges,
+    ``specials`` (default: Qwen2.5's at their ids) and ``<|im_end|>`` as EOS.
+    Returns the written tensors."""
+    import dataclasses
+
     from ps_slm_tpu_torch.data.bbpe import bytes_to_unicode
+    from ps_slm_tpu_torch.models import deepseek_v3
     from ps_slm_tpu_torch.models.qwen2 import state_dict_to_hf
 
     specials = specials or QWEN_SPECIALS
     cfg = llm.cfg
+    deepseek = getattr(cfg, "model_type", "qwen2") == "deepseek_v3"
+    to_hf = deepseek_v3.state_dict_to_hf if deepseek else state_dict_to_hf
     os.makedirs(path, exist_ok=True)
-    tensors = {k: v.detach().to(dtype).cpu() for k, v in state_dict_to_hf(llm).items()}
+    tensors = {k: v.detach().to(dtype).cpu() for k, v in to_hf(llm).items()}
     write_safetensors(os.path.join(path, "model.safetensors"), tensors)
-    with open(os.path.join(path, "config.json"), "w") as f:
-        json.dump({
+    if deepseek:
+        config = {"architectures": ["DeepseekV3ForCausalLM"], "model_type": "deepseek_v3",
+                  **dataclasses.asdict(cfg), "q_lora_rank": None}
+    else:
+        config = {
             "architectures": ["Qwen2ForCausalLM"], "model_type": "qwen2",
             "vocab_size": cfg.vocab_size, "hidden_size": cfg.hidden_size,
             "intermediate_size": cfg.intermediate_size,
@@ -72,8 +81,9 @@ def write_llm_dir(path: str, llm, dtype, specials=None) -> dict:
             "rope_theta": cfg.rope_theta, "rms_norm_eps": cfg.rms_norm_eps,
             "max_position_embeddings": cfg.max_position_embeddings,
             "tie_word_embeddings": cfg.tie_word_embeddings,
-            "torch_dtype": str(dtype).replace("torch.", ""),
-        }, f, indent=2)
+        }
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(dict(config, torch_dtype=str(dtype).replace("torch.", "")), f, indent=2)
     with open(os.path.join(path, "vocab.json"), "w", encoding="utf-8") as f:
         json.dump({c: b for b, c in sorted(bytes_to_unicode().items())}, f, ensure_ascii=False)
     with open(os.path.join(path, "merges.txt"), "w", encoding="utf-8") as f:

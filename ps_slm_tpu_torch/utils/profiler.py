@@ -26,6 +26,15 @@ The port's one tracing facility:
 * :func:`count` adds to one of :data:`COUNTERS`, always; :func:`counts`
   reads them, and :func:`recorded` their part added while a profiler
   recorded.
+* :func:`tally` gives one of :data:`TALLIES`: a counter that lives on the
+  device, so that work inside a CUDA graph adds to it at each replay with
+  no host step (the mixture-of-experts layer's rows by expert).  Its value
+  is copied on the device where a profiler starts and stops recording (the
+  first span, count or tally after the change), and :func:`recorded` folds
+  the difference in when it is read, after the window: the total under
+  ``counts`` and the whole array under ``tallies``.  One tally a name a
+  process: asked for with another shape or device it starts anew (a CUDA
+  graph recorded before then keeps adding to the old one).
 """
 
 from __future__ import annotations
@@ -48,6 +57,14 @@ COUNTERS = frozenset({
     "pool.slot_s",        # host seconds from a request's install to its finish
     "pool.graph_captures",  # chunks recorded as a CUDA graph (one a greedy pool on CUDA)
     "pool.graph_replays",   # chunks launched as a replay of that graph
+    "pool.prefill_valid",   # positions of the merged prefills (as the host knows their length)
+    "pool.prefill_padded",  # positions of left padding up to the pool's prefill bucket
+})
+# the device tallies (utils/profiler.py::tally), each added where its work happens
+TALLIES = frozenset({
+    "moe.rows",           # [2, layers, experts] (token, choice) pairs routed to each
+                          # expert; [0] one-token steps, [1] the other calls
+    "moe.experts_read",   # [2, layers] experts with at least one pair, summed over calls
 })
 
 _OFF = contextlib.nullcontext()
@@ -58,6 +75,37 @@ _recorded_counts: Dict[str, float] = {}
 _recorded_spans: Dict[str, list] = {}        # path -> [calls, host seconds]
 _lock = threading.Lock()
 _open = threading.local()                    # each thread's open span paths
+_tallies: Dict[str, torch.Tensor] = {}
+_tally_start: Dict[str, torch.Tensor] = {}   # each tally where recording last started
+_tally_done: Dict[str, torch.Tensor] = {}    # each tally's part added while recording, so far
+_recording = [False]                         # whether a profiler recorded at the last look
+
+
+def _since_start(name: str, t: torch.Tensor) -> torch.Tensor:
+    base = _tally_start.get(name)
+    if base is None or base.shape != t.shape or base.device != t.device:
+        return t.clone()
+    return t - base
+
+
+def _look(on: bool) -> None:
+    """Copy the tallies on the device where recording starts, and add what
+    was added since to the recorded part where it stops."""
+    if on == _recording[0]:
+        return
+    with _lock:
+        if on == _recording[0]:
+            return
+        _recording[0] = on
+        if on:
+            _tally_start.clear()
+            _tally_start.update({n: t.clone() for n, t in _tallies.items()})
+            return
+        for name, t in _tallies.items():
+            part = _since_start(name, t)
+            done = _tally_done.get(name)
+            same = done is not None and done.shape == part.shape and done.device == part.device
+            _tally_done[name] = done + part if same else part
 
 
 class _Span:
@@ -92,7 +140,10 @@ def span(name: str):
     """``with span("pool.launch"):`` marks a phase as ``tasu.<name>`` in
     any running profiler's trace; a shared no-op context when none
     records."""
-    if not _profiling():
+    on = _profiling()
+    if on is not _recording[0]:
+        _look(on)
+    if not on:
         return _OFF
     return _Span(name)
 
@@ -101,10 +152,38 @@ def count(name: str, n: float = 1) -> None:
     """Add ``n`` to the counter ``name`` (one of :data:`COUNTERS`)."""
     if name not in COUNTERS:
         raise KeyError(f"no counter {name!r}; the counters are {sorted(COUNTERS)}")
+    on = _profiling()
+    _look(on)
     with _lock:
         _counts[name] = _counts.get(name, 0) + n
-        if _profiling():
+        if on:
             _recorded_counts[name] = _recorded_counts.get(name, 0) + n
+
+
+def tally(name: str, shape, device) -> torch.Tensor:
+    """The device tally ``name`` (one of :data:`TALLIES`), int64 of
+    ``shape`` on ``device``, for the caller to add to in place."""
+    if name not in TALLIES:
+        raise KeyError(f"no tally {name!r}; the tallies are {sorted(TALLIES)}")
+    _look(_profiling())
+    t = _tallies.get(name)
+    if t is None or tuple(t.shape) != tuple(shape) or t.device != torch.device(device):
+        t = _tallies[name] = torch.zeros(tuple(shape), dtype=torch.long, device=device)
+    return t
+
+
+def _recorded_tallies() -> Dict[str, torch.Tensor]:
+    """Each tally's part added while a profiler recorded (host tensors)."""
+    _look(_profiling())
+    with _lock:
+        out = dict(_tally_done)
+        if _recording[0]:
+            for name, t in _tallies.items():
+                part = _since_start(name, t)
+                done = out.get(name)
+                out[name] = done + part if done is not None and done.shape == part.shape \
+                    else part
+    return {name: t.cpu() for name, t in out.items()}
 
 
 def counts() -> Dict[str, float]:
@@ -115,11 +194,18 @@ def counts() -> Dict[str, float]:
 
 def recorded() -> Dict[str, Dict]:
     """What this process added while a profiler recorded: ``{"spans":
-    {path: {"calls", "seconds"}}, "counts": {name: total}}``, host
-    seconds by span path (``pool.refill/front_half``)."""
+    {path: {"calls", "seconds"}}, "counts": {name: total}, "tallies":
+    {name: nested list}}``, host seconds by span path
+    (``pool.refill/front_half``); each device tally's total is among the
+    counts too."""
+    tallies = _recorded_tallies()
     with _lock:
-        return {"spans": {p: {"calls": c, "seconds": s} for p, (c, s) in _recorded_spans.items()},
-                "counts": dict(_recorded_counts)}
+        out = {"spans": {p: {"calls": c, "seconds": s} for p, (c, s) in _recorded_spans.items()},
+               "counts": dict(_recorded_counts), "tallies": {}}
+    for name, t in tallies.items():
+        out["counts"][name] = float(t.sum())
+        out["tallies"][name] = t.tolist()
+    return out
 
 
 def _change(after: Dict[str, float], before: Dict[str, float]) -> Dict[str, float]:

@@ -314,7 +314,7 @@ def test_a_chunk_on_the_idle_pool_changes_only_cache_cell_0(kv_bits):
         sync_every=4, kv_bits=kv_bits, device="cpu")
     with torch.inference_mode():
         dec._steps()
-    fresh = continuous._init_pool(llm.cfg, 3, PREFILL + MAX_NEW, 4, 5, dec.dtype, kv_bits,
+    fresh = continuous._init_pool(llm, 3, PREFILL + MAX_NEW, 4, 5, dec.dtype, kv_bits,
                                   dec.dev)
     for name, v in vars(fresh).items():
         if name != "cache":

@@ -23,6 +23,10 @@ the encoder step's 4/4 non-causal ragged rows, the LayerNorm forward and
 backward at 560 / 512 with dw/db and at the q-former's 768 (eps 1e-12) and
 1536 (its output norm, eps 1e-5); the CTC loss, its gradient (twice bit-identical: no atomics) and the
 Viterbi on the card against the CPU (fp32 1e-5; the alignment equal).
+The DeepSeek-V3 slice: the flash forward's q/k 192, v 128 instantiation at
+a pool prefill's shapes (and no backward there), the grouped expert
+kernels at Moonlight's widths (a decode step and a skewed prefill), and
+the captured MoE pool against the eager one, bit for bit.
 """
 
 import pytest
@@ -1009,7 +1013,7 @@ def test_captured_greedy_pool_equals_eager_on_card(dev, kv_bits):
         return dict(dec.run(((k, {"key": k}) for k in reqs), stop_after=stop_after))
 
     probe = _greedy_pool(llm, reqs, 999, kv_bits, dev)
-    fresh = _init_pool(llm.cfg, 4, POOL_PREFILL + POOL_MAX_NEW, 3, 999, torch.bfloat16,
+    fresh = _init_pool(llm, 4, POOL_PREFILL + POOL_MAX_NEW, 3, 999, torch.bfloat16,
                        kv_bits, dev)
     assert probe.graph is not None
     for name, v in vars(fresh).items():
@@ -1236,3 +1240,144 @@ if __name__ == "__main__":
                    os.path.join(sys.argv[1], f"rank{rank}.pt"))
     finally:
         torch.distributed.destroy_process_group()
+
+
+# Latent attention's expanded prefill (q/k 192, v 128): a pool prefill's
+# shapes (rows left-padded to 2 000, 16 heads), and the 64-row tiles' edges
+# (S of 1 and 65, a window that starts mid-tile, a row with no valid key)
+MLA_CASES = {
+    "pool_prefill": (2, 2000, 16, [1700, 1937], [2000, 2000]),
+    "s65_mid_window": (3, 65, 16, [0, 5, 64], [65, 65, 64]),
+    "s1": (2, 1, 16, [0, 0], [1, 1]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(MLA_CASES))
+def test_flash_mla_kernel_matches_plain(dev, case):
+    """The 192/128 instantiation against the plain version (bf16 tolerance);
+    it counts its own launches and leaves the 128 route's count alone."""
+    b, s, h, starts, ends = MLA_CASES[case]
+    g = torch.Generator(device=dev).manual_seed(s)
+    q = torch.randn(b, s, h, 192, device=dev, generator=g).to(torch.bfloat16)
+    k = torch.randn(b, s, h, 192, device=dev, generator=g).to(torch.bfloat16)
+    v = torch.randn(b, s, h, 128, device=dev, generator=g).to(torch.bfloat16)
+    pos = torch.arange(s, device=dev)
+    mask = ((pos[None] >= torch.tensor(starts, device=dev)[:, None])
+            & (pos[None] < torch.tensor(ends, device=dev)[:, None]))
+    start, end = fa.window_from_mask(mask, b, s, dev)
+    n0, m0 = fa.flash_attention_fwd.launches, fa.flash_attention_fwd.mla_launches
+    out, lse = fa.flash_attention_fwd(q, k, v, start, end, causal=True, scale=192 ** -0.5)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_fwd.mla_launches == m0 + 1
+    assert fa.flash_attention_fwd.launches == n0
+    ref_out, ref_lse = fa.flash_attention_ref(q, k, v, start, end, causal=True,
+                                              scale=192 ** -0.5)
+    assert out.shape == (b, s, h, 128) and not torch.isnan(out).any()
+    torch.testing.assert_close(out.float(), ref_out.float(), **TOL[torch.bfloat16])
+    torch.testing.assert_close(lse, ref_lse, **TOL[torch.float32])
+
+
+def test_flash_mla_backward_refuses_on_card(dev):
+    q = torch.zeros(1, 4, 2, 192, device=dev, dtype=torch.bfloat16, requires_grad=True)
+    v = torch.zeros(1, 4, 2, 128, device=dev, dtype=torch.bfloat16)
+    out = fa.flash_attention(q, q.detach(), v, causal=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        out.sum().backward()
+
+
+@pytest.mark.parametrize("tokens", [64, 4000])
+def test_moe_grouped_kernels_match_plain(dev, tokens):
+    """The grouped expert kernels at Moonlight's widths (H 2048, I 1408, 64
+    experts, 6 a token) against the plain per-expert loop in fp32 from the
+    same bf16 inputs: a decode step's 64 rows, and a prefill whose first
+    3 000 rows are alike (left padding), so a few experts take most pairs.
+    Tolerance 2e-2: the intermediate is rounded to bf16 once, the output
+    once.  Two calls give the same bits (no atomics)."""
+    from ps_slm_tpu_torch.ops import moe
+
+    g = torch.Generator(device=dev).manual_seed(tokens)
+    h, i, e, k = 2048, 1408, 64, 6
+    gate_up = (torch.randn(e, 2 * i, h, device=dev, generator=g) * h ** -0.5).to(torch.bfloat16)
+    down = (torch.randn(e, h, i, device=dev, generator=g) * i ** -0.5).to(torch.bfloat16)
+    x = torch.randn(tokens, h, device=dev, generator=g).to(torch.bfloat16)
+    if tokens > 64:
+        x[:3000] = x[0]
+    gate = torch.randn(e, h, device=dev, generator=g) * h ** -0.5
+    idx, w = moe.route(x, gate, torch.zeros(e, device=dev), k, 2.446)
+    counts = moe.record(idx, e, 0, 1, step=tokens == 64)
+    n0 = moe.experts.launches
+    got = moe.experts(x, idx, w, gate_up, down, counts)
+    again = moe.experts(x, idx, w, gate_up, down, counts)
+    torch.cuda.synchronize()
+    assert moe.experts.launches == n0 + 4
+    assert torch.equal(got, again)
+    want = moe.experts_ref(x.float(), idx, w, gate_up.float(), down.float())
+    torch.testing.assert_close(got.float(), want, atol=2e-2, rtol=2e-2)
+
+
+def test_moe_grouped_kernels_at_ragged_widths(dev):
+    """Widths that are no multiple of a block (H 136, I 72: a partial depth
+    stage and partial column blocks) and an expert no row chose, on both
+    block shapes, against the plain per-expert loop."""
+    from ps_slm_tpu_torch.ops import moe
+
+    g = torch.Generator(device=dev).manual_seed(7)
+    h, i, e, k = 136, 72, 8, 3
+    gate_up = (torch.randn(e, 2 * i, h, device=dev, generator=g) * h ** -0.5).to(torch.bfloat16)
+    down = (torch.randn(e, h, i, device=dev, generator=g) * i ** -0.5).to(torch.bfloat16)
+    for tokens in (5, 300):
+        x = torch.randn(tokens, h, device=dev, generator=g).to(torch.bfloat16)
+        gate = torch.randn(e, h, device=dev, generator=g) * h ** -0.5
+        bias = torch.zeros(e, device=dev)
+        bias[3] = -100.0                     # expert 3 is never chosen
+        idx, w = moe.route(x, gate, bias, k, 2.446)
+        counts = moe.record(idx, e, 0, 1, step=False)
+        got = moe.experts(x, idx, w, gate_up, down, counts)
+        want = moe.experts_ref(x.float(), idx, w, gate_up.float(), down.float())
+        torch.testing.assert_close(got.float(), want, atol=2e-2, rtol=2e-2)
+
+
+def _moe_llm(dev):
+    """A small bf16 DeepSeek-V3 at the kernels' head dims (q/k 192, v 128)."""
+    from ps_slm_tpu_torch.models import deepseek_v3 as ds
+
+    cfg = ds.DeepseekV3Config.tiny(vocab_size=1000, hidden_size=256, intermediate_size=512,
+                                   moe_intermediate_size=128, num_hidden_layers=3,
+                                   num_attention_heads=2, n_routed_experts=8,
+                                   n_shared_experts=1, num_experts_per_tok=3, kv_lora_rank=64,
+                                   qk_nope_head_dim=128, qk_rope_head_dim=64, v_head_dim=128)
+    llm = ds.DeepseekV3Model(cfg)
+    llm.init_weights(torch.Generator().manual_seed(0))
+    return llm.to(dev, torch.bfloat16).eval()
+
+
+def test_captured_moe_pool_equals_eager_on_card(dev):
+    """The greedy pool on a DeepSeek-V3 decoder: its chunk (absorbed latent
+    attention, routing and the grouped kernels) is captured as one CUDA
+    graph and gives the eager chunk's tokens bit for bit; each replay adds
+    its rows to the device tallies."""
+    from ps_slm_tpu_torch.utils import profiler
+
+    llm, reqs = _moe_llm(dev), _pool_requests(dev)
+    g = torch.Generator().manual_seed(2)
+    caps = {k: int(torch.randint(1, POOL_MAX_NEW + 1, (1,), generator=g)) for k in reqs}
+
+    def run(dec):
+        return dict(dec.run(((k, {"key": k}) for k in reqs), stop_after=caps))
+
+    eager = _greedy_pool(llm, reqs, 999, 16, dev)
+    eager.graph = None
+    want = run(eager)
+    before = profiler.counts()
+    captured = _greedy_pool(llm, reqs, 999, 16, dev)
+    rows0 = profiler.tally("moe.rows", (2, 3, 8), dev)[0].sum().item()
+    got = run(captured)
+    torch.cuda.synchronize()
+    change = {k: v - before.get(k, 0) for k, v in profiler.counts().items()}
+    assert captured.graph is not None
+    for key in want:
+        assert got[key].tolist() == want[key].tolist(), key
+    assert change["pool.graph_captures"] == 1
+    assert change["pool.graph_replays"] == change["pool.chunks"] > 0
+    rows = profiler.tally("moe.rows", (2, 3, 8), dev)[0].sum().item() - rows0
+    assert rows == change["pool.chunks"] * 3 * 4 * 3 * 2     # steps x slots x k x MoE layers

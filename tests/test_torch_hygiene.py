@@ -21,7 +21,7 @@ from ps_slm_tpu_torch import _build
 from ps_slm_tpu_torch.config import ModelConfig, TrainConfig
 from ps_slm_tpu_torch.inference.generate import generate
 from ps_slm_tpu_torch.models import qwen2, tasu
-from ps_slm_tpu_torch.ops import flash_attention, norms
+from ps_slm_tpu_torch.ops import flash_attention, moe, norms
 from ps_slm_tpu_torch.training import step as train_step
 from ps_slm_tpu_torch.training import train_state
 
@@ -328,7 +328,7 @@ def test_ctypes_signatures_match_c_entry_points():
             c_entries[name] = len(args.split(","))
     declared = {
         **norms._SIGNATURES, **norms._LN_BWD_SIGNATURES, **flash_attention._SIGNATURES,
-        **flash_attention._BWD_SIGNATURES,
+        **flash_attention._BWD_SIGNATURES, **moe._SIGNATURES,
     }
     assert {k: len(v) for k, v in declared.items()} == c_entries
     assert {"ps_flash_bwd_dq", "ps_flash_bwd_dkv", "ps_layer_norm_bwd",
