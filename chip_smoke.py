@@ -3122,15 +3122,6 @@ def want_launches(counters, flash=0, ln=0, rms=0) -> dict:
     return want
 
 
-def shape_groups(batches) -> list:
-    """The sizes of the same-shape groups the pools' front half stacks."""
-    groups: dict = {}
-    for b in batches:
-        sig = tuple(sorted((k, tuple(v.shape)) for k, v in b.items()))
-        groups[sig] = groups.get(sig, 0) + 1
-    return list(groups.values())
-
-
 def instrument_pool(counters, dec, rec: dict) -> None:
     """Count the launches of each chunk and each refill of ``dec``, checked
     exactly: a chunk is ``sync_every`` forwards of the pool (57 RMSNorm
@@ -3138,8 +3129,13 @@ def instrument_pool(counters, dec, rec: dict) -> None:
     graph (``rec["graph"]``: the greedy pool), a replay that runs no
     wrapper (the launches its capture recorded, which the caller counts
     for each replay); a refill of k requests runs the front half once a
-    power-of-two chunk of each same-shape group (70 flash, 143 LayerNorm)
-    and the prefill once a power-of-two chunk of k (28 flash, 57 RMSNorm)."""
+    stacked call (``front_half_calls``: the requests padded and stacked
+    within the pool's byte budget; 70 flash, 143 LayerNorm), as the pool's
+    ``pool.front_half_calls`` counts, and the prefill once a power-of-two
+    chunk of k (28 flash, 57 RMSNorm)."""
+    from ps_slm_tpu_torch.inference.continuous import front_half_calls
+    from ps_slm_tpu_torch.utils import profiler
+
     real_launch, real_refill = dec._launch_chunk, dec._refill_many
 
     def launch():
@@ -3153,11 +3149,15 @@ def instrument_pool(counters, dec, rec: dict) -> None:
         return copy
 
     def refill(slot_req):
-        before = launch_snapshot(counters)
+        before, counted = launch_snapshot(counters), profiler.counts()
         real_refill(slot_req)
         got = launch_delta(counters, before)
-        fronts = sum(bin(n).count("1") for n in shape_groups(
-            [dec._payload_batch(p) for _, _, p in slot_req]))
+        fronts = len(front_half_calls([dec._payload_batch(p) for _, _, p in slot_req],
+                                      dec._width))
+        calls = profiler.counts()["pool.front_half_calls"] - counted.get("pool.front_half_calls", 0)
+        if calls != fronts:
+            fail(f"{rec['what']}: a refill of {len(slot_req)} counted {calls} front-half calls, "
+                 f"not {fronts}")
         prefills = bin(len(slot_req)).count("1")
         want = want_launches(counters, flash=ENC_FLASH * fronts + LLM_LAYERS * prefills,
                              ln=fronts, rms=RMS_PER_FORWARD * prefills)

@@ -6,9 +6,10 @@ Counterpart of ``ps_slm_tpu/inference/continuous.py``.  A pool of
 prefill at once, so the decode products stay at the pool's batch.
 
 * **Refills** run the front half (encoder, posterior, PSD, projector,
-  merge) once for each group of same-shape requests, in power-of-two
-  chunks (:func:`_padded_prefills`), left-pad each merged prefill to the
-  pool's bucket ``prefill_len`` and prefill k requests in one B=k forward
+  merge) over the requests padded to shared shapes by the collator's rule
+  and stacked, in as few calls as :data:`FRONT_HALF_BYTES` allows
+  (:func:`front_half_calls`), left-pad each merged prefill to the pool's
+  bucket ``prefill_len`` and prefill k requests in one B=k forward
   (:func:`_insert_slots`; only the last position is unembedded).  The
   first token stays on the device, in the pool state's ``tok0`` channel.
 * **A chunk** is ``sync_every`` one-token steps over the whole pool
@@ -48,6 +49,7 @@ import torch
 import torch.nn.functional as F
 
 from ps_slm_tpu_torch._build import resolve_device
+from ps_slm_tpu_torch.inference.static_serve import LEFT_PADDED, RIGHT_PADDED, pad_rows
 from ps_slm_tpu_torch.utils.profiler import count, span
 
 Merge = Callable[[Dict[str, torch.Tensor]], SimpleNamespace]
@@ -67,7 +69,8 @@ def default_merge(model) -> Merge:
 def _left_pad_merged(merged, prefill_len: int):
     """Left-pad a merged B=1 prefill to the pool's prefill bucket
     (positions padded with 0); counts its positions (``pool.prefill_valid``:
-    the merged row's length, as the host knows it) and the padding."""
+    the merged row's length as the host knows it, a stacked call's for
+    each of its rows) and the padding."""
     s = merged.embeds.shape[1]
     if s > prefill_len:
         raise ValueError(
@@ -83,18 +86,36 @@ def _left_pad_merged(merged, prefill_len: int):
             F.pad(merged.position_ids, (pad, 0)))
 
 
-def _merged_rows(merge: Merge, batches: List[Dict]) -> list:
-    """The front half of same-shape B=1 batches in one stacked call (every
-    front-half op is row-independent), split back into rows.  Keys without
-    a shape are left out of the stack."""
-    if len(batches) == 1:
-        return [merge(batches[0])]
-    stacked = {key: torch.cat([b[key] for b in batches], dim=0)
-               for key in batches[0] if hasattr(batches[0][key], "shape")}
-    m = merge(stacked)
-    return [SimpleNamespace(embeds=m.embeds[i:i + 1], attention_mask=m.attention_mask[i:i + 1],
-                            position_ids=m.position_ids[i:i + 1])
-            for i in range(len(batches))]
+# A front-half call's CTC posterior (rows x padded frames x the encoder's
+# vocabulary x 4 bytes) is held to this: the front half's other buffers
+# scale with it, and 1 GiB is 20 rows of 30.72 s at SenseVoiceSmall's
+# 25 055, so a steady refill of a few rows is one call while the first
+# turnover of a 32- or 64-slot pool splits into a few.
+FRONT_HALF_BYTES = 1 << 30
+
+
+def _frames(batch: Dict) -> int:
+    """A padded row's encoder frames as the budget counts them: the rows of
+    its features, its waveform's 60 ms LFR frames (960 samples at 16 kHz),
+    or its transcript ids (text-only)."""
+    for key, per in (("input_features", 1), ("waveform", 960), ("gt_ids", 1)):
+        if key in batch:
+            return max(batch[key].shape[1] // per, 1)
+    return 1
+
+
+def _paddable(rows: List[Dict]) -> bool:
+    """Whether :func:`pad_rows` can stack these B=1 batches: one key set,
+    every value a tensor of one row, and the keys it does not pad of one
+    shape in every row."""
+    keys = rows[0].keys()
+    if not {"input_ids", "attention_mask"} <= keys or any(r.keys() != keys for r in rows):
+        return False
+    if not all(hasattr(v, "shape") and len(v.shape) and v.shape[0] == 1
+               for r in rows for v in r.values()):
+        return False
+    return all(len({tuple(r[k].shape) for r in rows}) == 1
+               for k in keys if k not in LEFT_PADDED | RIGHT_PADDED)
 
 
 def _pow2_chunks(n: int) -> Iterator[Tuple[int, int]]:
@@ -106,11 +127,21 @@ def _pow2_chunks(n: int) -> Iterator[Tuple[int, int]]:
         i += k
 
 
-def _padded_prefills(merge: Merge, rows: List[Dict], prefill_len: int) -> list:
-    """Group same-shape B=1 batch dicts, run the front half per group in
-    power-of-two chunks and left-pad each merged prefill to the bucket:
-    ``(embeds, mask, pos)`` per row, in ``rows``' order."""
-    padded = [None] * len(rows)
+def front_half_calls(rows: List[Dict], width: int) -> List[List[int]]:
+    """A refill's front-half calls, each a list of indices into ``rows``.
+    Rows :func:`pad_rows` can stack go in order of padded frames, as many
+    a call as keep ``rows x frames x width x 4`` bytes (the call padded to
+    its longest row) within :data:`FRONT_HALF_BYTES`.  Other payloads (a
+    key without a shape, or a key outside the padding rule whose shapes
+    differ) are grouped by exact shapes, in power-of-two chunks, or run
+    alone."""
+    if _paddable(rows):
+        calls: List[List[int]] = [[]]
+        for i in sorted(range(len(rows)), key=lambda i: _frames(rows[i])):
+            if calls[-1] and (len(calls[-1]) + 1) * _frames(rows[i]) * width * 4 > FRONT_HALF_BYTES:
+                calls.append([])
+            calls[-1].append(i)
+        return calls
     groups: Dict[tuple, list] = {}
     for i, batch in enumerate(rows):
         if all(hasattr(v, "shape") for v in batch.values()):
@@ -118,11 +149,33 @@ def _padded_prefills(merge: Merge, rows: List[Dict], prefill_len: int) -> list:
         else:
             sig = ("singleton", i)       # payloads without shapes: no stacking
         groups.setdefault(sig, []).append(i)
-    for idxs in groups.values():
-        for i, k in _pow2_chunks(len(idxs)):
-            chunk = idxs[i:i + k]
-            for j, m in zip(chunk, _merged_rows(merge, [rows[j] for j in chunk])):
-                padded[j] = _left_pad_merged(m, prefill_len)
+    return [idxs[i:i + k] for idxs in groups.values() for i, k in _pow2_chunks(len(idxs))]
+
+
+def _merged_rows(merge: Merge, batches: List[Dict], pad_id: int) -> list:
+    """The front half of B=1 batches in one call over :func:`pad_rows`'
+    stack (every front-half op is row-independent over padded rows), split
+    back into rows; a row of a stack is left-padded to the call's merged
+    length.  Counts the call and its rows."""
+    count("pool.front_half_calls")
+    count("pool.front_half_rows", len(batches))
+    if len(batches) == 1:
+        return [merge(batches[0])]
+    m = merge(pad_rows(batches, pad_id))
+    return [SimpleNamespace(embeds=m.embeds[i:i + 1], attention_mask=m.attention_mask[i:i + 1],
+                            position_ids=m.position_ids[i:i + 1])
+            for i in range(len(batches))]
+
+
+def _padded_prefills(merge: Merge, rows: List[Dict], prefill_len: int, *, pad_id: int,
+                     width: int) -> list:
+    """Run the front half over B=1 batch dicts in :func:`front_half_calls`'
+    calls (``width``: the posterior's) and left-pad each merged prefill to
+    the bucket: ``(embeds, mask, pos)`` per row, in ``rows``' order."""
+    padded = [None] * len(rows)
+    for call in front_half_calls(rows, width):
+        for j, m in zip(call, _merged_rows(merge, [rows[j] for j in call], pad_id)):
+            padded[j] = _left_pad_merged(m, prefill_len)
     return padded
 
 
@@ -192,7 +245,8 @@ class _SlotPoolBase:
     prefill and install), ``pool.launch``, ``pool.harvest`` (with
     ``pool.harvest_wait``, the wait on the chunk's copy); counters
     ``pool.requests``, ``pool.chunks``, ``pool.slot_steps``,
-    ``pool.tokens`` and ``pool.slot_s``.
+    ``pool.tokens``, ``pool.slot_s``, ``pool.front_half_calls`` and
+    ``pool.front_half_rows``.
     """
 
     _supports_stop_after = True
@@ -206,6 +260,9 @@ class _SlotPoolBase:
             raise ValueError(f"the model is on {model_dev}, the pool was asked for {self.dev}")
         self.model, self.llm = model, model.llm
         self.merge = merge if merge is not None else default_merge(model)
+        self._pad_id = int(getattr(model, "pad_token_id", 0) or 0)
+        # the front half's CTC posterior width, which bounds its calls' rows
+        self._width = getattr(getattr(model, "enc_cfg", None), "vocab_size", 0)
         self.num_slots, self.prefill_len = num_slots, prefill_len
         self.max_new, self.eos = max_new_tokens, eos_token_id
         self.sync_every, self.kv_bits = sync_every, kv_bits
@@ -230,7 +287,8 @@ class _SlotPoolBase:
 
     def _refill_many(self, slot_req) -> None:
         padded = _padded_prefills(
-            self.merge, [self._payload_batch(p) for _, _, p in slot_req], self.prefill_len)
+            self.merge, [self._payload_batch(p) for _, _, p in slot_req], self.prefill_len,
+            pad_id=self._pad_id, width=self._width)
         extra = self._prepare_refill(slot_req)
         for i, k in _pow2_chunks(len(slot_req)):
             chunk, ms = slot_req[i:i + k], padded[i:i + k]

@@ -32,6 +32,37 @@ def _round_up(n: int, b: int) -> int:
     return -(-max(n, 1) // b) * b
 
 
+# the collator's rule, along axis 1: left-padded (``input_ids`` with the
+# pad id, ``attention_mask`` with False), right-padded with zeros
+LEFT_PADDED = frozenset({"input_ids", "attention_mask"})
+RIGHT_PADDED = frozenset({"input_features", "waveform", "gt_ids"})
+
+
+def pad_rows(rows, pad_id: int,
+             buckets: Optional[Dict[str, int]] = None) -> Dict[str, torch.Tensor]:
+    """Single-row batches with one key set as one batch, by the collator's
+    rule (``data/dataset.py::Collator``): the keys of :data:`LEFT_PADDED`
+    and :data:`RIGHT_PADDED` padded to their longest row, rounded up to
+    ``buckets[key]`` (default 1); every other key (the lengths,
+    ``audio_seconds``) concatenated."""
+    out = {}
+    for key in rows[0]:
+        parts = [r[key] for r in rows]
+        if key not in LEFT_PADDED and key not in RIGHT_PADDED:
+            out[key] = torch.cat(parts)
+            continue
+        width = _round_up(max(p.shape[1] for p in parts), (buckets or {}).get(key, 1))
+        buf = parts[0].new_full((len(parts), width) + tuple(parts[0].shape[2:]),
+                                pad_id if key == "input_ids" else 0)
+        for i, p in enumerate(parts):
+            if key in LEFT_PADDED:
+                buf[i, width - p.shape[1]:] = p[0]
+            else:
+                buf[i, :p.shape[1]] = p[0]
+        out[key] = buf
+    return out
+
+
 class StaticBatchDecoder:
     """Groups single-request payloads (``(key, batch)`` with batch rows of
     1) and decodes each group with the static ``generate``."""
@@ -49,49 +80,31 @@ class StaticBatchDecoder:
     # -- batching -----------------------------------------------------------
     def _stack(self, group) -> Tuple[Dict[str, torch.Tensor], int]:
         """One padded batch of ``decode_slots`` rows from single-row payloads,
-        and the number of real rows: ``input_ids`` / ``attention_mask``
-        left-padded, features or waveforms right-padded with zeros, their
-        lengths as given (a waveform length at least 1)."""
+        and the number of real rows: :func:`pad_rows` at the dataset's
+        buckets, one audio kind kept (features before waveforms), its
+        lengths int32 (a waveform length at least 1)."""
         pad_id = int(getattr(self.model, "pad_token_id", 0) or 0)
         b, n = self.batch_size, len(group)
         # fill the batch axis with copies of real rows (outputs dropped):
         # all-pad rows would send degenerate shapes through merge and CTC
-        group = [group[i % n] for i in range(b)]
-        first = group[0][1]["input_ids"]
-        dev = first.device
-        s_max = _round_up(max(g["input_ids"].shape[1] for _, g in group), self.token_bucket)
-        ids = torch.full((b, s_max), pad_id, dtype=first.dtype, device=dev)
-        mask = torch.zeros((b, s_max), dtype=torch.bool, device=dev)
-        for i, (_, g) in enumerate(group):
-            row, m = g["input_ids"][0], g["attention_mask"][0].bool()
-            ids[i, s_max - len(row):] = row
-            mask[i, s_max - len(m):] = m
-        batch = {"input_ids": ids, "attention_mask": mask}
-
-        if any("input_features" in g for _, g in group):
-            a_max = _round_up(max(g["input_features"].shape[1] for _, g in group),
-                              self.feature_bucket)
-            d = group[0][1]["input_features"].shape[-1]
-            feats = torch.zeros((b, a_max, d), dtype=torch.float32, device=dev)
-            flen = torch.zeros((b,), dtype=torch.int32, device=dev)
-            for i, (_, g) in enumerate(group):
-                f = g["input_features"][0]
-                feats[i, :f.shape[0]] = f
-                flen[i] = g["input_feature_length"][0]
-            batch["input_features"] = feats.to(self.model.llm.embed_tokens.weight.dtype)
-            batch["input_feature_length"] = flen
-        elif any("waveform" in g for _, g in group):
-            w_max = _round_up(max(g["waveform"].shape[1] for _, g in group), self.wave_bucket)
-            wdtype = group[0][1]["waveform"].dtype
-            wav = torch.zeros((b, w_max), dtype=wdtype, device=dev)
-            wlen = torch.zeros((b,), dtype=torch.int32, device=dev)
-            for i, (_, g) in enumerate(group):
-                w = g["waveform"][0]
-                wav[i, :len(w)] = w
-                wlen[i] = g["waveform_length"][0]
-            batch["waveform"] = wav
+        rows = [group[i % n][1] for i in range(b)]
+        keys = ["input_ids", "attention_mask"]
+        for audio, length in (("input_features", "input_feature_length"),
+                              ("waveform", "waveform_length")):
+            if any(audio in g for g in rows):
+                keys += [audio, length]
+                break
+        batch = pad_rows([{k: g[k] for k in keys} for g in rows], pad_id, buckets={
+            "input_ids": self.token_bucket, "attention_mask": self.token_bucket,
+            "input_features": self.feature_bucket, "waveform": self.wave_bucket})
+        batch["attention_mask"] = batch["attention_mask"].bool()
+        if "input_features" in batch:
+            batch["input_features"] = batch["input_features"].to(
+                self.model.llm.embed_tokens.weight.dtype)
+            batch["input_feature_length"] = batch["input_feature_length"].to(torch.int32)
+        elif "waveform" in batch:
             # a zero-length row would give the front end no frames
-            batch["waveform_length"] = wlen.clamp(min=1)
+            batch["waveform_length"] = batch["waveform_length"].to(torch.int32).clamp(min=1)
         return batch, n
 
     @staticmethod

@@ -57,8 +57,11 @@ COUNTERS = frozenset({
     "pool.slot_s",        # host seconds from a request's install to its finish
     "pool.graph_captures",  # chunks recorded as a CUDA graph (one a greedy pool on CUDA)
     "pool.graph_replays",   # chunks launched as a replay of that graph
-    "pool.prefill_valid",   # positions of the merged prefills (as the host knows their length)
+    "pool.prefill_valid",   # positions of the merged prefills (as the host knows their
+                            # length: a row of a stacked front-half call counts the call's)
     "pool.prefill_padded",  # positions of left padding up to the pool's prefill bucket
+    "pool.front_half_calls",  # front-half calls a refill makes (one a stack of requests)
+    "pool.front_half_rows",   # requests in those calls
 })
 # the device tallies (utils/profiler.py::tally), each added where its work happens
 TALLIES = frozenset({

@@ -323,3 +323,134 @@ def test_a_chunk_on_the_idle_pool_changes_only_cache_cell_0(kv_bits):
         for leaf, leaf0 in zip(layer, layer0):
             assert torch.equal(leaf[:, 1:], leaf0[:, 1:])
             assert leaf[:, 0].abs().sum() > 0
+
+
+SPEECH = 250
+
+
+@functools.lru_cache(maxsize=None)
+def _tasu(waveform: bool):
+    """A tiny audio-TASU model (CTC posterior, PSD, linear-silu) built by the
+    JAX factory and converted into the port's, as ``test_torch_generate``
+    builds it; 560 features (80 mel x 7 LFR) for the waveform front end."""
+    from ps_slm_tpu.config import ModelConfig as JaxModelConfig
+    from ps_slm_tpu.config import TrainConfig as JaxTrainConfig
+    from ps_slm_tpu.models import tasu as jtasu
+    from ps_slm_tpu_torch.config import ModelConfig, TrainConfig
+    from ps_slm_tpu_torch.models import tasu
+
+    flags = dict(ctc_posterior=True, do_psd=True)
+    over = {"input_size": 560} if waveform else None
+    jm = jtasu.model_factory(
+        JaxTrainConfig(**flags),
+        JaxModelConfig(llm_path="", encoder_dim=11, llm_dim=64, encoder_config_overrides=over),
+        rng=jax.random.PRNGKey(0))
+    pm = tasu.model_factory(TrainConfig(**flags),
+                            ModelConfig(encoder_dim=11, llm_dim=64, encoder_config_overrides=over),
+                            device="cpu")
+    pm.load_state_dict(convert.from_jax_params(jax.tree_util.tree_map(np.asarray, jm.params)))
+    pm.speech_token_id, pm.pad_token_id = SPEECH, 7
+    return pm.eval()
+
+
+def _audio_requests(waveform: bool, n: int = 7) -> list:
+    """``n`` B=1 batches as the collator gives them: prompts of 5 and 9
+    tokens, audio of three lengths, each padded to its own bucket."""
+    rng = np.random.default_rng(5)
+    out = []
+    for i in range(n):
+        s = (5, 9)[i % 2]
+        ids = rng.integers(1, 200, size=(1, s))
+        ids[0, 2] = SPEECH
+        batch = {"input_ids": torch.from_numpy(ids), "attention_mask": torch.ones(1, s, dtype=bool)}
+        if waveform:
+            valid, width = ((16000, 19200), (24000, 28800), (40000, 48000))[i % 3]
+            wav = np.zeros((1, width), np.float32)
+            wav[0, :valid] = 0.1 * rng.normal(size=valid)
+            batch.update(waveform=torch.from_numpy(wav),
+                         waveform_length=torch.tensor([valid], dtype=torch.int32))
+        else:
+            valid, width = ((8, 12), (13, 16), (20, 24))[i % 3]
+            feats = np.zeros((1, width, 24), np.float32)
+            feats[0, :valid] = rng.normal(size=(valid, 24))
+            batch.update(input_features=torch.from_numpy(feats),
+                         input_feature_length=torch.tensor([valid], dtype=torch.int32))
+        batch["audio_seconds"] = torch.tensor([valid / 16000.0])
+        out.append((f"utt{i}", batch))
+    return out
+
+
+@pytest.mark.parametrize("kind", ["features", "waveform", "stub"])
+def test_a_refill_runs_the_front_half_once_over_its_padded_requests(kind):
+    """A refill of requests of three audio lengths and two prompt widths
+    pads them by the collator's rule and runs the front half once: each
+    row's merged prefill equals its own B=1 ``prepare_merged`` at the
+    valid positions (masks exact, positions exact where valid), and the
+    pool's tokens equal greedy ``generate``'s per request.  Payloads
+    without shapes (the stub merge) still run one call each."""
+    from ps_slm_tpu_torch.inference.generate import generate
+    from ps_slm_tpu_torch.utils import profiler
+
+    if kind == "stub":
+        _, _, llm, reqs = _setup()
+        model, eos = SimpleNamespace(llm=llm), _eos(llm, reqs)
+        requests = [(k, {"key": k}) for k in reqs]
+        merge = lambda batch: _port_merged(reqs[batch["key"]])     # noqa: E731
+        prefill = PREFILL
+    else:
+        model, merge, eos = _tasu(kind == "waveform"), None, 3
+        requests, prefill = _audio_requests(kind == "waveform"), 64
+    dec = continuous.ContinuousGreedyDecoder(
+        model, merge=merge, num_slots=len(requests), prefill_len=prefill,
+        max_new_tokens=MAX_NEW, eos_token_id=eos, sync_every=3, device="cpu")
+    rows = {}
+    insert = dec._insert_chunk
+
+    def insert_chunk(slots, embeds, mask, pos, **kw):
+        insert(slots, embeds, mask, pos, **kw)
+        rows.update({s: (embeds[i], mask[i], pos[i]) for i, s in enumerate(slots.tolist())})
+
+    dec._insert_chunk = insert_chunk
+    slot_of = {key: len(requests) - 1 - i for i, (key, _) in enumerate(requests)}
+    before = profiler.counts()
+    got = dict(dec.run(iter(requests)))
+    change = {k: v - before.get(k, 0) for k, v in profiler.counts().items()}
+    n = len(requests)
+    calls = n if kind == "stub" else 1
+    assert (change["pool.front_half_calls"], change["pool.front_half_rows"]) == (calls, n)
+    if kind == "stub":
+        return
+    merge = continuous.default_merge(model)
+    for key, batch in requests:
+        embeds, mask, pos = rows[slot_of[key]]
+        want = continuous._left_pad_merged(merge(batch), prefill)
+        assert torch.equal(mask, want[1][0]), key
+        valid = mask.bool()
+        assert torch.equal(pos[valid], want[2][0][valid]), key
+        torch.testing.assert_close(embeds[valid], want[0][0][valid], rtol=0, atol=1e-6)
+        toks = generate(model, batch, eos_token_id=eos, num_beams=1, max_new_tokens=MAX_NEW,
+                        device="cpu")[0].numpy()
+        cut = np.where(toks == eos)[0]
+        np.testing.assert_array_equal(got[key], toks[:cut[0]] if len(cut) else toks, err_msg=key)
+
+
+def _row(frames: int, prompt: int = 5, extra: int = 1) -> dict:
+    return {"input_ids": torch.zeros(1, prompt, dtype=torch.long),
+            "attention_mask": torch.ones(1, prompt, dtype=torch.bool),
+            "input_features": torch.zeros(1, frames, 2),
+            "input_feature_length": torch.tensor([frames]), "other": torch.zeros(1, extra)}
+
+
+@pytest.mark.parametrize("rows,width,want", [
+    # padded by the rule: by frames, as many a call as the budget holds
+    ([_row(30), _row(10, 9), _row(20), _row(10)], 1, [[1, 3, 2, 0]]),
+    ([_row(30), _row(10, 9), _row(20), _row(10)], continuous.FRONT_HALF_BYTES // (4 * 40),
+     [[1, 3], [2], [0]]),
+    # 64 rows of 30.72 s at SenseVoiceSmall's posterior: 20 a call
+    ([_row(516)] * 64, 25055, [list(range(i, min(i + 20, 64))) for i in range(0, 64, 20)]),
+    # a key outside the rule whose shapes differ: same-shape groups in
+    # power-of-two chunks
+    ([_row(10, extra=2), _row(10), _row(10), _row(10), _row(20)], 1, [[0], [1, 2], [3], [4]]),
+])
+def test_front_half_calls_follow_the_byte_budget(rows, width, want):
+    assert continuous.front_half_calls(rows, width) == want

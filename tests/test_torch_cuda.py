@@ -1381,3 +1381,139 @@ def test_captured_moe_pool_equals_eager_on_card(dev):
     assert change["pool.graph_replays"] == change["pool.chunks"] > 0
     rows = profiler.tally("moe.rows", (2, 3, 8), dev)[0].sum().item() - rows0
     assert rows == change["pool.chunks"] * 3 * 4 * 3 * 2     # steps x slots x k x MoE layers
+
+
+REFILL_SPEECH = 151646          # the speech token of the refill tests' prompts
+
+
+@pytest.fixture(scope="module")
+def front_half_model():
+    """SenseVoiceSmall and Qwen2.5-1.5B at their published widths, cut to 3
+    + 2 encoder blocks and 2 LLM layers, bf16 on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from ps_slm_tpu_torch.config import half_audio_configs
+    from ps_slm_tpu_torch.models.tasu import model_factory
+
+    torch.manual_seed(0)
+    tc, mc = half_audio_configs(enc_overrides={"num_blocks": 3, "tp_blocks": 2},
+                                llm_overrides={"num_hidden_layers": 2})
+    model = model_factory(tc, mc, dtype=torch.bfloat16, device="cuda")
+    model.speech_token_id, model.pad_token_id = REFILL_SPEECH, 151643
+    return model.eval()
+
+
+def _refill_requests(seconds, dev) -> list:
+    """B=1 batches as the collator gives them: prompts of 8 and 13 tokens,
+    random audio of ``seconds`` each, padded to the 7.68 s bucket."""
+    g = torch.Generator().manual_seed(len(seconds))
+    out = []
+    for i, sec in enumerate(seconds):
+        s = (8, 13)[i % 2]
+        ids = torch.randint(100, 1000, (1, s), generator=g)
+        ids[0, 3] = REFILL_SPEECH
+        valid = int(sec * 16000)
+        wav = torch.zeros(1, -(-valid // 122880) * 122880)
+        wav[0, :valid] = 0.1 * torch.randn(valid, generator=g)
+        out.append((f"r{i}", {"input_ids": ids.to(dev),
+                              "attention_mask": torch.ones(1, s, dtype=torch.bool, device=dev),
+                              "waveform": wav.to(dev),
+                              "waveform_length": torch.tensor([valid], dtype=torch.int32,
+                                                              device=dev)}))
+    return out
+
+
+def _refill(model, requests, dev):
+    """A greedy pool of as many slots as requests, refilled once with all
+    of them, its B=k prefills' rows kept by slot."""
+    from ps_slm_tpu_torch.inference.continuous import ContinuousGreedyDecoder
+
+    dec = ContinuousGreedyDecoder(model, num_slots=len(requests), prefill_len=600,
+                                  max_new_tokens=4, eos_token_id=151645, sync_every=2,
+                                  device=dev)
+    rows = {}
+    insert = dec._insert_chunk
+
+    def insert_chunk(slots, embeds, mask, pos, **kw):
+        insert(slots, embeds, mask, pos, **kw)
+        rows.update({s: (embeds[i], mask[i], pos[i]) for i, s in enumerate(slots.tolist())})
+
+    dec._insert_chunk = insert_chunk
+    dec._emitted_n, dec._free = [0] * dec.num_slots, []
+    dec._refill_many([(i, k, b) for i, (k, b) in enumerate(requests)])
+    torch.cuda.synchronize()
+    return dec, rows
+
+
+def test_a_refill_stacks_mixed_lengths_into_one_front_half_on_card(dev, front_half_model):
+    """Six requests of 2.5-28 s (four waveform shapes) and two prompt
+    widths: the refill runs the front half once, so it launches the
+    encoder's flash and LayerNorm kernels as one B=1 front half does
+    (``chip_smoke.py``'s launch counters), and each stacked row agrees with
+    its own B=1 ``prepare_merged`` row: masks exact, positions exact where
+    valid, the embeddings within 2% in norm at the valid positions (bf16:
+    only the front half's GEMM shapes differ)."""
+    import chip_smoke
+    from ps_slm_tpu_torch.inference.continuous import _left_pad_merged, default_merge
+    from ps_slm_tpu_torch.utils import profiler
+
+    model = front_half_model
+    requests = _refill_requests([2.5, 9.0, 17.0, 28.0, 5.0, 12.0], dev)
+    merge = default_merge(model)
+    counters = chip_smoke.kernel_counters()
+    merge(requests[0][1])                                       # warm-up
+    before = chip_smoke.launch_snapshot(counters)
+    one = merge(requests[0][1])
+    torch.cuda.synchronize()
+    per_call = chip_smoke.launch_delta(counters, before)
+    before, counted = chip_smoke.launch_snapshot(counters), profiler.counts()
+    dec, rows = _refill(model, requests, dev)
+    got = chip_smoke.launch_delta(counters, before)
+    calls = profiler.counts()["pool.front_half_calls"] - counted.get("pool.front_half_calls", 0)
+    assert calls == 1 and one is not None
+    prefills = 2                                                # B=4 and B=2
+    assert got["flash_attention_fwd"] == per_call["flash_attention_fwd"] + 2 * prefills
+    assert got["layer_norm_fwd"] == per_call["layer_norm_fwd"] > 0
+    worst = 0.0
+    for slot, (key, batch) in enumerate(requests):
+        embeds, mask, pos = rows[slot]
+        want = _left_pad_merged(merge(batch), dec.prefill_len)
+        assert torch.equal(mask, want[1][0]), key
+        valid = mask.bool()
+        assert torch.equal(pos[valid], want[2][0][valid]), key
+        a, b = embeds[valid].float(), want[0][0][valid].float()
+        worst = max(worst, float((a - b).norm() / b.norm()))
+    print(f"stacked rows against B=1 rows: worst relative error {worst:.5f}")
+    assert worst <= 0.02
+
+
+def test_a_first_turnover_splits_by_the_byte_budget_on_card(dev, front_half_model):
+    """64 requests of 2-30 s (log-uniform, seeded) refilled at once: the
+    front half runs in the calls ``front_half_calls`` plans, more than one,
+    each within ``FRONT_HALF_BYTES`` of posterior (rows x the call's longest
+    frames x 25 055 x 4) and each but the last full: one more row would
+    pass the budget."""
+    from ps_slm_tpu_torch.inference import continuous
+    from ps_slm_tpu_torch.utils import profiler
+
+    g = torch.Generator().manual_seed(7)
+    seconds = (2.0 * 15.0 ** torch.rand(64, generator=g)).tolist()
+    requests = _refill_requests(seconds, dev)
+    batches = [b for _, b in requests]
+    plan = continuous.front_half_calls(batches, 25055)
+    frames = [continuous._frames(b) for b in batches]
+
+    def posterior(call):
+        return len(call) * max(frames[i] for i in call) * 25055 * 4
+
+    counted = profiler.counts()
+    torch.cuda.reset_peak_memory_stats()
+    _refill(front_half_model, requests, dev)
+    calls = profiler.counts()["pool.front_half_calls"] - counted.get("pool.front_half_calls", 0)
+    print(f"64 requests: {len(plan)} front-half calls of {[len(c) for c in plan]} rows; "
+          f"peak {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    assert calls == len(plan) > 1
+    assert sorted(i for call in plan for i in call) == list(range(64))
+    assert all(posterior(c) <= continuous.FRONT_HALF_BYTES for c in plan)
+    for call, nxt in zip(plan, plan[1:]):
+        assert posterior(call + nxt[:1]) > continuous.FRONT_HALF_BYTES
